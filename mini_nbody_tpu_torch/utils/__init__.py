@@ -1,0 +1,1 @@
+"""Port of mini_nbody_tpu/utils."""
