@@ -1,6 +1,7 @@
 """Builds and loads the port's CUDA kernel library.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one shared
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a`` (all started together), and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, never at import, and writes to ``build/mini_nbody_tpu_torch/`` next
 to the package; the file name carries a hash of the sources and flags, so a
@@ -18,13 +19,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "mini_nbody_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-lineinfo"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -34,10 +37,20 @@ SIGNATURES = {
     # pos_i, ni, pos_j, mass_j (or NULL), nj, out, softening, fast, block,
     # stream
     "direct_force_launch": ([_P, _I, _P, _P, _I, _P, _F, _I, _I, _P], _I),
+    # pos, vel, mass (or NULL), n, pos_out, vel_out, softening, dt, fast,
+    # block, stream
+    "direct_euler_launch": ([_P, _P, _P, _I, _P, _P, _F, _F, _I, _I, _P],
+                            _I),
     # slots, n_slots, pos_a, pos_b, v_a, v_b, acc_a, acc_b, tile, softening,
     # fast, split_w, mask_offdiag, stream
     "slot_pipe_launch": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
                           _I, _P], _I),
+    # slots, n_slots, pos_a, pos_b, acc_a, acc_b, k, tile, softening, fast,
+    # stream
+    "symmetric_force_launch": ([_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+                               _I),
+    # pos, mass (or NULL), n, rows, softening, block, stream
+    "pe_rows_launch": ([_P, _P, _I, _P, _F, _I, _P], _I),
     "nbody_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -57,6 +70,36 @@ def _nvcc() -> str:
     return path
 
 
+def _compile_and_link(sources, tmp: Path, lib_path: Path) -> str:
+    """One nvcc per source, all running at once, then one link; returns
+    nvcc's output (the ptxas report) and raises if any step fails."""
+    nvcc = _nvcc()
+    procs = []
+    for src in sources:
+        obj = tmp / f"{src.stem}.o"
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(log))
+    lib_tmp = tmp / lib_path.name
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib_tmp),
+         *(str(obj) for _, obj, _ in procs)],
+        capture_output=True, text=True)
+    log.append(link.stdout + link.stderr)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + "".join(log))
+    os.replace(lib_tmp, lib_path)
+    return "".join(log)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
@@ -69,15 +112,9 @@ def load_library() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"libnbody_kernels_{h.hexdigest()[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, lib_path)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            BUILD_LOG = _compile_and_link(sources, Path(tmp), lib_path)
         BUILD_SECONDS = time.perf_counter() - t0
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in SIGNATURES.items():

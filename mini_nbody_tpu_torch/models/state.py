@@ -1,8 +1,10 @@
 """Body state: SoA tensors on one device.
 
 Counterpart of ``mini_nbody_tpu/models/state.py:23-90``: ``(N, 3)`` positions
-and velocities and ``(N,)`` masses, fp32, on an explicit device. Masses double
-as the tail-padding mask (mass 0 bodies exert no force). ``from_numpy`` and
+and velocities and ``(N,)`` masses, fp32, on the card unless the caller
+names another device (``device="cpu"``; without a card the default raises).
+Masses double as the tail-padding mask (mass 0 bodies exert no force).
+``from_numpy`` and
 ``to_numpy`` carry a state across from the JAX package, whose state is the
 system's only "parameters".
 """
@@ -39,7 +41,7 @@ class BodyState:
 
     @staticmethod
     def create(pos, vel, mass=None, dtype=torch.float32,
-               device=None) -> "BodyState":
+               device="cuda") -> "BodyState":
         pos = torch.as_tensor(pos, dtype=dtype, device=device)
         vel = torch.as_tensor(vel, dtype=dtype, device=pos.device)
         if mass is None:
@@ -56,7 +58,7 @@ class BodyState:
                          mass=mass.contiguous())
 
     @staticmethod
-    def from_numpy(pos, vel, mass=None, device="cpu") -> "BodyState":
+    def from_numpy(pos, vel, mass=None, device="cuda") -> "BodyState":
         """State from numpy arrays (e.g. ``np.asarray`` of a JAX state),
         copied, so the tensors never alias a read-only buffer."""
         return BodyState.create(

@@ -1,10 +1,14 @@
-"""Ordered all-pairs force: the ``"direct"`` backend.
+"""Ordered all-pairs force: the ``"direct"`` backend, and its fused Euler step.
 
-Counterpart of ``mini_nbody_tpu/ops/pallas_force.py:44-89`` (``_direct_kernel``)
-and ``:219-300`` (``body_force_pallas``). ``body_force_direct`` launches the
+Counterpart of ``mini_nbody_tpu/ops/pallas_force.py:44-89`` (``_direct_kernel``),
+``:219-300`` (``body_force_pallas``), ``:92-128`` (``_fused_euler_kernel``)
+and ``:135-212`` (``euler_step_fused``). ``body_force_direct`` launches the
 hand-written CUDA kernel ``csrc/direct_force.cu`` (K1) for CUDA tensors and
 takes ``direct_force_plain``, the same arithmetic in PyTorch, for CPU
 tensors. Rectangular ``(Ni, Nj)``, so later ring exchanges can reuse it.
+``euler_step_fused`` launches K5, K1 with a semi-implicit Euler epilogue in
+the same source, so the force never reaches device memory; its plain
+version is ``euler_step_fused_plain``. Its output is out of place, as JAX's.
 """
 
 from __future__ import annotations
@@ -12,14 +16,13 @@ from __future__ import annotations
 import torch
 
 from mini_nbody_tpu_torch import _build
-from mini_nbody_tpu_torch.utils.config import SOFTENING, fast_rsqrt_cube
+from mini_nbody_tpu_torch.utils.config import (SOFTENING, fast_rsqrt_cube,
+                                               plain_block_elems)
 
 #: Kernel launches made by body_force_direct (CUDA tensors only).
 LAUNCHES = 0
-
-#: Upper bound on the elements of one (rows, Nj) block of the plain version,
-#: by device type (larger blocks on the card cut launch overhead).
-_PLAIN_BLOCK_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
+#: Kernel launches made by euler_step_fused (CUDA tensors only).
+FUSED_LAUNCHES = 0
 
 
 def direct_force_plain(pos_i, pos_j, mass_j=None,
@@ -28,8 +31,7 @@ def direct_force_plain(pos_i, pos_j, mass_j=None,
     (dz^2 + softening), w = rsqrt(r2^3) when fast_rsqrt_cube(softening)
     else rsqrt(r2)^3, times m_j in mass mode."""
     fast = fast_rsqrt_cube(softening)
-    block = _PLAIN_BLOCK_ELEMS.get(pos_i.device.type, 1 << 22)
-    rows = max(1, block // max(1, pos_j.shape[0]))
+    rows = max(1, plain_block_elems(pos_i.device) // max(1, pos_j.shape[0]))
     xj, yj, zj = pos_j[:, 0], pos_j[:, 1], pos_j[:, 2]
     out = []
     for r in range(0, pos_i.shape[0], rows):
@@ -69,11 +71,7 @@ def body_force_direct(pos_i, pos_j, mass_j=None,
         _build.check_tensor("mass_j", mass_j, (nj,), f32, device)
     if device.type == "cpu":
         return direct_force_plain(pos_i, pos_j, mass_j, softening)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if block % 32 != 0 or not 32 <= block <= 1024:
-        raise ValueError(f"block must be a multiple of 32 in [32, 1024], "
-                         f"got {block}")
+    _check_cuda(device, block)
     global LAUNCHES
     lib = _build.load_library()
     out = torch.empty((ni, 3), dtype=torch.float32, device=device)
@@ -86,3 +84,49 @@ def body_force_direct(pos_i, pos_j, mass_j=None,
     _build.check(lib, code, "direct_force_launch")
     LAUNCHES += 1
     return out
+
+
+def _check_cuda(device, block):
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if block % 32 != 0 or not 32 <= block <= 1024:
+        raise ValueError(f"block must be a multiple of 32 in [32, 1024], "
+                         f"got {block}")
+
+
+def euler_step_fused_plain(pos, vel, mass=None, dt: float = 0.01,
+                           softening: float = SOFTENING):
+    """K5's arithmetic in PyTorch: v' = v + dt F(pos), p' = p + dt v'."""
+    vel = vel + dt * direct_force_plain(pos, pos, mass, softening)
+    return pos + dt * vel, vel
+
+
+def euler_step_fused(pos, vel, mass=None, dt: float = 0.01,
+                     softening: float = SOFTENING, block: int = 256):
+    """One fused force + semi-implicit Euler step of the self-forces of pos
+    (N,3), vel (N,3), masses (N,) or None: (pos', vel'), new tensors.
+
+    CPU tensors take euler_step_fused_plain. CUDA tensors launch K5 with
+    ``block`` threads per block (as body_force_direct) or raise."""
+    device = pos.device
+    n = pos.shape[0]
+    f32 = torch.float32
+    _build.check_tensor("pos", pos, (n, 3), f32, device)
+    _build.check_tensor("vel", vel, (n, 3), f32, device)
+    if mass is not None:
+        _build.check_tensor("mass", mass, (n,), f32, device)
+    if device.type == "cpu":
+        return euler_step_fused_plain(pos, vel, mass, dt, softening)
+    _check_cuda(device, block)
+    global FUSED_LAUNCHES
+    lib = _build.load_library()
+    pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
+    with torch.cuda.device(device):
+        code = lib.direct_euler_launch(
+            pos.data_ptr(), vel.data_ptr(),
+            None if mass is None else mass.data_ptr(), n, pos_out.data_ptr(),
+            vel_out.data_ptr(), float(softening), float(dt),
+            int(fast_rsqrt_cube(softening)), block, _build.stream_ptr(device))
+    _build.check(lib, code, "direct_euler_launch")
+    FUSED_LAUNCHES += 1
+    return pos_out, vel_out

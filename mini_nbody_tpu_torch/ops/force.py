@@ -1,16 +1,19 @@
-"""Force-op dispatcher: one API over the plain, direct and sym_mxu paths.
+"""Force-op dispatcher: one API over the plain, direct, sym and sym_mxu paths.
 
 Counterpart of ``mini_nbody_tpu/ops/force.py:16-122``. Backends: "torch"
-(plain all-pairs, JAX "jnp"), "direct" (K1, JAX "pallas"), "sym_mxu" (K2) and
-"auto" (resolved per call from the device of pos_i: "direct" on CUDA,
-"torch" on the CPU).
+(plain all-pairs, JAX "jnp"), "direct" (K1, JAX "pallas"), "sym" (K3, the
+fp32 pair-once kernel), "sym_mxu" (K2) and "auto". "auto" is the fp32-exact
+class on every device: "sym" for a square self-force call (pos_j is pos_i)
+and "direct" for a rectangular one, the ordered kernel JAX routes
+rectangular exchanges of "sym" to (``mini_nbody_tpu/utils/config.py:189-194``).
 """
 
 from __future__ import annotations
 
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
-from mini_nbody_tpu_torch.utils.config import (_UNPORTED_BACKENDS, SOFTENING,
-                                               SimConfig, auto_backend)
+from mini_nbody_tpu_torch.utils.config import (_UNPORTED_BACKENDS,
+                                               AUTO_BACKEND, SOFTENING,
+                                               SimConfig)
 
 #: Element bound of the plain backend's (rows, Nj) intermediate.
 _TORCH_BLOCK_ELEMS = 1 << 24
@@ -24,9 +27,10 @@ def body_force(pos_i, pos_j, mass_j=None, softening: float = SOFTENING,
     """Forces on pos_i (Ni,3) from sources (pos_j, mass_j): (Ni,3) fp32.
 
     tile_i is the direct kernel's block size; sym_tile / sym_chunk override
-    the sym_mxu defaults; coincident and split_w apply to sym_mxu only."""
+    the sym and sym_mxu defaults; coincident and split_w apply to sym_mxu
+    only."""
     if backend == "auto":
-        backend = auto_backend(pos_i.device)
+        backend = AUTO_BACKEND if pos_i is pos_j else "direct"
     if backend == "torch":
         rows = max(1, _TORCH_BLOCK_ELEMS // max(1, pos_j.shape[0]))
         return body_force_torch(pos_i, pos_j, mass_j, softening=softening,
@@ -36,19 +40,28 @@ def body_force(pos_i, pos_j, mass_j=None, softening: float = SOFTENING,
 
         return body_force_direct(pos_i, pos_j, mass_j, softening=softening,
                                  block=tile_i)
-    if backend == "sym_mxu":
+    if backend in ("sym", "sym_mxu"):
         if pos_i is not pos_j:
             raise ValueError(
-                "backend 'sym_mxu' computes square self-forces only: pos_j "
-                "must be the same tensor as pos_i (use backend='direct' for "
-                "rectangular calls)")
-        from mini_nbody_tpu_torch.ops.sym_mxu_force import body_force_sym_mxu
-
+                f"backend {backend!r} computes square self-forces only: "
+                "pos_j must be the same tensor as pos_i (use "
+                "backend='direct' for rectangular calls)")
         kw = {}
         if sym_tile is not None:
             kw["tile"] = sym_tile
         if sym_chunk is not None:
             kw["chunk"] = sym_chunk
+        if backend == "sym":
+            if traversal not in ("auto", "slots"):
+                raise ValueError("backend 'sym' runs the slot traversal "
+                                 f"only, got traversal={traversal!r}")
+            from mini_nbody_tpu_torch.ops.symmetric_force import (
+                body_force_symmetric)
+
+            return body_force_symmetric(pos_i, mass_j, softening=softening,
+                                        **kw)
+        from mini_nbody_tpu_torch.ops.sym_mxu_force import body_force_sym_mxu
+
         return body_force_sym_mxu(pos_i, mass_j, softening=softening,
                                   split_w=split_w, coincident=coincident,
                                   traversal=traversal, **kw)
@@ -61,14 +74,14 @@ def body_force(pos_i, pos_j, mass_j=None, softening: float = SOFTENING,
 
 def make_force_fn(cfg: SimConfig):
     """Close a SimConfig over body_force: (pos_i, pos_j, mass_j) -> (Ni,3)."""
+    backend = cfg.effective_backend()
 
     def force(pos_i, pos_j, mass_j=None):
         if not cfg.use_masses:
             mass_j = None  # unit masses: the kernels' mass-free path
         return body_force(
-            pos_i, pos_j, mass_j, softening=cfg.softening,
-            backend=cfg.effective_backend(pos_i.device), tile_i=cfg.tile_i,
-            split_w=cfg.split_w, traversal=cfg.traversal,
+            pos_i, pos_j, mass_j, softening=cfg.softening, backend=backend,
+            tile_i=cfg.tile_i, split_w=cfg.split_w, traversal=cfg.traversal,
             sym_tile=cfg.sym_tile, sym_chunk=cfg.sym_chunk,
             coincident=cfg.coincident)
 

@@ -26,7 +26,8 @@ import torch
 
 from mini_nbody_tpu_torch import _build
 from mini_nbody_tpu_torch.ops.sym_mxu_force import _w_block, _w_from_d, _w_parts
-from mini_nbody_tpu_torch.utils.config import fast_rsqrt_cube
+from mini_nbody_tpu_torch.utils.config import (fast_rsqrt_cube,
+                                               plain_block_elems)
 
 SLOT_DIAG = 0
 SLOT_CROSS = 1
@@ -39,9 +40,6 @@ KERNEL_TILES = (64, 128)
 #: tensors only); CROSS_LAUNCHES counts the cross-mode share of them.
 LAUNCHES = 0
 CROSS_LAUNCHES = 0
-
-#: Pairs per batch of slots in the plain version, by device type.
-_PLAIN_BATCH_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 24}
 
 
 def tri_slot_list(nb: int, fold: bool = True):
@@ -68,21 +66,23 @@ def n_slots_tri(nb: int, fold: bool = True) -> int:
 
 
 @functools.lru_cache(maxsize=32)
-def _slot_table(nb: int, fold: bool, cross: bool, device: str):
+def _slot_table(nb: int, fold: bool, cross: bool, device: str, nb_b: int):
     if cross:  # cross_slot_list, built without a Python list of nb^2 rows
-        i, j = np.meshgrid(np.arange(nb), np.arange(nb), indexing="ij")
-        rows = np.stack([np.full(nb * nb, SLOT_CROSS), i.ravel(), j.ravel()],
+        i, j = np.meshgrid(np.arange(nb), np.arange(nb_b), indexing="ij")
+        rows = np.stack([np.full(i.size, SLOT_CROSS), i.ravel(), j.ravel()],
                         axis=1)
     else:
         rows = np.asarray(tri_slot_list(nb, fold)).reshape(-1, 3)
     return torch.from_numpy(rows.astype(np.int32)).to(device)
 
 
-def slot_table(nb: int, fold: bool, cross: bool, device) -> torch.Tensor:
+def slot_table(nb: int, fold: bool, cross: bool, device,
+               nb_b: int | None = None) -> torch.Tensor:
     """The (S, 3) int32 slot list (tri_slot_list, or cross_slot_list when
-    cross) on device, built once per (nb, fold, cross, device)."""
+    cross; nb_b makes the cross list an nb x nb_b rectangle) on device,
+    built once per (nb, fold, cross, device, nb_b)."""
     return _slot_table(nb, bool(fold) and not cross, bool(cross),
-                       str(torch.device(device)))
+                       str(torch.device(device)), nb if nb_b is None else nb_b)
 
 
 def _w_fold_block(pa, pb, softening, fast, mask_offdiag):
@@ -123,8 +123,7 @@ def _slot_sums_plain(acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
     va, vb = v_a.view(-1, tile, 8), v_b.view(-1, tile, 8)
     aa, ab = acc_a.view(-1, tile, 8), acc_b.view(-1, tile, 8)
     slots = slots.to(device=pos_a.device, dtype=torch.long)
-    pairs = _PLAIN_BATCH_PAIRS.get(pos_a.device.type, 1 << 22)
-    batch = max(1, pairs // (tile * tile))
+    batch = max(1, plain_block_elems(pos_a.device) // (tile * tile))
     for kind in (SLOT_DIAG, SLOT_CROSS, SLOT_FOLD):
         sel = slots[slots[:, 0] == kind]
         for s in range(0, sel.shape[0], batch):

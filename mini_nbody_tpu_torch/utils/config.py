@@ -10,11 +10,11 @@ takes the kernel.
 
 Backend names follow PyTorch rather than JAX: ``"torch"`` is the plain
 all-pairs op (JAX ``"jnp"``), ``"direct"`` the hand-written ordered kernel
-(JAX ``"pallas"``), ``"sym_mxu"`` the pair-once tensor-core kernel, and
-``"auto"`` resolves to ``"direct"`` on CUDA and ``"torch"`` on the CPU. Both
-keep the fp32-exact class that JAX's ``auto`` -> ``sym`` has
-(``mini_nbody_tpu/utils/config.py:246-254``) until the fp32 ``sym`` kernel is
-ported. ``fast_rsqrt_cube`` moves here from
+(JAX ``"pallas"``), ``"sym"`` the fp32 pair-once kernel, ``"sym_mxu"`` the
+pair-once tensor-core kernel, and ``"auto"`` resolves to ``"sym"`` on every
+device, as JAX's single-chip ``auto`` does
+(``mini_nbody_tpu/utils/config.py:246-254``): a CUDA state runs the kernel,
+a CPU state its plain version. ``fast_rsqrt_cube`` moves here from
 ``mini_nbody_tpu/ops/pallas_compat.py:22-23``.
 """
 
@@ -34,9 +34,9 @@ DT = 0.01
 #: are inert without a mass multiply.
 FAR = 1.0e18
 
-_BACKENDS = ("auto", "torch", "direct", "sym_mxu")
+_BACKENDS = ("auto", "torch", "direct", "sym", "sym_mxu")
 #: Backends of the JAX package that the port has not ported yet.
-_UNPORTED_BACKENDS = {"sym": "ROADMAP B5", "mxu": "ROADMAP B6"}
+_UNPORTED_BACKENDS = {"mxu": "ROADMAP B6"}
 #: JAX backend names -> port backend names (SimConfig.from_dict).
 JAX_BACKENDS = {"auto": "auto", "jnp": "torch", "pallas": "direct",
                 "sym_mxu": "sym_mxu", "sym": "sym", "mxu": "mxu"}
@@ -54,15 +54,20 @@ def check_coincident(value: str) -> str:
     return value
 
 
-def auto_backend(device=None) -> str:
-    """What backend='auto' runs: 'direct' on CUDA, 'torch' on the CPU
-    (device None = the default device of this process). Both are
-    fp32-exact, the class of JAX's auto -> 'sym', until 'sym' is ported."""
-    import torch
+#: What backend='auto' runs, on every device: the fp32-exact pair-once
+#: kernel, as JAX's single-chip auto does.
+AUTO_BACKEND = "sym"
 
-    if device is None:
-        return "direct" if torch.cuda.is_available() else "torch"
-    return "direct" if torch.device(device).type == "cuda" else "torch"
+
+#: Elements of one block of a kernel's plain PyTorch version, by device
+#: type: a (rows, N) block of ordered pair terms, or a batch of tile x tile
+#: slots (larger blocks on the card cut launch overhead).
+PLAIN_BLOCK_ELEMS = {"cpu": 1 << 22, "cuda": 1 << 26}
+
+
+def plain_block_elems(device) -> int:
+    """PLAIN_BLOCK_ELEMS for a torch.device."""
+    return PLAIN_BLOCK_ELEMS.get(device.type, 1 << 22)
 
 
 def fast_rsqrt_cube(softening) -> bool:
@@ -77,18 +82,21 @@ class SimConfig:
 
     Attributes (as in the JAX ``SimConfig``; only the differences are
     noted here):
-      backend: "auto", "torch", "direct" or "sym_mxu" (module docstring).
+      backend: "auto", "torch", "direct", "sym" or "sym_mxu" (module
+        docstring).
       tile_i: threads per block of the direct kernel; each block also
         stages its j-bodies through shared memory in tiles of this size.
         Must be a multiple of 8 (JAX rule); the CUDA kernel further needs a
         multiple of 32 up to 1024.
       tile_j: kept for parity with the JAX config (the Pallas j-block); the
         CUDA direct kernel stages j in tiles of ``tile_i``.
-      sym_tile / sym_chunk: tile (64 or 128 on CUDA) and chunk of the
-        sym_mxu kernel; None = its defaults (128, 131072).
+      sym_tile / sym_chunk: tile (64 or 128 on CUDA) and chunk of the sym
+        and sym_mxu kernels; None = their defaults (128, 131072).
       traversal: "auto" or "slots" (the band traversal is not ported).
-      mesh_shape, comm, resident, fused_integrate: not ported; only their
-        defaults are accepted.
+      fused_integrate: the fused force + Euler kernel; JAX's rule holds
+        (integrator "euler", backend "direct", one card).
+      mesh_shape, comm, resident: not ported; only their defaults are
+        accepted.
     """
 
     n: int
@@ -141,9 +149,11 @@ class SimConfig:
         if self.resident:
             raise NotImplementedError(
                 "resident=True is not ported yet (ROADMAP B15)")
-        if self.fused_integrate:
-            raise NotImplementedError(
-                "fused_integrate is not ported yet (ROADMAP B7)")
+        if self.fused_integrate and (self.integrator != "euler"
+                                     or self.backend != "direct"):
+            raise ValueError(
+                "fused_integrate requires integrator='euler', "
+                "backend='direct', single card")
         if self.tile_i % 8 != 0:
             raise ValueError(
                 f"tile_i must be a multiple of 8, got {self.tile_i}")
@@ -172,12 +182,9 @@ class SimConfig:
         d["backend"] = JAX_BACKENDS[backend]
         return cls(**d)
 
-    def effective_backend(self, device=None) -> str:
-        """The backend make_force_fn runs on ``device`` (None = the default
-        device of this process): 'auto' resolves by auto_backend."""
-        if self.backend != "auto":
-            return self.backend
-        return auto_backend(device)
+    def effective_backend(self) -> str:
+        """The backend make_force_fn runs: 'auto' is AUTO_BACKEND."""
+        return AUTO_BACKEND if self.backend == "auto" else self.backend
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

@@ -124,7 +124,7 @@ def test_dispatcher_backends_vs_jnp(backend):
 def test_dispatcher_rejects_unknown_and_unported():
     p = torch.zeros(4, 3)
     with pytest.raises(NotImplementedError):
-        body_force(p, p, backend="sym")
+        body_force(p, p, backend="mxu")
     with pytest.raises(ValueError):
         body_force(p, p, backend="pallas")
     with pytest.raises(ValueError):

@@ -50,7 +50,8 @@ def _run_both(jax_backend, integrator, steps, n=256, use_masses=False):
                       sym_tile=64, interpret=True)
     j = jsim.simulate(jcfg, JBodyState.create(pos, vel, mass))
     cfg = SimConfig.from_dict(dataclasses.asdict(jcfg))
-    t = simulate(cfg, BodyState.from_numpy(pos, vel, mass))
+    t = simulate(cfg, BodyState.from_numpy(pos, vel, mass,
+                                           device="cpu"))
     return (np.asarray(j.pos), np.asarray(j.vel)), t.to_numpy()[:2]
 
 
@@ -81,7 +82,7 @@ def test_step_fn_and_carry():
     pos, vel, mass = _np_state(64)
     cfg = SimConfig(n=64, integrator="leapfrog", backend="direct",
                     softening=1e-2)
-    state = BodyState.from_numpy(pos, vel, mass)
+    state = BodyState.from_numpy(pos, vel, mass, device="cpu")
     carry = init_carry(cfg, state)
     assert carry[1].abs().max() > 0  # leapfrog carries F(x0)
     s1, _ = make_step_fn(cfg)(carry)
@@ -102,7 +103,8 @@ def test_throughput_and_timing_refuse_the_cpu():
     assert t.report()["per_device"] == t.ginteractions_per_s
     pos, vel, mass = _np_state(8)
     cfg = SimConfig(n=8, backend="torch")
-    carry = init_carry(cfg, BodyState.from_numpy(pos, vel, mass))
+    carry = init_carry(cfg, BodyState.from_numpy(pos, vel, mass,
+                                                 device="cpu"))
     with pytest.raises(RuntimeError):
         time_step_fn(make_step_fn(cfg), carry)
 
