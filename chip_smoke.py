@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--bwd-tile 64|128]
 
 Builds the port's CUDA kernels from ``mini_nbody_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, and drives the port's paths,
@@ -14,9 +14,20 @@ each with every launch count set to 0 just before it and read just after:
   masses, 1000 leapfrog steps on ``auto`` (K3), energies through K4, held
   to the drift gate 1e-5;
 - ``config2_fused``: config 2, N = 65,536, 10 fused Euler steps (K5) against
-  the unfused ``direct`` run.
+  the unfused ``direct`` run;
+- ``grad_config3``: the differentiable path at config 3's N = 262,144: the
+  gradient of a 10-step "sqrt"-checkpointed leapfrog rollout on ``auto``
+  (forward K3, backward B10), then 5 Adam iterations of
+  examples/optimize_impact.py's probe loss;
+- ``grad_sym``: the same rollout gradient at N = 65,536 (backward B11)
+  against the rollout on the kernels' plain versions, and B11's mass
+  cotangent;
+- ``grad_sym_mxu``: the rollout on ``sym_mxu`` at N = 65,536 (backward B13)
+  and N = 262,144 (B14) against the fp32 gradients.
 
-Then it times each kernel beside its plain version and its bound. Every
+Before the paths, ``vjp_vs_plain`` holds the VJP kernels B10, B11, B13 and
+B14 against their plain versions. Then it times each kernel beside its
+plain version and its bound. Every
 phase prints one JSON line; the line before the last is the card's name
 and power limit from nvidia-smi, preceded by one JSON line of per-kernel
 results, and the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -26,7 +37,10 @@ is never printed. Needs one CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,14 +48,20 @@ import time
 import numpy as np
 import torch
 
-from mini_nbody_tpu_torch import SimConfig, _build, init, make_force_fn, simulate
+from mini_nbody_tpu_torch import (BodyState, SimConfig, _build, init,
+                                  make_differentiable_force, make_force_fn,
+                                  make_rollout_fn, simulate)
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import direct_force as df
 from mini_nbody_tpu_torch.ops import pe_kernel as pk
 from mini_nbody_tpu_torch.ops import slot_pipe as sp
 from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
 from mini_nbody_tpu_torch.ops import symmetric_force as sf
+from mini_nbody_tpu_torch.ops import vjp_kernel as vk
+from mini_nbody_tpu_torch.ops import vjp_mxu as vm
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
+from mini_nbody_tpu_torch.sim import init_carry
+from mini_nbody_tpu_torch.utils.config import SYM_BWD_TILES
 from mini_nbody_tpu_torch.utils.harness import FLOPS_PER_INTERACTION, time_fn
 
 N_MAIN = 1 << 20
@@ -94,6 +114,29 @@ K5_RTOL, K5_ATOL = 1e-4, 1e-5
 #: Time the plain version at N_MAIN only if 16x its time at N_MAIN / 4 fits.
 PLAIN_MAX_S = 60.0
 
+#: The differentiable path: a GRAD_STEPS-step "sqrt" rollout gradient at
+#: config 3's N (backward B10 beyond autodiff._SYM_BWD_MAX) and at
+#: N_GRAD_SYM, the backward size of benchmarks/RESULTS.md (B11, B13); then
+#: ADAM_ITERS Adam iterations of examples/optimize_impact.py's probe loss
+#: over ADAM_STEPS steps of its dt.
+GRAD_STEPS, N_GRAD_SYM = 10, 65536
+#: Two losses of the final state: sum(pos^2), whose gradient in the initial
+#: positions is 2 pos_final plus ~1e-6 of it through the forces (masses
+#: 1/N, 10 steps of dt 1e-3), and sum(vel^2), whose gradient flows through
+#: the force VJPs alone, so the gradient comparisons use it. Backward
+#: launches: the last step's force feeds only the final velocity and
+#: acceleration, so under the position loss it gets no VJP.
+GRAD_VJPS = {"pos": GRAD_STEPS - 1, "vel": GRAD_STEPS}
+ADAM_ITERS, ADAM_STEPS, ADAM_DT = 5, 20, 5e-3
+#: Operations per pair for the VJP bounds (the JAX cost estimates): B10 35
+#: fp32 per ordered pair (vjp_kernel.py:656); B11 22 per ordered pair, so 44
+#: per unordered pair, 52 with the mass cotangent (vjp_kernel.py:433); B13
+#: 30 fp32 (w, c; vjp_mxu.py:367) per unordered pair and 64 bf16 on the
+#: tensor cores (two sides x [w | c] against 16 operand columns); B14 30
+#: fp32 and 32 bf16 per ordered pair (one side; vjp_mxu.py:681).
+OPS_B10, OPS_B11, OPS_B11_MASS = 35, 44, 52
+OPS_B13_FP32, OPS_B13_MMA, OPS_B14_FP32, OPS_B14_MMA = 30, 64, 30, 32
+
 DEV = torch.device("cuda", 0)
 
 
@@ -105,19 +148,25 @@ def line(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def close(got, want, rtol, atol_scale, what):
-    """Raise unless |got - want| <= rtol |want| + atol_scale * max|want|;
-    returns the max abs error."""
+def close(got, want, rtol, atol_scale, what, floor=1.0):
+    """Raise unless |got - want| <= rtol |want| + atol_scale * scale, the
+    scale max|want| but at least ``floor`` (0 for gradients, whose scale
+    is their own); returns the max abs error."""
     got, want = got.double(), want.double()
     if not torch.isfinite(got).all():
         fail(f"{what}: non-finite values")
-    scale = max(want.abs().max().item(), 1.0)
+    scale = max(want.abs().max().item(), floor)
     err = (got - want).abs()
     bad = err > rtol * want.abs() + atol_scale * scale
     if bad.any():
         fail(f"{what}: {int(bad.sum())} elements out of bound, max err "
              f"{err.max().item():.4g}, scale {scale:.4g}")
     return err.max().item()
+
+
+def close_grad(got, want, rtol, atol_scale, what):
+    """close() for a gradient or VJP: atol against its own max|want|."""
+    return close(got, want, rtol, atol_scale, what, floor=0.0)
 
 
 def close_cols(got, want, atol, what):
@@ -136,7 +185,12 @@ def close_cols(got, want, atol, what):
 COUNTERS = {"direct": (df, "LAUNCHES"), "fused": (df, "FUSED_LAUNCHES"),
             "slot": (sp, "LAUNCHES"), "slot_cross": (sp, "CROSS_LAUNCHES"),
             "sym": (sf, "LAUNCHES"), "sym_cross": (sf, "CROSS_LAUNCHES"),
-            "pe": (pk, "LAUNCHES")}
+            "pe": (pk, "LAUNCHES"), "vjp_ordered": (vk, "LAUNCHES"),
+            "vjp_sym": (vk, "SYM_LAUNCHES"),
+            "vjp_sym_cross": (vk, "SYM_CROSS_LAUNCHES"),
+            "vjp_mxu": (vm, "LAUNCHES"),
+            "vjp_mxu_cross": (vm, "CROSS_LAUNCHES"),
+            "vjp_rect_mxu": (vm, "RECT_LAUNCHES")}
 
 
 def reset_counts():
@@ -151,7 +205,12 @@ def read_counts():
             "slot_tri": c["slot"] - c["slot_cross"],
             "slot_cross": c["slot_cross"],
             "sym_tri": c["sym"] - c["sym_cross"], "sym_cross": c["sym_cross"],
-            "pe": c["pe"]}
+            "pe": c["pe"], "vjp_ordered": c["vjp_ordered"],
+            "vjp_sym_tri": c["vjp_sym"] - c["vjp_sym_cross"],
+            "vjp_sym_cross": c["vjp_sym_cross"],
+            "vjp_mxu_tri": c["vjp_mxu"] - c["vjp_mxu_cross"],
+            "vjp_mxu_cross": c["vjp_mxu_cross"],
+            "vjp_rect_mxu": c["vjp_rect_mxu"]}
 
 
 def expect_counts(got, path, **want):
@@ -163,9 +222,11 @@ def expect_counts(got, path, **want):
 
 
 def bound(fp32_ops, nbytes, bf16_ops=0.0):
-    """The least time the card could take: the larger of the operations
-    over their peak rates and the bytes over the memory rate."""
-    t_ops = fp32_ops / PEAK_FP32 + bf16_ops / PEAK_BF16
+    """The least time the card could take: the largest of the fp32
+    operations over their peak rate, the tensor-core operations over
+    theirs (the two pipes run at once) and the bytes over the memory
+    rate."""
+    t_ops = max(fp32_ops / PEAK_FP32, bf16_ops / PEAK_BF16)
     t_bytes = nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -738,7 +799,429 @@ def time_k5(state2, launches):
                         n * 12 * 4.0), n=N_CONFIG2)]
 
 
-def main():
+
+@contextlib.contextmanager
+def plain_versions():
+    """While the block runs, every kernel wrapper takes its plain PyTorch
+    version, on the card's tensors (each wrapper asks _build.on_card)."""
+    on_card = _build.on_card
+    _build.on_card = lambda device: False
+    try:
+        yield
+    finally:
+        _build.on_card = on_card
+
+
+def scale_err(got, want):
+    """max |got - want| over max |want|: an error relative to the scale."""
+    want = want.double()
+    return ((got.double() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def to_dev(a):
+    return None if a is None else torch.from_numpy(a).to(DEV)
+
+
+def normal(rng, n):
+    """An (n, 3) cotangent on the card, drawn from rng."""
+    return to_dev(rng.normal(size=(n, 3)).astype(np.float32))
+
+
+#: (n, masses, softening, coincident mode) of vjp_vs_plain: ragged N, unit
+#: and mass mode, and softening 1e-9 with two distinct coincident bodies,
+#: where only the masked walk is right. Below sm.COINCIDENT_AUTO_MIN_N
+#: 'auto' is 'masked'; at 9001 'auto' runs the duplicate scan, which must
+#: find the pair.
+VJP_CASES = [(3001, False, 1e-2, "auto"), (3001, True, 1e-2, "fast"),
+             (3001, False, 1e-9, "masked"), (9001, True, 1e-9, "auto")]
+
+
+def mxu_sums(p, gp, q, slots, tile, ko, soft, mask, plain=False, cross=None):
+    """B13's raw sums of one self chunk (or, with cross = (c, last), of the
+    chunk pair (0, last)) from the kernel, or from the bf16-mode plain
+    version; rows then reactions in cross mode."""
+    if cross is None:
+        parts = [(p, gp, q)] * 2
+    else:
+        c, last = cross
+        parts = [(t[:c] for t in (p, gp, q)), (t[last] for t in (p, gp, q))]
+        parts = [tuple(x) for x in parts]
+    (pa, ga, qa), (pb, gb, qb) = parts
+    acc_a = torch.zeros((pa.shape[0], ko), device=DEV)
+    acc_b = acc_a if cross is None else torch.zeros((pb.shape[0], ko),
+                                                    device=DEV)
+    if plain:
+        vm.vjp_mxu_sums_plain(acc_a, acc_b, pa, pb, ga, gb, qa, qb, slots,
+                              tile, soft, mask, mma_dtype=torch.bfloat16)
+    else:
+        vm.vjp_mxu_sums_(acc_a, acc_b, pa, pb, ga, gb, qa, qb, slots, tile,
+                         soft, mask)
+    return acc_a if cross is None else (acc_a, acc_b)
+
+
+def b13_sums_check(pos, g, m, mass_grad, soft, mask, chunk, what):
+    """B13's raw sums against the bf16-mode plain sums per column: the last
+    (ragged) self chunk and the chunk pair (0, last)."""
+    n = pos.shape[0]
+    (tile, c, nc, _), (p, gp, q) = vm.sums_inputs(pos, g, m, chunk=chunk)
+    ko = 9 if mass_grad else 8
+    last = slice((nc - 1) * c, nc * c)
+    real = n - (nc - 1) * c
+    nb = c // tile
+    args = (tile, ko, soft, mask)
+    errs = []
+    tri = sp.slot_table(nb, True, False, DEV)
+    got, want = (mxu_sums(p[last], gp[last], q[last], tri, *args, plain=pl)
+                 for pl in (False, True))
+    errs.append(close_cols(got[:real], want[:real], K2_ATOL,
+                           f"B13 tri {what}"))
+    if nc > 1:
+        cross = sp.slot_table(nb, False, True, DEV)
+        got, want = (mxu_sums(p, gp, q, cross, *args, plain=pl,
+                              cross=(c, last)) for pl in (False, True))
+        errs.append(close_cols(got[0], want[0], K2_ATOL,
+                               f"B13 cross rows {what}"))
+        errs.append(close_cols(got[1][:real], want[1][:real], K2_ATOL,
+                               f"B13 cross reactions {what}"))
+    return max(errs)
+
+
+def vjp_phase(rng):
+    """B10, B11, B13 and B14 against their plain versions on the same card
+    tensors (VJP_CASES; chunk 1024, so B11 and B13 run tri and cross
+    launches): B10 and B11 at K1's bound, with B11's mass cotangent in mass
+    mode; B13's and B14's raw sums against their bf16-mode plain sums per
+    column at K2's bound; and B13's and B14's gradients against the fp32
+    B11 at the sym_mxu bound."""
+    errs = {"B10": [], "B11": [], "B13": [], "B14": []}
+    bf16_vs_fp32 = []
+    for n, masses, soft, mode in VJP_CASES:
+        pos = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        if soft < 1e-6:
+            pos[n - 7] = pos[3]  # two distinct bodies at one point
+        pos = to_dev(pos)
+        g = normal(rng, n)
+        m = to_dev(rng.uniform(0.5, 2.0, n).astype(np.float32)
+                   if masses else None)
+        what = f"n={n} masses={masses} softening={soft} {mode}"
+        # B10: the square call, and a rectangle of receivers.
+        got = vk.vjp_pos_direct(pos, g, m, soft, coincident=mode)
+        want = vk.vjp_ordered_plain(pos, g, pos, g, m, m, soft)
+        errs["B10"].append(close_grad(got, want, K1_RTOL, K1_ATOL,
+                                      f"B10 {what}"))
+        k = slice(0, 1000)
+        rect = vk.vjp_pos_rect(pos[k].contiguous(), g[k].contiguous(), pos,
+                               g, None if m is None else m[k].contiguous(),
+                               m, soft)
+        errs["B10"].append(close_grad(rect, want[k], K1_RTOL, K1_ATOL,
+                                      f"B10 rect {what}"))
+        # B11 over three chunks, with the mass cotangent in mass mode.
+        kw = dict(chunk=1024, mass_grad=masses, coincident=mode)
+        got = vk.vjp_pos_sym(pos, g, m, soft, **kw)
+        with plain_versions():
+            want = vk.vjp_pos_sym(pos, g, m, soft, **kw)
+        got, want = (o if masses else (o,) for o in (got, want))
+        for a, b, part in zip(got, want, ("pos_bar", "mass_bar")):
+            errs["B11"].append(close_grad(a, b, K1_RTOL, K1_ATOL,
+                                          f"B11 {part} {what}"))
+        fp32 = got
+        # B13: raw sums per column, then the gradient against fp32 B11.
+        mask = mode == "masked" or (mode == "auto"
+                                    and sm.resolve_auto(mode, n) == "masked")
+        if mode == "auto" and n >= sm.COINCIDENT_AUTO_MIN_N:
+            mask = sm.any_coincident(pos)
+            if soft < 1e-6 and not mask:
+                fail(f"any_coincident missed the coincident pair, {what}")
+        errs["B13"].append(b13_sums_check(pos, g, m, masses, soft, mask,
+                                          1024, what))
+        got = vm.vjp_pos_sym_mxu(pos, g, m, soft, **kw)
+        got = got if masses else (got,)
+        close_grad(got[0], fp32[0], SYM_RTOL, SYM_ATOL, f"B13 vs B11 {what}")
+        bf16_vs_fp32.append(scale_err(got[0], fp32[0]))
+        if masses:  # the mass column is summed in fp32
+            close_grad(got[1], fp32[1], K1_RTOL, K1_ATOL,
+                       f"B13 mass_bar {what}")
+        # B14 square: raw rows per column, then the gradient vs fp32 B11.
+        rows = vm.vjp_rect_mxu_rows(pos, g, pos, g, m, m, soft,
+                                    square_coincident=mode)
+        want = vm.vjp_rect_mxu_plain(pos, g, pos, g, m, m, soft,
+                                     mma_dtype=torch.bfloat16)
+        errs["B14"].append(close_cols(rows, want, K2_ATOL, f"B14 {what}"))
+        got = vm.vjp_rect_mxu(pos, g, pos, g, m, m, soft, coincident=mode)
+        close_grad(got, fp32[0], SYM_RTOL, SYM_ATOL, f"B14 vs B11 {what}")
+        bf16_vs_fp32.append(scale_err(got, fp32[0]))
+    torch.cuda.synchronize()
+    line("vjp_vs_plain", cases=len(VJP_CASES),
+         max_abs_err={k: max(v) for k, v in errs.items()},
+         bf16_class_vs_fp32_max_err_of_scale=max(bf16_vs_fp32))
+    return {k: max(v) for k, v in errs.items()}
+
+
+def sqrt_passes(steps):
+    """Force passes of a "sqrt" rollout of ``steps`` steps and its backward:
+    every step once forward, and every step inside a checkpointed segment
+    once more in the backward (sim.make_rollout_fn)."""
+    if steps <= 2:
+        return steps
+    inner = math.isqrt(steps)
+    return steps + steps // inner * inner
+
+
+def rollout_grad(cfg, carry0, on="pos"):
+    """sum(pos_final^2) (on="pos") or sum(vel_final^2) (on="vel") of a
+    GRAD_STEPS-step "sqrt" rollout from carry0, and its gradient in the
+    initial positions; the initial acceleration is held constant, as
+    tests/test_sim.py:190-207 does."""
+    state, acc = carry0
+    p = state.pos.clone().requires_grad_(True)
+    out, _ = make_rollout_fn(cfg, GRAD_STEPS, "sqrt")(
+        (BodyState(pos=p, vel=state.vel, mass=state.mass), acc))
+    loss = ((out.pos if on == "pos" else out.vel) ** 2).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    if p.grad.shape != p.shape or not torch.isfinite(p.grad).all():
+        fail(f"rollout gradient at n={p.shape[0]}: non-finite or misshapen")
+    return loss.item(), p.grad
+
+
+def counted_grad(cfg, carry0, on, path, **want):
+    """rollout_grad with every launch count set to 0 just before it, held
+    to the launches ``want`` plus the path's backward; returns (seconds,
+    loss, gradient, launches)."""
+    reset_counts()
+    seconds, (loss, grad) = host_time(rollout_grad, cfg, carry0, on)
+    launches = read_counts()
+    expect_counts(launches, f"{path} (loss on {on})", **want)
+    return seconds, loss, grad, launches
+
+
+def grad_cfg(n, backend="auto", dt=1e-3):
+    """BASELINE config 3's physics: plummer with masses, leapfrog,
+    softening 1e-2, dt 1e-3."""
+    return SimConfig(n=n, dt=dt, softening=1e-2, integrator="leapfrog",
+                     use_masses=True, backend=backend)
+
+
+def adam_phase(state):
+    """examples/optimize_impact.py's loss on config 3's cluster: body 0 is
+    a probe at `start` whose initial velocity is optimised so that it ends
+    at `target` after ADAM_STEPS leapfrog steps of ADAM_DT, through a
+    "sqrt" rollout. Adam's step is a fifth of the first miss per unit of
+    time, so one step moves the probe's end by about a fifth of the miss
+    (the example's fixed 0.5 fits its 40 steps at N = 512). The loss must
+    fall."""
+    cfg = grad_cfg(state.n, dt=ADAM_DT)
+    start = torch.tensor([-1.5, -1.0, 0.0], device=DEV)
+    target = torch.tensor([1.2, 0.8, 0.0], device=DEV)
+    pos = state.pos.clone()
+    pos[0] = start
+    span = ADAM_STEPS * ADAM_DT
+    v0 = ((target - start) / span).requires_grad_(True)
+    acc0 = init_carry(cfg, BodyState(pos=pos, vel=state.vel,
+                                     mass=state.mass))[1]
+    rollout = make_rollout_fn(cfg, ADAM_STEPS)
+
+    def miss2():
+        vel = torch.cat([v0[None], state.vel[1:]])
+        out, _ = rollout((BodyState(pos=pos, vel=vel, mass=state.mass),
+                          acc0))
+        return ((out.pos[0] - target) ** 2).sum()
+
+    losses, opt = [], None
+    t0 = time.perf_counter()
+    for _ in range(ADAM_ITERS):
+        loss = miss2()
+        if opt is None:
+            opt = torch.optim.Adam([v0], lr=0.2 * loss.item() ** 0.5 / span)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    with torch.no_grad():
+        losses.append(miss2().item())
+    seconds = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
+            losses[0]:
+        fail(f"Adam did not lower the probe loss: {losses}")
+    return {"iters": ADAM_ITERS, "steps": ADAM_STEPS, "dt": ADAM_DT,
+            "lr": opt.param_groups[0]["lr"], "miss2": losses,
+            "seconds": seconds}
+
+
+def grad_config3_phase(rng):
+    """The differentiable path at config 3's N = 262,144 on 'auto': a
+    GRAD_STEPS-step "sqrt" rollout gradient, forward K3 and backward B10
+    (N > autodiff._SYM_BWD_MAX), exact launch counts; one B10 call held
+    against its plain version and timed; then the Adam run. Returns the
+    state, the gradient and B10's record."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    state = init.plummer(N_CONFIG3, generator=gen, device=DEV)
+    cfg = grad_cfg(N_CONFIG3)
+    carry0 = init_carry(cfg, state)
+    first_s, _ = host_time(rollout_grad, cfg, carry0)
+    nc, passes = -(-N_CONFIG3 // CHUNK), sqrt_passes(GRAD_STEPS)
+    runs = {}
+    for on in ("pos", "vel"):
+        runs[on] = counted_grad(cfg, carry0, on, "grad_config3",
+                                sym_tri=nc * passes,
+                                sym_cross=nc * (nc - 1) // 2 * passes,
+                                vjp_ordered=GRAD_VJPS[on])
+    seconds, loss, _, launches = runs["pos"]
+    # One B10 call as the path makes it ('auto' on duplicate-free bodies
+    # is 'fast' after the scan: tiles off the diagonal drop the mask).
+    g = normal(rng, N_CONFIG3)
+    args = (state.pos, g, state.mass, cfg.softening, cfg.tile_i, "fast")
+    got = vk.vjp_pos_direct(*args)
+    plain_s, want = host_time(vk.vjp_ordered_plain, state.pos, g, state.pos,
+                              g, state.mass, state.mass, cfg.softening)
+    err = close_grad(got, want, K1_RTOL, K1_ATOL, f"B10 at N={N_CONFIG3}")
+    b10_s = time_fn(vk.vjp_pos_direct, *args, reps=3)
+    adam = adam_phase(state)
+    line("grad_config3", n=N_CONFIG3, steps=GRAD_STEPS, remat="sqrt",
+         loss_pos=loss, first_seconds=first_s, seconds=seconds,
+         launches=launches, seconds_vel=runs["vel"][0],
+         launches_vel=runs["vel"][3], b10_vs_plain_max_abs_err=err,
+         adam=adam)
+    n = float(N_CONFIG3)
+    record = entry("vjp_kernel ordered (B10)", "vjp_kernel.cu",
+                   "vjp_kernel.py:106", launches["vjp_ordered"], err,
+                   b10_s * 1e3, plain_s * 1e3,
+                   bound(n * (n - 1) * OPS_B10, n * 40.0), n=N_CONFIG3,
+                   block=cfg.tile_i)
+    return state, runs["vel"][2], record
+
+
+def grad_sym_phase(rng):
+    """The rollout gradient (loss on the final velocities) at N_GRAD_SYM on
+    'auto' (backward B11) against the same rollout with every kernel
+    swapped for its plain version on the card, at K1's bound; B11's mass
+    cotangent
+    (make_differentiable_force(cfg, mass_grad=True)) against the plain
+    version's; and B11 timed as the path calls it."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    state = init.plummer(N_GRAD_SYM, generator=gen, device=DEV)
+    cfg = grad_cfg(N_GRAD_SYM)
+    carry0 = init_carry(cfg, state)
+    seconds, loss, grad, launches = counted_grad(
+        cfg, carry0, "vel", "grad_sym", sym_tri=sqrt_passes(GRAD_STEPS),
+        vjp_sym_tri=GRAD_VJPS["vel"])
+    with plain_versions():
+        plain_seconds, (_, plain_grad) = host_time(rollout_grad, cfg, carry0,
+                                                   "vel")
+    grad_err = close_grad(grad, plain_grad, K1_RTOL, K1_ATOL,
+                          "grad_sym rollout vs plain")
+    g = normal(rng, N_GRAD_SYM)
+    diff_force = make_differentiable_force(cfg, mass_grad=True)
+
+    def bars():
+        p = state.pos.clone().requires_grad_(True)
+        m = state.mass.clone().requires_grad_(True)
+        diff_force(p, m).backward(g)
+        return p.grad, m.grad
+
+    reset_counts()
+    got = bars()
+    expect_counts(read_counts(), "grad_sym mass_grad", sym_tri=1,
+                  vjp_sym_tri=1)
+    with plain_versions():
+        want = bars()
+    mass_err = [close_grad(a, b, K1_RTOL, K1_ATOL,
+                           f"B11 mass_grad {what}")
+                for a, b, what in zip(got, want, ("pos_bar", "mass_bar"))]
+    mass_scale = want[1].abs().max().item()
+    args = (state.pos, g, state.mass, cfg.softening, vk.DEFAULT_TILE, CHUNK,
+            False, "fast")
+    b11_s = time_fn(vk.vjp_pos_sym, *args, reps=3)
+    got = vk.vjp_pos_sym(*args)
+    with plain_versions():
+        plain_s, want = host_time(vk.vjp_pos_sym, *args)
+    err = close_grad(got, want, K1_RTOL, K1_ATOL, f"B11 at N={N_GRAD_SYM}")
+    line("grad_sym", n=N_GRAD_SYM, steps=GRAD_STEPS, remat="sqrt",
+         loss_vel=loss, seconds=seconds, plain_seconds=plain_seconds,
+         launches=launches, grad_vs_plain_max_abs_err=grad_err,
+         grad_max_abs=plain_grad.abs().max().item(),
+         grad_vs_plain_max_err_of_scale=scale_err(grad, plain_grad),
+         mass_grad_vs_plain_max_abs_err=mass_err,
+         mass_bar_max_abs=mass_scale)
+    n = float(N_GRAD_SYM)
+    record = entry("vjp_kernel pair-once (B11)", "vjp_kernel.cu",
+                   "vjp_kernel.py:273",
+                   launches["vjp_sym_tri"] + launches["vjp_sym_cross"], err,
+                   b11_s * 1e3, plain_s * 1e3,
+                   bound(n * (n - 1) / 2 * OPS_B11, n * 40.0), n=N_GRAD_SYM,
+                   tile=vk.DEFAULT_TILE)
+    return state, grad, record
+
+
+def grad_sym_mxu_phase(rng, sym, config3):
+    """The rollout gradient (loss on the final velocities) on sym_mxu at
+    N_GRAD_SYM (backward B13) and at config 3's N (B14, beyond
+    autodiff._SYM_BWD_MAX), each against the fp32 gradient of the same
+    state at the bf16-class bound; then one B13 and one B14 launch held per
+    column against their bf16-mode plain sums and timed."""
+    out, records = {}, []
+    for (state, fp32), bwd in ((sym, "vjp_mxu_tri"),
+                               (config3, "vjp_rect_mxu")):
+        n = state.n
+        cfg = grad_cfg(n, backend="sym_mxu")
+        carry0 = init_carry(cfg, state)
+        nc, passes = -(-n // CHUNK), sqrt_passes(GRAD_STEPS)
+        seconds, loss, grad, launches = counted_grad(
+            cfg, carry0, "vel", f"grad_sym_mxu n={n}", slot_tri=nc * passes,
+            slot_cross=nc * (nc - 1) // 2 * passes,
+            **{bwd: GRAD_VJPS["vel"]})
+        close_grad(grad, fp32, SYM_RTOL, SYM_ATOL,
+                   f"grad_sym_mxu n={n} vs fp32")
+        out[n] = {"seconds": seconds, "loss_vel": loss, "launches": launches,
+                  "fp32_grad_max_abs": fp32.abs().max().item(),
+                  "vs_fp32_max_err_of_scale": scale_err(grad, fp32),
+                  "vs_fp32": rel_err_stats(grad, fp32)}
+        g = normal(rng, n)
+        if bwd == "vjp_mxu_tri":  # B13: the one tri launch of the path
+            (tile, c, _, _), (p, gp, q) = vm.sums_inputs(
+                state.pos, g, state.mass, chunk=CHUNK)
+            slots = sp.slot_table(c // tile, True, False, DEV)
+            args = (p, gp, q, slots, tile, 8, cfg.softening, False)
+            ms = time_fn(mxu_sums, *args, reps=3) * 1e3
+            got = mxu_sums(*args)
+            plain_s, want = host_time(mxu_sums, *args, True)
+            err = close_cols(got, want, K2_ATOL, f"B13 at N={n}")
+            pairs = n * (n - 1) / 2
+            records.append(entry(
+                "vjp_mxu pair-once (B13)", "vjp_mxu.cu", "vjp_mxu.py:134",
+                launches["vjp_mxu_tri"] + launches["vjp_mxu_cross"], err, ms,
+                plain_s * 1e3, bound(pairs * OPS_B13_FP32, n * 40.0,
+                                     pairs * OPS_B13_MMA), n=n, tile=tile))
+        else:  # B14 called square, as autodiff calls it
+            args = (state.pos, g, state.pos, g, state.mass, state.mass,
+                    cfg.softening)
+            ms = time_fn(vm.vjp_rect_mxu_rows, *args, vm.RECT_TILE, "fast",
+                         reps=3) * 1e3
+            got = vm.vjp_rect_mxu_rows(*args, vm.RECT_TILE, "fast")
+            plain_s, want = host_time(vm.vjp_rect_mxu_plain, *args,
+                                      torch.bfloat16)
+            err = close_cols(got, want, K2_ATOL, f"B14 at N={n}")
+            pairs = float(n) * (n - 1)
+            records.append(entry(
+                "vjp_mxu rectangular (B14)", "vjp_mxu.cu", "vjp_mxu.py:179",
+                launches["vjp_rect_mxu"], err, ms, plain_s * 1e3,
+                bound(pairs * OPS_B14_FP32, n * 40.0, pairs * OPS_B14_MMA),
+                n=n, tile=vm.RECT_TILE))
+        out[n]["kernel_ms"], out[n]["raw_sums_max_abs_err"] = ms, err
+    line("grad_sym_mxu", steps=GRAD_STEPS, remat="sqrt", runs=out)
+    return records
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--bwd-tile", type=int, choices=SYM_BWD_TILES,
+        help="tile of the pair-once backwards B11 and B13 on every path "
+             f"(default: theirs, {vk.DEFAULT_TILE} and {vm.DEFAULT_TILE})")
+    args = parser.parse_args(argv)
+    if args.bwd_tile is not None:
+        vk.DEFAULT_TILE = vm.DEFAULT_TILE = args.bwd_tile
     smi = device_phase()
     build_phase()
     rng = np.random.default_rng(SEED)
@@ -751,10 +1234,14 @@ def main():
     leapfrog_phase()
     state3, c3_launches = config3_phase()
     state2, c2_launches = config2_phase()
+    vjp_phase(rng)
+    *config3, b10 = grad_config3_phase(rng)
+    *sym, b11 = grad_sym_phase(rng)
+    mxu_records = grad_sym_mxu_phase(rng, sym, config3)
     kernels = (times_phase(state, launches, k1_err, cfg_sym, cfg_dir)
                + time_k3(state, auto_launches, cfg_auto)
                + time_k4(state3, state, c3_launches)
-               + time_k5(state2, c2_launches))
+               + time_k5(state2, c2_launches) + [b10, b11] + mxu_records)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on its path")

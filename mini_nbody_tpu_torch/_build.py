@@ -51,6 +51,22 @@ SIGNATURES = {
                                _I),
     # pos, mass (or NULL), n, rows, softening, block, stream
     "pe_rows_launch": ([_P, _P, _I, _P, _F, _I, _P], _I),
+    # pos_k, g_k, mass_k (or NULL), nk, pos_j, g_j, mass_j (or NULL), nj,
+    # out, softening, overlap_only, block, stream
+    "vjp_ordered_launch": ([_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _I, _I,
+                            _P], _I),
+    # slots, n_slots, pos_a, pos_b, g_a, g_b, acc_a, acc_b, k, ko, tile,
+    # softening, mask_offdiag, stream
+    "vjp_sym_launch": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                        _P], _I),
+    # slots, n_slots, pos_a, pos_b, g_a, g_b, q_a, q_b, acc_a, acc_b, masses,
+    # ko, tile, softening, mask_offdiag, stream
+    "vjp_mxu_launch": ([_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _F, _I, _P], _I),
+    # pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows, masses, tile, softening,
+    # overlap_only, stream
+    "vjp_rect_mxu_launch": ([_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _I,
+                             _P], _I),
     "nbody_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -142,6 +158,33 @@ def check_tensor(name, t, shape, dtype, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def on_card(device) -> bool:
+    """Whether tensors on ``device`` launch the kernels: True on a CUDA
+    device, False on the CPU (each kernel's plain version); raises on any
+    other device."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {device}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if a kernel is asked for a result autograd would have to
+    differentiate: a kernel's output has no autograd history, so handing
+    it back would silently cut the gradient."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and a CUDA kernel's output has "
+            "no autograd history; differentiate through "
+            "mini_nbody_tpu_torch.ops.autodiff.make_differentiable_force "
+            "(or make_step_fn(cfg, differentiable=True)), or run under "
+            "torch.no_grad()")
 
 
 def stream_ptr(device) -> int:

@@ -1,0 +1,464 @@
+// B10: the ordered fp32 force VJP, one thread per receiver k.
+// B11: the pair-once fp32 force VJP on K3's slot + fold geometry.
+//
+// With d = p_j - p_k, s = |d|^2 + softening, inv = rsqrt(s), w = inv^3,
+// u = w inv^2 and the cotangent g of F:
+//   pos_bar_k = sum_j m_j [-w g_k + 3 u (g_k.d) d]            (receiver)
+//             + m_k sum_j [ w g_j - 3 u (g_j.d) d]            (source)
+// and with unit masses sum_j [3 u ((g_k - g_j).d) d + w g_j] - g_k sum_j w.
+// w and u are zeroed where the pre-softening |d|^2 == 0: at softening 1e-9
+// the self pair's eps^-1.5 weight swamps the fp32 sums otherwise.
+//
+// B10 replaces mini_nbody_tpu/ops/vjp_kernel.py:106 `_vjp_kernel` (reached
+// through `vjp_pos_rect`, :635, and `vjp_pos_pallas`, :737). K1's shape
+// (csrc/direct_force.cu): each block of `block` threads keeps its receivers
+// (p, m, g) in registers and stages the sources through shared memory in
+// tiles of `block` (x, y, z, m) and (gx, gy, gz) float4s; the Pallas grid's
+// sequential j axis is the loop over tiles, and the receiver and source
+// terms sum in registers. overlap_only (square calls under coincident
+// routing, :130-147) drops the d2 == 0 select in tiles whose j range does
+// not intersect the block's k range (k tile and j tile have one size, so
+// they intersect only when they are the same tile). The ragged j edge is
+// (FAR, m = 0, g = 0) in shared memory: against FAR w and u underflow to 0
+// and every term is 0, in both mass modes. Receivers past nk compute and are
+// not written.
+//
+// B11 replaces vjp_kernel.py:273 `_sym_vjp_tri_kernel` (`vjp_pos_sym`,
+// :406). Per unordered pair (a, b), d = p_b - p_a, its term
+//   t = w (m_a g_b - m_b g_a) + c d,  c = 3 u (m_b (g_a.d) - m_a (g_b.d))
+// goes to a's row with + and to b's reaction with -; with the mass
+// cotangent, -w (g_b.d) goes to a and +w (g_a.d) to b (that term is NOT
+// antisymmetric). One CTA of 2T threads per slot (kind, bi, bj), as K3
+// (csrc/symmetric_force.cu): the block pair is staged in shared memory, the
+// T x T tiles of w and c are computed once (rows padded to T + 1 floats),
+// then threads [0, T) take the row sums and threads [T, 2T) the reaction
+// sums at the same time, recomputing d from the staged positions.
+//   DIAG  (bi == bj): the ordered formula over the block, row sums only
+//         (the rows cover both orders), always masked; with the mass
+//         cotangent, -sum_c w (g_c.d) per row (the sum JAX takes as column
+//         sums of the same block, :299-308).
+//   CROSS: rows into acc_a[bi], reactions into acc_b[bj].
+//   FOLD  (bj == bi + 1): entry (r, c) is pair (a_r, a_c) for c < r and
+//         (b_r, b_c) for c > r; the diagonal is skipped.
+// CROSS and FOLD pairs are masked where d2 == 0 iff mask_offdiag. Sums reach
+// the (c, 3|4) accumulators by atomicAdd (6T or 8T per slot), so results are
+// not bitwise reproducible (ROADMAP B17). The TPU's single-launch bound
+// (the (3|4, N) VMEM reaction buffer, _SYM_BWD_MAX = 131072) does not
+// apply: the wrapper keeps K3's chunk loop. Pads are FAR with zero mass and
+// zero cotangent: real-vs-pad terms are exactly 0 and pad-pad terms are
+// w (0 - 0) + 0 d = 0.
+//
+// What bounds them on an H100: fp32 arithmetic. B10: ~35 fp32 operations and
+// one rsqrt per ordered pair (JAX's count, vjp_kernel.py:656). B11: ~26 for
+// w, u, c once per pair and ~12 for each side's sum (+5 with the mass
+// cotangent); shared memory carries two 4-byte stores and four 4-byte loads
+// per pair. At T = 128 B11 needs 139,264 bytes of shared memory per CTA
+// (one CTA per SM), at T = 64 36,864; the launch raises the dynamic limit
+// first and returns cudaGetLastError().
+//
+// Built without --use_fast_math (see direct_force.cu); nvcc contracts the
+// mul/add pairs into FMAs, which the plain PyTorch version does not do.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kFar = 1.0e18f;
+constexpr int kSlotDiag = 0;
+constexpr int kSlotFold = 2;
+
+__device__ __forceinline__ void weights(float d2, float softening, bool mask,
+                                        float* w, float* u) {
+  const float inv = rsqrtf(d2 + softening);
+  const float inv2 = inv * inv;
+  *w = inv2 * inv;
+  *u = *w * inv2;
+  if (mask && d2 == 0.f) *w = *u = 0.f;
+}
+
+// ---------------------------------------------------------------- B10 ---
+
+template <bool kMass>
+__global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
+                                   const float* __restrict__ g_k,
+                                   const float* __restrict__ mass_k, int nk,
+                                   const float* __restrict__ pos_j,
+                                   const float* __restrict__ g_j,
+                                   const float* __restrict__ mass_j, int nj,
+                                   float* __restrict__ out, float softening,
+                                   int overlap_only) {
+  extern __shared__ float4 smem4[];
+  float4* sp = smem4;               // (x, y, z, m) of the j tile
+  float4* sg = smem4 + blockDim.x;  // (gx, gy, gz, 0)
+  const int k0 = blockIdx.x * blockDim.x;
+  const int i = k0 + threadIdx.x;
+  float x = kFar, y = kFar, z = kFar, mk = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
+  if (i < nk) {
+    x = pos_k[3 * i];
+    y = pos_k[3 * i + 1];
+    z = pos_k[3 * i + 2];
+    gx = g_k[3 * i];
+    gy = g_k[3 * i + 1];
+    gz = g_k[3 * i + 2];
+    mk = kMass ? mass_k[i] : 1.f;
+  }
+  // unit masses: t (3), sum w; masses: r (3), sum m w, s (3).
+  float t0 = 0.f, t1 = 0.f, t2 = 0.f, sw = 0.f;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  for (int base = 0; base < nj; base += blockDim.x) {
+    const int j = base + threadIdx.x;
+    float4 p = make_float4(kFar, kFar, kFar, 0.f);
+    float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < nj) {
+      p = make_float4(pos_j[3 * j], pos_j[3 * j + 1], pos_j[3 * j + 2],
+                      kMass ? mass_j[j] : 1.f);
+      h = make_float4(g_j[3 * j], g_j[3 * j + 1], g_j[3 * j + 2], 0.f);
+    }
+    __syncthreads();  // every thread is done with the previous tile
+    sp[threadIdx.x] = p;
+    sg[threadIdx.x] = h;
+    __syncthreads();
+    const bool mask = !overlap_only || base == k0;
+#pragma unroll 4
+    for (int c = 0; c < blockDim.x; ++c) {
+      const float4 q = sp[c];
+      const float4 gj = sg[c];
+      const float dx = q.x - x, dy = q.y - y, dz = q.z - z;
+      float w, u;
+      weights(dx * dx + dy * dy + dz * dz, softening, mask, &w, &u);
+      const float dot_k = gx * dx + gy * dy + gz * dz;
+      const float dot_j = gj.x * dx + gj.y * dy + gj.z * dz;
+      if (kMass) {
+        const float a = 3.f * (u * q.w * dot_k);
+        const float b = 3.f * (u * dot_j);
+        t0 += a * dx;
+        t1 += a * dy;
+        t2 += a * dz;
+        sw += w * q.w;
+        s0 += w * gj.x - b * dx;
+        s1 += w * gj.y - b * dy;
+        s2 += w * gj.z - b * dz;
+      } else {
+        const float coeff = 3.f * (u * (dot_k - dot_j));
+        t0 += coeff * dx + w * gj.x;
+        t1 += coeff * dy + w * gj.y;
+        t2 += coeff * dz + w * gj.z;
+        sw += w;
+      }
+    }
+  }
+  if (i < nk) {
+    out[3 * i] = (t0 - gx * sw) + mk * s0;
+    out[3 * i + 1] = (t1 - gy * sw) + mk * s1;
+    out[3 * i + 2] = (t2 - gz * sw) + mk * s2;
+  }
+}
+
+// ---------------------------------------------------------------- B11 ---
+
+// Staged block: x, y, z, m (4 x T) then gx, gy, gz (3 x T).
+template <int T>
+struct Blk {
+  const float* p;  // p[k * T + r], k = 0..3
+  const float* g;  // g[k * T + r], k = 0..2
+};
+
+__device__ __forceinline__ void add_row(float* dst, const float* v, int ko,
+                                        float sign) {
+  atomicAdd(dst, sign * v[0]);
+  atomicAdd(dst + 1, sign * v[1]);
+  atomicAdd(dst + 2, sign * v[2]);
+  if (ko == 4) atomicAdd(dst + 3, v[3]);
+}
+
+// The ordered row of receiver r of block P over every c of block Q (DIAG).
+template <int T, bool kMass, bool kMassGrad>
+__device__ void ordered_row(Blk<T> P, Blk<T> Q, int r, float softening,
+                            float* f) {
+  const float x = P.p[r], y = P.p[T + r], z = P.p[2 * T + r];
+  const float mk = P.p[3 * T + r];
+  const float gx = P.g[r], gy = P.g[T + r], gz = P.g[2 * T + r];
+  float t0 = 0.f, t1 = 0.f, t2 = 0.f, sw = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  float mrow = 0.f;
+  for (int c = 0; c < T; ++c) {
+    const float dx = Q.p[c] - x, dy = Q.p[T + c] - y, dz = Q.p[2 * T + c] - z;
+    const float hx = Q.g[c], hy = Q.g[T + c], hz = Q.g[2 * T + c];
+    float w, u;
+    weights(dx * dx + dy * dy + dz * dz, softening, true, &w, &u);
+    const float dot_k = gx * dx + gy * dy + gz * dz;
+    const float dot_j = hx * dx + hy * dy + hz * dz;
+    if (kMass) {
+      const float mj = Q.p[3 * T + c];
+      const float a = 3.f * (u * mj * dot_k);
+      const float b = 3.f * (u * dot_j);
+      t0 += a * dx;
+      t1 += a * dy;
+      t2 += a * dz;
+      sw += w * mj;
+      s0 += w * hx - b * dx;
+      s1 += w * hy - b * dy;
+      s2 += w * hz - b * dz;
+    } else {
+      const float coeff = 3.f * (u * (dot_k - dot_j));
+      t0 += coeff * dx + w * hx;
+      t1 += coeff * dy + w * hy;
+      t2 += coeff * dz + w * hz;
+      sw += w;
+    }
+    if (kMassGrad) mrow -= w * dot_j;
+  }
+  f[0] = (t0 - gx * sw) + mk * s0;
+  f[1] = (t1 - gy * sw) + mk * s1;
+  f[2] = (t2 - gz * sw) + mk * s2;
+  f[3] = mrow;
+}
+
+// f += sum over c in [c0, c1) of t(r, c) (and -w (g_c.d)): row r of block P
+// against partners c of block Q.
+template <int T, bool kMass, bool kMassGrad>
+__device__ __forceinline__ void row_sums(const float* Wr, const float* Cr,
+                                         Blk<T> P, Blk<T> Q, int r, int c0,
+                                         int c1, float* f) {
+  const float x = P.p[r], y = P.p[T + r], z = P.p[2 * T + r];
+  const float ma = P.p[3 * T + r];
+  const float gx = P.g[r], gy = P.g[T + r], gz = P.g[2 * T + r];
+  for (int c = c0; c < c1; ++c) {
+    const float w = Wr[c], cc = Cr[c];
+    const float dx = Q.p[c] - x, dy = Q.p[T + c] - y, dz = Q.p[2 * T + c] - z;
+    const float hx = Q.g[c], hy = Q.g[T + c], hz = Q.g[2 * T + c];
+    if (kMass) {
+      const float mb = Q.p[3 * T + c];
+      f[0] += cc * dx + w * (ma * hx - mb * gx);
+      f[1] += cc * dy + w * (ma * hy - mb * gy);
+      f[2] += cc * dz + w * (ma * hz - mb * gz);
+    } else {
+      f[0] += cc * dx + w * (hx - gx);
+      f[1] += cc * dy + w * (hy - gy);
+      f[2] += cc * dz + w * (hz - gz);
+    }
+    if (kMassGrad) f[3] -= w * (hx * dx + hy * dy + hz * dz);
+  }
+}
+
+// f += sum over r in [r0, r1) of t(r, c) (and +w (g_r.d)): the reaction of
+// column c of block Q against partners r of block P (subtract f[0..2]).
+template <int T, bool kMass, bool kMassGrad>
+__device__ __forceinline__ void col_sums(const float* W, const float* C,
+                                         Blk<T> P, Blk<T> Q, int c, int r0,
+                                         int r1, float* f) {
+  constexpr int LD = T + 1;
+  const float x = Q.p[c], y = Q.p[T + c], z = Q.p[2 * T + c];
+  const float mb = Q.p[3 * T + c];
+  const float hx = Q.g[c], hy = Q.g[T + c], hz = Q.g[2 * T + c];
+  for (int r = r0; r < r1; ++r) {
+    const float w = W[r * LD + c], cc = C[r * LD + c];
+    const float dx = x - P.p[r], dy = y - P.p[T + r], dz = z - P.p[2 * T + r];
+    const float gx = P.g[r], gy = P.g[T + r], gz = P.g[2 * T + r];
+    if (kMass) {
+      const float ma = P.p[3 * T + r];
+      f[0] += cc * dx + w * (ma * hx - mb * gx);
+      f[1] += cc * dy + w * (ma * hy - mb * gy);
+      f[2] += cc * dz + w * (ma * hz - mb * gz);
+    } else {
+      f[0] += cc * dx + w * (hx - gx);
+      f[1] += cc * dy + w * (hy - gy);
+      f[2] += cc * dz + w * (hz - gz);
+    }
+    if (kMassGrad) f[3] += w * (gx * dx + gy * dy + gz * dz);
+  }
+}
+
+template <int T>
+constexpr size_t sym_smem_bytes() {
+  return (2 * T * (T + 1) + 14 * T) * sizeof(float);  // w, c tiles + blocks
+}
+
+// pos_a / pos_b: (c, K) rows (x, y, z[, m]); g_a / g_b: (c, 3); acc_a /
+// acc_b: (c, KO), KO = 4 with the mass cotangent.
+template <int T, int K, int KO>
+__global__ void __launch_bounds__(2 * T)
+    vjp_sym_kernel(const int* __restrict__ slots,
+                   const float* __restrict__ pos_a,
+                   const float* __restrict__ pos_b,
+                   const float* __restrict__ g_a,
+                   const float* __restrict__ g_b, float* acc_a, float* acc_b,
+                   float softening, int mask_offdiag) {
+  constexpr int LD = T + 1;
+  constexpr bool kMass = K == 4;
+  constexpr bool kMassGrad = KO == 4;
+  extern __shared__ float smem[];
+  float* W = smem;        // T x LD
+  float* C = W + T * LD;  // T x LD
+  float* sa = C + T * LD;  // block bi: 4 x T positions, 3 x T cotangents
+  float* sb = sa + 7 * T;  // block bj
+  const Blk<T> A{sa, sa + 4 * T}, B{sb, sb + 4 * T};
+
+  const int kind = slots[3 * blockIdx.x];
+  const int bi = slots[3 * blockIdx.x + 1];
+  const int bj = slots[3 * blockIdx.x + 2];
+  const bool fold = kind == kSlotFold;
+
+  const float* pa = pos_a + static_cast<size_t>(bi) * T * K;
+  const float* pb = pos_b + static_cast<size_t>(bj) * T * K;
+  for (int t = threadIdx.x; t < T * 4; t += 2 * T) {
+    const int r = t / 4, k = t - 4 * (t / 4);
+    sa[k * T + r] = k < K ? pa[r * K + k] : 1.f;  // unit masses: m = 1
+    sb[k * T + r] = k < K ? pb[r * K + k] : 1.f;
+  }
+  const float* ha = g_a + static_cast<size_t>(bi) * T * 3;
+  const float* hb = g_b + static_cast<size_t>(bj) * T * 3;
+  for (int t = threadIdx.x; t < T * 3; t += 2 * T) {
+    const int r = t / 3, k = t - 3 * (t / 3);
+    sa[(4 + k) * T + r] = ha[t];
+    sb[(4 + k) * T + r] = hb[t];
+  }
+  __syncthreads();
+
+  float f[4] = {0.f, 0.f, 0.f, 0.f};
+  if (kind == kSlotDiag) {
+    if (threadIdx.x < T) {
+      const int r = threadIdx.x;
+      ordered_row<T, kMass, kMassGrad>(A, B, r, softening, f);
+      add_row(acc_a + (static_cast<size_t>(bi) * T + r) * KO, f, KO, 1.f);
+    }
+    return;
+  }
+
+  // w and c once per (r, c). Rows are block a and columns block b, except
+  // in a fold, where both are block a below the diagonal and b above it.
+  for (int e = threadIdx.x; e < T * T; e += 2 * T) {
+    const int r = e / T, c = e % T;
+    const Blk<T> P = (fold && c > r) ? B : A;
+    const Blk<T> Q = fold ? P : B;
+    const float dx = Q.p[c] - P.p[r];
+    const float dy = Q.p[T + c] - P.p[T + r];
+    const float dz = Q.p[2 * T + c] - P.p[2 * T + r];
+    float w, u;
+    weights(dx * dx + dy * dy + dz * dz, softening, mask_offdiag, &w, &u);
+    if (fold && c == r) w = u = 0.f;
+    const float dot_a = P.g[r] * dx + P.g[T + r] * dy + P.g[2 * T + r] * dz;
+    const float dot_b = Q.g[c] * dx + Q.g[T + c] * dy + Q.g[2 * T + c] * dz;
+    const float cc =
+        kMass ? 3.f * (u * (Q.p[3 * T + c] * dot_a - P.p[3 * T + r] * dot_b))
+              : 3.f * (u * (dot_a - dot_b));
+    W[r * LD + c] = w;
+    C[r * LD + c] = cc;
+  }
+  __syncthreads();
+
+  if (threadIdx.x < T) {  // row pass
+    const int r = threadIdx.x;
+    const float* Wr = W + r * LD;
+    const float* Cr = C + r * LD;
+    float* dst_a = acc_a + (static_cast<size_t>(bi) * T + r) * KO;
+    if (!fold) {
+      row_sums<T, kMass, kMassGrad>(Wr, Cr, A, B, r, 0, T, f);
+      add_row(dst_a, f, KO, 1.f);
+    } else {
+      row_sums<T, kMass, kMassGrad>(Wr, Cr, A, A, r, 0, r, f);
+      add_row(dst_a, f, KO, 1.f);
+      f[0] = f[1] = f[2] = f[3] = 0.f;
+      row_sums<T, kMass, kMassGrad>(Wr, Cr, B, B, r, r + 1, T, f);
+      add_row(acc_b + (static_cast<size_t>(bj) * T + r) * KO, f, KO, 1.f);
+    }
+  } else {  // reaction pass
+    const int c = threadIdx.x - T;
+    float* dst_b = acc_b + (static_cast<size_t>(bj) * T + c) * KO;
+    if (!fold) {
+      col_sums<T, kMass, kMassGrad>(W, C, A, B, c, 0, T, f);
+      add_row(dst_b, f, KO, -1.f);
+    } else {
+      col_sums<T, kMass, kMassGrad>(W, C, A, A, c, c + 1, T, f);
+      add_row(acc_a + (static_cast<size_t>(bi) * T + c) * KO, f, KO,
+                 -1.f);
+      f[0] = f[1] = f[2] = f[3] = 0.f;
+      col_sums<T, kMass, kMassGrad>(W, C, B, B, c, 0, c, f);
+      add_row(dst_b, f, KO, -1.f);
+    }
+  }
+}
+
+template <int T, int K, int KO>
+int launch_sym(const int* slots, int n_slots, const float* pos_a,
+               const float* pos_b, const float* g_a, const float* g_b,
+               float* acc_a, float* acc_b, float softening, int mask_offdiag,
+               cudaStream_t stream) {
+  constexpr size_t smem = sym_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      vjp_sym_kernel<T, K, KO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vjp_sym_kernel<T, K, KO><<<n_slots, 2 * T, smem, stream>>>(
+      slots, pos_a, pos_b, g_a, g_b, acc_a, acc_b, softening, mask_offdiag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int T>
+int dispatch_sym(const int* slots, int n_slots, const float* pos_a,
+                 const float* pos_b, const float* g_a, const float* g_b,
+                 float* acc_a, float* acc_b, int k, int ko, float softening,
+                 int mask_offdiag, cudaStream_t s) {
+  if (k == 3 && ko == 3)
+    return launch_sym<T, 3, 3>(slots, n_slots, pos_a, pos_b, g_a, g_b,
+                               acc_a, acc_b, softening, mask_offdiag, s);
+  if (k == 4 && ko == 3)
+    return launch_sym<T, 4, 3>(slots, n_slots, pos_a, pos_b, g_a, g_b,
+                               acc_a, acc_b, softening, mask_offdiag, s);
+  if (k == 4 && ko == 4)
+    return launch_sym<T, 4, 4>(slots, n_slots, pos_a, pos_b, g_a, g_b,
+                               acc_a, acc_b, softening, mask_offdiag, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// B10. pos_k, g_k (nk, 3), mass_k (nk,) or NULL; pos_j, g_j (nj, 3), mass_j
+// (nj,) or NULL (masses both or neither); out (nk, 3): fp32, contiguous, on
+// the current device. overlap_only: mask d2 == 0 only in the tile whose j
+// range is the block's k range (square calls). block: threads per block and
+// j-tile size, a multiple of 32 up to 1024. Returns cudaGetLastError().
+extern "C" int vjp_ordered_launch(const float* pos_k, const float* g_k,
+                                  const float* mass_k, int nk,
+                                  const float* pos_j, const float* g_j,
+                                  const float* mass_j, int nj, float* out,
+                                  float softening, int overlap_only,
+                                  int block, void* stream) {
+  if (block <= 0 || block > 1024 || block % 32 != 0 ||
+      (mass_k == nullptr) != (mass_j == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nk == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = (nk + block - 1) / block;
+  const size_t smem = 2 * block * sizeof(float4);
+  if (mass_k != nullptr)
+    vjp_ordered_kernel<true><<<grid, block, smem, s>>>(
+        pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
+        overlap_only);
+  else
+    vjp_ordered_kernel<false><<<grid, block, smem, s>>>(
+        pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
+        overlap_only);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B11. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b (rows, k),
+// k = 3 (unit masses) or 4 (x, y, z, m); g_a / g_b (rows, 3); acc_a / acc_b
+// (rows, ko), ko = 3, or 4 with the mass cotangent (k = 4 only); rows of each
+// a multiple of tile; fp32, contiguous, on the current device. The sums are
+// ADDED into acc_a / acc_b. tile: 64 or 128. Returns cudaGetLastError().
+extern "C" int vjp_sym_launch(const int* slots, int n_slots,
+                              const float* pos_a, const float* pos_b,
+                              const float* g_a, const float* g_b,
+                              float* acc_a, float* acc_b, int k, int ko,
+                              int tile, float softening, int mask_offdiag,
+                              void* stream) {
+  if (n_slots == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile == 64)
+    return dispatch_sym<64>(slots, n_slots, pos_a, pos_b, g_a, g_b, acc_a,
+                            acc_b, k, ko, softening, mask_offdiag, s);
+  if (tile == 128)
+    return dispatch_sym<128>(slots, n_slots, pos_a, pos_b, g_a, g_b, acc_a,
+                             acc_b, k, ko, softening, mask_offdiag, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,504 @@
+// B13: the bf16-class pair-once force VJP on K2's slot + fold geometry.
+// B14: its row half on a full rectangular grid.
+//
+// With d = p_b - p_a, s = |d|^2 + softening, inv = rsqrt(s), w = inv^3,
+// u = w inv^2, a pair's gradient term to a (and -1x to b) is
+//   t = w (m_a g_b - m_b g_a) + c d,   c = 3 u (m_b (g_a.d) - m_a (g_b.d)).
+// Only w and c depend on both bodies, so the sums of t are products against
+// per-body operands A_g = [g | m] and A_p = [p | 1]: rows S_g = W @ A_g,
+// S_p = C @ A_p; reactions the same with W^T and C^T (the minus of -t sits
+// in the transposed contraction). Rows and reactions add into one (c, 8)
+// accumulator [S_g | S_p]; the wrapper forms pos_bar = m S_g[:3] - g S_g[3]
+// + S_p[:3] - p S_p[3] (_combine) once. The mass cotangent, -w (g_b.d) to a
+// and +w (g_a.d) to b, is a 9th column summed in fp32 on the CUDA cores.
+//
+// B13 replaces mini_nbody_tpu/ops/vjp_mxu.py:134 `_bwd_tri_kernel`
+// (`vjp_pos_sym_mxu`, :342); B14 replaces :179 `_bwd_rect_kernel`
+// (`vjp_rect_mxu`, :657), which autodiff calls square beyond the symmetric
+// bound. Both keep JAX's numerics: w and c in fp32 (_wc_block, :74-109),
+// rounded to bf16 in shared memory, operands split into compensated hi/lo
+// bf16 halves by the wrapper (_split8, :224-228), fp32 accumulation; JAX
+// folds hi + lo per block (:117-121), and so do these kernels before their
+// atomics (B13) or their store (B14).
+//
+// B13: one CTA of 256 threads per slot (kind, bi, bj), as K2
+// (csrc/slot_pipe.cu). All threads compute the T x T tiles of w and c
+// (bf16, rows padded to T + 8); then each warp owns one 32-row output tile
+// of one side and runs two m32n8k16 wmma products over the tile's T
+// columns, [W @ Qg | C @ Qp] for rows and, through col_major loads of the
+// same tiles, [W^T @ Qg | C^T @ Qp] for reactions.
+//   DIAG  (bi == bj): always masked where d2 == 0, row sums only (the rows
+//         cover both orders).
+//   CROSS: rows into acc_a[bi] with block bj's operands, reactions into
+//         acc_b[bj] with block bi's.
+//   FOLD  (bj == bi + 1): entry (r, c) is pair (a_r, a_c) for c < r (tiles
+//         0) and (b_r, b_c) for c > r (tiles 1); the diagonal is always
+//         masked; each block adds its tile's rows and reactions.
+// CROSS and FOLD are masked where d2 == 0 iff mask_offdiag. Results reach
+// the (c, 8|9) accumulators by atomicAdd (16 per body and side per slot,
+// one more for the mass column), so they are not bitwise reproducible
+// (ROADMAP B17). The TPU's single-launch bound does not apply: the wrapper
+// keeps K3's chunk loop.
+//
+// B14: one CTA of 256 threads per k tile of T receivers, looping over the j
+// tiles: stage the j tile, compute its w and c tiles, and let warp
+// (product, m) accumulate one 32 x 8 fragment of [W @ Qg | C @ Qp] across
+// every j tile in registers. No reaction side, no atomics: each CTA writes
+// its own rows, so B14 is deterministic. overlap_only (square calls under
+// coincident routing, vjp_mxu.py:207-221) drops the d2 == 0 select in the
+// tiles whose j range is not the CTA's k range.
+//
+// Numerics against the plain version: the fp32 pipeline of w and c is
+// written with round-to-nearest intrinsics in the plain version's order of
+// operations (no FMA contraction), so the kernel's fp32 w and c are the
+// plain version's wherever rsqrtf is torch.rsqrt's, and both round them to
+// the same bf16; what remains is the order of the fp32 sums.
+//
+// Pads: the wrappers pad B13's positions with FAR (zero mass in mass mode)
+// and zero cotangents, and B14 fills its ragged edges with the same in
+// shared memory (zero operands): against FAR, w and u underflow to 0, so
+// w = c = 0; pad-pad pairs have g = 0 and d = 0, so c = 0, and their w lands
+// only in pad rows.
+//
+// What bounds them on an H100: the fp32 pipeline of w and c (~30 fp32
+// operations and one rsqrt per pair, JAX's count, vjp_mxu.py:367), then
+// shared memory: each bf16 tile element is written once and read by two
+// wmma loads (B13: rows and reactions). The products are 32 x 8 x T
+// (N = 8) and keep the tensor cores mostly idle. B13 takes 61,440 bytes of
+// shared memory per CTA at T = 64 and 172,032 at T = 128; B14 89,088 at
+// T = 128. The launches raise the dynamic limit first and return
+// cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr float kFar = 1.0e18f;
+constexpr int kSlotDiag = 0;
+constexpr int kSlotFold = 2;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+using Frag = wmma::fragment<wmma::accumulator, 32, 8, 16, float>;
+using FragB = wmma::fragment<wmma::matrix_b, 32, 8, 16, __nv_bfloat16,
+                             wmma::row_major>;
+using FragA = wmma::fragment<wmma::matrix_a, 32, 8, 16, __nv_bfloat16,
+                             wmma::row_major>;
+using FragAt = wmma::fragment<wmma::matrix_a, 32, 8, 16, __nv_bfloat16,
+                              wmma::col_major>;
+
+// A staged block of T bodies, fp32: x, y, z, m, gx, gy, gz (7 x T).
+constexpr int kRows = 7;
+
+// fp32 w and c of rows P[r] against columns Q[c], every product and sum
+// rounded on its own in the plain version's order; dot_a = g_P.d,
+// dot_b = g_Q.d. mask zeroes w and u where d2 == 0.
+template <int T, bool kMass>
+__device__ __forceinline__ void wc(const float* P, const float* Q, int r,
+                                   int c, float softening, bool mask,
+                                   float& w, float& cc, float& dot_a,
+                                   float& dot_b) {
+  const float dx = __fsub_rn(Q[c], P[r]);
+  const float dy = __fsub_rn(Q[T + c], P[T + r]);
+  const float dz = __fsub_rn(Q[2 * T + c], P[2 * T + r]);
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                             __fmul_rn(dz, dz));
+  const float inv = rsqrtf(__fadd_rn(d2, softening));
+  const float inv2 = __fmul_rn(inv, inv);
+  w = __fmul_rn(inv2, inv);
+  float u = __fmul_rn(w, inv2);
+  if (mask && d2 == 0.f) w = u = 0.f;
+  dot_a = __fadd_rn(__fadd_rn(__fmul_rn(P[4 * T + r], dx),
+                              __fmul_rn(P[5 * T + r], dy)),
+                    __fmul_rn(P[6 * T + r], dz));
+  dot_b = __fadd_rn(__fadd_rn(__fmul_rn(Q[4 * T + c], dx),
+                              __fmul_rn(Q[5 * T + c], dy)),
+                    __fmul_rn(Q[6 * T + c], dz));
+  const float diff =
+      kMass ? __fsub_rn(__fmul_rn(Q[3 * T + c], dot_a),
+                        __fmul_rn(P[3 * T + r], dot_b))
+            : __fsub_rn(dot_a, dot_b);
+  cc = __fmul_rn(3.f, __fmul_rn(u, diff));
+}
+
+// Stage T bodies starting at row `row0` of pos (n, K), g (n, 3) and, when q
+// is given, the operands q (n, 16) -> Qg, Qp (T x 8 bf16). Rows past n are
+// FAR with zero mass, cotangent and operands.
+template <int T, int K>
+__device__ __forceinline__ void stage(const float* __restrict__ pos,
+                                      const float* __restrict__ g,
+                                      const float* __restrict__ q, int row0,
+                                      int n, float* S, __nv_bfloat16* Qg,
+                                      __nv_bfloat16* Qp) {
+  for (int t = threadIdx.x; t < T * 4; t += kThreads) {
+    const int r = t / 4, k = t % 4, row = row0 + r;
+    float v = (k == 3) ? 0.f : kFar;
+    if (row < n) v = k < K ? pos[static_cast<size_t>(row) * K + k] : 1.f;
+    S[k * T + r] = v;
+  }
+  for (int t = threadIdx.x; t < T * 3; t += kThreads) {
+    const int r = t / 3, k = t % 3, row = row0 + r;
+    S[(4 + k) * T + r] = row < n ? g[static_cast<size_t>(row) * 3 + k] : 0.f;
+  }
+  if (q == nullptr) return;
+  for (int t = threadIdx.x; t < T * 16; t += kThreads) {
+    const int r = t / 16, k = t % 16, row = row0 + r;
+    const float v = row < n ? q[static_cast<size_t>(row) * 16 + k] : 0.f;
+    (k < 8 ? Qg : Qp)[r * 8 + (k % 8)] = __float2bfloat16_rn(v);
+  }
+}
+
+// Fold a warp's [hi | lo] products (32 x 8 each, row-major in `s`) and add
+// or store row `lane` as 4 columns at dst.
+__device__ __forceinline__ void fold_row(const float* s, int lane,
+                                         float* out) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) out[q] = s[lane * 8 + q] + s[lane * 8 + q + 4];
+}
+
+// ---------------------------------------------------------------- B13 ---
+
+template <int T>
+constexpr size_t mxu_smem_bytes() {
+  return 4 * T * (T + 8) * sizeof(__nv_bfloat16)  // W, C (x2 for a fold)
+         + 4 * T * 8 * sizeof(__nv_bfloat16)     // Qg, Qp of both blocks
+         + kWarps * 2 * 32 * 8 * sizeof(float)    // per-warp products
+         + (2 * kRows + 2) * T * sizeof(float);   // blocks, mass sums
+}
+
+template <int T, int K, int KO>
+__global__ void __launch_bounds__(kThreads)
+    vjp_mxu_kernel(const int* __restrict__ slots,
+                   const float* __restrict__ pos_a,
+                   const float* __restrict__ pos_b,
+                   const float* __restrict__ g_a,
+                   const float* __restrict__ g_b,
+                   const float* __restrict__ q_a,
+                   const float* __restrict__ q_b, float* acc_a, float* acc_b,
+                   float softening, int mask_offdiag) {
+  constexpr int LD = T + 8;
+  constexpr int kTile = T * LD;
+  constexpr int kMTiles = T / 32;
+  constexpr bool kMass = K == 4;
+  constexpr bool kMassGrad = KO == 9;
+  static_assert(2 * kMTiles <= kWarps, "one warp per 32-row output tile");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
+  // tiles + (2 s + 0) kTile: W (s = 0) or the fold's W_hi (s = 1);
+  // tiles + (2 s + 1) kTile: C likewise.
+  __nv_bfloat16* QgA = tiles + 4 * kTile;
+  __nv_bfloat16* QpA = QgA + T * 8;
+  __nv_bfloat16* QgB = QpA + T * 8;
+  __nv_bfloat16* QpB = QgB + T * 8;
+  float* scratch = reinterpret_cast<float*>(QpB + T * 8);
+  float* SA = scratch + kWarps * 2 * 32 * 8;
+  float* SB = SA + kRows * T;
+  float* MA = SB + kRows * T;  // mass cotangent sums of block bi
+  float* MB = MA + T;          // and of block bj
+
+  const int kind = slots[3 * blockIdx.x];
+  const int bi = slots[3 * blockIdx.x + 1];
+  const int bj = slots[3 * blockIdx.x + 2];
+  const bool fold = kind == kSlotFold;
+  const bool mask = kind == kSlotDiag || mask_offdiag;
+
+  stage<T, K>(pos_a, g_a, q_a, bi * T, (bi + 1) * T, SA, QgA, QpA);
+  stage<T, K>(pos_b, g_b, q_b, bj * T, (bj + 1) * T, SB, QgB, QpB);
+  for (int t = threadIdx.x; t < 2 * T; t += kThreads) MA[t] = 0.f;
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < T * T; e += kThreads) {
+    const int r = e / T, c = e % T;
+    const bool upper = fold && c > r;
+    const float* P = upper ? SB : SA;
+    const float* Q = fold ? P : SB;
+    float w, cc, dot_a, dot_b;
+    wc<T, kMass>(P, Q, r, c, softening, mask, w, cc, dot_a, dot_b);
+    if (fold && r == c) w = cc = 0.f;
+    const int s = upper ? 1 : 0;
+    tiles[(2 * s) * kTile + r * LD + c] = __float2bfloat16_rn(w);
+    tiles[(2 * s + 1) * kTile + r * LD + c] = __float2bfloat16_rn(cc);
+    if (fold) {
+      tiles[(2 - 2 * s) * kTile + r * LD + c] = __float2bfloat16_rn(0.f);
+      tiles[(3 - 2 * s) * kTile + r * LD + c] = __float2bfloat16_rn(0.f);
+    }
+    if (kMassGrad) {
+      // A warp's 32 entries share row r (T is a multiple of 32): reduce the
+      // row terms in registers, one shared atomic per block side. The
+      // column terms go to 32 distinct columns.
+      const float m_r = -__fmul_rn(w, dot_b);
+      float lo = upper ? 0.f : m_r, hi = upper ? m_r : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+        lo += __shfl_xor_sync(0xffffffffu, lo, off);
+        hi += __shfl_xor_sync(0xffffffffu, hi, off);
+      }
+      if (threadIdx.x % 32 == 0) {
+        atomicAdd(MA + r, lo);
+        if (fold) atomicAdd(MB + r, hi);
+      }
+      if (kind != kSlotDiag)
+        atomicAdd((upper ? MB : (fold ? MA : MB)) + c, __fmul_rn(w, dot_a));
+    }
+  }
+  __syncthreads();
+
+  if (kMassGrad) {
+    const int t = threadIdx.x;
+    if (t < T)
+      atomicAdd(acc_a + (static_cast<size_t>(bi) * T + t) * KO + 8, MA[t]);
+    else if (t < 2 * T && kind != kSlotDiag)
+      atomicAdd(acc_b + (static_cast<size_t>(bj) * T + t - T) * KO + 8,
+                MB[t - T]);
+  }
+
+  // Warp -> (side, 32-row output tile). Side 0 accumulates into block bi of
+  // acc_a, side 1 into block bj of acc_b.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int side = warp / kMTiles, m = warp % kMTiles;
+  if (side > 1 || (kind == kSlotDiag && side == 1)) return;
+  const bool rows = fold || side == 0;  // [W | C] @ operands
+  const bool cols = fold || side == 1;  // [W | C]^T @ operands
+  const __nv_bfloat16* Wt = tiles + (fold && side == 1 ? 2 * kTile : 0);
+  const __nv_bfloat16* Ct = Wt + kTile;
+  // FOLD: each side multiplies its own block's operands; DIAG / CROSS:
+  // rows take block bj's (the column bodies), reactions block bi's.
+  const bool own_a = (side == 0) == fold;
+  const __nv_bfloat16* Qg = own_a ? QgA : QgB;
+  const __nv_bfloat16* Qp = own_a ? QpA : QpB;
+
+  Frag fg, fp;
+  wmma::fill_fragment(fg, 0.f);
+  wmma::fill_fragment(fp, 0.f);
+#pragma unroll 2
+  for (int k = 0; k < T / 16; ++k) {
+    FragB bg, bp;
+    wmma::load_matrix_sync(bg, Qg + k * 16 * 8, 8);
+    wmma::load_matrix_sync(bp, Qp + k * 16 * 8, 8);
+    if (rows) {
+      FragA a;
+      wmma::load_matrix_sync(a, Wt + m * 32 * LD + k * 16, LD);
+      wmma::mma_sync(fg, a, bg, fg);
+      wmma::load_matrix_sync(a, Ct + m * 32 * LD + k * 16, LD);
+      wmma::mma_sync(fp, a, bp, fp);
+    }
+    if (cols) {
+      FragAt at;
+      wmma::load_matrix_sync(at, Wt + k * 16 * LD + m * 32, LD);
+      wmma::mma_sync(fg, at, bg, fg);
+      wmma::load_matrix_sync(at, Ct + k * 16 * LD + m * 32, LD);
+      wmma::mma_sync(fp, at, bp, fp);
+    }
+  }
+  float* sg = scratch + warp * 2 * 32 * 8;
+  float* sp = sg + 32 * 8;
+  wmma::store_matrix_sync(sg, fg, 8, wmma::mem_row_major);
+  wmma::store_matrix_sync(sp, fp, 8, wmma::mem_row_major);
+  __syncwarp();
+  float v[8];
+  fold_row(sg, lane, v);
+  fold_row(sp, lane, v + 4);
+  float* dst = (side == 0 ? acc_a + static_cast<size_t>(bi) * T * KO
+                          : acc_b + static_cast<size_t>(bj) * T * KO) +
+               static_cast<size_t>(m * 32 + lane) * KO;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) atomicAdd(dst + q, v[q]);
+}
+
+template <int T, int K, int KO>
+int launch_mxu(const int* slots, int n_slots, const float* pos_a,
+               const float* pos_b, const float* g_a, const float* g_b,
+               const float* q_a, const float* q_b, float* acc_a,
+               float* acc_b, float softening, int mask_offdiag,
+               cudaStream_t stream) {
+  constexpr size_t smem = mxu_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      vjp_mxu_kernel<T, K, KO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vjp_mxu_kernel<T, K, KO><<<n_slots, kThreads, smem, stream>>>(
+      slots, pos_a, pos_b, g_a, g_b, q_a, q_b, acc_a, acc_b, softening,
+      mask_offdiag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int T>
+int dispatch_mxu(const int* slots, int n_slots, const float* pos_a,
+                 const float* pos_b, const float* g_a, const float* g_b,
+                 const float* q_a, const float* q_b, float* acc_a,
+                 float* acc_b, int masses, int ko, float softening,
+                 int mask_offdiag, cudaStream_t s) {
+  if (!masses && ko == 8)
+    return launch_mxu<T, 3, 8>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
+                               q_b, acc_a, acc_b, softening, mask_offdiag, s);
+  if (masses && ko == 8)
+    return launch_mxu<T, 4, 8>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
+                               q_b, acc_a, acc_b, softening, mask_offdiag, s);
+  if (masses && ko == 9)
+    return launch_mxu<T, 4, 9>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
+                               q_b, acc_a, acc_b, softening, mask_offdiag, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------- B14 ---
+
+template <int T>
+constexpr size_t rect_smem_bytes() {
+  return 2 * T * (T + 8) * sizeof(__nv_bfloat16)  // W, C
+         + 2 * T * 8 * sizeof(__nv_bfloat16)      // Qg, Qp of the j tile
+         + kWarps * 32 * 8 * sizeof(float)        // per-warp products
+         + 2 * kRows * T * sizeof(float);         // k and j blocks
+}
+
+template <int T, int K>
+__global__ void __launch_bounds__(kThreads)
+    vjp_rect_mxu_kernel(const float* __restrict__ pos_k,
+                        const float* __restrict__ g_k, int nk,
+                        const float* __restrict__ pos_j,
+                        const float* __restrict__ g_j,
+                        const float* __restrict__ q_j, int nj,
+                        float* __restrict__ rows, float softening,
+                        int overlap_only) {
+  constexpr int LD = T + 8;
+  constexpr int kTile = T * LD;
+  constexpr int kMTiles = T / 32;
+  constexpr bool kMass = K == 4;
+  static_assert(2 * kMTiles <= kWarps, "one warp per output fragment");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Wt = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ct = Wt + kTile;
+  __nv_bfloat16* Qg = Ct + kTile;
+  __nv_bfloat16* Qp = Qg + T * 8;
+  float* scratch = reinterpret_cast<float*>(Qp + T * 8);
+  float* SK = scratch + kWarps * 32 * 8;
+  float* SJ = SK + kRows * T;
+
+  const int kt = blockIdx.x;
+  stage<T, K>(pos_k, g_k, nullptr, kt * T, nk, SK, nullptr, nullptr);
+
+  // Warp -> (product, 32-row tile): product 0 is W @ Qg, 1 is C @ Qp.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int prod = warp / kMTiles, m = warp % kMTiles;
+  const bool active = prod < 2;
+  const __nv_bfloat16* A = prod == 0 ? Wt : Ct;
+  const __nv_bfloat16* Bop = prod == 0 ? Qg : Qp;
+  Frag f;
+  wmma::fill_fragment(f, 0.f);
+
+  const int n_jt = (nj + T - 1) / T;
+  for (int jt = 0; jt < n_jt; ++jt) {
+    __syncthreads();  // the previous tile's products are done
+    stage<T, K>(pos_j, g_j, q_j, jt * T, nj, SJ, Qg, Qp);
+    __syncthreads();
+    const bool mask = !overlap_only || jt == kt;
+    for (int e = threadIdx.x; e < T * T; e += kThreads) {
+      const int r = e / T, c = e % T;
+      float w, cc, dot_a, dot_b;
+      wc<T, kMass>(SK, SJ, r, c, softening, mask, w, cc, dot_a, dot_b);
+      Wt[r * LD + c] = __float2bfloat16_rn(w);
+      Ct[r * LD + c] = __float2bfloat16_rn(cc);
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll 2
+      for (int k = 0; k < T / 16; ++k) {
+        FragB b;
+        wmma::load_matrix_sync(b, Bop + k * 16 * 8, 8);
+        FragA a;
+        wmma::load_matrix_sync(a, A + m * 32 * LD + k * 16, LD);
+        wmma::mma_sync(f, a, b, f);
+      }
+    }
+  }
+  if (!active) return;
+  float* s = scratch + warp * 32 * 8;
+  wmma::store_matrix_sync(s, f, 8, wmma::mem_row_major);
+  __syncwarp();
+  const int row = kt * T + m * 32 + lane;
+  if (row < nk) {
+    float v[4];
+    fold_row(s, lane, v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      rows[static_cast<size_t>(row) * 8 + prod * 4 + q] = v[q];
+  }
+}
+
+template <int T, int K>
+int launch_rect(const float* pos_k, const float* g_k, int nk,
+                const float* pos_j, const float* g_j, const float* q_j,
+                int nj, float* rows, float softening, int overlap_only,
+                cudaStream_t stream) {
+  constexpr size_t smem = rect_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      vjp_rect_mxu_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (nk + T - 1) / T;
+  vjp_rect_mxu_kernel<T, K><<<grid, kThreads, smem, stream>>>(
+      pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows, softening, overlap_only);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// B13. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b (rows, 3), or
+// (rows, 4) with masses (x, y, z, m); g_a / g_b (rows, 3); q_a / q_b
+// (rows, 16) operands [split([g | m]) | split([p | 1])]; acc_a / acc_b
+// (rows, ko), ko = 8, or 9 with the mass cotangent (masses only); rows of
+// each a multiple of tile; fp32, contiguous, on the current device. The
+// sums are ADDED into acc_a / acc_b. tile: 64 or 128. Returns
+// cudaGetLastError() after the launch.
+extern "C" int vjp_mxu_launch(const int* slots, int n_slots,
+                              const float* pos_a, const float* pos_b,
+                              const float* g_a, const float* g_b,
+                              const float* q_a, const float* q_b,
+                              float* acc_a, float* acc_b, int masses, int ko,
+                              int tile, float softening, int mask_offdiag,
+                              void* stream) {
+  if (n_slots == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile == 64)
+    return dispatch_mxu<64>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a, q_b,
+                            acc_a, acc_b, masses, ko, softening,
+                            mask_offdiag, s);
+  if (tile == 128)
+    return dispatch_mxu<128>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
+                             q_b, acc_a, acc_b, masses, ko, softening,
+                             mask_offdiag, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B14. pos_k (nk, 3|4), g_k (nk, 3); pos_j (nj, 3|4), g_j (nj, 3), q_j
+// (nj, 16) operands as B13's; rows (nk, 8) raw [S_g | S_p] out; masses: the
+// positions carry m as a 4th column; fp32, contiguous, on the current
+// device. overlap_only: mask d2 == 0 only in the j tile that is the CTA's k
+// tile (square calls). tile: 64 or 128. Returns cudaGetLastError().
+extern "C" int vjp_rect_mxu_launch(const float* pos_k, const float* g_k,
+                                   int nk, const float* pos_j,
+                                   const float* g_j, const float* q_j, int nj,
+                                   float* rows, int masses, int tile,
+                                   float softening, int overlap_only,
+                                   void* stream) {
+  if (nk == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile == 64 && !masses)
+    return launch_rect<64, 3>(pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows,
+                              softening, overlap_only, s);
+  if (tile == 64 && masses)
+    return launch_rect<64, 4>(pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows,
+                              softening, overlap_only, s);
+  if (tile == 128 && !masses)
+    return launch_rect<128, 3>(pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows,
+                               softening, overlap_only, s);
+  if (tile == 128 && masses)
+    return launch_rect<128, 4>(pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows,
+                               softening, overlap_only, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

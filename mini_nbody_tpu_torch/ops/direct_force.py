@@ -61,7 +61,8 @@ def body_force_direct(pos_i, pos_j, mass_j=None,
 
     CPU tensors take direct_force_plain. CUDA tensors launch K1 with
     ``block`` threads per block (a multiple of 32 up to 1024; each block
-    stages j in tiles of that size) or raise."""
+    stages j in tiles of that size) or raise, as they do when an input
+    requires grad under grad mode (``_build.refuse_grad``)."""
     device = pos_i.device
     ni, nj = pos_i.shape[0], pos_j.shape[0]
     f32 = torch.float32
@@ -69,9 +70,10 @@ def body_force_direct(pos_i, pos_j, mass_j=None,
     _build.check_tensor("pos_j", pos_j, (nj, 3), f32, device)
     if mass_j is not None:
         _build.check_tensor("mass_j", mass_j, (nj,), f32, device)
-    if device.type == "cpu":
+    if not _build.on_card(device):
         return direct_force_plain(pos_i, pos_j, mass_j, softening)
-    _check_cuda(device, block)
+    _check_block(block)
+    _build.refuse_grad("body_force_direct", pos_i, pos_j, mass_j)
     global LAUNCHES
     lib = _build.load_library()
     out = torch.empty((ni, 3), dtype=torch.float32, device=device)
@@ -86,9 +88,7 @@ def body_force_direct(pos_i, pos_j, mass_j=None,
     return out
 
 
-def _check_cuda(device, block):
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
+def _check_block(block):
     if block % 32 != 0 or not 32 <= block <= 1024:
         raise ValueError(f"block must be a multiple of 32 in [32, 1024], "
                          f"got {block}")
@@ -115,9 +115,10 @@ def euler_step_fused(pos, vel, mass=None, dt: float = 0.01,
     _build.check_tensor("vel", vel, (n, 3), f32, device)
     if mass is not None:
         _build.check_tensor("mass", mass, (n,), f32, device)
-    if device.type == "cpu":
+    if not _build.on_card(device):
         return euler_step_fused_plain(pos, vel, mass, dt, softening)
-    _check_cuda(device, block)
+    _check_block(block)
+    _build.refuse_grad("euler_step_fused", pos, vel, mass)
     global FUSED_LAUNCHES
     lib = _build.load_library()
     pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)

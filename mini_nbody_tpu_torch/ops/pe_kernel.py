@@ -68,10 +68,9 @@ def potential_energy_kernel(pos, mass=None, softening: float = SOFTENING):
     _build.check_tensor("pos", pos, (n, 3), f32, device)
     if mass is not None:
         _build.check_tensor("mass", mass, (n,), f32, device)
-    if device.type == "cpu":
+    if not _build.on_card(device):
         return potential_energy_plain(pos, mass, softening)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
+    _build.refuse_grad("potential_energy_kernel", pos, mass)
     global LAUNCHES
     lib = _build.load_library()
     rows = torch.empty((n,), dtype=f32, device=device)

@@ -158,12 +158,11 @@ def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
         _build.check_tensor(name, t, (c, width), torch.float32, device)
     _build.check_tensor("slots", slots, (slots.shape[0], 3), torch.int32,
                         device)
-    if device.type == "cpu":
+    if not _build.on_card(device):
         _slot_sums_plain(acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
                          softening, split_w, mask_offdiag)
         return
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
+    _build.refuse_grad("slot_pipe", pos_a, pos_b, v_a, v_b)
     if tile not in KERNEL_TILES:
         raise ValueError(f"the CUDA slot kernel takes tile in {KERNEL_TILES}, "
                          f"got {tile}")

@@ -149,12 +149,11 @@ def symmetric_sums_(acc_a, acc_b, pos_a, pos_b, slots, tile, softening):
             raise ValueError("each accumulator needs the rows of its bodies")
     _build.check_tensor("slots", slots, (slots.shape[0], 3), torch.int32,
                         device)
-    if device.type == "cpu":
+    if not _build.on_card(device):
         symmetric_sums_plain(acc_a, acc_b, pos_a, pos_b, slots, tile,
                              softening)
         return
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
+    _build.refuse_grad("symmetric_sums_", pos_a, pos_b)
     if tile not in KERNEL_TILES:
         raise ValueError(f"the CUDA symmetric kernel takes tile in "
                          f"{KERNEL_TILES}, got {tile}")

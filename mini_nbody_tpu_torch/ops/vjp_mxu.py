@@ -1,0 +1,370 @@
+"""The force VJP in the bf16 class: pair-once (B13) and rectangular (B14),
+the backward of the ``sym_mxu`` forward.
+
+Counterpart of ``mini_nbody_tpu/ops/vjp_mxu.py`` (``:74-109`` _wc_block,
+``:112-131`` _row_sums / _col_sums, ``:134-221`` the two kernels,
+``:224-245`` _split8 / _combine, ``:263-383`` vjp_pos_sym_mxu, ``:531-700``
+vjp_rect_mxu). With d = p_b - p_a, s = |d|^2 + eps, w = s^-3/2, u = s^-5/2,
+a pair's gradient term to a (and -1x to b) is
+
+    t = w (m_a g_b - m_b g_a) + c d,   c = 3 u (m_b (g_a.d) - m_a (g_b.d)).
+
+Only the scalars w and c depend on both bodies, so every sum of t is two
+products against per-body operands, A_g = [g | m] and A_p = [p | 1]:
+
+    rows:      S_g = W @ A_g,  S_p = C @ A_p
+    reactions: S_g = W^T @ A_g,  S_p = C^T @ A_p   (the minus is in the
+               transposed contraction: -t = w (m_b g_a - m_a g_b) + c (p_a
+               - p_b))
+    pos_bar = m S_g[:3] - g S_g[3] + S_p[:3] - p S_p[3]     (_combine)
+
+so rows and reactions add into one (Np, 8) accumulator [S_g | S_p] and the
+combine runs once. w and c are fp32; the products take them and the
+operands in bf16 (the operands split into compensated [hi | lo] halves,
+_split8) with fp32 accumulation: the bf16 error class of the forward. The
+mass cotangent, -w (g_b.d) to a and +w (g_a.d) to b, is a 9th column summed
+in fp32.
+
+- ``vjp_pos_sym_mxu`` launches B13 (``csrc/vjp_mxu.cu``) on K2's slot +
+  fold geometry and the chunk loop of K3; CPU tensors take
+  ``vjp_mxu_sums_plain``.
+- ``vjp_rect_mxu`` launches B14 (same source), B13's row half on a full
+  rectangular grid; CPU tensors take ``vjp_rect_mxu_plain``.
+
+The plain versions compute w and c in fp32 in the kernels' order of
+operations; ``mma_dtype=torch.float32`` multiplies in fp32 (JAX's CPU
+interpret run) and ``torch.bfloat16`` rounds w, c and the operands to bf16
+as the tensor cores do. Pads are FAR in both mass modes (zero mass in mass
+mode, unit mass otherwise) with zero cotangents; the self diagonal always
+masks. The ensemble VJP waits for the ensembles (ROADMAP B9).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mini_nbody_tpu_torch import _build
+from mini_nbody_tpu_torch.ops.slot_pipe import SLOT_CROSS, SLOT_DIAG, SLOT_FOLD
+from mini_nbody_tpu_torch.ops.sym_mxu_force import (_resolve_tiling,
+                                                    any_coincident,
+                                                    resolve_auto)
+from mini_nbody_tpu_torch.ops.symmetric_force import _pack
+from mini_nbody_tpu_torch.ops.vjp_kernel import _pad_rows, chunk_loop
+from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
+                                               check_coincident,
+                                               plain_block_elems)
+
+#: Tile of the pair-once backward when the caller names none, and of the
+#: rectangular one. B13's four bf16 tiles take 37 KB of shared memory at
+#: 64 and 139 KB at 128, yet 128 is the faster: one launch at N = 65,536
+#: took 13.86 ms against 39.59 ms at 64 (chip_smoke.py --bwd-tile 128|64,
+#: NVIDIA H100 80GB HBM3 at 700 W), with a quarter of the slots and half
+#: the atomics.
+DEFAULT_TILE = 128
+RECT_TILE = 128
+
+#: Kernel launches made by vjp_mxu_sums_ (B13; CROSS_LAUNCHES counts its
+#: cross-mode share) and by vjp_rect_mxu (B14), on CUDA tensors only.
+LAUNCHES = 0
+CROSS_LAUNCHES = 0
+RECT_LAUNCHES = 0
+
+
+def _split8(v):
+    """Compensated [vhi | vlo] operand: vhi = bf16(v), vlo = v - vhi."""
+    vhi = v.to(torch.bfloat16).float()
+    return torch.cat([vhi, v - vhi], dim=-1)
+
+
+def _operands(p, g):
+    """(N, 16) per-body operands [split8([g | m]) | split8([p | 1])] of
+    packed positions p (N, 3|4; unit masses without the 4th column)."""
+    one = p.new_ones((p.shape[0], 1))
+    m = p[:, 3:4] if p.shape[1] == 4 else one
+    return torch.cat([_split8(torch.cat([g, m], 1)),
+                      _split8(torch.cat([p[:, :3], one], 1))], 1).contiguous()
+
+
+def _combine(total, mf, gf, posf):
+    """pos_bar = m S_g[:3] - g S_g[3] + S_p[:3] - p S_p[3] from the (., 8)
+    sums, each product rounded on its own and the chain in JAX's order."""
+    sg, sp = total[:, 0:4], total[:, 4:8]
+    t_m = mf[:, None] * sg[:, 0:3]
+    t_g = gf * sg[:, 3:4]
+    t_p = posf * sp[:, 3:4]
+    return t_m - t_g + sp[:, 0:3] - t_p
+
+
+def _wc(p, q, gp, gq, softening, mask, keep=None):
+    """fp32 w and c for rows p (..., R, 3|4) against columns q (..., J,
+    3|4), in the kernels' order of operations (JAX _wc_block), with the
+    mass-cotangent terms -w (g_q.d) (row side) and w (g_p.d) (reaction
+    side). keep zeroes the other entries."""
+    dx = q[..., None, :, 0] - p[..., :, None, 0]
+    dy = q[..., None, :, 1] - p[..., :, None, 1]
+    dz = q[..., None, :, 2] - p[..., :, None, 2]
+    d2 = dx * dx + dy * dy + dz * dz
+    inv = torch.rsqrt(d2 + softening)
+    inv2 = inv * inv
+    w = inv2 * inv
+    u = w * inv2
+    if mask:
+        w = torch.where(d2 == 0.0, torch.zeros_like(w), w)
+        u = torch.where(d2 == 0.0, torch.zeros_like(u), u)
+    if keep is not None:
+        w = torch.where(keep, w, torch.zeros_like(w))
+        u = torch.where(keep, u, torch.zeros_like(u))
+    dot_a = (gp[..., :, None, 0] * dx + gp[..., :, None, 1] * dy
+             + gp[..., :, None, 2] * dz)
+    dot_b = (gq[..., None, :, 0] * dx + gq[..., None, :, 1] * dy
+             + gq[..., None, :, 2] * dz)
+    if p.shape[-1] == 4:
+        c = 3.0 * (u * (q[..., None, :, 3] * dot_a - p[..., :, None, 3] * dot_b))
+    else:
+        c = 3.0 * (u * (dot_a - dot_b))
+    return w, c, -w * dot_b, w * dot_a
+
+
+def _mm(a, b, transpose, mma_dtype):
+    """a @ b (or a^T @ b) over batches; bf16 mode rounds both operands."""
+    if mma_dtype == torch.bfloat16:
+        a, b = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    return torch.matmul(a.transpose(-1, -2) if transpose else a, b)
+
+
+def _fold(r):
+    """(..., 8) [hi | lo] product -> (..., 4)."""
+    return r[..., 0:4] + r[..., 4:8]
+
+
+def _sums(w, c, q, transpose, mma_dtype):
+    """(B, T, 8) [S_g | S_p] of one side from the (B, T, 16) operands."""
+    return torch.cat([_fold(_mm(w, q[..., 0:8], transpose, mma_dtype)),
+                      _fold(_mm(c, q[..., 8:16], transpose, mma_dtype))], -1)
+
+
+def vjp_mxu_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
+                       tile, softening, mask_offdiag,
+                       mma_dtype=torch.float32):
+    """Plain version of B13: for every slot add the row sums into acc_a
+    (block bi) and the reaction sums into acc_b (block bj), in batches of
+    slots; acc (c, 8), or (c, 9) with the mass cotangent."""
+    ko, k = acc_a.shape[1], pos_a.shape[1]
+    view = lambda t, w: t.view(-1, tile, w)  # noqa: E731
+    pa, pb, ga, gb = view(pos_a, k), view(pos_b, k), view(g_a, 3), view(g_b, 3)
+    qa, qb = view(q_a, 16), view(q_b, 16)
+    aa, ab = view(acc_a, ko), view(acc_b, ko)
+    slots = slots.to(device=pos_a.device, dtype=torch.long)
+    batch = max(1, plain_block_elems(pos_a.device) // (tile * tile))
+    idx = torch.arange(tile, device=pos_a.device)
+    lower = idx[None, :] < idx[:, None]  # [r, c]: c < r
+
+    def with_mass(s, m):
+        return torch.cat([s, m[..., None]], -1) if ko == 9 else s
+
+    for kind in (SLOT_DIAG, SLOT_CROSS, SLOT_FOLD):
+        sel = slots[slots[:, 0] == kind]
+        for s in range(0, sel.shape[0], batch):
+            bi, bj = sel[s:s + batch, 1], sel[s:s + batch, 2]
+            if kind != SLOT_FOLD:
+                w, c, m_row, m_col = _wc(
+                    pa[bi], pb[bj], ga[bi], gb[bj], softening,
+                    kind == SLOT_DIAG or mask_offdiag)
+                aa.index_add_(0, bi, with_mass(
+                    _sums(w, c, qb[bj], False, mma_dtype), m_row.sum(-1)))
+                if kind == SLOT_CROSS:
+                    ab.index_add_(0, bj, with_mass(
+                        _sums(w, c, qa[bi], True, mma_dtype), m_col.sum(-2)))
+                continue
+            # FOLD: pairs of block bi below the diagonal, of bj above it.
+            for acc, blk, p, g, q, keep in ((aa, bi, pa, ga, qa, lower),
+                                            (ab, bj, pb, gb, qb, lower.T)):
+                w, c, m_row, m_col = _wc(p[blk], p[blk], g[blk], g[blk],
+                                         softening, mask_offdiag, keep)
+                acc.index_add_(0, blk, with_mass(
+                    _sums(w, c, q[blk], False, mma_dtype)
+                    + _sums(w, c, q[blk], True, mma_dtype),
+                    m_row.sum(-1) + m_col.sum(-2)))
+
+
+def vjp_mxu_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
+                  tile, softening, mask_offdiag=True):
+    """Add B13's raw sums of one self chunk (tri mode: acc_a and acc_b the
+    same memory, pos_a is pos_b, a tri slot table) or one chunk pair (cross
+    mode). pos (c, 3|4) packed as K3's, g (c, 3), q (c, 16) from
+    _operands, acc (c, 8|9)."""
+    device = pos_a.device
+    k, ko = pos_a.shape[1], acc_a.shape[1]
+    if k not in (3, 4) or ko not in (8, 9) or (ko == 9 and k != 4):
+        raise ValueError(f"packed positions have 3 or 4 columns and the "
+                         f"accumulators 8, or 9 in mass mode; got {k}, {ko}")
+    for name, t, width in (("pos_a", pos_a, k), ("pos_b", pos_b, k),
+                           ("g_a", g_a, 3), ("g_b", g_b, 3),
+                           ("q_a", q_a, 16), ("q_b", q_b, 16),
+                           ("acc_a", acc_a, ko), ("acc_b", acc_b, ko)):
+        if t.shape[0] % tile != 0:
+            raise ValueError(f"{name} rows {t.shape[0]} are not a multiple "
+                             f"of tile {tile}")
+        _build.check_tensor(name, t, (t.shape[0], width), torch.float32,
+                            device)
+    for a, p, g, q in ((acc_a, pos_a, g_a, q_a), (acc_b, pos_b, g_b, q_b)):
+        if not a.shape[0] == p.shape[0] == g.shape[0] == q.shape[0]:
+            raise ValueError("each accumulator needs the rows of its bodies")
+    _build.check_tensor("slots", slots, (slots.shape[0], 3), torch.int32,
+                        device)
+    if not _build.on_card(device):
+        vjp_mxu_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b,
+                           slots, tile, softening, mask_offdiag)
+        return
+    if tile not in SYM_BWD_TILES:
+        raise ValueError(f"the CUDA pair-once VJP kernel takes tile in "
+                         f"{SYM_BWD_TILES}, got {tile}")
+    _build.refuse_grad("vjp_mxu_sums_", pos_a, pos_b, g_a, g_b, q_a, q_b)
+    global LAUNCHES, CROSS_LAUNCHES
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        code = lib.vjp_mxu_launch(
+            slots.data_ptr(), slots.shape[0], pos_a.data_ptr(),
+            pos_b.data_ptr(), g_a.data_ptr(), g_b.data_ptr(),
+            q_a.data_ptr(), q_b.data_ptr(), acc_a.data_ptr(),
+            acc_b.data_ptr(), int(k == 4), ko, tile, float(softening),
+            int(mask_offdiag), _build.stream_ptr(device))
+    _build.check(lib, code, "vjp_mxu_launch")
+    LAUNCHES += 1
+    CROSS_LAUNCHES += int(acc_a.data_ptr() != acc_b.data_ptr())
+
+
+def sums_inputs(pos, g, mass=None, tile: int | None = None,
+                chunk: int = 131072):
+    """The tiling (tile, chunk c, chunks nc, padded Np) and the padded
+    inputs (packed positions p (Np, 3|4), cotangents gp (Np, 3), operands
+    q (Np, 16)) of B13's raw sums, as vjp_pos_sym_mxu feeds them to
+    vjp_mxu_sums_."""
+    n = pos.shape[0]
+    tiling = _resolve_tiling(n, DEFAULT_TILE if tile is None else tile,
+                             chunk, kernel=_build.on_card(pos.device))
+    np_ = tiling[3]
+    p = _pack(pos, mass, n, np_)
+    gp = _pad_rows(g.float(), np_)
+    return tiling, (p, gp, _operands(p, gp))
+
+
+def vjp_pos_sym_mxu(pos, g, mass=None, softening: float = SOFTENING,
+                    tile: int | None = None, chunk: int = 131072,
+                    mass_grad: bool = False, coincident: str = "auto"):
+    """pos_bar (N,3) for cotangent g of the square self-force through the
+    bf16-class pair-once backward; with mass_grad (masses required) returns
+    (pos_bar, mass_bar). coincident as in vjp_kernel.vjp_pos_sym; DIAG
+    slots and the fold's self diagonal always mask. CUDA tensors run B13
+    (tile 64 or 128), CPU tensors its plain version in fp32."""
+    if mass_grad and mass is None:
+        raise ValueError("mass_grad=True requires per-body masses")
+    check_coincident(coincident)
+    n = pos.shape[0]
+    (tile, c, nc, np_), (p, gp, q) = sums_inputs(pos, g, mass, tile, chunk)
+    coincident = resolve_auto(coincident, n)
+    if coincident == "auto":
+        mask_offdiag = any_coincident(pos)
+    else:
+        mask_offdiag = coincident == "masked"
+    acc = torch.zeros((np_, 9 if mass_grad else 8), dtype=torch.float32,
+                      device=p.device)
+
+    def run(acc_a, acc_b, a, b, slots):
+        vjp_mxu_sums_(acc_a, acc_b, a[0], b[0], a[1], b[1], a[2], b[2],
+                      slots, tile, softening, mask_offdiag)
+
+    chunk_loop(run, acc, (p, gp, q), tile, c, nc)
+    mf = p[:, 3] if mass is not None else p.new_ones(np_)
+    pos_bar = _combine(acc[:, :8], mf, gp, p[:, :3])[:n]
+    if mass_grad:
+        return pos_bar, acc[:n, 8]
+    return pos_bar
+
+
+def vjp_rect_mxu_plain(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
+                       softening: float = SOFTENING, mma_dtype=torch.float32):
+    """B14's arithmetic in PyTorch, every block masked: the raw row sums
+    (Nk, 8) [S_g | S_p] of receivers (pos_k, g_k) over the sources."""
+    pk, pj = pos_k, pos_j
+    if mass_k is not None:
+        pk = torch.cat([pos_k, mass_k[:, None]], 1)
+        pj = torch.cat([pos_j, mass_j[:, None]], 1)
+    qj = _operands(pj, g_j)
+    rows = max(1, plain_block_elems(pos_k.device) // max(1, pj.shape[0]))
+    out = []
+    for r in range(0, pk.shape[0], rows):
+        w, c, _, _ = _wc(pk[r:r + rows], pj, g_k[r:r + rows], g_j, softening,
+                         True)
+        out.append(_sums(w, c, qj, False, mma_dtype))
+    if not out:
+        return pos_k.new_zeros((0, 8))
+    return torch.cat(out)
+
+
+def vjp_rect_mxu_rows(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
+                      softening: float = SOFTENING, tile: int = RECT_TILE,
+                      square_coincident=None):
+    """B14's raw row sums (Nk, 8): CUDA tensors launch the kernel, CPU
+    tensors take vjp_rect_mxu_plain. square_coincident: the coincident mode
+    of a square call (tiles whose k and j ranges do not intersect drop the
+    d2 == 0 select when no two distinct bodies coincide); None masks every
+    tile."""
+    device = pos_k.device
+    nk, nj = pos_k.shape[0], pos_j.shape[0]
+    f32 = torch.float32
+    for name, t, shape in (("pos_k", pos_k, (nk, 3)), ("g_k", g_k, (nk, 3)),
+                           ("pos_j", pos_j, (nj, 3)), ("g_j", g_j, (nj, 3)),
+                           ("mass_k", mass_k, (nk,)),
+                           ("mass_j", mass_j, (nj,))):
+        if t is not None:
+            _build.check_tensor(name, t, shape, f32, device)
+    if not _build.on_card(device):
+        return vjp_rect_mxu_plain(pos_k, g_k, pos_j, g_j, mass_k, mass_j,
+                                  softening)
+    if tile not in SYM_BWD_TILES:
+        raise ValueError(f"the CUDA rectangular VJP kernel takes tile in "
+                         f"{SYM_BWD_TILES}, got {tile}")
+    _build.refuse_grad("vjp_rect_mxu", pos_k, g_k, pos_j, g_j, mass_k, mass_j)
+    overlap_only = False
+    if square_coincident is not None:
+        mode = resolve_auto(square_coincident, nk)
+        overlap_only = mode == "fast" or (mode == "auto"
+                                          and not any_coincident(pos_k))
+    masses = mass_k is not None
+    pk = torch.cat([pos_k, mass_k[:, None]], 1) if masses else pos_k
+    pj = torch.cat([pos_j, mass_j[:, None]], 1) if masses else pos_j
+    qj = _operands(pj, g_j)
+    global RECT_LAUNCHES
+    lib = _build.load_library()
+    rows = torch.empty((nk, 8), dtype=f32, device=device)
+    with torch.cuda.device(device):
+        code = lib.vjp_rect_mxu_launch(
+            pk.data_ptr(), g_k.data_ptr(), nk, pj.data_ptr(),
+            g_j.data_ptr(), qj.data_ptr(), nj,
+            rows.data_ptr(), int(masses), tile, float(softening),
+            int(overlap_only), _build.stream_ptr(device))
+    _build.check(lib, code, "vjp_rect_mxu_launch")
+    RECT_LAUNCHES += 1
+    return rows
+
+
+def vjp_rect_mxu(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
+                 softening: float = SOFTENING, tile: int = RECT_TILE,
+                 coincident: str = "masked"):
+    """pos_bar rows (Nk, 3) for a RECTANGULAR slice of the square
+    self-force VJP through the bf16-class backward: receivers (pos_k, g_k)
+    over sources (pos_j, g_j), pos_k a subset of pos_j's system. Masses
+    both or neither. coincident applies to SQUARE calls only (pos_j is
+    pos_k, the autodiff branch beyond _SYM_BWD_MAX): 'auto' and 'fast' let
+    tiles whose k and j ranges do not intersect drop the mask;
+    rectangular calls always mask."""
+    if (mass_k is None) != (mass_j is None):
+        raise ValueError("vjp_rect_mxu needs both masses or neither")
+    check_coincident(coincident)
+    square = pos_k is pos_j
+    rows = vjp_rect_mxu_rows(
+        pos_k, g_k, pos_j, g_j, mass_k, mass_j, softening, tile,
+        square_coincident=coincident if square else None)
+    mk = pos_k.new_ones(pos_k.shape[0]) if mass_k is None else mass_k
+    return _combine(rows, mk, g_k, pos_k)

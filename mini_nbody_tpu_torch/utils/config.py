@@ -54,6 +54,9 @@ def check_coincident(value: str) -> str:
     return value
 
 
+#: Tiles the CUDA pair-once backward kernels are built for.
+SYM_BWD_TILES = (64, 128)
+
 #: What backend='auto' runs, on every device: the fp32-exact pair-once
 #: kernel, as JAX's single-chip auto does.
 AUTO_BACKEND = "sym"
@@ -92,6 +95,10 @@ class SimConfig:
         CUDA direct kernel stages j in tiles of ``tile_i``.
       sym_tile / sym_chunk: tile (64 or 128 on CUDA) and chunk of the sym
         and sym_mxu kernels; None = their defaults (128, 131072).
+      sym_bwd_tile: tile of the pair-once backward kernels (vjp_pos_sym,
+        vjp_pos_sym_mxu): None (their defaults, 64 and 128) or one of
+        SYM_BWD_TILES, the tiles the CUDA kernels are built for. JAX's
+        VMEM-sized tiles (640, 768) are refused.
       traversal: "auto" or "slots" (the band traversal is not ported).
       fused_integrate: the fused force + Euler kernel; JAX's rule holds
         (integrator "euler", backend "direct", one card).
@@ -109,6 +116,7 @@ class SimConfig:
     tile_j: int = 2048
     sym_tile: Optional[int] = None
     sym_chunk: Optional[int] = None
+    sym_bwd_tile: Optional[int] = None
     mesh_shape: Optional[Tuple[int, ...]] = None
     comm: str = "all_gather"
     use_masses: bool = False
@@ -154,6 +162,10 @@ class SimConfig:
             raise ValueError(
                 "fused_integrate requires integrator='euler', "
                 "backend='direct', single card")
+        if self.sym_bwd_tile not in (None, *SYM_BWD_TILES):
+            raise ValueError(
+                f"sym_bwd_tile must be None or one of {SYM_BWD_TILES} (the "
+                f"CUDA backward kernels' tiles), got {self.sym_bwd_tile}")
         if self.tile_i % 8 != 0:
             raise ValueError(
                 f"tile_i must be a multiple of 8, got {self.tile_i}")
@@ -169,11 +181,10 @@ class SimConfig:
         d = dict(d)
         d.pop("interpret", None)
         for key, default in (("pair_dtype", "float32"),
-                             ("sym_bwd_tile", None),
                              ("resident_tile", None)):
             if d.pop(key, default) != default:
                 raise NotImplementedError(
-                    f"{key} is not ported yet (ROADMAP B6/B13/B15)")
+                    f"{key} is not ported yet (ROADMAP B6/B15)")
         if d.get("mesh_shape") is not None:
             d["mesh_shape"] = tuple(d["mesh_shape"])
         backend = d.get("backend", "auto")
@@ -185,6 +196,12 @@ class SimConfig:
     def effective_backend(self) -> str:
         """The backend make_force_fn runs: 'auto' is AUTO_BACKEND."""
         return AUTO_BACKEND if self.backend == "auto" else self.backend
+
+    def bf16_class(self) -> bool:
+        """True when the force path accumulates through bf16 tensor-core
+        products: ``sym_mxu`` (JAX's mxu with bf16 operands is not
+        ported). Routes the backward: fp32 forwards keep fp32 backwards."""
+        return self.effective_backend() == "sym_mxu"
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

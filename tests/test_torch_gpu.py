@@ -11,19 +11,28 @@ Tolerances are those of chip_smoke.py: K1 and K3 fp32 sums in another
 order (rtol 1e-3, atol 1e-4 of the scale), K2 raw sums vs the bf16-mode plain
 sums (2e-3 of each column's scale), sym_mxu forces vs a float64 oracle at
 the on-card bf16-accumulate bound (rtol 2e-2, atol 5e-3 of the scale), K4's
-U within 1e-5 of |U|, and K5 against its plain version at the K1 bound."""
+U within 1e-5 of |U|, and K5 against its plain version at the K1 bound.
+The VJP kernels: B10 and B11 against their plain versions at the K1 bound
+(fp32 sums in another order, atomics in B11); B13 and B14 raw sums against
+their bf16-mode plain sums at K2's per-column bound, and B13's gradient
+against the fp32 B11 at the sym_mxu bound (rtol 2e-2, atol 5e-3)."""
 
 import numpy as np
 import pytest
 import torch
 
-from mini_nbody_tpu_torch import SimConfig, init, simulate
+from mini_nbody_tpu_torch import (BodyState, SimConfig, init,
+                                  make_differentiable_force, make_rollout_fn,
+                                  simulate)
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import direct_force as df
 from mini_nbody_tpu_torch.ops import pe_kernel as pk
 from mini_nbody_tpu_torch.ops import slot_pipe as sp
 from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
 from mini_nbody_tpu_torch.ops import symmetric_force as sf
+from mini_nbody_tpu_torch.ops import vjp_kernel as vk
+from mini_nbody_tpu_torch.ops import vjp_mxu as vm
+from mini_nbody_tpu_torch.sim import init_carry
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
 
 pytestmark = pytest.mark.gpu
@@ -272,3 +281,218 @@ def test_fused_simulate_goes_through_k5(cuda):
     ref = simulate(cfg.replace(fused_integrate=False), state)
     _close(out.pos, ref.pos, 1e-4, 1e-5)
     _close(out.vel, ref.vel, 1e-4, 1e-5)
+
+
+def _vjp_case(n, seed, masses, device, coincident=False):
+    pos = _pos(n, seed, device)
+    if coincident:
+        pos[200] = pos[3]  # two distinct bodies at one point
+    g = _pos(n, seed + 1, device)
+    m = torch.rand(n, device=device) + 0.5 if masses else None
+    return pos, g, m
+
+
+@pytest.mark.parametrize("n,masses,softening,coincident", [
+    (1000, False, 1e-2, "auto"), (1000, True, 1e-2, "fast"),
+    (3001, False, 1e-9, "auto"), (3001, True, 1e-9, "masked")])
+@pytest.mark.parametrize("block", [128, 256])
+def test_b10_vs_plain(cuda, n, masses, softening, coincident, block):
+    # At softening 1e-9 two distinct bodies share a position ('fast'
+    # promises there are none).
+    pos, g, m = _vjp_case(n, 20, masses, cuda, softening == 1e-9)
+    before = vk.LAUNCHES
+    got = vk.vjp_pos_direct(pos, g, m, softening, block=block,
+                            coincident=coincident)
+    assert vk.LAUNCHES == before + 1
+    _close(got, vk.vjp_ordered_plain(pos, g, pos, g, m, m, softening),
+           1e-3, 1e-4)
+    rect = vk.vjp_pos_rect(pos[:700].contiguous(), g[:700].contiguous(), pos,
+                           g, None if m is None else m[:700].contiguous(), m,
+                           softening, block)
+    _close(rect, got[:700], 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses,mass_grad", [(False, False), (True, False),
+                                              (True, True)])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("mask", [False, True])
+def test_b11_tri_vs_plain(cuda, tile, masses, mass_grad, fold, mask):
+    n, c = 1000, 1024
+    pos, g, m = _vjp_case(n, 21, masses, cuda)
+    p = sf._pack(pos, m, n, c)
+    gp = vk._pad_rows(g, c)
+    slots = sp.slot_table(c // tile, fold, False, cuda)
+    ko = 4 if mass_grad else 3
+    got, want = (torch.zeros((c, ko), device=cuda) for _ in range(2))
+    before = (vk.SYM_LAUNCHES, vk.SYM_CROSS_LAUNCHES)
+    vk.vjp_sym_sums_(got, got, p, p, gp, gp, slots, tile, 1e-9, mask)
+    assert (vk.SYM_LAUNCHES, vk.SYM_CROSS_LAUNCHES) == (before[0] + 1,
+                                                         before[1])
+    vk.vjp_sym_sums_plain(want, want, p, p, gp, gp, slots, tile, 1e-9, mask)
+    _close(got[:n], want[:n], 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("masses,mass_grad", [(False, False), (True, True)])
+def test_b11_cross_and_whole_vs_plain(cuda, masses, mass_grad):
+    n, c, tile = 2000, 1024, 64
+    pos, g, m = _vjp_case(n, 22, masses, cuda)
+    p = sf._pack(pos, m, n, 2 * c)
+    gp = vk._pad_rows(g, 2 * c)
+    slots = sp.slot_table(c // tile, False, True, cuda)
+    ko = 4 if mass_grad else 3
+    got = [torch.zeros((c, ko), device=cuda) for _ in range(2)]
+    want = [torch.zeros((c, ko), device=cuda) for _ in range(2)]
+    vk.vjp_sym_sums_(*got, p[:c], p[c:], gp[:c], gp[c:], slots, tile, 1e-2)
+    vk.vjp_sym_sums_plain(*want, p[:c], p[c:], gp[:c], gp[c:], slots, tile,
+                          1e-2, True)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-3, 1e-4)
+    # The whole backward over three chunks against the ordered plain VJP.
+    out = vk.vjp_pos_sym(pos, g, m, 1e-2, chunk=768, mass_grad=mass_grad)
+    pos_bar = out[0] if mass_grad else out
+    _close(pos_bar, vk.vjp_ordered_plain(pos, g, pos, g, m, m, 1e-2),
+           1e-3, 1e-4)
+
+
+def _mxu_sums(p, gp, q, slots, tile, ko, mask, kernel):
+    acc = torch.zeros((p.shape[0], ko), device=p.device)
+    if kernel:
+        vm.vjp_mxu_sums_(acc, acc, p, p, gp, gp, q, q, slots, tile, 1e-9,
+                         mask)
+    else:
+        vm.vjp_mxu_sums_plain(acc, acc, p, p, gp, gp, q, q, slots, tile, 1e-9,
+                              mask, mma_dtype=torch.bfloat16)
+    return acc
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses,mass_grad", [(False, False), (True, False),
+                                              (True, True)])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("mask", [False, True])
+def test_b13_tri_vs_bf16_plain(cuda, tile, masses, mass_grad, fold, mask):
+    n = 1000
+    pos, g, m = _vjp_case(n, 23, masses, cuda)
+    (_, c, _, _), (p, gp, q) = vm.sums_inputs(pos, g, m, tile, chunk=1024)
+    slots = sp.slot_table(c // tile, fold, False, cuda)
+    ko = 9 if mass_grad else 8
+    before = vm.LAUNCHES
+    got = _mxu_sums(p, gp, q, slots, tile, ko, mask, True)
+    assert vm.LAUNCHES == before + 1
+    want = _mxu_sums(p, gp, q, slots, tile, ko, mask, False)
+    _close_cols(got[:n], want[:n])
+
+
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("softening", [1e-2, 1e-9])
+def test_b13_vs_fp32_b11(cuda, masses, softening):
+    pos, g, m = _vjp_case(3001, 24, masses, cuda, softening == 1e-9)
+    got = vm.vjp_pos_sym_mxu(pos, g, m, softening, chunk=1024)
+    want = vk.vjp_pos_sym(pos, g, m, softening, chunk=1024)
+    _close(got, want, 2e-2, 5e-3)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("square", [False, True])
+def test_b14_vs_bf16_plain(cuda, tile, masses, square):
+    pos, g, m = _vjp_case(3001, 25, masses, cuda)
+    k = 3001 if square else 900
+    pk_, gk_ = pos[:k].contiguous(), g[:k].contiguous()
+    mk = None if m is None else m[:k].contiguous()
+    before = vm.RECT_LAUNCHES
+    got = vm.vjp_rect_mxu_rows(
+        pk_, gk_, pos, g, mk, m, 1e-9, tile,
+        square_coincident="auto" if square else None)
+    assert vm.RECT_LAUNCHES == before + 1
+    want = vm.vjp_rect_mxu_plain(pk_, gk_, pos, g, mk, m, 1e-9,
+                                 mma_dtype=torch.bfloat16)
+    _close_cols(got, want)
+    full = vm.vjp_rect_mxu(pos, g, pos, g, m, m, 1e-9, tile, "auto")
+    _close(full, vk.vjp_pos_sym(pos, g, m, 1e-9), 2e-2, 5e-3)
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    pos = _pos(256, 26, cuda).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="make_differentiable_force"):
+        df.body_force_direct(pos, pos)
+    with pytest.raises(RuntimeError, match="make_differentiable_force"):
+        sf.body_force_symmetric(pos)
+    with pytest.raises(RuntimeError, match="make_differentiable_force"):
+        sm.body_force_sym_mxu(pos)
+    with pytest.raises(RuntimeError, match="make_differentiable_force"):
+        pk.potential_energy_kernel(pos)
+    with torch.no_grad():
+        df.body_force_direct(pos, pos)  # no graph, no refusal
+
+
+@pytest.mark.parametrize("backend", ["sym", "sym_mxu", "direct"])
+@pytest.mark.parametrize("n", [3000, 5000])
+def test_grad_goes_through_the_vjp_kernels(cuda, monkeypatch, backend, n):
+    # _SYM_BWD_MAX lowered to 4096: n = 3000 takes the pair-once backward
+    # (B11, B13), n = 5000 the ordered ones (B10, B14).
+    from mini_nbody_tpu_torch.ops import autodiff
+
+    monkeypatch.setattr(autodiff, "_SYM_BWD_MAX", 4096)
+    pos, _, m = _vjp_case(n, 27, True, cuda)
+    cfg = SimConfig(n=n, backend=backend, softening=1e-2, use_masses=True,
+                    sym_chunk=2048)
+    force = make_differentiable_force(cfg)
+    counts = (vk.LAUNCHES, vk.SYM_LAUNCHES, vm.LAUNCHES, vm.RECT_LAUNCHES)
+    p = pos.clone().requires_grad_(True)
+    (force(p, m) ** 2).sum().backward()
+    launched = [a - b for a, b in zip(
+        (vk.LAUNCHES, vk.SYM_LAUNCHES, vm.LAUNCHES, vm.RECT_LAUNCHES),
+        counts)]
+    bf16 = backend == "sym_mxu"
+    small = n <= 4096
+    want = [int(not bf16 and not small), int(not bf16 and small),
+            int(bf16 and small), int(bf16 and not small)]
+    assert launched == want
+    g = 2.0 * force(pos, m).detach()
+    ref = vk.vjp_ordered_plain(pos, g, pos, g, m, m, 1e-2)
+    _close(p.grad, ref, *((2e-2, 5e-3) if bf16 else (1e-3, 1e-4)))
+
+
+def test_rollout_sqrt_matches_none_on_the_card(cuda):
+    n = 4096
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    s = init.plummer(n, generator=gen, device=cuda)
+    cfg = SimConfig(n=n, dt=1e-3, softening=1e-2, integrator="leapfrog",
+                    use_masses=True)
+    carry0 = init_carry(cfg, s)
+    grads = {}
+    for remat in ("none", "sqrt"):
+        p = s.pos.clone().requires_grad_(True)
+        st = BodyState(pos=p, vel=s.vel, mass=s.mass)
+        out, _ = make_rollout_fn(cfg, 10, remat)((st, carry0[1]))
+        (out.pos ** 2).sum().backward()
+        grads[remat] = p.grad
+    # The recompute sums with atomics in another order: a tolerance.
+    _close(grads["sqrt"], grads["none"], 1e-4, 1e-5)
+
+
+def test_sqrt_rollout_launch_counts(cuda):
+    # A 10-step "sqrt" rollout at n = 4096 on auto (K3, chunk 2048: 2 tri +
+    # 1 cross launches per pass): 10 forward passes, 9 recomputed in the
+    # backward (3 checkpointed segments of 3 steps; the last step is
+    # outside them), and one B11 launch per step's force but the last: it
+    # feeds only the final velocity and acceleration, which the loss does
+    # not read.
+    n, steps = 4096, 10
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    s = init.plummer(n, generator=gen, device=cuda)
+    cfg = SimConfig(n=n, dt=1e-3, softening=1e-2, integrator="leapfrog",
+                    use_masses=True, sym_chunk=2048)
+    carry0 = init_carry(cfg, s)
+    counts = (sf.LAUNCHES, sf.CROSS_LAUNCHES, vk.SYM_LAUNCHES)
+    p = s.pos.clone().requires_grad_(True)
+    out, _ = make_rollout_fn(cfg, steps)((BodyState(pos=p, vel=s.vel,
+                                                    mass=s.mass), carry0[1]))
+    (out.pos ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(
+        (sf.LAUNCHES, sf.CROSS_LAUNCHES, vk.SYM_LAUNCHES), counts)]
+    assert launched == [3 * 19, 19, 9]
+    assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0

@@ -90,8 +90,9 @@ def test_step_fn_and_carry():
     assert torch.equal(s1.pos, s2.pos) and torch.equal(s1.vel, s2.vel)
     assert torch.equal(init_carry(cfg.replace(integrator="euler"),
                                   state)[1], torch.zeros(64, 3))
-    with pytest.raises(NotImplementedError):
-        make_step_fn(cfg, differentiable=True)
+    # The differentiable step takes the same force forward: bitwise equal.
+    s3, _ = make_step_fn(cfg, differentiable=True)(carry)
+    assert torch.equal(s3.pos, s1.pos) and torch.equal(s3.vel, s1.vel)
 
 
 def test_throughput_and_timing_refuse_the_cpu():
