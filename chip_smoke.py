@@ -23,11 +23,23 @@ each with every launch count set to 0 just before it and read just after:
   against the rollout on the kernels' plain versions, and B11's mass
   cotangent;
 - ``grad_sym_mxu``: the rollout on ``sym_mxu`` at N = 65,536 (backward B13)
-  and N = 262,144 (B14) against the fp32 gradients.
+  and N = 262,144 (B14) against the fp32 gradients;
+- ``mxu_main_path``: ``simulate``, one Euler step at N = 1,048,576 on ``mxu``
+  with pair_dtype "bfloat16" (B6), forces checked against the float64
+  oracle;
+- ``config3_mxu_drift``: config 3 as the BASELINE writes it, in the
+  bf16-pair class: ``mxu``/bfloat16, 1000 leapfrog steps (B6), energies
+  through K4, the drift gate 1e-5;
+- ``grad_mxu``: the rollout gradient on ``mxu``/bfloat16 at N = 65,536
+  (forward B6, backward B13) against ``grad_sym``'s fp32 gradient;
+- ``pair_mxu``: ``body_force_pair_mxu`` (B4, K2's cross mode over a
+  rectangle) on the two halves of config 3's state, against the B6
+  rectangles and the float64 oracle.
 
 Before the paths, ``vjp_vs_plain`` holds the VJP kernels B10, B11, B13 and
-B14 against their plain versions. Then it times each kernel beside its
-plain version and its bound. Every
+B14 against their plain versions, and ``b6_vs_plain`` and ``b4_vs_plain``
+hold B6 and B4 against theirs. Then it times each kernel beside its plain
+version and its bound. Every
 phase prints one JSON line; the line before the last is the card's name
 and power limit from nvidia-smi, preceded by one JSON line of per-kernel
 results, and the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -53,6 +65,7 @@ from mini_nbody_tpu_torch import (BodyState, SimConfig, _build, init,
                                   make_rollout_fn, simulate)
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import direct_force as df
+from mini_nbody_tpu_torch.ops import mxu_force as mf
 from mini_nbody_tpu_torch.ops import pe_kernel as pk
 from mini_nbody_tpu_torch.ops import slot_pipe as sp
 from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
@@ -136,6 +149,9 @@ ADAM_ITERS, ADAM_STEPS, ADAM_DT = 5, 20, 5e-3
 #: fp32 and 32 bf16 per ordered pair (one side; vjp_mxu.py:681).
 OPS_B10, OPS_B11, OPS_B11_MASS = 35, 44, 52
 OPS_B13_FP32, OPS_B13_MMA, OPS_B14_FP32, OPS_B14_MMA = 30, 64, 30, 32
+#: B6 per ordered pair: w in fp32 (12, the rsqrt counted as 1; 13 with a
+#: mass) and, in the bf16 class, 8 operand columns x 2 on the tensor cores.
+OPS_B6_FP32, OPS_B6_MASS, OPS_B6_MMA = 12, 13, 16
 
 DEV = torch.device("cuda", 0)
 
@@ -190,7 +206,8 @@ COUNTERS = {"direct": (df, "LAUNCHES"), "fused": (df, "FUSED_LAUNCHES"),
             "vjp_sym_cross": (vk, "SYM_CROSS_LAUNCHES"),
             "vjp_mxu": (vm, "LAUNCHES"),
             "vjp_mxu_cross": (vm, "CROSS_LAUNCHES"),
-            "vjp_rect_mxu": (vm, "RECT_LAUNCHES")}
+            "vjp_rect_mxu": (vm, "RECT_LAUNCHES"), "mxu": (mf, "LAUNCHES"),
+            "pair": (sp, "PAIR_LAUNCHES")}
 
 
 def reset_counts():
@@ -203,7 +220,8 @@ def read_counts():
     c = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
     return {"direct": c["direct"], "fused_euler": c["fused"],
             "slot_tri": c["slot"] - c["slot_cross"],
-            "slot_cross": c["slot_cross"],
+            "slot_cross": c["slot_cross"] - c["pair"],
+            "pair_mxu": c["pair"], "mxu": c["mxu"],
             "sym_tri": c["sym"] - c["sym_cross"], "sym_cross": c["sym_cross"],
             "pe": c["pe"], "vjp_ordered": c["vjp_ordered"],
             "vjp_sym_tri": c["vjp_sym"] - c["vjp_sym_cross"],
@@ -1213,6 +1231,279 @@ def grad_sym_mxu_phase(rng, sym, config3):
     return records
 
 
+def b6_case(rng, n, masses, soft):
+    """Bodies for b6_vs_plain: uniform in [-1, 1]^3, two distinct bodies at
+    one point when soft < 1e-6 (VJP_CASES' rule)."""
+    pos = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    if soft < 1e-6:
+        pos[n - 7] = pos[3]
+    m = rng.uniform(0.5, 2.0, n).astype(np.float32) if masses else None
+    return to_dev(pos), to_dev(m)
+
+
+def b6_sums_check(pi, pj, m, soft, overlap, what):
+    """One B6 launch's raw sums against its bf16-mode plain sums at the
+    kernel's tiles, per column; returns (max abs error, forces)."""
+    f, s = mf.hybrid_forces(pi, pj, m, soft, overlap_only=overlap,
+                            with_sums=True)
+    want = mf.hybrid_sums_plain(pi, pj, m, soft, mf.KERNEL_TILE,
+                                mf.KERNEL_TILE, overlap,
+                                mma_dtype=torch.bfloat16)
+    return close_cols(s, want, K2_ATOL, f"B6 {what}"), f
+
+
+def b6_phase(rng):
+    """B6 against its plain version on the same card tensors (VJP_CASES:
+    ragged N, both mass modes, softening 1e-9 with two coincident bodies):
+    square calls in the masking the coincident mode resolves to, and the
+    64 x N rectangle, raw sums per column at K2's bound; the fp32 mode
+    against the fp64 oracle at K1's bound; and auto and fast bitwise equal
+    to masked on a duplicate-free state in both classes."""
+    errs, fp32_errs = [], []
+    for n, masses, soft, mode in VJP_CASES:
+        pos, m = b6_case(rng, n, masses, soft)
+        what = f"n={n} masses={masses} softening={soft} {mode}"
+        overlap = mf.square_overlap_only(pos, mode)
+        if soft < 1e-6 and overlap:
+            fail(f"B6 square {what}: the coincident pair took the overlap run")
+        errs.append(b6_sums_check(pos, pos, m, soft, overlap,
+                                  f"square {what}")[0])
+        sub = pos[:64].contiguous()
+        errs.append(b6_sums_check(sub, pos, m, soft, False,
+                                  f"rect 64xN {what}")[0])
+        md = None if m is None else m.double()
+        for pi in (pos, sub):
+            got = mf.body_force_mxu(pi, pos, m, soft, pair_dtype="float32",
+                                    coincident=mode)
+            oracle = body_force_torch(pi.double(), pos.double(), md,
+                                      softening=soft, row_chunk=512)
+            fp32_errs.append(close(got, oracle, K1_RTOL, K1_ATOL,
+                                   f"B6 fp32 vs fp64 {what} ni={len(pi)}"))
+    pos, m = b6_case(rng, 9001, True, 1e-2)
+    if sm.any_coincident(pos):
+        fail("B6: the duplicate-free state has a duplicate")
+    for pair_dtype in ("bfloat16", "float32"):
+        ref = mf.body_force_mxu(pos, pos, m, pair_dtype=pair_dtype)
+        for mode in ("auto", "fast"):
+            got = mf.body_force_mxu(pos, pos, m, pair_dtype=pair_dtype,
+                                    coincident=mode)
+            if not torch.equal(got, ref):
+                fail(f"B6 {pair_dtype}: {mode} is not bitwise masked")
+    torch.cuda.synchronize()
+    line("b6_vs_plain", cases=len(errs), max_abs_err=max(errs),
+         fp32_vs_fp64_max_abs_err=max(fp32_errs),
+         auto_fast_bitwise_masked=True)
+    return max(errs)
+
+
+def b4_sums(pos, m, na, tile, soft, mask, plain=False):
+    """One B4 launch (K2's cross mode over the rectangle of the sets
+    pos[:na] and pos[na:]), or its bf16-mode plain version: the raw sums of
+    both sides, each cut to its real rows."""
+    nb = pos.shape[0] - na
+    ma, mb = (None, None) if m is None else (m[:na], m[na:])
+    pa, va = sm._pack(pos[:na], ma, na, sm.round_up(na, tile))
+    pb, vb = sm._pack(pos[na:], mb, nb, sm.round_up(nb, tile))
+    if plain:
+        rows, cols = sp.cross_slot_sums_plain(pa, pb, va, vb, soft, tile,
+                                              mask=mask,
+                                              mma_dtype=torch.bfloat16)
+        return rows.T[:na], cols.T[:nb]
+    acc_a = torch.zeros((pa.shape[0], 8), device=DEV)
+    acc_b = torch.zeros((pb.shape[0], 8), device=DEV)
+    slots = sp.slot_table(pa.shape[0] // tile, False, True, DEV,
+                          nb_b=pb.shape[0] // tile)
+    sp.pair_slot_sums_(acc_a, acc_b, pa, pb, va, vb, slots, tile, soft,
+                       mask=mask)
+    return acc_a[:na], acc_b[:nb]
+
+
+def b4_phase(rng):
+    """B4 against its plain version with na != nb (ragged, both mass modes,
+    masked and maskless, both of K2's tiles), raw sums per column at K2's
+    bound; then body_force_pair_mxu's forces against the fp64 oracle with a
+    cross-set coincident pair at softening 1e-9 (masked)."""
+    errs = []
+    for na, nb, masses in ((700, 2301, False), (3001, 1000, True)):
+        pos, m = b6_case(rng, na + nb, masses, 1e-2)
+        for tile in sp.KERNEL_TILES:
+            for mask in (False, True):
+                got = b4_sums(pos, m, na, tile, 1e-2, mask)
+                want = b4_sums(pos, m, na, tile, 1e-2, mask, plain=True)
+                for g, w, side in zip(got, want, ("rows", "reactions")):
+                    errs.append(close_cols(
+                        g, w, K2_ATOL, f"B4 {side} na={na} nb={nb} "
+                        f"masses={masses} tile={tile} mask={mask}"))
+    pos, m = b6_case(rng, 3000, True, 1e-9)  # the pair (3, 2993) is split
+    pa, pb = pos[:1500].contiguous(), pos[1500:].contiguous()
+    ma, mb = m[:1500].contiguous(), m[1500:].contiguous()
+    fa, fb = sm.body_force_pair_mxu(pa, pb, ma, mb, 1e-9, coincident="auto")
+    for got, pi, pj, mj, side in ((fa, pa, pb, mb, "a"), (fb, pb, pa, ma, "b")):
+        close(got, body_force_torch(pi.double(), pj.double(), mj.double(),
+                                    row_chunk=512),
+              SYM_RTOL, SYM_ATOL, f"B4 F_on_{side} vs fp64")
+    torch.cuda.synchronize()
+    line("b4_vs_plain", cases=len(errs), max_abs_err=max(errs))
+    return max(errs)
+
+
+def mxu_main_phase(state, check):
+    """simulate, one Euler step at N_MAIN on mxu with bf16 pairs from the
+    main path's state: exactly one B6 launch; forces on the main path's
+    rows against the fp64 oracle at the sym_mxu bound; ms per pass."""
+    idx, oracle, _ = check
+    cfg = SimConfig(n=N_MAIN, steps=1, backend="mxu", pair_dtype="bfloat16")
+    route = ("overlap" if mf.square_overlap_only(state.pos, cfg.coincident)
+             else "masked")
+    reset_counts()
+    step_s, out = host_time(simulate, cfg, state)
+    launches = read_counts()
+    expect_counts(launches, "mxu_main_path", mxu=1)
+    for t in (out.pos, out.vel):
+        if t.shape != (N_MAIN, 3) or not torch.isfinite(t).all():
+            fail("mxu: non-finite or misshapen state")
+    force = make_force_fn(cfg)
+    f = force(state.pos, state.pos)[idx]
+    close(f, oracle, SYM_RTOL, SYM_ATOL, "mxu bf16 vs fp64 oracle")
+    pass_s = time_fn(force, state.pos, state.pos, reps=2)
+    n = float(N_MAIN)
+    line("mxu_main_path", n=N_MAIN, pair_dtype=cfg.pair_dtype,
+         coincident_route=route, euler_1_step_s=step_s, launches=launches,
+         pass_ms=pass_s * 1e3, pass_ginter_s=gips(N_MAIN, pass_s),
+         pass_bound_ms=bound(n * (n - 1) * OPS_B6_FP32, n * 24.0,
+                             n * (n - 1) * OPS_B6_MMA)["bound_ms"],
+         mxu_vs_fp64=rel_err_stats(f, oracle))
+    return pass_s
+
+
+def config3_mxu_phase():
+    """BASELINE config 3 as written, in the bf16-pair class: plummer with
+    masses, N = 262,144, softening 1e-2, dt 1e-3, 1000 leapfrog steps on
+    mxu with pair_dtype "bfloat16" (B6), E0 and E1 through K4; fails above
+    the drift gate."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    state = init.plummer(N_CONFIG3, generator=gen, device=DEV)
+    cfg = SimConfig(n=N_CONFIG3, steps=STEPS_CONFIG3, dt=1e-3,
+                    softening=1e-2, integrator="leapfrog", use_masses=True,
+                    backend="mxu", pair_dtype="bfloat16")
+    probe_s, _ = host_time(simulate, cfg, state, 1)
+    estimate_s = probe_s * (STEPS_CONFIG3 + 1) / 2
+    if estimate_s > CONFIG3_MAX_S:
+        fail(f"config3_mxu: one step took {probe_s:.3f} s, so "
+             f"{STEPS_CONFIG3} steps would take ~{estimate_s:.0f} s")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0 = dg.total_energy(state, cfg.softening)
+    out = simulate(cfg, state)
+    e1 = dg.total_energy(out, cfg.softening)
+    drift = dg.energy_drift(e0, e1).item()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    expect_counts(launches, "config3_mxu_drift", mxu=STEPS_CONFIG3 + 1,
+                  pe=2)
+    dg.assert_finite(out, "after config 3 on mxu")
+    if not drift <= DRIFT_GATE:
+        fail(f"config3_mxu: energy drift {drift:.3g} > {DRIFT_GATE}")
+    line("config3_mxu_drift", n=N_CONFIG3, steps=STEPS_CONFIG3,
+         pair_dtype=cfg.pair_dtype, drift=drift, e0=e0.item(), e1=e1.item(),
+         launches=launches, seconds=seconds, one_step_probe_s=probe_s,
+         momentum_after=dg.momentum(out).tolist())
+    return state, launches
+
+
+def grad_mxu_phase(sym):
+    """The rollout gradient (loss on the final velocities) on mxu with
+    bf16 pairs at N_GRAD_SYM: forward B6, backward B13, exact counts;
+    against grad_sym's fp32 gradient of the same state at the bf16-class
+    bound, relative to the gradient's own scale."""
+    state, fp32 = sym
+    cfg = grad_cfg(state.n, backend="mxu").replace(pair_dtype="bfloat16")
+    carry0 = init_carry(cfg, state)
+    seconds, loss, grad, launches = counted_grad(
+        cfg, carry0, "vel", "grad_mxu", mxu=sqrt_passes(GRAD_STEPS),
+        vjp_mxu_tri=GRAD_VJPS["vel"])
+    err = close_grad(grad, fp32, SYM_RTOL, SYM_ATOL, "grad_mxu vs fp32")
+    line("grad_mxu", n=state.n, steps=GRAD_STEPS, remat="sqrt",
+         loss_vel=loss, seconds=seconds, launches=launches,
+         vs_fp32_max_abs_err=err,
+         fp32_grad_max_abs=fp32.abs().max().item(),
+         vs_fp32_max_err_of_scale=scale_err(grad, fp32),
+         vs_fp32=rel_err_stats(grad, fp32))
+
+
+def pair_mxu_phase(state3):
+    """B4 on the two halves of config 3's plummer state (masses): exactly
+    one K2 cross launch on the rectangle; F_on_a against the B6 rectangle
+    a <- b, F_on_b against b <- a, both against the fp64 oracle on 1024
+    rows; then one B4 launch held per column against its plain version
+    and timed."""
+    half = N_CONFIG3 // 2
+    soft = 1e-2
+    pa, pb = state3.pos[:half].contiguous(), state3.pos[half:].contiguous()
+    ma, mb = state3.mass[:half].contiguous(), state3.mass[half:].contiguous()
+    reset_counts()
+    fa, fb = sm.body_force_pair_mxu(pa, pb, ma, mb, soft)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_counts(launches, "pair_mxu", pair_mxu=1)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    idx = torch.randperm(half, generator=gen, device=DEV)[:1024]
+    stats = {}
+    for got, pi, pj, mj, side in ((fa, pa, pb, mb, "a"), (fb, pb, pa, ma, "b")):
+        rect = mf.body_force_mxu(pi, pj, mj, soft)
+        close(got, rect, SYM_RTOL, SYM_ATOL, f"B4 F_on_{side} vs B6")
+        oracle = body_force_torch(pi[idx].double(), pj.double(), mj.double(),
+                                  softening=soft, row_chunk=16)
+        close(got[idx], oracle, SYM_RTOL, SYM_ATOL, f"B4 F_on_{side} vs fp64")
+        stats[side] = {"vs_fp64": rel_err_stats(got[idx], oracle),
+                       "vs_b6_max_err_of_scale": scale_err(got, rect)}
+    pos, m = state3.pos, state3.mass
+    tile = sm.DEFAULT_TILE
+    ms = time_fn(b4_sums, pos, m, half, tile, soft, True, reps=3) * 1e3
+    got = b4_sums(pos, m, half, tile, soft, True)
+    plain_s, want = host_time(b4_sums, pos, m, half, tile, soft, True, True)
+    err = max(close_cols(g, w, K2_ATOL, f"B4 {side} at {half}x{half}")
+              for g, w, side in zip(got, want, ("rows", "reactions")))
+    line("pair_mxu", na=half, nb=half, launches=launches, kernel_ms=ms,
+         plain_ms=plain_s * 1e3, raw_sums_max_abs_err=err, sides=stats)
+    pairs = float(half) * half
+    return entry("slot_pipe cross mode on a rectangle (B4)", "slot_pipe.cu",
+                 "sym_mxu_force.py:267", launches["pair_mxu"], err, ms,
+                 plain_s * 1e3,
+                 bound(pairs * OPS_K2_FP32, 2 * half * (3 + 8 + 8) * 4.0,
+                       pairs * OPS_K2_MMA), na=half, nb=half, tile=tile)
+
+
+def time_b6(state3, c3_launches, main_pass_s):
+    """One B6 launch as config3_mxu_drift makes it (N = 262,144, masses,
+    the overlap run after the duplicate scan) beside its bf16-mode plain
+    version, held per column, and its bound; the N_MAIN pass time and
+    bound from mxu_main_path beside them."""
+    pos, m, soft = state3.pos, state3.mass, 1e-2
+    overlap = mf.square_overlap_only(pos, "auto")
+    ms = time_fn(mf.hybrid_forces, pos, pos, m, soft, 512, 2048, overlap,
+                 reps=3) * 1e3
+    _, got = mf.hybrid_forces(pos, pos, m, soft, overlap_only=overlap,
+                              with_sums=True)
+    plain_s, want = host_time(mf.hybrid_sums_plain, pos, pos, m, soft,
+                              mf.KERNEL_TILE, mf.KERNEL_TILE, overlap,
+                              "bfloat16", torch.bfloat16)
+    err = close_cols(got, want, K2_ATOL, f"B6 at N={N_CONFIG3}")
+    n, nm = float(N_CONFIG3), float(N_MAIN)
+    line("time_mxu", n=N_CONFIG3, kernel_ms=ms, plain_ms=plain_s * 1e3,
+         raw_sums_max_abs_err=err, n_main=N_MAIN,
+         main_pass_ms=main_pass_s * 1e3)
+    return entry("mxu_force hybrid (B6)", "mxu_force.cu", "mxu_force.py:98",
+                 c3_launches["mxu"], err, ms, plain_s * 1e3,
+                 bound(n * (n - 1) * OPS_B6_MASS, n * 28.0,
+                       n * (n - 1) * OPS_B6_MMA), n=N_CONFIG3, masses=True,
+                 pair_dtype="bfloat16", main_n=N_MAIN,
+                 main_ms=main_pass_s * 1e3,
+                 main_bound_ms=bound(nm * (nm - 1) * OPS_B6_FP32, nm * 24.0,
+                                     nm * (nm - 1) * OPS_B6_MMA)["bound_ms"])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -1229,19 +1520,26 @@ def main(argv=None):
     k2_phase(rng)
     k3_phase(rng)
     k4_phase(rng)
+    b6_phase(rng)
+    b4_phase(rng)
     state, launches, k1_err, cfg_sym, cfg_dir, check = main_phase()
     cfg_auto, auto_launches = auto_phase(state, check)
+    mxu_pass_s = mxu_main_phase(state, check)
     leapfrog_phase()
     state3, c3_launches = config3_phase()
+    _, c3_mxu_launches = config3_mxu_phase()
     state2, c2_launches = config2_phase()
     vjp_phase(rng)
     *config3, b10 = grad_config3_phase(rng)
     *sym, b11 = grad_sym_phase(rng)
     mxu_records = grad_sym_mxu_phase(rng, sym, config3)
+    grad_mxu_phase(sym)
+    b4 = pair_mxu_phase(state3)
     kernels = (times_phase(state, launches, k1_err, cfg_sym, cfg_dir)
                + time_k3(state, auto_launches, cfg_auto)
                + time_k4(state3, state, c3_launches)
-               + time_k5(state2, c2_launches) + [b10, b11] + mxu_records)
+               + time_k5(state2, c2_launches) + [b10, b11] + mxu_records
+               + [time_b6(state3, c3_mxu_launches, mxu_pass_s), b4])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on its path")

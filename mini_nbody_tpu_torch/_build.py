@@ -67,6 +67,9 @@ SIGNATURES = {
     # overlap_only, stream
     "vjp_rect_mxu_launch": ([_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _I,
                              _P], _I),
+    # pos_i, ni, pos_j, mass_j (or NULL), nj, out, sums (or NULL), softening,
+    # overlap_only, bf16, stream
+    "mxu_force_launch": ([_P, _I, _P, _P, _I, _P, _P, _F, _I, _I, _P], _I),
     "nbody_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -7,8 +7,13 @@
 //                              CROSS / FOLD slots)        -> "tri mode"
 //   :210 `_cross_pair_kernel` (build_cross_slot_call, chunk pair a != b,
 //                              CROSS slots only)          -> "cross mode"
-// The two modes are the same kernel; they differ only in the base pointers
-// the wrapper passes (tri: pos_a == pos_b, v_a == v_b, acc_a == acc_b).
+// and, in cross mode over a rectangle of two disjoint sets of different
+// lengths, mini_nbody_tpu/ops/sym_mxu_force.py:267 `_cross_kernel` as
+// `body_force_pair_mxu` calls it (:734 `_pair_call`)     -> B4.
+// The modes are the same kernel; they differ only in the base pointers and
+// the slot list the wrapper passes (tri: pos_a == pos_b, v_a == v_b, acc_a
+// == acc_b). Side a is indexed by the slot's bi and side b by its bj alone,
+// so the two sides may hold different numbers of blocks.
 //
 // One CTA of 256 threads per slot (kind, bi, bj), read from a device
 // int32 (S, 3) slot list. Rows index block bi of chunk a, columns block bj
@@ -226,9 +231,11 @@ int launch(const int* slots, int n_slots, const float* pos_a,
 
 }  // namespace
 
-// slots (n_slots, 3) int32 (kind, bi, bj); pos_a/pos_b (c, 3), v_a/v_b
-// (c, 8), acc_a/acc_b (c, 8) fp32 row-major with c a multiple of tile; all
-// contiguous on the current device. The sums are ADDED into acc_a/acc_b.
+// slots (n_slots, 3) int32 (kind, bi, bj); pos_a (ca, 3), v_a and acc_a
+// (ca, 8), pos_b (cb, 3), v_b and acc_b (cb, 8), fp32 row-major, with ca and
+// cb multiples of tile (equal in tri mode) and every bi < ca / tile, bj <
+// cb / tile; all contiguous on the current device. The sums are ADDED into
+// acc_a/acc_b.
 // tile: 64 or 128. Returns cudaGetLastError() after the launch.
 extern "C" int slot_pipe_launch(const int* slots, int n_slots,
                                 const float* pos_a, const float* pos_b,

@@ -171,10 +171,12 @@ def make_body_force_diff(force_impl, softening: float,
 def make_differentiable_force(cfg, mass_grad: bool = False):
     """Differentiable ``force(pos, mass=None) -> (N,3)`` over the configured
     backend, for ``loss.backward()`` or ``torch.autograd.grad``: the
-    ``torch`` backend takes the plain PyTorch VJP, ``sym_mxu`` (the bf16
-    class) the bf16 backward kernels, and every other backend the fp32
-    ones. mass_grad=True (requires cfg.use_masses) also yields gradients
-    with respect to the per-body masses."""
+    ``torch`` backend takes the plain PyTorch VJP, the bf16 class
+    (``sym_mxu``, and ``mxu`` with pair_dtype="bfloat16") the bf16 backward
+    kernels, and every other backend (``mxu`` with pair_dtype="float32"
+    among them) the fp32 ones, as JAX routes them. mass_grad=True (requires
+    cfg.use_masses) also yields gradients with respect to the per-body
+    masses."""
     from mini_nbody_tpu_torch.ops.force import make_force_fn
 
     inner = make_force_fn(cfg)

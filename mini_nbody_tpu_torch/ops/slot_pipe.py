@@ -5,12 +5,17 @@ Counterpart of ``mini_nbody_tpu/ops/slot_pipe.py:81-302``. A self chunk of nb
 blocks is covered by an exact slot list of (kind, bi, bj) rows, each block
 pair once; with fold, two diagonal blocks (2k, 2k+1) share one full tile
 (entry (r, c) is pair (a_r, a_c) for c < r and (b_r, b_c) for c > r; c == r
-is always masked). A chunk pair a != b is covered by every (i, j).
+is always masked). A chunk pair a != b is covered by every (i, j); two
+disjoint sets of different lengths by every (i, j) of the na x nb block
+rectangle.
 
-``tri_slot_sums_`` and ``cross_slot_sums_`` ADD the raw (c, 8) sums of one
-chunk or chunk pair into accumulator views: CUDA tensors launch the
-hand-written kernel ``csrc/slot_pipe.cu`` (K2, which serves both Pallas
-kernels ``_tri_slot_kernel`` and ``_cross_pair_kernel``), CPU tensors take
+``tri_slot_sums_``, ``cross_slot_sums_`` and ``pair_slot_sums_`` ADD the raw
+(c, 8) sums of one chunk, one chunk pair or one pair of disjoint sets into
+accumulator views: CUDA tensors launch the hand-written kernel
+``csrc/slot_pipe.cu`` (K2, which serves the Pallas kernels
+``_tri_slot_kernel`` and ``_cross_pair_kernel``, and in its cross mode over a
+rectangle B4, sym_mxu_force.py's ``_cross_kernel`` behind
+``body_force_pair_mxu``), CPU tensors take
 the plain version ``_slot_sums_plain``, which walks the same slot list with
 the same masks. ``build_tri_slot_call`` / ``build_cross_slot_call`` return
 the raw sums in the JAX (8, c) layout; the positions go in as (c, 3) only
@@ -36,10 +41,13 @@ SLOT_FOLD = 2
 #: The tiles the CUDA kernel is compiled for.
 KERNEL_TILES = (64, 128)
 
-#: Kernel launches made by tri_slot_sums_ and cross_slot_sums_ (CUDA
-#: tensors only); CROSS_LAUNCHES counts the cross-mode share of them.
+#: Kernel launches made by tri_slot_sums_, cross_slot_sums_ and
+#: pair_slot_sums_ (CUDA tensors only); CROSS_LAUNCHES counts the cross-mode
+#: share of them, PAIR_LAUNCHES the share of that made for
+#: body_force_pair_mxu (B4) through pair_slot_sums_.
 LAUNCHES = 0
 CROSS_LAUNCHES = 0
+PAIR_LAUNCHES = 0
 
 
 def tri_slot_list(nb: int, fold: bool = True):
@@ -147,15 +155,21 @@ def _slot_sums_plain(acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
 
 
 def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
-            softening, split_w, mask_offdiag):
-    c = pos_a.shape[0]
+            softening, split_w, mask_offdiag, pair=False):
+    """Side a has pos_a's rows and side b pos_b's (the same in tri mode and
+    for a chunk pair, any multiple of tile for a pair of sets)."""
     device = pos_a.device
-    if c % tile != 0:
-        raise ValueError(f"chunk {c} is not a multiple of tile {tile}")
-    for name, t, width in (("pos_a", pos_a, 3), ("pos_b", pos_b, 3),
-                           ("v_a", v_a, 8), ("v_b", v_b, 8),
-                           ("acc_a", acc_a, 8), ("acc_b", acc_b, 8)):
-        _build.check_tensor(name, t, (c, width), torch.float32, device)
+    for side, c, tensors in (("a", pos_a.shape[0], (pos_a, v_a, acc_a)),
+                             ("b", pos_b.shape[0], (pos_b, v_b, acc_b))):
+        if c % tile != 0:
+            raise ValueError(f"side {side} has {c} rows, not a multiple of "
+                             f"tile {tile}")
+        for name, t, width in zip(("pos_", "v_", "acc_"), tensors, (3, 8, 8)):
+            _build.check_tensor(name + side, t, (c, width), torch.float32,
+                                device)
+    if not cross and pos_a.shape[0] != pos_b.shape[0]:
+        raise ValueError("tri mode takes one chunk: pos_a and pos_b rows "
+                         "must agree")
     _build.check_tensor("slots", slots, (slots.shape[0], 3), torch.int32,
                         device)
     if not _build.on_card(device):
@@ -166,7 +180,7 @@ def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
     if tile not in KERNEL_TILES:
         raise ValueError(f"the CUDA slot kernel takes tile in {KERNEL_TILES}, "
                          f"got {tile}")
-    global LAUNCHES, CROSS_LAUNCHES
+    global LAUNCHES, CROSS_LAUNCHES, PAIR_LAUNCHES
     lib = _build.load_library()
     with torch.cuda.device(device):
         code = lib.slot_pipe_launch(
@@ -178,6 +192,7 @@ def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
     _build.check(lib, code, "slot_pipe_launch")
     LAUNCHES += 1
     CROSS_LAUNCHES += int(cross)
+    PAIR_LAUNCHES += int(pair)
 
 
 def tri_slot_sums_(acc, pos, v, slots, tile, softening, split_w=False,
@@ -193,6 +208,15 @@ def cross_slot_sums_(acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
     """Chunk pair a != b: rows into acc_a, reactions into acc_b."""
     _launch(True, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
             softening, split_w, mask)
+
+
+def pair_slot_sums_(acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
+                    softening, split_w=False, mask=True):
+    """Two disjoint sets (body_force_pair_mxu): cross mode over the
+    (na / tile) x (nb / tile) rectangle ``slots``, rows into acc_a (na, 8),
+    reactions into acc_b (nb, 8)."""
+    _launch(True, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
+            softening, split_w, mask, pair=True)
 
 
 def tri_slot_sums_plain(pos, v, softening, tile, fold=True,
@@ -212,12 +236,14 @@ def tri_slot_sums_plain(pos, v, softening, tile, fold=True,
 
 def cross_slot_sums_plain(pa, pb, va, vb, softening, tile, mask=True,
                           split_w=False, mma_dtype=torch.float32):
-    """Plain raw sums of one chunk pair: (acc_a (8, c), acc_b (8, c))."""
-    nb = pa.shape[0] // tile
+    """Plain raw sums of one chunk pair, or of two disjoint sets of any
+    lengths that are multiples of tile: (acc_a (8, na), acc_b (8, nb))."""
     acc_a = torch.zeros((pa.shape[0], 8), dtype=torch.float32,
                         device=pa.device)
-    acc_b = torch.zeros_like(acc_a)
-    slots = slot_table(nb, False, True, pa.device)
+    acc_b = torch.zeros((pb.shape[0], 8), dtype=torch.float32,
+                        device=pb.device)
+    slots = slot_table(pa.shape[0] // tile, False, True, pa.device,
+                       nb_b=pb.shape[0] // tile)
     _slot_sums_plain(acc_a, acc_b, pa, pb, va, vb, slots, tile, softening,
                      split_w, mask, mma_dtype)
     return acc_a.T, acc_b.T

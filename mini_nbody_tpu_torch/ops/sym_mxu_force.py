@@ -6,7 +6,8 @@ Counterpart of ``mini_nbody_tpu/ops/sym_mxu_force.py`` (the parts on the
 slot path: ``:105-192`` any_coincident / COINCIDENT_AUTO_MIN_N /
 resolve_auto, ``:203-224`` _w_parts, ``:431-464`` _resolve_tiling / _pack,
 ``:507-559`` the chunk loop of _slot_accumulate, ``:588-651``
-body_force_sym_mxu, ``:665-669`` _combine). The accumulation identity is the
+body_force_sym_mxu, ``:665-669`` _combine, ``:672-730``
+body_force_pair_mxu). The accumulation identity is the
 JAX one: with v = [m p | m],
 
     rows:      S_r = W @ v_j     F_i += S_r[:3] - p_i S_r[3]
@@ -21,9 +22,13 @@ bf16 rounding of v costs ~16 mantissa bits instead of 8. The kernels are in
 Coincident bodies: self pairs are always masked (diagonal blocks, fold
 diagonals). coincident='auto' runs an exact duplicate scan once per force
 call (a host sync, replacing JAX's lax.cond) and picks the maskless kernel
-when no two distinct bodies can have d2 == 0. The band traversal, the
-ensembles, body_force_pair_mxu and the segmented drivers are not ported yet
-(ROADMAP).
+when no two distinct bodies can have d2 == 0.
+
+``body_force_pair_mxu`` (B4) computes the forces between two disjoint sets
+of any lengths, each cross pair once: K2's cross mode over the na x nb block
+rectangle (``slot_pipe.pair_slot_sums_``), rows into a and reactions into b.
+The band traversal, the ensembles and the segmented drivers are not ported
+yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -184,3 +189,41 @@ def body_force_sym_mxu(pos, mass=None, softening: float = SOFTENING,
     acc = _slot_accumulate(pos_p, v, softening, tile, c, nc, split_w,
                            mask_offdiag)
     return _combine(pos_p, acc)[:n]
+
+
+def body_force_pair_mxu(pos_a, pos_b, mass_a=None, mass_b=None,
+                        softening: float = SOFTENING, tile: int = DEFAULT_TILE,
+                        split_w: bool = False, coincident: str = "masked"):
+    """Forces between two disjoint body sets, each cross pair's w computed
+    once: (F_on_a (Na,3), F_on_b (Nb,3)), F_on_b the reactions. Masses both
+    or neither. coincident: "masked" (default), "fast" (the caller
+    guarantees no cross-set duplicates) or "auto" (one duplicate scan of the
+    concatenated sets; a within-set duplicate also routes to masked). CUDA
+    tensors run K2's cross mode over the rectangle (tile 64 or 128, the sets
+    padded to it), CPU tensors its plain version at JAX's interpret tile
+    min(tile, round_up(na, 8), round_up(nb, 8))."""
+    from mini_nbody_tpu_torch import _build
+    from mini_nbody_tpu_torch.ops import slot_pipe
+
+    if (mass_a is None) != (mass_b is None):
+        raise ValueError("body_force_pair_mxu needs both masses or neither")
+    check_coincident(coincident)
+    na, nb = pos_a.shape[0], pos_b.shape[0]
+    coincident = resolve_auto(coincident, na + nb)
+    t = tile
+    if not _build.on_card(pos_a.device):
+        t = min(tile, round_up(na, 8), round_up(nb, 8))
+    na_p, nb_p = round_up(na, t), round_up(nb, t)
+    if coincident == "auto":
+        mask = any_coincident(torch.cat([pos_a, pos_b]))
+    else:
+        mask = coincident == "masked"
+    pa, va = _pack(pos_a, mass_a, na, na_p)
+    pb, vb = _pack(pos_b, mass_b, nb, nb_p)
+    acc_a = torch.zeros((na_p, 8), dtype=torch.float32, device=pa.device)
+    acc_b = torch.zeros((nb_p, 8), dtype=torch.float32, device=pa.device)
+    slots = slot_pipe.slot_table(na_p // t, False, True, pa.device,
+                                 nb_b=nb_p // t)
+    slot_pipe.pair_slot_sums_(acc_a, acc_b, pa, pb, va, vb, slots, t,
+                              softening, split_w, mask)
+    return _combine(pa, acc_a)[:na], _combine(pb, acc_b)[:nb]

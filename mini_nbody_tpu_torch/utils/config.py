@@ -11,8 +11,9 @@ takes the kernel.
 Backend names follow PyTorch rather than JAX: ``"torch"`` is the plain
 all-pairs op (JAX ``"jnp"``), ``"direct"`` the hand-written ordered kernel
 (JAX ``"pallas"``), ``"sym"`` the fp32 pair-once kernel, ``"sym_mxu"`` the
-pair-once tensor-core kernel, and ``"auto"`` resolves to ``"sym"`` on every
-device, as JAX's single-chip ``auto`` does
+pair-once tensor-core kernel, ``"mxu"`` the ordered tensor-core hybrid (its
+precision class set by ``pair_dtype``), and ``"auto"`` resolves to ``"sym"``
+on every device, as JAX's single-chip ``auto`` does
 (``mini_nbody_tpu/utils/config.py:246-254``): a CUDA state runs the kernel,
 a CPU state its plain version. ``fast_rsqrt_cube`` moves here from
 ``mini_nbody_tpu/ops/pallas_compat.py:22-23``.
@@ -34,13 +35,13 @@ DT = 0.01
 #: are inert without a mass multiply.
 FAR = 1.0e18
 
-_BACKENDS = ("auto", "torch", "direct", "sym", "sym_mxu")
-#: Backends of the JAX package that the port has not ported yet.
-_UNPORTED_BACKENDS = {"mxu": "ROADMAP B6"}
+_BACKENDS = ("auto", "torch", "direct", "sym", "sym_mxu", "mxu")
 #: JAX backend names -> port backend names (SimConfig.from_dict).
 JAX_BACKENDS = {"auto": "auto", "jnp": "torch", "pallas": "direct",
                 "sym_mxu": "sym_mxu", "sym": "sym", "mxu": "mxu"}
 _INTEGRATORS = ("euler", "leapfrog", "rk4", "yoshida4")
+#: Precision of the mxu backend's accumulation products (JAX's names).
+_PAIR_DTYPES = ("float32", "bfloat16")
 _COMMS = ("all_gather", "ring", "ring_sym", "grid")
 
 COINCIDENT_MODES = ("auto", "masked", "fast")
@@ -85,14 +86,19 @@ class SimConfig:
 
     Attributes (as in the JAX ``SimConfig``; only the differences are
     noted here):
-      backend: "auto", "torch", "direct", "sym" or "sym_mxu" (module
+      backend: "auto", "torch", "direct", "sym", "sym_mxu" or "mxu" (module
         docstring).
+      pair_dtype: the mxu backend's product precision, as in JAX:
+        "float32" (the default, the fp32-exact class) or "bfloat16" (the
+        bf16-accumulate class). Other backends ignore it.
       tile_i: threads per block of the direct kernel; each block also
         stages its j-bodies through shared memory in tiles of this size.
         Must be a multiple of 8 (JAX rule); the CUDA kernel further needs a
-        multiple of 32 up to 1024.
-      tile_j: kept for parity with the JAX config (the Pallas j-block); the
-        CUDA direct kernel stages j in tiles of ``tile_i``.
+        multiple of 32 up to 1024. Also the i tile of the mxu backend's
+        plain version (CPU tensors).
+      tile_j: the j tile of the mxu backend's plain version, as the Pallas
+        j-block; the CUDA direct kernel stages j in tiles of ``tile_i``,
+        and the mxu kernel (B6) has tiles of its own.
       sym_tile / sym_chunk: tile (64 or 128 on CUDA) and chunk of the sym
         and sym_mxu kernels; None = their defaults (128, 131072).
       sym_bwd_tile: tile of the pair-once backward kernels (vjp_pos_sym,
@@ -112,6 +118,7 @@ class SimConfig:
     softening: float = SOFTENING
     integrator: str = "euler"
     backend: str = "auto"
+    pair_dtype: str = "float32"
     tile_i: int = 512
     tile_j: int = 2048
     sym_tile: Optional[int] = None
@@ -129,10 +136,6 @@ class SimConfig:
     def __post_init__(self):
         if self.n <= 0:
             raise ValueError(f"n must be positive, got {self.n}")
-        if self.backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported yet "
-                f"({_UNPORTED_BACKENDS[self.backend]})")
         if self.backend not in _BACKENDS:
             raise ValueError(
                 f"backend must be one of {_BACKENDS}, got {self.backend!r}")
@@ -140,6 +143,9 @@ class SimConfig:
             raise ValueError(
                 f"integrator must be one of {_INTEGRATORS}, "
                 f"got {self.integrator!r}")
+        if self.pair_dtype not in _PAIR_DTYPES:
+            raise ValueError(f"pair_dtype must be one of {_PAIR_DTYPES}, "
+                             f"got {self.pair_dtype!r}")
         if self.traversal == "band":
             raise NotImplementedError(
                 "traversal='band' is not ported yet (ROADMAP B16)")
@@ -176,15 +182,13 @@ class SimConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
         """Build from ``dataclasses.asdict(jax_cfg)``: maps the JAX backend
-        names, drops ``interpret`` and accepts the unported JAX-only fields
-        at their defaults only."""
+        names, drops ``interpret`` and accepts the unported JAX-only field
+        ``resident_tile`` at its default only."""
         d = dict(d)
         d.pop("interpret", None)
-        for key, default in (("pair_dtype", "float32"),
-                             ("resident_tile", None)):
-            if d.pop(key, default) != default:
-                raise NotImplementedError(
-                    f"{key} is not ported yet (ROADMAP B6/B15)")
+        if d.pop("resident_tile", None) is not None:
+            raise NotImplementedError(
+                "resident_tile is not ported yet (ROADMAP B15)")
         if d.get("mesh_shape") is not None:
             d["mesh_shape"] = tuple(d["mesh_shape"])
         backend = d.get("backend", "auto")
@@ -199,9 +203,12 @@ class SimConfig:
 
     def bf16_class(self) -> bool:
         """True when the force path accumulates through bf16 tensor-core
-        products: ``sym_mxu`` (JAX's mxu with bf16 operands is not
-        ported). Routes the backward: fp32 forwards keep fp32 backwards."""
-        return self.effective_backend() == "sym_mxu"
+        products: ``sym_mxu`` always, ``mxu`` with pair_dtype="bfloat16"
+        (JAX's rule). Routes the backward: fp32 forwards keep fp32
+        backwards."""
+        eff = self.effective_backend()
+        return eff == "sym_mxu" or (eff == "mxu"
+                                    and self.pair_dtype == "bfloat16")
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

@@ -57,7 +57,8 @@ def test_validation_mirrors_jax(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(comm="ring_sym"), dict(backend="mxu"), dict(traversal="band"),
+    dict(comm="ring_sym"), dict(backend="sym_mxu", traversal="band"),
+    dict(traversal="band"),
     dict(mesh_shape=(2,)), dict(comm="ring"), dict(resident=True),
     dict(comm="grid"),
 ])
@@ -84,9 +85,11 @@ def test_from_dict_maps_backends(jax_backend, port_backend):
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
 
 
-@pytest.mark.parametrize("kw", [dict(pair_dtype="bfloat16"),
-                                dict(backend="mxu"), dict(resident_tile=512)])
+@pytest.mark.parametrize("kw", [dict(resident=True),
+                                dict(traversal="band"),
+                                dict(resident_tile=512)])
 def test_from_dict_rejects_unported(kw):
+    # pair_dtype and backend "mxu" are ported (test_torch_mxu_force.py).
     with pytest.raises(NotImplementedError):
         SimConfig.from_dict(dataclasses.asdict(jconfig.SimConfig(n=8, **kw)))
 

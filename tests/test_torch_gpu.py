@@ -15,7 +15,11 @@ U within 1e-5 of |U|, and K5 against its plain version at the K1 bound.
 The VJP kernels: B10 and B11 against their plain versions at the K1 bound
 (fp32 sums in another order, atomics in B11); B13 and B14 raw sums against
 their bf16-mode plain sums at K2's per-column bound, and B13's gradient
-against the fp32 B11 at the sym_mxu bound (rtol 2e-2, atol 5e-3)."""
+against the fp32 B11 at the sym_mxu bound (rtol 2e-2, atol 5e-3). B6
+(the mxu backend) and B4 (body_force_pair_mxu on K2's cross mode): raw sums
+against their bf16-mode plain sums at K2's per-column bound, the fp32 mode
+of B6 against a float64 oracle at the K1 bound, and B6's auto and fast runs
+bitwise equal to its masked run (no atomics)."""
 
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ from mini_nbody_tpu_torch import (BodyState, SimConfig, init,
                                   simulate)
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import direct_force as df
+from mini_nbody_tpu_torch.ops import mxu_force as mf
 from mini_nbody_tpu_torch.ops import pe_kernel as pk
 from mini_nbody_tpu_torch.ops import slot_pipe as sp
 from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
@@ -496,3 +501,167 @@ def test_sqrt_rollout_launch_counts(cuda):
         (sf.LAUNCHES, sf.CROSS_LAUNCHES, vk.SYM_LAUNCHES), counts)]
     assert launched == [3 * 19, 19, 9]
     assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0
+
+
+def _b6_case(n, seed, masses, device, coincident):
+    pos, _, m = _vjp_case(n, seed, masses, device, coincident)
+    return pos, m
+
+
+@pytest.mark.parametrize("n,masses,softening,mode", [
+    (3001, False, 1e-2, "auto"), (3001, True, 1e-2, "fast"),
+    (3001, False, 1e-9, "masked"), (9001, True, 1e-9, "auto")])
+def test_b6_square_vs_bf16_plain(cuda, n, masses, softening, mode):
+    pos, m = _b6_case(n, 30, masses, cuda, softening == 1e-9)
+    overlap = mf.square_overlap_only(pos, mode)
+    assert not (overlap and softening == 1e-9)  # the scan finds the pair
+    before = mf.LAUNCHES
+    f, s = mf.hybrid_forces(pos, pos, m, softening, overlap_only=overlap,
+                            with_sums=True)
+    assert mf.LAUNCHES == before + 1
+    want = mf.hybrid_sums_plain(pos, pos, m, softening, mf.KERNEL_TILE,
+                                mf.KERNEL_TILE, overlap,
+                                mma_dtype=torch.bfloat16)
+    _close_cols(s, want)
+    _close(f, mf.body_force_mxu(pos, pos, m, softening, coincident=mode),
+           0.0, 0.0)
+
+
+@pytest.mark.parametrize("masses", [False, True])
+def test_b6_rect_vs_bf16_plain(cuda, masses):
+    pos, m = _b6_case(3001, 31, masses, cuda, True)
+    sub = pos[:64].contiguous()
+    f, s = mf.hybrid_forces(sub, pos, m, 1e-9, with_sums=True)
+    want = mf.hybrid_sums_plain(sub, pos, m, 1e-9, mf.KERNEL_TILE,
+                                mf.KERNEL_TILE, mma_dtype=torch.bfloat16)
+    _close_cols(s, want)
+    _close(f, body_force_torch(sub.double(), pos.double(),
+                               None if m is None else m.double()), 2e-2, 5e-3)
+
+
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("square", [False, True])
+def test_b6_fp32_vs_fp64_oracle(cuda, masses, square):
+    pos, m = _b6_case(3001, 32, masses, cuda, True)
+    pi = pos if square else pos[:1000].contiguous()
+    got = mf.body_force_mxu(pi, pos, m, 1e-9, pair_dtype="float32")
+    want = body_force_torch(pi.double(), pos.double(),
+                            None if m is None else m.double())
+    _close(got, want, 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("pair_dtype", ["bfloat16", "float32"])
+def test_b6_auto_and_fast_bitwise_equal_masked(cuda, pair_dtype):
+    # No atomics: on duplicate-free bodies the overlap run is the masked run
+    # bit for bit, on the card as on the CPU.
+    pos, m = _b6_case(9001, 33, True, cuda, False)
+    assert not sm.any_coincident(pos)
+    ref = mf.body_force_mxu(pos, pos, m, pair_dtype=pair_dtype)
+    for mode in ("auto", "fast"):
+        got = mf.body_force_mxu(pos, pos, m, pair_dtype=pair_dtype,
+                                coincident=mode)
+        assert torch.equal(got, ref), mode
+
+
+@pytest.mark.parametrize("masses", [False, True])
+def test_b6_bf16_vs_fp64_oracle(cuda, masses):
+    pos, m = _b6_case(4096, 34, masses, cuda, False)
+    got = mf.body_force_mxu(pos, pos, m, 1e-2)
+    want = body_force_torch(pos.double(), pos.double(),
+                            None if m is None else m.double(), softening=1e-2)
+    _close(got, want, 2e-2, 5e-3)
+
+
+def test_b6_long_rows_vs_fp64_oracle(cuda):
+    # 131,072 sources per row: a tensor-core accumulator carried across all
+    # 1024 j tiles drifts (its adds do not round to nearest) and the
+    # epilogue's cancellation lifts that above the bf16 class; B6 adds a
+    # fresh partial per tile in fp32.
+    n = 131072
+    pos = _pos(n, 37, cuda)
+    rows = pos[:512].contiguous()
+    got = mf.body_force_mxu(rows, pos)
+    want = body_force_torch(rows.double(), pos.double(), row_chunk=64)
+    _close(got, want, 2e-2, 5e-3)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("mask", [False, True])
+def test_b4_vs_bf16_plain(cuda, tile, masses, mask):
+    na, nb = 700, 1300
+    pos, m = _b6_case(na + nb, 35, masses, cuda, False)
+    ma, mb = (None, None) if m is None else (m[:na], m[na:])
+    pa, va = sm._pack(pos[:na], ma, na, sm.round_up(na, tile))
+    pb, vb = sm._pack(pos[na:], mb, nb, sm.round_up(nb, tile))
+    acc_a = torch.zeros((pa.shape[0], 8), device=cuda)
+    acc_b = torch.zeros((pb.shape[0], 8), device=cuda)
+    slots = sp.slot_table(pa.shape[0] // tile, False, True, cuda,
+                          nb_b=pb.shape[0] // tile)
+    before = (sp.LAUNCHES, sp.CROSS_LAUNCHES, sp.PAIR_LAUNCHES)
+    sp.pair_slot_sums_(acc_a, acc_b, pa, pb, va, vb, slots, tile, 1e-9,
+                       mask=mask)
+    assert (sp.LAUNCHES, sp.CROSS_LAUNCHES, sp.PAIR_LAUNCHES) == tuple(
+        b + 1 for b in before)
+    want = sp.cross_slot_sums_plain(pa, pb, va, vb, 1e-9, tile, mask=mask,
+                                    mma_dtype=torch.bfloat16)
+    _close_cols(acc_a[:na], want[0].T[:na])
+    _close_cols(acc_b[:nb], want[1].T[:nb])
+
+
+@pytest.mark.parametrize("masses", [False, True])
+def test_b4_vs_b6_and_fp64_oracle(cuda, masses):
+    na, nb = 900, 2100
+    pos, m = _b6_case(na + nb, 36, masses, cuda, False)
+    pa, pb = pos[:na].contiguous(), pos[na:].contiguous()
+    ma, mb = (None, None) if m is None else (m[:na].contiguous(),
+                                             m[na:].contiguous())
+    before = sp.PAIR_LAUNCHES
+    fa, fb = sm.body_force_pair_mxu(pa, pb, ma, mb, 1e-2, coincident="auto")
+    assert sp.PAIR_LAUNCHES == before + 1
+    for got, pi, pj, mj in ((fa, pa, pb, mb), (fb, pb, pa, ma)):
+        want = body_force_torch(pi.double(), pj.double(),
+                                None if mj is None else mj.double(),
+                                softening=1e-2)
+        _close(got, want, 2e-2, 5e-3)
+        _close(got, mf.body_force_mxu(pi, pj, mj, 1e-2), 2e-2, 5e-3)
+    with pytest.raises(ValueError, match="both masses"):
+        sm.body_force_pair_mxu(pa, pb, None, torch.ones(nb, device=cuda))
+
+
+@pytest.mark.parametrize("pair_dtype", ["bfloat16", "float32"])
+def test_mxu_simulate_and_grad_go_through_b6(cuda, monkeypatch, pair_dtype):
+    from mini_nbody_tpu_torch.ops import autodiff
+
+    n = 3000
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    state = init.plummer(n, generator=gen, device=cuda)
+    cfg = SimConfig(n=n, steps=3, backend="mxu", pair_dtype=pair_dtype,
+                    softening=1e-2, dt=1e-3, integrator="leapfrog",
+                    use_masses=True)
+    before = mf.LAUNCHES
+    out = simulate(cfg, state)
+    torch.cuda.synchronize()
+    assert mf.LAUNCHES == before + 4  # the initial pass + one per step
+    ref = simulate(cfg.replace(backend="torch"), state)
+    _close(out.pos, ref.pos, 1e-3, 1e-4)
+    # The backward by class: bf16 -> B13 (<= _SYM_BWD_MAX) or B14 beyond
+    # it, fp32 -> B11 or B10.
+    for bound, small in ((4096, True), (2048, False)):
+        monkeypatch.setattr(autodiff, "_SYM_BWD_MAX", bound)
+        counts = (vk.LAUNCHES, vk.SYM_LAUNCHES, vm.LAUNCHES,
+                  vm.RECT_LAUNCHES, mf.LAUNCHES)
+        p = state.pos.clone().requires_grad_(True)
+        force = make_differentiable_force(cfg)
+        (force(p, state.mass) ** 2).sum().backward()
+        launched = [a - b for a, b in zip(
+            (vk.LAUNCHES, vk.SYM_LAUNCHES, vm.LAUNCHES, vm.RECT_LAUNCHES,
+             mf.LAUNCHES), counts)]
+        bf16 = pair_dtype == "bfloat16"
+        assert launched == [int(not bf16 and not small),
+                            int(not bf16 and small), int(bf16 and small),
+                            int(bf16 and not small), 1]
+        g = 2.0 * force(state.pos, state.mass).detach()
+        want = vk.vjp_ordered_plain(state.pos, g, state.pos, g, state.mass,
+                                    state.mass, 1e-2)
+        _close(p.grad, want, *((2e-2, 5e-3) if bf16 else (1e-3, 1e-4)))
