@@ -34,7 +34,28 @@ each with every launch count set to 0 just before it and read just after:
   (forward B6, backward B13) against ``grad_sym``'s fp32 gradient;
 - ``pair_mxu``: ``body_force_pair_mxu`` (B4, K2's cross mode over a
   rectangle) on the two halves of config 3's state, against the B6
-  rectangles and the float64 oracle.
+  rectangles and the float64 oracle;
+- ``determinism``: K2, K3, B11 and B13 twice at N = 262,144 (two chunks:
+  tri and cross launches), bitwise equal; ``sym_mxu`` with 'auto' and
+  'fast' bitwise 'masked' at N = 65,536; a 10-step rollout gradient with
+  remat "sqrt" bitwise the one with "none", on ``auto`` and ``sym_mxu``;
+- ``ensemble_sweep``: examples/parameter_sweep.py at its defaults, B = 32
+  plummer spheres of N = 1024 with velocity scales 0.2 .. 1.6, 200 leapfrog
+  steps of ``simulate_ensemble`` on ``sym_mxu`` (B9a): per-system energy
+  drift, the sweep trend, systems 0 and 31 bitwise their ``simulate``;
+- ``ensemble_fp32``: B = 16 plummer systems of config 2's N = 65,536 on
+  ``auto`` (B9b), 5 leapfrog steps, each system bitwise its ``simulate``;
+- ``trajectory``: N = 65,536 on ``auto``, 20 steps with a snapshot every 5,
+  the last snapshot bitwise ``simulate``'s final positions;
+- ``coincident_gate``: for each kernel behind a coincident gate (K2, B6,
+  B10, B11, B13, B14), 'masked' against the duplicate scan plus the
+  maskless kernel at N = 4096 .. 262,144.
+
+A slot kernel (K2, K3, B11, B13, and the ensembles B9a and B9b) makes one
+launch per piece of its slot list (``slot_pipe.PIECE_SLOTS`` slots) and
+group of systems, each followed by one launch of ``csrc/slot_reduce.cu``,
+which adds the piece's partial sums in slot order; the launch counts and
+the per-launch times of the kernels line count those launches.
 
 Before the paths, ``vjp_vs_plain`` holds the VJP kernels B10, B11, B13 and
 B14 against their plain versions, and ``b6_vs_plain`` and ``b4_vs_plain``
@@ -62,7 +83,8 @@ import torch
 
 from mini_nbody_tpu_torch import (BodyState, SimConfig, _build, init,
                                   make_differentiable_force, make_force_fn,
-                                  make_rollout_fn, simulate)
+                                  make_rollout_fn, simulate,
+                                  simulate_ensemble, trajectory)
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import direct_force as df
 from mini_nbody_tpu_torch.ops import mxu_force as mf
@@ -110,14 +132,14 @@ OPS_EULER = 12
 K1_RTOL, K1_ATOL = 1e-3, 1e-4
 #: K2 raw sums vs the bf16-mode plain sums, per column scale: both round w
 #: and v to bf16 the same way, but FMA contraction can move a w across a
-#: bf16 rounding boundary (one pair term off by 2^-8), and the atomics sum
+#: bf16 rounding boundary (one pair term off by 2^-8), and the kernel sums
 #: in another order.
 K2_ATOL = 2e-3
 #: sym_mxu forces vs the fp64 oracle: the on-card bf16-accumulate bound of
 #: tests/test_slot_pipe.py:24.
 SYM_RTOL, SYM_ATOL = 2e-2, 5e-3
-#: K3 vs its plain version: fp32 sums in another order plus atomics, the K1
-#: bound. K4's U against its plain version and a float64 oracle.
+#: K3 vs its plain version: fp32 sums in another order, the K1 bound.
+#: K4's U against its plain version and a float64 oracle.
 K3_RTOL, K3_ATOL = K1_RTOL, K1_ATOL
 K4_RTOL = 1e-5
 #: K5 (fused) against the unfused direct run: the epilogue rounds as the
@@ -152,6 +174,18 @@ OPS_B13_FP32, OPS_B13_MMA, OPS_B14_FP32, OPS_B14_MMA = 30, 64, 30, 32
 #: B6 per ordered pair: w in fp32 (12, the rsqrt counted as 1; 13 with a
 #: mass) and, in the bf16 class, 8 operand columns x 2 on the tensor cores.
 OPS_B6_FP32, OPS_B6_MASS, OPS_B6_MMA = 12, 13, 16
+
+#: The determinism phase's N: two chunks of CHUNK, so tri and cross
+#: launches.
+N_DETERMINISM = 262144
+#: examples/parameter_sweep.py's defaults (B9a), and B = 16 systems of
+#: config 2's N on 'auto' (B9b); the trajectory phase.
+SWEEP_B, SWEEP_N, SWEEP_STEPS, SWEEP_DT, SWEEP_SOFT = 32, 1024, 200, 2e-3, 1e-3
+ENS_B, ENS_N, ENS_STEPS, ENS_SMALL_N = 16, 65536, 5, 4096
+N_TRAJ, TRAJ_STEPS, TRAJ_EVERY = 65536, 20, 5
+#: The sizes of the coincident_gate phase and its timed calls per mode.
+GATE_NS = (4096, 8192, 16384, 32768, 65536, 131072, 262144)
+GATE_REPS = 6
 
 DEV = torch.device("cuda", 0)
 
@@ -207,7 +241,15 @@ COUNTERS = {"direct": (df, "LAUNCHES"), "fused": (df, "FUSED_LAUNCHES"),
             "vjp_mxu": (vm, "LAUNCHES"),
             "vjp_mxu_cross": (vm, "CROSS_LAUNCHES"),
             "vjp_rect_mxu": (vm, "RECT_LAUNCHES"), "mxu": (mf, "LAUNCHES"),
-            "pair": (sp, "PAIR_LAUNCHES")}
+            "pair": (sp, "PAIR_LAUNCHES"),
+            "slot_ensemble": (sp, "ENSEMBLE_LAUNCHES"),
+            "sym_ensemble": (sf, "ENSEMBLE_LAUNCHES"),
+            "slot_reduce": (sp, "REDUCE_LAUNCHES")}
+#: The slot kernels of read_counts: slot_reduce runs once after each of
+#: their launches.
+SLOT_KERNELS = ("slot_tri", "slot_cross", "pair_mxu", "slot_ensemble",
+                "sym_tri", "sym_cross", "sym_ensemble", "vjp_sym_tri",
+                "vjp_sym_cross", "vjp_mxu_tri", "vjp_mxu_cross")
 
 
 def reset_counts():
@@ -228,15 +270,73 @@ def read_counts():
             "vjp_sym_cross": c["vjp_sym_cross"],
             "vjp_mxu_tri": c["vjp_mxu"] - c["vjp_mxu_cross"],
             "vjp_mxu_cross": c["vjp_mxu_cross"],
-            "vjp_rect_mxu": c["vjp_rect_mxu"]}
+            "vjp_rect_mxu": c["vjp_rect_mxu"],
+            "slot_ensemble": c["slot_ensemble"],
+            "sym_ensemble": c["sym_ensemble"],
+            "slot_reduce": c["slot_reduce"]}
 
 
 def expect_counts(got, path, **want):
-    """Fail unless the path launched exactly ``want`` and nothing else."""
+    """Fail unless the path launched exactly ``want`` and nothing else;
+    slot_reduce, unless given, once per launch of a slot kernel."""
     full = dict.fromkeys(got, 0)
     full.update(want)
+    if "slot_reduce" not in want:
+        full["slot_reduce"] = sum(full[k] for k in SLOT_KERNELS)
     if got != full:
         fail(f"{path}: launch counts {got}, expected {full}")
+
+
+def tri_slots(c, tile):
+    """Slots of a self chunk of c rows: each block pair once, the diagonal
+    blocks folded in twos (slot_pipe.tri_slot_list)."""
+    nb = c // tile
+    return nb * (nb - 1) // 2 + ((nb + 1) // 2 if nb > 1 else 1)
+
+
+def per_call(n_slots, n_sys=1):
+    """Launches of one call of a slot kernel over n_slots slots and n_sys
+    systems (slot_pipe.run_slot_pieces): one per piece of PIECE_SLOTS slots
+    and group of systems, a group as many systems as keep a launch at or
+    under PIECE_SLOTS slots, at most 65,535."""
+    piece = sp.PIECE_SLOTS
+    group = min(n_sys, max(1, piece // min(n_slots, piece)), 65535)
+    return -(-n_slots // piece) * -(-n_sys // group)
+
+
+def pass_launches(n, tile, passes=1):
+    """(tri, cross) launches of ``passes`` chunked pair-once passes over n
+    bodies at CHUNK (K2, K3, B11 or B13 at ``tile``)."""
+    tile, c, nc, _ = sm._resolve_tiling(n, tile, CHUNK, kernel=True)
+    return (passes * nc * per_call(tri_slots(c, tile)),
+            passes * nc * (nc - 1) // 2 * per_call((c // tile) ** 2))
+
+
+def reduce_ms(slots, tri, tile, width, rows, n_sys=1):
+    """CUDA-event ms of the slot_reduce launches of one call of a slot
+    kernel over ``slots`` on chunks of ``rows`` rows: run_slot_pieces with
+    a compute launch that does nothing (the sums are of whatever the
+    scratch holds)."""
+    acc_a = torch.zeros((rows * n_sys, width), device=DEV)
+    acc_b = acc_a if tri else torch.zeros_like(acc_a)
+
+    def run():
+        sp.run_slot_pieces("none", slots, tri, tile, width, acc_a, acc_b,
+                           lambda *a: 0, lambda: None, n_sys, rows)
+
+    return time_fn(run, reps=3) * 1e3
+
+
+def slot_entry(name, source, replaces, launches, err, call_ms, red_ms, per,
+               plain_call_ms, bnd, **kw):
+    """entry() of a slot kernel, per launch: one call of ``per`` launches
+    took call_ms, red_ms of it in its slot_reduce launches; its plain
+    version took plain_call_ms and its bound is bnd."""
+    bnd = {**bnd, "bound_ms": bnd["bound_ms"] / per}
+    return entry(name, source, replaces, launches, err,
+                 (call_ms - red_ms) / per, plain_call_ms / per, bnd,
+                 call_ms=call_ms, slot_reduce_ms=red_ms,
+                 launches_per_call=per, **kw)
 
 
 def bound(fp32_ops, nbytes, bf16_ops=0.0):
@@ -351,14 +451,15 @@ def k2_phase(rng):
                                    K2_ATOL, f"K2 cross cols masses={masses}"))
     torch.cuda.synchronize()
 
-    # Duplicate bodies under coincident='auto' (N >= COINCIDENT_AUTO_MIN_N,
-    # so the duplicate scan runs): the scan must route to the masked kernel,
-    # and a cloud of 8192 copies of one point has exactly zero force.
-    nd = sm.COINCIDENT_AUTO_MIN_N
+    # Duplicate bodies under coincident='auto', K2's gate at 0 so that the
+    # duplicate scan runs: the scan must route to the masked kernel, and a
+    # cloud of 8192 copies of one point has exactly zero force.
+    nd = 8192
     dup = torch.full((nd, 3), 0.25, device=DEV)
     if not sm.any_coincident(dup):
         fail("any_coincident missed exact duplicates")
-    f_dup = sm.body_force_sym_mxu(dup, coincident="auto")
+    with gate_at(0, "K2"):
+        f_dup = sm.body_force_sym_mxu(dup, coincident="auto")
     torch.cuda.synchronize()
     if f_dup.abs().max().item() != 0.0:
         fail("duplicate bodies: mutual force is not exactly 0")
@@ -368,7 +469,8 @@ def k2_phase(rng):
     cloud[7000] = cloud[7]
     cloud = cloud.to(DEV)
     route = ("masked" if sm.any_coincident(cloud) else "maskless")
-    f = sm.body_force_sym_mxu(cloud, coincident="auto")
+    with gate_at(0, "K2"):
+        f = sm.body_force_sym_mxu(cloud, coincident="auto")
     want = body_force_torch(cloud.double(), cloud.double(), row_chunk=512)
     close(f, want, SYM_RTOL, SYM_ATOL, "sym_mxu with duplicates")
     line("k2_vs_plain", cases=len(errs), max_abs_err=max(errs),
@@ -431,7 +533,7 @@ def k3_phase(rng):
 
 
 def k3_sums(p, c, tile, soft, slots, cross, plain=False):
-    """One K3 launch, or its plain version, on packed bodies p: the self
+    """One K3 call, or its plain version, on packed bodies p: the self
     chunk 0 (tri mode) or the chunk pair (0, 1) (cross mode); returns the
     sums, rows then reactions in cross mode."""
     a = p[:c]
@@ -451,7 +553,7 @@ def k3_slots(c, tile):
 
 
 def k3_check(p, c, tile, soft, what):
-    """One tri and one cross launch of K3 on packed p, each held against
+    """One tri and one cross call of K3 on packed p, each held against
     the plain version on the same inputs: {mode: (plain seconds, max abs
     error)}."""
     out = {}
@@ -522,9 +624,9 @@ def main_phase():
     t_dir = time.perf_counter() - t0
     launches = read_counts()
 
-    nc = -(-N_MAIN // CHUNK)
-    expect_counts(launches, "main_path", direct=1, slot_tri=2 * nc,
-                  slot_cross=2 * nc * (nc - 1) // 2)
+    tri, cross = pass_launches(N_MAIN, sm.DEFAULT_TILE, 2)
+    expect_counts(launches, "main_path", direct=1, slot_tri=tri,
+                  slot_cross=cross)
     for name, s in (("sym_mxu", out_sym), ("direct", out_dir)):
         for t in (s.pos, s.vel):
             if t.shape != (N_MAIN, 3) or not torch.isfinite(t).all():
@@ -573,9 +675,8 @@ def auto_phase(state, check):
     reset_counts()
     step_s, out = host_time(simulate, cfg, state)
     launches = read_counts()
-    nc = -(-N_MAIN // CHUNK)
-    expect_counts(launches, "auto_main_path", sym_tri=nc,
-                  sym_cross=nc * (nc - 1) // 2)
+    tri, cross = pass_launches(N_MAIN, sf.DEFAULT_TILE)
+    expect_counts(launches, "auto_main_path", sym_tri=tri, sym_cross=cross)
     for t in (out.pos, out.vel):
         if t.shape != (N_MAIN, 3) or not torch.isfinite(t).all():
             fail("auto: non-finite or misshapen state")
@@ -622,10 +723,9 @@ def config3_phase():
     drift = dg.energy_drift(e0, e1).item()
     seconds = time.perf_counter() - t0
     launches = read_counts()
-    passes = STEPS_CONFIG3 + 1
-    nc = -(-N_CONFIG3 // CHUNK)
-    expect_counts(launches, "config3_drift", sym_tri=nc * passes,
-                  sym_cross=nc * (nc - 1) // 2 * passes, pe=2)
+    tri, cross = pass_launches(N_CONFIG3, sf.DEFAULT_TILE, STEPS_CONFIG3 + 1)
+    expect_counts(launches, "config3_drift", sym_tri=tri, sym_cross=cross,
+                  pe=2)
     dg.assert_finite(out, "after config 3")
     if not drift <= DRIFT_GATE:
         fail(f"config3: energy drift {drift:.3g} > {DRIFT_GATE}")
@@ -663,6 +763,24 @@ def gips(n, seconds):
     return float(n) ** 2 / seconds / 1e9
 
 
+#: Slots per piece of the deterministic reduction (slot_pipe.PIECE_SLOTS)
+#: at which the timing phases also time one cross call: the partials of
+#: the smaller pieces fit in the 50 MB L2 cache.
+PIECE_SWEEP = (1 << 13, 1 << 14, 1 << 15, 1 << 16)
+
+
+def piece_sweep(fn, *args):
+    """Milliseconds of fn(*args) at each PIECE_SWEEP value."""
+    out = {}
+    for piece in PIECE_SWEEP:
+        keep, sp.PIECE_SLOTS = sp.PIECE_SLOTS, piece
+        try:
+            out[piece] = time_fn(fn, *args, reps=3) * 1e3
+        finally:
+            sp.PIECE_SLOTS = keep
+    return out
+
+
 def times_phase(state, launches, k1_err, cfg_sym, cfg_dir):
     """Each kernel beside its plain version at the main path's shapes;
     returns the per-kernel records of the kernels line."""
@@ -681,7 +799,7 @@ def times_phase(state, launches, k1_err, cfg_sym, cfg_dir):
          plain_n=plain_n, plain_ms=plain_s * 1e3,
          plain_ginter_s=gips(plain_n, plain_s))
 
-    # One tri launch (chunk 0) and one cross launch (chunks 0, 1) at the
+    # One tri call (chunk 0) and one cross call (chunks 0, 1) at the
     # main path's chunk and tile, maskless (no duplicates), fold.
     tile, c, nc, np_ = sm._resolve_tiling(N_MAIN, sm.DEFAULT_TILE, CHUNK,
                                           kernel=True)
@@ -710,33 +828,42 @@ def times_phase(state, launches, k1_err, cfg_sym, cfg_dir):
                     for g, w in zip(cross_got, cross_want))
     pass_s = time_fn(make_force_fn(cfg_sym), pos, pos, reps=3)
     line("time_sym_mxu", n=N_MAIN, chunk=c, tile=tile,
-         tri_launch_ms=tri_s * 1e3, tri_plain_ms=tri_plain_s * 1e3,
-         cross_launch_ms=cross_s * 1e3, cross_plain_ms=cross_plain_s * 1e3,
+         tri_call_ms=tri_s * 1e3, tri_plain_ms=tri_plain_s * 1e3,
+         cross_call_ms=cross_s * 1e3, cross_plain_ms=cross_plain_s * 1e3,
+         cross_call_ms_by_piece=piece_sweep(cross, p[a], p[b], v[a], v[b]),
          pass_ms=pass_s * 1e3, pass_ginter_s=gips(N_MAIN, pass_s),
          plain_pass_ms_from_launches=(nc * tri_plain_s + nc * (nc - 1) // 2
                                       * cross_plain_s) * 1e3)
     n = float(N_MAIN)
     tri_pairs, cross_pairs = c * (c - 1) / 2, float(c) * c
     k2_bytes = (2 * c * 3 + 2 * c * 8 + 2 * c * 8) * 4.0  # pos, v in; acc out
+    nb = c // tile
+    red = {"tri": reduce_ms(sp.slot_table(nb, True, False, DEV), True, tile,
+                            8, c),
+           "cross": reduce_ms(sp.slot_table(nb, False, True, DEV), False,
+                              tile, 8, c)}
     return [
         entry("direct_force (K1)", "direct_force.cu", "pallas_force.py:44",
               launches["direct"], k1_err, k1_s * 1e3, plain_s * 1e3,
               bound(n * (n - 1) * OPS_ORDERED, n * 6 * 4), n=N_MAIN,
               plain_n=plain_n),
-        entry("slot_pipe tri mode (K2)", "slot_pipe.cu", "slot_pipe.py:165",
-              launches["slot_tri"], tri_err, tri_s * 1e3, tri_plain_s * 1e3,
-              bound(tri_pairs * OPS_K2_FP32, k2_bytes / 2,
-                    tri_pairs * OPS_K2_MMA), chunk=c),
-        entry("slot_pipe cross mode (K2)", "slot_pipe.cu",
-              "slot_pipe.py:210", launches["slot_cross"], cross_err,
-              cross_s * 1e3, cross_plain_s * 1e3,
-              bound(cross_pairs * OPS_K2_FP32, k2_bytes,
-                    cross_pairs * OPS_K2_MMA), chunk=c),
+        slot_entry("slot_pipe tri mode (K2)", "slot_pipe.cu",
+                   "slot_pipe.py:165", launches["slot_tri"], tri_err,
+                   tri_s * 1e3, red["tri"], per_call(tri_slots(c, tile)),
+                   tri_plain_s * 1e3,
+                   bound(tri_pairs * OPS_K2_FP32, k2_bytes / 2,
+                         tri_pairs * OPS_K2_MMA), chunk=c),
+        slot_entry("slot_pipe cross mode (K2)", "slot_pipe.cu",
+                   "slot_pipe.py:210", launches["slot_cross"], cross_err,
+                   cross_s * 1e3, red["cross"], per_call(nb * nb),
+                   cross_plain_s * 1e3,
+                   bound(cross_pairs * OPS_K2_FP32, k2_bytes,
+                         cross_pairs * OPS_K2_MMA), chunk=c),
     ]
 
 
 def time_k3(state, launches, cfg_auto):
-    """One K3 tri launch (chunk 0, fold) and one cross launch (chunks 0, 1)
+    """One K3 tri call (chunk 0, fold) and one cross call (chunks 0, 1)
     at the auto path's chunk and tile, unit masses, beside the plain slot
     walk; and a whole pass at N_MAIN."""
     soft = cfg_auto.softening
@@ -752,24 +879,69 @@ def time_k3(state, launches, cfg_auto):
                                                           k3["cross"])
     pass_s = time_fn(make_force_fn(cfg_auto), state.pos, state.pos, reps=3)
     line("time_sym", n=N_MAIN, chunk=c, tile=tile,
-         tri_launch_ms=tri_s * 1e3, tri_plain_ms=tri_plain_s * 1e3,
-         cross_launch_ms=cross_s * 1e3, cross_plain_ms=cross_plain_s * 1e3,
+         tri_call_ms=tri_s * 1e3, tri_plain_ms=tri_plain_s * 1e3,
+         cross_call_ms=cross_s * 1e3, cross_plain_ms=cross_plain_s * 1e3,
+         cross_call_ms_by_piece=piece_sweep(k3_sums, p, c, tile, soft,
+                                              slots["cross"], True),
          pass_ms=pass_s * 1e3, pass_ginter_s=gips(N_MAIN, pass_s),
          pass_bound_ms=bound(N_MAIN * (N_MAIN - 1) / 2 * OPS_PAIR_ONCE,
                              N_MAIN * 6 * 4.0)["bound_ms"],
          plain_pass_ms_from_launches=(nc * tri_plain_s + nc * (nc - 1) // 2
                                       * cross_plain_s) * 1e3)
     tri_pairs, cross_pairs = c * (c - 1) / 2, float(c) * c
+    nb = c // tile
+    red = {mode: reduce_ms(t, mode == "tri", tile, 3, c)
+           for mode, t in slots.items()}
     return [
-        entry("symmetric_force tri mode (K3)", "symmetric_force.cu",
-              "symmetric_force.py:107", launches["sym_tri"], tri_err,
-              tri_s * 1e3, tri_plain_s * 1e3,
-              bound(tri_pairs * OPS_PAIR_ONCE, c * 6 * 4.0), chunk=c),
-        entry("symmetric_force cross mode (K3)", "symmetric_force.cu",
-              "symmetric_force.py:155", launches["sym_cross"], cross_err,
-              cross_s * 1e3, cross_plain_s * 1e3,
-              bound(cross_pairs * OPS_PAIR_ONCE, c * 12 * 4.0), chunk=c),
+        slot_entry("symmetric_force tri mode (K3)", "symmetric_force.cu",
+                   "symmetric_force.py:107", launches["sym_tri"], tri_err,
+                   tri_s * 1e3, red["tri"], per_call(tri_slots(c, tile)),
+                   tri_plain_s * 1e3,
+                   bound(tri_pairs * OPS_PAIR_ONCE, c * 6 * 4.0), chunk=c),
+        slot_entry("symmetric_force cross mode (K3)", "symmetric_force.cu",
+                   "symmetric_force.py:155", launches["sym_cross"],
+                   cross_err, cross_s * 1e3, red["cross"], per_call(nb * nb),
+                   cross_plain_s * 1e3,
+                   bound(cross_pairs * OPS_PAIR_ONCE, c * 12 * 4.0),
+                   chunk=c),
+        time_reduce(launches["slot_reduce"], c, tile),
     ]
+
+
+def time_reduce(launches, c, tile):
+    """slot_reduce on one piece of K3's cross list at the auto path's chunk
+    (PIECE_SLOTS slots, random partials) against its plain version (the
+    same adds in the same order, one target at a time: bitwise) and
+    index_add_ of the tiles into their targets; returns its record."""
+    nb, width = c // tile, 3
+    slots = sp.slot_table(nb, False, True, DEV)
+    piece_plan = sp.reduce_plan(slots, False)[0]
+    n, targets, offsets, entries = piece_plan[1:]
+    part = torch.randn(n * 2 * tile * width, device=DEV)
+    accs = [[torch.zeros((c, width), device=DEV) for _ in range(2)]
+            for _ in range(2)]
+    sp.slot_reduce_(part, piece_plan, *accs[0], tile, width)
+    plain_s, _ = host_time(sp.slot_reduce_plain, part, piece_plan, *accs[1],
+                           tile, width)
+    err = max((a - b).abs().max().item() for a, b in zip(*accs))
+    if err != 0.0:
+        fail(f"slot_reduce is not bitwise its plain version: {err}")
+    acc = torch.zeros((2 * nb, tile * width), device=DEV)
+    per_tile = torch.empty(2 * n, dtype=torch.long, device=DEV)
+    per_tile[entries.long()] = torch.repeat_interleave(
+        targets.long(), (offsets[1:] - offsets[:-1]).long())
+    tiles = part.view(2 * n, tile * width)
+    ms = time_fn(sp.slot_reduce_, part, piece_plan, *accs[0], tile, width,
+                 reps=3) * 1e3
+    library_ms = time_fn(acc.index_add_, 0, per_tile, tiles, reps=3) * 1e3
+    nbytes = (part.numel() + 2 * targets.shape[0] * tile * width) * 4.0
+    rec = entry("slot_reduce (slot order sums of K2, K3, B11, B13, B9a, "
+                "B9b)", "slot_reduce.cu", "symmetric_force.py:155",
+                launches, err, ms, plain_s * 1e3,
+                bound(part.numel(), nbytes), chunk=c, slots=n,
+                targets=targets.shape[0])
+    rec["library_ms"] = library_ms
+    return rec
 
 
 def time_k4(state3, state_main, launches):
@@ -830,6 +1002,30 @@ def plain_versions():
         _build.on_card = on_card
 
 
+#: The coincident gate of each kernel behind one: (module, attribute).
+GATES = {"K2": (sm, "COINCIDENT_AUTO_MIN_N"),
+         "B6": (mf, "COINCIDENT_AUTO_MIN_N"),
+         "B10": (vk, "COINCIDENT_AUTO_MIN_N"),
+         "B11": (vk, "SYM_COINCIDENT_AUTO_MIN_N"),
+         "B13": (vm, "SYM_COINCIDENT_AUTO_MIN_N"),
+         "B14": (vm, "COINCIDENT_AUTO_MIN_N")}
+
+
+@contextlib.contextmanager
+def gate_at(n, *kernels):
+    """While the block runs, the coincident gate of each kernel named (of
+    every kernel when none is) is n: from n bodies on, 'auto' runs the
+    duplicate scan and routes by it."""
+    saved = [(GATES[k], getattr(*GATES[k])) for k in kernels or GATES]
+    for (mod, attr), _ in saved:
+        setattr(mod, attr, n)
+    try:
+        yield
+    finally:
+        for (mod, attr), gate in saved:
+            setattr(mod, attr, gate)
+
+
 def scale_err(got, want):
     """max |got - want| over max |want|: an error relative to the scale."""
     want = want.double()
@@ -848,9 +1044,9 @@ def normal(rng, n):
 
 #: (n, masses, softening, coincident mode) of vjp_vs_plain: ragged N, unit
 #: and mass mode, and softening 1e-9 with two distinct coincident bodies,
-#: where only the masked walk is right. Below sm.COINCIDENT_AUTO_MIN_N
-#: 'auto' is 'masked'; at 9001 'auto' runs the duplicate scan, which must
-#: find the pair.
+#: where only the masked walk is right. vjp_vs_plain and b6_vs_plain set
+#: every coincident gate to 0, so 'auto' runs the duplicate scan, which
+#: must find the pair.
 VJP_CASES = [(3001, False, 1e-2, "auto"), (3001, True, 1e-2, "fast"),
              (3001, False, 1e-9, "masked"), (9001, True, 1e-9, "auto")]
 
@@ -914,61 +1110,63 @@ def vjp_phase(rng):
     B11 at the sym_mxu bound."""
     errs = {"B10": [], "B11": [], "B13": [], "B14": []}
     bf16_vs_fp32 = []
-    for n, masses, soft, mode in VJP_CASES:
-        pos = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-        if soft < 1e-6:
-            pos[n - 7] = pos[3]  # two distinct bodies at one point
-        pos = to_dev(pos)
-        g = normal(rng, n)
-        m = to_dev(rng.uniform(0.5, 2.0, n).astype(np.float32)
-                   if masses else None)
-        what = f"n={n} masses={masses} softening={soft} {mode}"
-        # B10: the square call, and a rectangle of receivers.
-        got = vk.vjp_pos_direct(pos, g, m, soft, coincident=mode)
-        want = vk.vjp_ordered_plain(pos, g, pos, g, m, m, soft)
-        errs["B10"].append(close_grad(got, want, K1_RTOL, K1_ATOL,
-                                      f"B10 {what}"))
-        k = slice(0, 1000)
-        rect = vk.vjp_pos_rect(pos[k].contiguous(), g[k].contiguous(), pos,
-                               g, None if m is None else m[k].contiguous(),
-                               m, soft)
-        errs["B10"].append(close_grad(rect, want[k], K1_RTOL, K1_ATOL,
-                                      f"B10 rect {what}"))
-        # B11 over three chunks, with the mass cotangent in mass mode.
-        kw = dict(chunk=1024, mass_grad=masses, coincident=mode)
-        got = vk.vjp_pos_sym(pos, g, m, soft, **kw)
-        with plain_versions():
-            want = vk.vjp_pos_sym(pos, g, m, soft, **kw)
-        got, want = (o if masses else (o,) for o in (got, want))
-        for a, b, part in zip(got, want, ("pos_bar", "mass_bar")):
-            errs["B11"].append(close_grad(a, b, K1_RTOL, K1_ATOL,
-                                          f"B11 {part} {what}"))
-        fp32 = got
-        # B13: raw sums per column, then the gradient against fp32 B11.
-        mask = mode == "masked" or (mode == "auto"
-                                    and sm.resolve_auto(mode, n) == "masked")
-        if mode == "auto" and n >= sm.COINCIDENT_AUTO_MIN_N:
-            mask = sm.any_coincident(pos)
-            if soft < 1e-6 and not mask:
-                fail(f"any_coincident missed the coincident pair, {what}")
-        errs["B13"].append(b13_sums_check(pos, g, m, masses, soft, mask,
-                                          1024, what))
-        got = vm.vjp_pos_sym_mxu(pos, g, m, soft, **kw)
-        got = got if masses else (got,)
-        close_grad(got[0], fp32[0], SYM_RTOL, SYM_ATOL, f"B13 vs B11 {what}")
-        bf16_vs_fp32.append(scale_err(got[0], fp32[0]))
-        if masses:  # the mass column is summed in fp32
-            close_grad(got[1], fp32[1], K1_RTOL, K1_ATOL,
-                       f"B13 mass_bar {what}")
-        # B14 square: raw rows per column, then the gradient vs fp32 B11.
-        rows = vm.vjp_rect_mxu_rows(pos, g, pos, g, m, m, soft,
-                                    square_coincident=mode)
-        want = vm.vjp_rect_mxu_plain(pos, g, pos, g, m, m, soft,
-                                     mma_dtype=torch.bfloat16)
-        errs["B14"].append(close_cols(rows, want, K2_ATOL, f"B14 {what}"))
-        got = vm.vjp_rect_mxu(pos, g, pos, g, m, m, soft, coincident=mode)
-        close_grad(got, fp32[0], SYM_RTOL, SYM_ATOL, f"B14 vs B11 {what}")
-        bf16_vs_fp32.append(scale_err(got, fp32[0]))
+    # Every gate at 0: 'auto' runs the duplicate scan at every N.
+    with gate_at(0):
+        for n, masses, soft, mode in VJP_CASES:
+            pos = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+            if soft < 1e-6:
+                pos[n - 7] = pos[3]  # two distinct bodies at one point
+            pos = to_dev(pos)
+            g = normal(rng, n)
+            m = to_dev(rng.uniform(0.5, 2.0, n).astype(np.float32)
+                       if masses else None)
+            what = f"n={n} masses={masses} softening={soft} {mode}"
+            # B10: the square call, and a rectangle of receivers.
+            got = vk.vjp_pos_direct(pos, g, m, soft, coincident=mode)
+            want = vk.vjp_ordered_plain(pos, g, pos, g, m, m, soft)
+            errs["B10"].append(close_grad(got, want, K1_RTOL, K1_ATOL,
+                                          f"B10 {what}"))
+            k = slice(0, 1000)
+            rect = vk.vjp_pos_rect(pos[k].contiguous(), g[k].contiguous(), pos,
+                                   g, None if m is None else m[k].contiguous(),
+                                   m, soft)
+            errs["B10"].append(close_grad(rect, want[k], K1_RTOL, K1_ATOL,
+                                          f"B10 rect {what}"))
+            # B11 over three chunks, with the mass cotangent in mass mode.
+            kw = dict(chunk=1024, mass_grad=masses, coincident=mode)
+            got = vk.vjp_pos_sym(pos, g, m, soft, **kw)
+            with plain_versions():
+                want = vk.vjp_pos_sym(pos, g, m, soft, **kw)
+            got, want = (o if masses else (o,) for o in (got, want))
+            for a, b, part in zip(got, want, ("pos_bar", "mass_bar")):
+                errs["B11"].append(close_grad(a, b, K1_RTOL, K1_ATOL,
+                                              f"B11 {part} {what}"))
+            fp32 = got
+            # B13: raw sums per column, then the gradient against fp32 B11.
+            mask = mode == "masked"
+            if mode == "auto":
+                mask = sm.any_coincident(pos)
+                if soft < 1e-6 and not mask:
+                    fail(f"any_coincident missed the coincident pair, {what}")
+            errs["B13"].append(b13_sums_check(pos, g, m, masses, soft, mask,
+                                              1024, what))
+            got = vm.vjp_pos_sym_mxu(pos, g, m, soft, **kw)
+            got = got if masses else (got,)
+            close_grad(got[0], fp32[0], SYM_RTOL, SYM_ATOL,
+                       f"B13 vs B11 {what}")
+            bf16_vs_fp32.append(scale_err(got[0], fp32[0]))
+            if masses:  # the mass column is summed in fp32
+                close_grad(got[1], fp32[1], K1_RTOL, K1_ATOL,
+                           f"B13 mass_bar {what}")
+            # B14 square: raw rows per column, then the gradient vs fp32 B11.
+            rows = vm.vjp_rect_mxu_rows(pos, g, pos, g, m, m, soft,
+                                        square_coincident=mode)
+            want = vm.vjp_rect_mxu_plain(pos, g, pos, g, m, m, soft,
+                                         mma_dtype=torch.bfloat16)
+            errs["B14"].append(close_cols(rows, want, K2_ATOL, f"B14 {what}"))
+            got = vm.vjp_rect_mxu(pos, g, pos, g, m, m, soft, coincident=mode)
+            close_grad(got, fp32[0], SYM_RTOL, SYM_ATOL, f"B14 vs B11 {what}")
+            bf16_vs_fp32.append(scale_err(got, fp32[0]))
     torch.cuda.synchronize()
     line("vjp_vs_plain", cases=len(VJP_CASES),
          max_abs_err={k: max(v) for k, v in errs.items()},
@@ -986,14 +1184,14 @@ def sqrt_passes(steps):
     return steps + steps // inner * inner
 
 
-def rollout_grad(cfg, carry0, on="pos"):
+def rollout_grad(cfg, carry0, on="pos", remat="sqrt"):
     """sum(pos_final^2) (on="pos") or sum(vel_final^2) (on="vel") of a
-    GRAD_STEPS-step "sqrt" rollout from carry0, and its gradient in the
-    initial positions; the initial acceleration is held constant, as
-    tests/test_sim.py:190-207 does."""
+    GRAD_STEPS-step rollout (checkpointed by ``remat``) from carry0, and its
+    gradient in the initial positions; the initial acceleration is held
+    constant, as tests/test_sim.py:190-207 does."""
     state, acc = carry0
     p = state.pos.clone().requires_grad_(True)
-    out, _ = make_rollout_fn(cfg, GRAD_STEPS, "sqrt")(
+    out, _ = make_rollout_fn(cfg, GRAD_STEPS, remat)(
         (BodyState(pos=p, vel=state.vel, mass=state.mass), acc))
     loss = ((out.pos if on == "pos" else out.vel) ** 2).sum()
     loss.backward()
@@ -1078,12 +1276,12 @@ def grad_config3_phase(rng):
     cfg = grad_cfg(N_CONFIG3)
     carry0 = init_carry(cfg, state)
     first_s, _ = host_time(rollout_grad, cfg, carry0)
-    nc, passes = -(-N_CONFIG3 // CHUNK), sqrt_passes(GRAD_STEPS)
+    tri, cross = pass_launches(N_CONFIG3, sf.DEFAULT_TILE,
+                               sqrt_passes(GRAD_STEPS))
     runs = {}
     for on in ("pos", "vel"):
         runs[on] = counted_grad(cfg, carry0, on, "grad_config3",
-                                sym_tri=nc * passes,
-                                sym_cross=nc * (nc - 1) // 2 * passes,
+                                sym_tri=tri, sym_cross=cross,
                                 vjp_ordered=GRAD_VJPS[on])
     seconds, loss, _, launches = runs["pos"]
     # One B10 call as the path makes it ('auto' on duplicate-free bodies
@@ -1121,9 +1319,12 @@ def grad_sym_phase(rng):
     state = init.plummer(N_GRAD_SYM, generator=gen, device=DEV)
     cfg = grad_cfg(N_GRAD_SYM)
     carry0 = init_carry(cfg, state)
+    k3_tri = pass_launches(N_GRAD_SYM, sf.DEFAULT_TILE)[0]
+    b11_tri = pass_launches(N_GRAD_SYM, vk.DEFAULT_TILE)[0]
     seconds, loss, grad, launches = counted_grad(
-        cfg, carry0, "vel", "grad_sym", sym_tri=sqrt_passes(GRAD_STEPS),
-        vjp_sym_tri=GRAD_VJPS["vel"])
+        cfg, carry0, "vel", "grad_sym",
+        sym_tri=k3_tri * sqrt_passes(GRAD_STEPS),
+        vjp_sym_tri=b11_tri * GRAD_VJPS["vel"])
     with plain_versions():
         plain_seconds, (_, plain_grad) = host_time(rollout_grad, cfg, carry0,
                                                    "vel")
@@ -1140,8 +1341,8 @@ def grad_sym_phase(rng):
 
     reset_counts()
     got = bars()
-    expect_counts(read_counts(), "grad_sym mass_grad", sym_tri=1,
-                  vjp_sym_tri=1)
+    expect_counts(read_counts(), "grad_sym mass_grad", sym_tri=k3_tri,
+                  vjp_sym_tri=b11_tri)
     with plain_versions():
         want = bars()
     mass_err = [close_grad(a, b, K1_RTOL, K1_ATOL,
@@ -1163,12 +1364,15 @@ def grad_sym_phase(rng):
          mass_grad_vs_plain_max_abs_err=mass_err,
          mass_bar_max_abs=mass_scale)
     n = float(N_GRAD_SYM)
-    record = entry("vjp_kernel pair-once (B11)", "vjp_kernel.cu",
-                   "vjp_kernel.py:273",
-                   launches["vjp_sym_tri"] + launches["vjp_sym_cross"], err,
-                   b11_s * 1e3, plain_s * 1e3,
-                   bound(n * (n - 1) / 2 * OPS_B11, n * 40.0), n=N_GRAD_SYM,
-                   tile=vk.DEFAULT_TILE)
+    tile = vk.DEFAULT_TILE
+    red = reduce_ms(sp.slot_table(N_GRAD_SYM // tile, True, False, DEV),
+                    True, tile, 3, N_GRAD_SYM)
+    record = slot_entry("vjp_kernel pair-once (B11)", "vjp_kernel.cu",
+                        "vjp_kernel.py:273",
+                        launches["vjp_sym_tri"] + launches["vjp_sym_cross"],
+                        err, b11_s * 1e3, red, b11_tri, plain_s * 1e3,
+                        bound(n * (n - 1) / 2 * OPS_B11, n * 40.0),
+                        n=N_GRAD_SYM, tile=tile)
     return state, grad, record
 
 
@@ -1176,19 +1380,21 @@ def grad_sym_mxu_phase(rng, sym, config3):
     """The rollout gradient (loss on the final velocities) on sym_mxu at
     N_GRAD_SYM (backward B13) and at config 3's N (B14, beyond
     autodiff._SYM_BWD_MAX), each against the fp32 gradient of the same
-    state at the bf16-class bound; then one B13 and one B14 launch held per
-    column against their bf16-mode plain sums and timed."""
+    state at the bf16-class bound; then one B13 call and one B14 launch
+    held per column against their bf16-mode plain sums and timed."""
     out, records = {}, []
     for (state, fp32), bwd in ((sym, "vjp_mxu_tri"),
                                (config3, "vjp_rect_mxu")):
         n = state.n
         cfg = grad_cfg(n, backend="sym_mxu")
         carry0 = init_carry(cfg, state)
-        nc, passes = -(-n // CHUNK), sqrt_passes(GRAD_STEPS)
+        tri, cross = pass_launches(n, sm.DEFAULT_TILE,
+                                   sqrt_passes(GRAD_STEPS))
+        per = (pass_launches(n, vm.DEFAULT_TILE)[0]
+               if bwd == "vjp_mxu_tri" else 1)
         seconds, loss, grad, launches = counted_grad(
-            cfg, carry0, "vel", f"grad_sym_mxu n={n}", slot_tri=nc * passes,
-            slot_cross=nc * (nc - 1) // 2 * passes,
-            **{bwd: GRAD_VJPS["vel"]})
+            cfg, carry0, "vel", f"grad_sym_mxu n={n}", slot_tri=tri,
+            slot_cross=cross, **{bwd: per * GRAD_VJPS["vel"]})
         close_grad(grad, fp32, SYM_RTOL, SYM_ATOL,
                    f"grad_sym_mxu n={n} vs fp32")
         out[n] = {"seconds": seconds, "loss_vel": loss, "launches": launches,
@@ -1196,7 +1402,7 @@ def grad_sym_mxu_phase(rng, sym, config3):
                   "vs_fp32_max_err_of_scale": scale_err(grad, fp32),
                   "vs_fp32": rel_err_stats(grad, fp32)}
         g = normal(rng, n)
-        if bwd == "vjp_mxu_tri":  # B13: the one tri launch of the path
+        if bwd == "vjp_mxu_tri":  # B13: the one tri call of the path
             (tile, c, _, _), (p, gp, q) = vm.sums_inputs(
                 state.pos, g, state.mass, chunk=CHUNK)
             slots = sp.slot_table(c // tile, True, False, DEV)
@@ -1206,11 +1412,13 @@ def grad_sym_mxu_phase(rng, sym, config3):
             plain_s, want = host_time(mxu_sums, *args, True)
             err = close_cols(got, want, K2_ATOL, f"B13 at N={n}")
             pairs = n * (n - 1) / 2
-            records.append(entry(
+            red = reduce_ms(slots, True, tile, 8, c)
+            records.append(slot_entry(
                 "vjp_mxu pair-once (B13)", "vjp_mxu.cu", "vjp_mxu.py:134",
                 launches["vjp_mxu_tri"] + launches["vjp_mxu_cross"], err, ms,
-                plain_s * 1e3, bound(pairs * OPS_B13_FP32, n * 40.0,
-                                     pairs * OPS_B13_MMA), n=n, tile=tile))
+                red, per, plain_s * 1e3,
+                bound(pairs * OPS_B13_FP32, n * 40.0, pairs * OPS_B13_MMA),
+                n=n, tile=tile))
         else:  # B14 called square, as autodiff calls it
             args = (state.pos, g, state.pos, g, state.mass, state.mass,
                     cfg.softening)
@@ -1260,35 +1468,38 @@ def b6_phase(rng):
     against the fp64 oracle at K1's bound; and auto and fast bitwise equal
     to masked on a duplicate-free state in both classes."""
     errs, fp32_errs = [], []
-    for n, masses, soft, mode in VJP_CASES:
-        pos, m = b6_case(rng, n, masses, soft)
-        what = f"n={n} masses={masses} softening={soft} {mode}"
-        overlap = mf.square_overlap_only(pos, mode)
-        if soft < 1e-6 and overlap:
-            fail(f"B6 square {what}: the coincident pair took the overlap run")
-        errs.append(b6_sums_check(pos, pos, m, soft, overlap,
-                                  f"square {what}")[0])
-        sub = pos[:64].contiguous()
-        errs.append(b6_sums_check(sub, pos, m, soft, False,
-                                  f"rect 64xN {what}")[0])
-        md = None if m is None else m.double()
-        for pi in (pos, sub):
-            got = mf.body_force_mxu(pi, pos, m, soft, pair_dtype="float32",
-                                    coincident=mode)
-            oracle = body_force_torch(pi.double(), pos.double(), md,
-                                      softening=soft, row_chunk=512)
-            fp32_errs.append(close(got, oracle, K1_RTOL, K1_ATOL,
-                                   f"B6 fp32 vs fp64 {what} ni={len(pi)}"))
-    pos, m = b6_case(rng, 9001, True, 1e-2)
-    if sm.any_coincident(pos):
-        fail("B6: the duplicate-free state has a duplicate")
-    for pair_dtype in ("bfloat16", "float32"):
-        ref = mf.body_force_mxu(pos, pos, m, pair_dtype=pair_dtype)
-        for mode in ("auto", "fast"):
-            got = mf.body_force_mxu(pos, pos, m, pair_dtype=pair_dtype,
-                                    coincident=mode)
-            if not torch.equal(got, ref):
-                fail(f"B6 {pair_dtype}: {mode} is not bitwise masked")
+    # Every gate at 0: 'auto' runs the duplicate scan at every N.
+    with gate_at(0):
+        for n, masses, soft, mode in VJP_CASES:
+            pos, m = b6_case(rng, n, masses, soft)
+            what = f"n={n} masses={masses} softening={soft} {mode}"
+            overlap = mf.square_overlap_only(pos, mode)
+            if soft < 1e-6 and overlap:
+                fail(f"B6 square {what}: the coincident pair took the "
+                     "overlap run")
+            errs.append(b6_sums_check(pos, pos, m, soft, overlap,
+                                      f"square {what}")[0])
+            sub = pos[:64].contiguous()
+            errs.append(b6_sums_check(sub, pos, m, soft, False,
+                                      f"rect 64xN {what}")[0])
+            md = None if m is None else m.double()
+            for pi in (pos, sub):
+                got = mf.body_force_mxu(pi, pos, m, soft, pair_dtype="float32",
+                                        coincident=mode)
+                oracle = body_force_torch(pi.double(), pos.double(), md,
+                                          softening=soft, row_chunk=512)
+                fp32_errs.append(close(got, oracle, K1_RTOL, K1_ATOL,
+                                       f"B6 fp32 vs fp64 {what} ni={len(pi)}"))
+        pos, m = b6_case(rng, 9001, True, 1e-2)
+        if sm.any_coincident(pos):
+            fail("B6: the duplicate-free state has a duplicate")
+        for pair_dtype in ("bfloat16", "float32"):
+            ref = mf.body_force_mxu(pos, pos, m, pair_dtype=pair_dtype)
+            for mode in ("auto", "fast"):
+                got = mf.body_force_mxu(pos, pos, m, pair_dtype=pair_dtype,
+                                        coincident=mode)
+                if not torch.equal(got, ref):
+                    fail(f"B6 {pair_dtype}: {mode} is not bitwise masked")
     torch.cuda.synchronize()
     line("b6_vs_plain", cases=len(errs), max_abs_err=max(errs),
          fp32_vs_fp64_max_abs_err=max(fp32_errs),
@@ -1297,7 +1508,7 @@ def b6_phase(rng):
 
 
 def b4_sums(pos, m, na, tile, soft, mask, plain=False):
-    """One B4 launch (K2's cross mode over the rectangle of the sets
+    """One B4 call (K2's cross mode over the rectangle of the sets
     pos[:na] and pos[na:]), or its bf16-mode plain version: the raw sums of
     both sides, each cut to its real rows."""
     nb = pos.shape[0] - na
@@ -1337,7 +1548,9 @@ def b4_phase(rng):
     pos, m = b6_case(rng, 3000, True, 1e-9)  # the pair (3, 2993) is split
     pa, pb = pos[:1500].contiguous(), pos[1500:].contiguous()
     ma, mb = m[:1500].contiguous(), m[1500:].contiguous()
-    fa, fb = sm.body_force_pair_mxu(pa, pb, ma, mb, 1e-9, coincident="auto")
+    with gate_at(0, "K2"):  # the scan finds the split pair
+        fa, fb = sm.body_force_pair_mxu(pa, pb, ma, mb, 1e-9,
+                                        coincident="auto")
     for got, pi, pj, mj, side in ((fa, pa, pb, mb, "a"), (fb, pb, pa, ma, "b")):
         close(got, body_force_torch(pi.double(), pj.double(), mj.double(),
                                     row_chunk=512),
@@ -1422,7 +1635,8 @@ def grad_mxu_phase(sym):
     carry0 = init_carry(cfg, state)
     seconds, loss, grad, launches = counted_grad(
         cfg, carry0, "vel", "grad_mxu", mxu=sqrt_passes(GRAD_STEPS),
-        vjp_mxu_tri=GRAD_VJPS["vel"])
+        vjp_mxu_tri=pass_launches(state.n, vm.DEFAULT_TILE)[0]
+        * GRAD_VJPS["vel"])
     err = close_grad(grad, fp32, SYM_RTOL, SYM_ATOL, "grad_mxu vs fp32")
     line("grad_mxu", n=state.n, steps=GRAD_STEPS, remat="sqrt",
          loss_vel=loss, seconds=seconds, launches=launches,
@@ -1434,9 +1648,9 @@ def grad_mxu_phase(sym):
 
 def pair_mxu_phase(state3):
     """B4 on the two halves of config 3's plummer state (masses): exactly
-    one K2 cross launch on the rectangle; F_on_a against the B6 rectangle
+    one K2 cross call on the rectangle; F_on_a against the B6 rectangle
     a <- b, F_on_b against b <- a, both against the fp64 oracle on 1024
-    rows; then one B4 launch held per column against its plain version
+    rows; then one B4 call held per column against its plain version
     and timed."""
     half = N_CONFIG3 // 2
     soft = 1e-2
@@ -1446,7 +1660,8 @@ def pair_mxu_phase(state3):
     fa, fb = sm.body_force_pair_mxu(pa, pb, ma, mb, soft)
     torch.cuda.synchronize()
     launches = read_counts()
-    expect_counts(launches, "pair_mxu", pair_mxu=1)
+    expect_counts(launches, "pair_mxu",
+                  pair_mxu=per_call((half // sm.DEFAULT_TILE) ** 2))
     gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
     idx = torch.randperm(half, generator=gen, device=DEV)[:1024]
     stats = {}
@@ -1468,11 +1683,15 @@ def pair_mxu_phase(state3):
     line("pair_mxu", na=half, nb=half, launches=launches, kernel_ms=ms,
          plain_ms=plain_s * 1e3, raw_sums_max_abs_err=err, sides=stats)
     pairs = float(half) * half
-    return entry("slot_pipe cross mode on a rectangle (B4)", "slot_pipe.cu",
-                 "sym_mxu_force.py:267", launches["pair_mxu"], err, ms,
-                 plain_s * 1e3,
-                 bound(pairs * OPS_K2_FP32, 2 * half * (3 + 8 + 8) * 4.0,
-                       pairs * OPS_K2_MMA), na=half, nb=half, tile=tile)
+    nb = half // tile
+    red = reduce_ms(sp.slot_table(nb, False, True, DEV, nb_b=nb), False,
+                    tile, 8, half)
+    return slot_entry("slot_pipe cross mode on a rectangle (B4)",
+                      "slot_pipe.cu", "sym_mxu_force.py:267",
+                      launches["pair_mxu"], err, ms, red, per_call(nb * nb),
+                      plain_s * 1e3,
+                      bound(pairs * OPS_K2_FP32, 2 * half * (3 + 8 + 8) * 4.0,
+                            pairs * OPS_K2_MMA), na=half, nb=half, tile=tile)
 
 
 def time_b6(state3, c3_launches, main_pass_s):
@@ -1502,6 +1721,324 @@ def time_b6(state3, c3_launches, main_pass_s):
                  main_ms=main_pass_s * 1e3,
                  main_bound_ms=bound(nm * (nm - 1) * OPS_B6_FP32, nm * 24.0,
                                      nm * (nm - 1) * OPS_B6_MMA)["bound_ms"])
+
+
+def _outputs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def determinism_phase(rng):
+    """C2: K2, K3, B11 and B13 each run twice at N_DETERMINISM (two chunks,
+    so tri and cross launches) and must agree bit for bit; sym_mxu's 'auto'
+    and 'fast' must be bitwise 'masked' at N_GRAD_SYM; and a GRAD_STEPS
+    rollout gradient with remat "sqrt" bitwise the one with "none", on
+    'auto' (K3, B11) and 'sym_mxu' (K2, B13) at N_GRAD_SYM."""
+    n = N_DETERMINISM
+    pos = to_dev(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+    m = to_dev(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    g = normal(rng, n)
+    runs = {
+        "K2": lambda: sm.body_force_sym_mxu(pos, m, chunk=CHUNK,
+                                            coincident="fast"),
+        "K3": lambda: sf.body_force_symmetric(pos, m, chunk=CHUNK),
+        "B11": lambda: vk.vjp_pos_sym(pos, g, m, 1e-2, chunk=CHUNK,
+                                      mass_grad=True, coincident="fast"),
+        "B13": lambda: vm.vjp_pos_sym_mxu(pos, g, m, 1e-2, chunk=CHUNK,
+                                          mass_grad=True, coincident="fast"),
+    }
+    reset_counts()
+    for name, run in runs.items():
+        first, second = _outputs(run()), _outputs(run())
+        for a, b in zip(first, second):
+            if not torch.equal(a, b):
+                fail(f"determinism: two runs of {name} differ, max "
+                     f"{(a - b).abs().max().item():.4g}")
+    launches = read_counts()
+    want = {}
+    for kernel, tile, mod in (("slot", sm.DEFAULT_TILE, sm),
+                              ("sym", sf.DEFAULT_TILE, sf),
+                              ("vjp_sym", vk.DEFAULT_TILE, vk),
+                              ("vjp_mxu", vm.DEFAULT_TILE, vm)):
+        want[f"{kernel}_tri"], want[f"{kernel}_cross"] = pass_launches(
+            n, tile, 2)
+    expect_counts(launches, "determinism", **want)
+    # 'auto' with K2's gate at 0: the duplicate scan runs, finds nothing in
+    # the uniform bodies and routes to the maskless kernel.
+    p2 = pos[:N_GRAD_SYM].contiguous()
+    route = "masked" if sm.any_coincident(p2) else "maskless"
+    if route != "maskless":
+        fail("determinism: the duplicate-free bodies route to masked")
+    ref = sm.body_force_sym_mxu(p2, coincident="masked")
+    with gate_at(0, "K2"):
+        for mode in ("auto", "fast"):
+            if not torch.equal(sm.body_force_sym_mxu(p2, coincident=mode),
+                               ref):
+                fail(f"determinism: sym_mxu {mode} is not bitwise masked")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    state = init.plummer(N_GRAD_SYM, generator=gen, device=DEV)
+    remat = {}
+    for backend in ("auto", "sym_mxu"):
+        cfg = grad_cfg(N_GRAD_SYM, backend=backend)
+        carry0 = init_carry(cfg, state)
+        _, none = rollout_grad(cfg, carry0, "vel", "none")
+        _, sqrt = rollout_grad(cfg, carry0, "vel", "sqrt")
+        if not torch.equal(none, sqrt):
+            fail(f"determinism: {backend} sqrt gradient is not bitwise the "
+                 f"unchecked one, max {(none - sqrt).abs().max().item():.4g}")
+        remat[backend] = True
+    line("determinism", n=n, chunk=CHUNK, two_runs_bitwise=list(runs),
+         launches=launches, sym_mxu_auto_fast_bitwise_masked=True,
+         sym_mxu_auto_route=route, n_auto=N_GRAD_SYM,
+         remat_sqrt_bitwise_none=remat, remat_n=N_GRAD_SYM)
+
+
+def half_mass_radius(pos, mass):
+    """Median distance from the center of mass, per system (B, N, 3)."""
+    com = (pos * mass[..., None]).sum(1) / mass.sum(1, keepdim=True)
+    return (pos - com[:, None, :]).norm(dim=-1).median(dim=1).values
+
+
+def b9a_sums(pos, v, slots, tile, soft, n_sys, plain=False):
+    """One B9a call over n_sys stacked systems (masked, as the sweep's
+    'auto' runs), or its bf16-mode plain version system by system."""
+    acc = torch.zeros((pos.shape[0], 8), device=DEV)
+    if not plain:
+        sp.tri_slot_sums_ensemble_(acc, pos, v, slots, tile, soft, n_sys)
+        return acc
+    c = pos.shape[0] // n_sys
+    for i in range(n_sys):
+        sl = slice(i * c, (i + 1) * c)
+        sp._slot_sums_plain(acc[sl], acc[sl], pos[sl], pos[sl], v[sl], v[sl],
+                            slots, tile, soft, False, True,
+                            mma_dtype=torch.bfloat16)
+    return acc
+
+
+def ensemble_sweep_phase():
+    """examples/parameter_sweep.py at its defaults through
+    simulate_ensemble on sym_mxu (B9a): per-system energy drift, the sweep
+    trend (cold systems contract, hot ones expand), systems 0 and B - 1
+    bitwise their standalone simulate at the ensemble's tile and chunk;
+    then one B9a call (one launch: every system fits in one piece) held per
+    column against its plain version and timed. Returns B9a's record."""
+    b, n = SWEEP_B, SWEEP_N
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    base = init.plummer(n, generator=gen, device=DEV)
+    q = torch.linspace(0.2, 1.6, b, device=DEV)
+    st = BodyState(pos=base.pos.expand(b, n, 3).contiguous(),
+                   vel=(base.vel[None] * q[:, None, None]).contiguous(),
+                   mass=base.mass.expand(b, n).contiguous())
+    cfg = SimConfig(n=n, dt=SWEEP_DT, steps=SWEEP_STEPS, softening=SWEEP_SOFT,
+                    integrator="leapfrog", use_masses=True, backend="sym_mxu")
+    e0 = dg.total_energy_ensemble(st, SWEEP_SOFT)
+    r0 = half_mass_radius(st.pos, st.mass)
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    reset_counts()
+    seconds, out = host_time(simulate_ensemble, cfg, st)
+    launches = read_counts()
+    expect_counts(launches, "ensemble_sweep", slot_ensemble=(
+        SWEEP_STEPS + 1) * per_call(tri_slots(c, t), b))
+    dg.assert_finite(out, "after the sweep")
+    e1 = dg.total_energy_ensemble(out, SWEEP_SOFT)
+    drift = ((e1 - e0) / e0).abs()
+    ratio = half_mass_radius(out.pos, out.mass) / r0
+    cold, hot = ratio[q < 0.5].mean().item(), ratio[q > 1.4].mean().item()
+    if not (cold < 1.0 < hot):
+        fail(f"ensemble_sweep: trend broken, cold {cold:.4g} hot {hot:.4g}")
+    for i in (0, b - 1):
+        one = BodyState(pos=st.pos[i], vel=st.vel[i], mass=st.mass[i])
+        ref = simulate(cfg.replace(sym_tile=t, sym_chunk=c), one)
+        if not (torch.equal(out.pos[i], ref.pos)
+                and torch.equal(out.vel[i], ref.vel)):
+            fail(f"ensemble_sweep: system {i} is not bitwise its simulate")
+    pos_p, v = sm.pack_ensemble(st.pos, st.mass, c, sm._pack)
+    slots = sp.slot_table(c // t, c // t > 1, False, DEV)
+    args = (pos_p, v, slots, t, SWEEP_SOFT, b)
+    ms = time_fn(b9a_sums, *args, reps=3) * 1e3
+    got = b9a_sums(*args)
+    plain_s, want = host_time(b9a_sums, *args, True)
+    err = close_cols(got, want, K2_ATOL, f"B9a at B={b} N={n}")
+    line("ensemble_sweep", b=b, n=n, steps=SWEEP_STEPS, tile=t, chunk=c,
+         seconds=seconds, launches=launches, q=q.tolist(),
+         energy_drift=drift.tolist(), max_energy_drift=drift.max().item(),
+         r_half_ratio=ratio.tolist(), cold_ratio=cold, hot_ratio=hot,
+         bitwise_systems=[0, b - 1], kernel_ms=ms, plain_ms=plain_s * 1e3,
+         raw_sums_max_abs_err=err)
+    pairs = b * n * (n - 1) / 2
+    return slot_entry("slot_pipe tri mode, ensemble (B9a)", "slot_pipe.cu",
+                      "slot_pipe.py:305", launches["slot_ensemble"], err, ms,
+                      reduce_ms(slots, True, t, 8, c, b),
+                      per_call(slots.shape[0], b), plain_s * 1e3,
+                      bound(pairs * OPS_K2_FP32, b * c * (3 + 8 + 8) * 4.0,
+                            pairs * OPS_K2_MMA), b=b, n=n, tile=t)
+
+
+def ensemble_fp32_phase():
+    """ENS_B plummer systems of N = ENS_N with masses on 'auto' (B9b),
+    ENS_STEPS leapfrog steps of simulate_ensemble, each system bitwise its
+    standalone simulate; one ensemble force pass timed beside its bound (a
+    piece of the slot list holds one system here, so a pass is ENS_B
+    launches per piece), and held against its plain version; then ENS_B
+    systems of ENS_SMALL_N, all in one launch, each bitwise its standalone
+    force. Returns B9b's record."""
+    b, n = ENS_B, ENS_N
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    systems = [init.plummer(n, generator=gen, device=DEV) for _ in range(b)]
+    st = BodyState(pos=torch.stack([s.pos for s in systems]),
+                   vel=torch.stack([s.vel for s in systems]),
+                   mass=torch.stack([s.mass for s in systems]))
+    cfg = SimConfig(n=n, steps=ENS_STEPS, dt=1e-3, softening=1e-2,
+                    integrator="leapfrog", use_masses=True)
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    per = per_call(tri_slots(c, t), b)
+    reset_counts()
+    seconds, out = host_time(simulate_ensemble, cfg, st)
+    launches = read_counts()
+    expect_counts(launches, "ensemble_fp32",
+                  sym_ensemble=(ENS_STEPS + 1) * per)
+    dg.assert_finite(out, "after the fp32 ensemble")
+    for i, one in enumerate(systems):
+        ref = simulate(cfg.replace(sym_tile=t, sym_chunk=c), one)
+        if not (torch.equal(out.pos[i], ref.pos)
+                and torch.equal(out.vel[i], ref.vel)):
+            fail(f"ensemble_fp32: system {i} is not bitwise its simulate")
+    pass_ms = time_fn(sf.body_force_symmetric_ensemble, st.pos, st.mass,
+                      cfg.softening, reps=3) * 1e3
+    p = sm.pack_ensemble(st.pos, st.mass, c, sf._pack)
+    slots = sp.slot_table(c // t, c // t > 1, False, DEV)
+    got = torch.zeros((b * c, 3), device=DEV)
+    sf.symmetric_sums_ensemble_(got, p, slots, t, cfg.softening, b)
+
+    def plain():
+        want = torch.zeros((b * c, 3), device=DEV)
+        for i in range(b):
+            sl = slice(i * c, (i + 1) * c)
+            sf.symmetric_sums_plain(want[sl], want[sl], p[sl], p[sl], slots,
+                                    t, cfg.softening)
+        return want
+
+    plain_s, want = host_time(plain)
+    err = close(got, want, K3_RTOL, K3_ATOL, f"B9b at B={b} N={n}")
+    pairs = b * n * (n - 1) / 2
+    bnd = bound(pairs * OPS_PAIR_ONCE_MASS, b * n * (4 + 3) * 4.0)
+    small = small_ensemble(b, ENS_SMALL_N, gen)
+    line("ensemble_fp32", b=b, n=n, steps=ENS_STEPS, tile=t, chunk=c,
+         seconds=seconds, launches=launches, bitwise_systems=b,
+         launches_per_pass=per, pass_ms=pass_ms,
+         pass_bound_ms=bnd["bound_ms"],
+         pass_pairs_per_s=pairs / (pass_ms * 1e-3), plain_ms=plain_s * 1e3,
+         max_abs_err=err, one_launch=small)
+    return slot_entry("symmetric_force tri mode, ensemble (B9b)",
+                      "symmetric_force.cu", "symmetric_force.py:488",
+                      launches["sym_ensemble"], err, pass_ms,
+                      reduce_ms(slots, True, t, 3, c, b), per, plain_s * 1e3,
+                      bnd, b=b, n=n, tile=t, masses=True)
+
+
+def small_ensemble(b, n, gen):
+    """B9b with b systems of n bodies in one launch (the system axis of the
+    kernel at work): each system bitwise its standalone
+    body_force_symmetric at the ensemble's tile and chunk."""
+    pos = torch.rand((b, n, 3), generator=gen, device=DEV) * 2 - 1
+    mass = torch.rand((b, n), generator=gen, device=DEV) + 0.5
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    reset_counts()
+    f = sf.body_force_symmetric_ensemble(pos, mass)
+    launches = read_counts()
+    expect_counts(launches, "ensemble_fp32 one launch", sym_ensemble=1)
+    for i in range(b):
+        if not torch.equal(f[i], sf.body_force_symmetric(pos[i], mass[i],
+                                                         tile=t, chunk=c)):
+            fail(f"ensemble_fp32: system {i} of {b} x {n} is not bitwise "
+                 f"its standalone force")
+    return {"b": b, "n": n, "tile": t, "launches": launches["sym_ensemble"],
+            "bitwise_systems": b}
+
+
+def trajectory_phase():
+    """trajectory at N_TRAJ on 'auto' (K3), TRAJ_STEPS leapfrog steps with a
+    snapshot every TRAJ_EVERY: the last snapshot is bitwise simulate's
+    final positions."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    state = init.plummer(N_TRAJ, generator=gen, device=DEV)
+    cfg = SimConfig(n=N_TRAJ, dt=1e-3, softening=1e-2, integrator="leapfrog",
+                    use_masses=True)
+    reset_counts()
+    seconds, (final, hist) = host_time(trajectory, cfg, state, TRAJ_STEPS,
+                                       TRAJ_EVERY)
+    launches = read_counts()
+    expect_counts(launches, "trajectory", sym_tri=pass_launches(
+        N_TRAJ, sf.DEFAULT_TILE, TRAJ_STEPS + 1)[0])
+    if hist.shape != (TRAJ_STEPS // TRAJ_EVERY, N_TRAJ, 3):
+        fail(f"trajectory: history of shape {tuple(hist.shape)}")
+    ref = simulate(cfg, state, TRAJ_STEPS)
+    if not (torch.equal(hist[-1], ref.pos) and torch.equal(final.vel,
+                                                           ref.vel)):
+        fail("trajectory: the last snapshot is not bitwise simulate's")
+    line("trajectory", n=N_TRAJ, steps=TRAJ_STEPS, save_every=TRAJ_EVERY,
+         seconds=seconds, launches=launches, snapshots=hist.shape[0],
+         last_snapshot_bitwise_simulate=True)
+
+
+#: The call of each kernel behind a coincident gate (GATES).
+GATE_CALLS = {
+    "K2": lambda p, g, mode: sm.body_force_sym_mxu(p, coincident=mode),
+    "B6": lambda p, g, mode: mf.body_force_mxu(
+        p, p, pair_dtype="bfloat16", coincident=mode),
+    "B10": lambda p, g, mode: vk.vjp_pos_direct(p, g, coincident=mode),
+    "B11": lambda p, g, mode: vk.vjp_pos_sym(p, g, coincident=mode),
+    "B13": lambda p, g, mode: vm.vjp_pos_sym_mxu(p, g, coincident=mode),
+    "B14": lambda p, g, mode: vm.vjp_rect_mxu(p, g, p, g, coincident=mode),
+}
+
+
+def gate_times(kernel, p, g):
+    """Median host milliseconds of 'masked' and of 'auto' with the kernel's
+    gate at 0 (the duplicate scan, its host sync, then the maskless kernel):
+    what a caller of each pays. One warm-up each, then GATE_REPS calls of
+    each in turns (masked, auto, auto, masked, ...)."""
+    call = GATE_CALLS[kernel]
+    times = {"masked": [], "auto": []}
+    with gate_at(0, kernel):
+        for mode in times:
+            call(p, g, mode)
+        for r in range(GATE_REPS):
+            order = ("masked", "auto") if r % 2 == 0 else ("auto", "masked")
+            for mode in order:
+                times[mode].append(host_time(call, p, g, mode)[0] * 1e3)
+    return {mode: float(np.median(t)) for mode, t in times.items()}
+
+
+def coincident_gate_phase(rng):
+    """C3: for each kernel behind a coincident gate, 'masked' against
+    'auto' with its gate at 0 (the duplicate scan, then the maskless
+    kernel) on duplicate-free bodies at each N of GATE_NS; the smallest N
+    from which the scan pays at every larger measured N (None: at no
+    measured N), beside the gate the kernel has (None: 'auto' never
+    scans)."""
+    out = {}
+    for name in GATE_CALLS:
+        rows, pays_from = {}, None
+        for n in GATE_NS:
+            p = to_dev(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+            g = normal(rng, n)
+            t = gate_times(name, p, g)
+            rows[n] = {"masked_ms": t["masked"], "scan_maskless_ms": t["auto"]}
+            if t["auto"] < t["masked"]:
+                pays_from = n if pays_from is None else pays_from
+            else:
+                pays_from = None
+        gate = getattr(*GATES[name])
+        out[name] = {"scan_pays_from": pays_from,
+                     "gate": None if math.isinf(gate) else gate,
+                     "times": rows}
+    scan_ms = {}
+    for n in GATE_NS:
+        p = to_dev(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+        sm.any_coincident(p)
+        scan_ms[n] = float(np.median([host_time(sm.any_coincident, p)[0]
+                                      * 1e3 for _ in range(GATE_REPS)]))
+    line("coincident_gate", reps=GATE_REPS, kernels=out, scan_only_ms=scan_ms)
 
 
 def main(argv=None):
@@ -1535,11 +2072,17 @@ def main(argv=None):
     mxu_records = grad_sym_mxu_phase(rng, sym, config3)
     grad_mxu_phase(sym)
     b4 = pair_mxu_phase(state3)
+    determinism_phase(rng)
+    b9a = ensemble_sweep_phase()
+    b9b = ensemble_fp32_phase()
+    trajectory_phase()
+    coincident_gate_phase(rng)
     kernels = (times_phase(state, launches, k1_err, cfg_sym, cfg_dir)
                + time_k3(state, auto_launches, cfg_auto)
                + time_k4(state3, state, c3_launches)
                + time_k5(state2, c2_launches) + [b10, b11] + mxu_records
-               + [time_b6(state3, c3_mxu_launches, mxu_pass_s), b4])
+               + [time_b6(state3, c3_mxu_launches, mxu_pass_s), b4, b9a,
+                  b9b])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on its path")

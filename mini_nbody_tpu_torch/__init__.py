@@ -13,7 +13,9 @@ from mini_nbody_tpu_torch.models.state import BodyState
 from mini_nbody_tpu_torch.models import init
 from mini_nbody_tpu_torch.ops.autodiff import make_differentiable_force
 from mini_nbody_tpu_torch.ops.force import body_force, make_force_fn
-from mini_nbody_tpu_torch.sim import make_rollout_fn, make_step_fn, simulate
+from mini_nbody_tpu_torch.sim import (make_rollout_fn, make_step_fn, simulate,
+                                      simulate_ensemble, trajectory,
+                                      trajectory_ensemble)
 
 __version__ = "0.1.0"
 
@@ -27,4 +29,7 @@ __all__ = [
     "make_rollout_fn",
     "make_step_fn",
     "simulate",
+    "simulate_ensemble",
+    "trajectory",
+    "trajectory_ensemble",
 ]

@@ -29,10 +29,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 
 #: C signatures: name -> (argtypes, restype); every pointer and the stream
-#: is a c_void_p, or ctypes would pass it as a 32-bit int.
+#: is a c_void_p, or ctypes would pass it as a 32-bit int; a long long is a
+#: c_longlong.
 SIGNATURES = {
     # pos_i, ni, pos_j, mass_j (or NULL), nj, out, softening, fast, block,
     # stream
@@ -41,28 +43,32 @@ SIGNATURES = {
     # block, stream
     "direct_euler_launch": ([_P, _P, _P, _I, _P, _P, _F, _F, _I, _I, _P],
                             _I),
-    # slots, n_slots, pos_a, pos_b, v_a, v_b, acc_a, acc_b, tile, softening,
-    # fast, split_w, mask_offdiag, stream
-    "slot_pipe_launch": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
+    # slots, n_slots, n_sys, sys_rows, pos_a, pos_b, v_a, v_b, part, tile,
+    # softening, fast, split_w, mask_offdiag, stream
+    "slot_pipe_launch": ([_P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _F, _I, _I,
                           _I, _P], _I),
-    # slots, n_slots, pos_a, pos_b, acc_a, acc_b, k, tile, softening, fast,
-    # stream
-    "symmetric_force_launch": ([_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-                               _I),
+    # slots, n_slots, n_sys, sys_rows, pos_a, pos_b, part, k, tile,
+    # softening, fast, stream
+    "symmetric_force_launch": ([_P, _I, _I, _L, _P, _P, _P, _I, _I, _F, _I,
+                                _P], _I),
+    # part, tile_elems, n_targets, targets, offsets, entries, acc_a, acc_b,
+    # n_sys, sys_acc_stride, sys_part_tiles, stream
+    "slot_reduce_launch": ([_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _P],
+                           _I),
     # pos, mass (or NULL), n, rows, softening, block, stream
     "pe_rows_launch": ([_P, _P, _I, _P, _F, _I, _P], _I),
     # pos_k, g_k, mass_k (or NULL), nk, pos_j, g_j, mass_j (or NULL), nj,
     # out, softening, overlap_only, block, stream
     "vjp_ordered_launch": ([_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _I, _I,
                             _P], _I),
-    # slots, n_slots, pos_a, pos_b, g_a, g_b, acc_a, acc_b, k, ko, tile,
-    # softening, mask_offdiag, stream
-    "vjp_sym_launch": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                        _P], _I),
-    # slots, n_slots, pos_a, pos_b, g_a, g_b, q_a, q_b, acc_a, acc_b, masses,
-    # ko, tile, softening, mask_offdiag, stream
-    "vjp_mxu_launch": ([_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _F, _I, _P], _I),
+    # slots, n_slots, pos_a, pos_b, g_a, g_b, part, k, ko, tile, softening,
+    # mask_offdiag, stream
+    "vjp_sym_launch": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+                       _I),
+    # slots, n_slots, pos_a, pos_b, g_a, g_b, q_a, q_b, part, masses, ko,
+    # tile, softening, mask_offdiag, stream
+    "vjp_mxu_launch": ([_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                        _I, _P], _I),
     # pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows, masses, tile, softening,
     # overlap_only, stream
     "vjp_rect_mxu_launch": ([_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _I,

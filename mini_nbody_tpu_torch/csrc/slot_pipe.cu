@@ -11,9 +11,9 @@
 // lengths, mini_nbody_tpu/ops/sym_mxu_force.py:267 `_cross_kernel` as
 // `body_force_pair_mxu` calls it (:734 `_pair_call`)     -> B4.
 // The modes are the same kernel; they differ only in the base pointers and
-// the slot list the wrapper passes (tri: pos_a == pos_b, v_a == v_b, acc_a
-// == acc_b). Side a is indexed by the slot's bi and side b by its bj alone,
-// so the two sides may hold different numbers of blocks.
+// the slot list the wrapper passes (tri: pos_a == pos_b, v_a == v_b, one
+// accumulator). Side a is indexed by the slot's bi and side b by its bj
+// alone, so the two sides may hold different numbers of blocks.
 //
 // One CTA of 256 threads per slot (kind, bi, bj), read from a device
 // int32 (S, 3) slot list. Rows index block bi of chunk a, columns block bj
@@ -41,11 +41,17 @@
 // shared memory (bf16, rows padded to T + 8 to spread banks), then each warp
 // owns one 32-row output tile of one side and runs m32n8k16 wmma products
 // over the tile's K = T columns. The Pallas grid's sequential carry of the
-// (8, C) accumulator becomes atomicAdd of each warp's 32 x 8 result into the
-// (C, 8) fp32 accumulator in device memory: 16 atomics per body per slot
-// against T^2 pair evaluations. Atomic order varies from run to run, so
-// results are not bitwise reproducible (a deterministic reduction is ROADMAP
-// work). split_w adds the second product pass on the bf16 remainder of w.
+// (8, C) accumulator becomes a partial per slot: each warp stores its 32 x 8
+// result straight from the fragment into the slot's scratch tile (side 0:
+// block bi, side 1: block bj), and csrc/slot_reduce.cu adds each block's
+// partials in slot order, so every output bit is the same on every run.
+// split_w adds the second product pass on the bf16 remainder of w.
+//
+// Systems: blockIdx.y is the system of an ensemble launch (B9a, the tri mode
+// of mini_nbody_tpu/ops/slot_pipe.py:305 `_tri_slot_ensemble_kernel` with a
+// system axis). Every system runs the same system-local slot list over its
+// own rows, sys_rows rows after the previous system's; a standalone call is
+// the same kernel with one system. gridDim.y is at most 65,535.
 //
 // Pad pairs: FAR-vs-FAR pairs in unmasked CROSS and FOLD tiles get w =
 // softening^-1.5 (~3e13); their products are finite and land only in pad
@@ -75,7 +81,6 @@ constexpr size_t smem_bytes() {
   constexpr int kParts = kSplit ? 2 : 1;
   return 2 * kParts * T * (T + 8) * sizeof(__nv_bfloat16)  // W tiles
          + 2 * T * 8 * sizeof(__nv_bfloat16)               // v_a, v_b
-         + kWarps * 32 * 8 * sizeof(float)                 // per-warp C
          + 6 * T * sizeof(float);                          // positions
 }
 
@@ -85,8 +90,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ pos_a,
                      const float* __restrict__ pos_b,
                      const float* __restrict__ v_a,
-                     const float* __restrict__ v_b, float* acc_a,
-                     float* acc_b, float softening, int fast,
+                     const float* __restrict__ v_b, float* part,
+                     long long sys_rows, float softening, int fast,
                      int mask_offdiag) {
   constexpr int LD = T + 8;
   constexpr int kParts = kSplit ? 2 : 1;
@@ -98,8 +103,7 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* W = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Va = W + 2 * kParts * kTile;
   __nv_bfloat16* Vb = Va + T * 8;
-  float* scratch = reinterpret_cast<float*>(Vb + T * 8);
-  float* xa = scratch + kWarps * 32 * 8;
+  float* xa = reinterpret_cast<float*>(Vb + T * 8);
   float* ya = xa + T;
   float* za = ya + T;
   float* xb = za + T;
@@ -111,6 +115,11 @@ __global__ void __launch_bounds__(kThreads)
   const int bj = slots[3 * blockIdx.x + 2];
   const bool fold = kind == kSlotFold;
   const bool mask = kind == kSlotDiag || mask_offdiag;
+  const long long sys = blockIdx.y;
+  pos_a += sys * sys_rows * 3;
+  pos_b += sys * sys_rows * 3;
+  v_a += sys * sys_rows * 8;
+  v_b += sys * sys_rows * 8;
 
   const float* pa = pos_a + static_cast<size_t>(bi) * T * 3;
   const float* pb = pos_b + static_cast<size_t>(bj) * T * 3;
@@ -168,9 +177,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // Warp -> (side, 32-row output tile). Side 0 accumulates into block bi of
-  // acc_a, side 1 into block bj of acc_b.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Warp -> (side, 32-row output tile). Side 0's partial belongs to block bi
+  // of side a, side 1's to block bj of side b.
+  const int warp = threadIdx.x / 32;
   const int side = warp / kMTiles, m = warp % kMTiles;
   if (side > 1 || (kind == kSlotDiag && side == 1)) return;
   const bool rows = fold || side == 0;  // W @ v
@@ -204,58 +213,54 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  float* c_tile = scratch + warp * 32 * 8;
-  wmma::store_matrix_sync(c_tile, acc, 8, wmma::mem_row_major);
-  __syncwarp();
-  float* dst = (side == 0 ? acc_a + static_cast<size_t>(bi) * T * 8
-                          : acc_b + static_cast<size_t>(bj) * T * 8) +
-               m * 32 * 8;
-  for (int t = lane; t < 32 * 8; t += 32) atomicAdd(dst + t, c_tile[t]);
+  const long long tile = (sys * gridDim.x + blockIdx.x) * 2 + side;
+  wmma::store_matrix_sync(part + tile * T * 8 + m * 32 * 8, acc, 8,
+                          wmma::mem_row_major);
 }
 
 template <int T, bool kSplit>
-int launch(const int* slots, int n_slots, const float* pos_a,
-           const float* pos_b, const float* v_a, const float* v_b,
-           float* acc_a, float* acc_b, float softening, int fast,
+int launch(const int* slots, int n_slots, int n_sys, long long sys_rows,
+           const float* pos_a, const float* pos_b, const float* v_a,
+           const float* v_b, float* part, float softening, int fast,
            int mask_offdiag, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, kSplit>();
   cudaError_t err = cudaFuncSetAttribute(
       slot_pipe_kernel<T, kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  slot_pipe_kernel<T, kSplit><<<n_slots, kThreads, smem, stream>>>(
-      slots, pos_a, pos_b, v_a, v_b, acc_a, acc_b, softening, fast,
-      mask_offdiag);
+  slot_pipe_kernel<T, kSplit><<<dim3(n_slots, n_sys), kThreads, smem,
+                                 stream>>>(slots, pos_a, pos_b, v_a, v_b,
+                                           part, sys_rows, softening, fast,
+                                           mask_offdiag);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// slots (n_slots, 3) int32 (kind, bi, bj); pos_a (ca, 3), v_a and acc_a
-// (ca, 8), pos_b (cb, 3), v_b and acc_b (cb, 8), fp32 row-major, with ca and
-// cb multiples of tile (equal in tri mode) and every bi < ca / tile, bj <
-// cb / tile; all contiguous on the current device. The sums are ADDED into
-// acc_a/acc_b.
+// slots (n_slots, 3) int32 (kind, bi, bj); pos_a (ca, 3), v_a (ca, 8), pos_b
+// (cb, 3), v_b (cb, 8), fp32 row-major, with ca and cb multiples of tile
+// (equal in tri mode) and every bi < ca / tile, bj < cb / tile; n_sys
+// systems of such rows, sys_rows rows apart (tri mode; 1 system in cross
+// mode); all contiguous on the current device. part: n_sys x n_slots x 2
+// tiles of (tile, 8) fp32, written (side 0 of slot s: the rows of block bi;
+// side 1: block bj; a DIAG slot writes side 0 only) for slot_reduce_launch.
 // tile: 64 or 128. Returns cudaGetLastError() after the launch.
-extern "C" int slot_pipe_launch(const int* slots, int n_slots,
-                                const float* pos_a, const float* pos_b,
-                                const float* v_a, const float* v_b,
-                                float* acc_a, float* acc_b, int tile,
+extern "C" int slot_pipe_launch(const int* slots, int n_slots, int n_sys,
+                                long long sys_rows, const float* pos_a,
+                                const float* pos_b, const float* v_a,
+                                const float* v_b, float* part, int tile,
                                 float softening, int fast, int split_w,
                                 int mask_offdiag, void* stream) {
-  if (n_slots == 0) return 0;
+  if (n_slots == 0 || n_sys == 0) return 0;
+  if (n_sys > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 64 && !split_w)
-    return launch<64, false>(slots, n_slots, pos_a, pos_b, v_a, v_b, acc_a,
-                             acc_b, softening, fast, mask_offdiag, s);
-  if (tile == 64 && split_w)
-    return launch<64, true>(slots, n_slots, pos_a, pos_b, v_a, v_b, acc_a,
-                            acc_b, softening, fast, mask_offdiag, s);
-  if (tile == 128 && !split_w)
-    return launch<128, false>(slots, n_slots, pos_a, pos_b, v_a, v_b, acc_a,
-                              acc_b, softening, fast, mask_offdiag, s);
-  if (tile == 128 && split_w)
-    return launch<128, true>(slots, n_slots, pos_a, pos_b, v_a, v_b, acc_a,
-                             acc_b, softening, fast, mask_offdiag, s);
+#define NBODY_SLOT_LAUNCH(T, SPLIT)                                        \
+  launch<T, SPLIT>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b, v_a, v_b, \
+                   part, softening, fast, mask_offdiag, s)
+  if (tile == 64 && !split_w) return NBODY_SLOT_LAUNCH(64, false);
+  if (tile == 64 && split_w) return NBODY_SLOT_LAUNCH(64, true);
+  if (tile == 128 && !split_w) return NBODY_SLOT_LAUNCH(128, false);
+  if (tile == 128 && split_w) return NBODY_SLOT_LAUNCH(128, true);
+#undef NBODY_SLOT_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

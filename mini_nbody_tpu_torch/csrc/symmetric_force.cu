@@ -8,8 +8,8 @@
 //   :155 `_cross_kernel` (chunk pair a != b, and body_force_pair at :635)
 //                                                          -> "cross mode"
 // The two modes are one kernel over a slot list; they differ only in the
-// list and the base pointers the wrapper passes (tri: pos_a == pos_b,
-// acc_a == acc_b).
+// list and the base pointers the wrapper passes (tri: pos_a == pos_b, one
+// accumulator).
 //
 // Geometry: the slot + fold geometry of K2 (csrc/slot_pipe.cu,
 // ops/slot_pipe.py tri_slot_list), not the TPU band. One CTA of 2T threads
@@ -18,7 +18,7 @@
 //   DIAG  (bi == bj): row sums only; the T x T diagonal block's rows
 //         already cover both orders of each pair (adding its column sums
 //         would count every pair twice). d = 0 on the diagonal gives 0.
-//   CROSS: rows into acc_a[bi], reactions into acc_b[bj].
+//   CROSS: rows to block bi (side a), reactions to block bj (side b).
 //   FOLD  (bj == bi + 1, tri mode): entry (r, c) is pair (a_r, a_c) for
 //         c < r and (b_r, b_c) for c > r; each side's rows and reactions go
 //         to its own block. Fold slots are nb/2 of ~nb^2/2, so their
@@ -43,11 +43,19 @@
 // first and returns cudaGetLastError(); a refused launch never runs.
 //
 // Cross-block sums: the TPU carries the whole-chunk reaction buffer across
-// its sequential grid; CTAs here run in no order, so each CTA adds its row
-// and reaction sums into the (c, 3) fp32 accumulators with atomicAdd
-// (6T atomics per slot against T^2 pairs). The order of the atomics changes
-// from run to run, so results are not bitwise reproducible; a deterministic
-// reduction is ROADMAP B17.
+// its sequential grid; CTAs here run in no order, so each CTA stores its two
+// T x 3 partials (side 0: block bi, side 1: block bj) to the slot's scratch
+// tiles and csrc/slot_reduce.cu adds each block's partials in slot order:
+// every output bit is the same on every run. A FOLD slot's row and column
+// sums meet in one tile per side: the row pass stores, and after a barrier
+// the column pass adds its (negated) sums to the same elements.
+//
+// Systems: blockIdx.y is the system of an ensemble launch (B9b, the tri mode
+// of mini_nbody_tpu/ops/symmetric_force.py:488 `_build_tri_ensemble` with a
+// system axis, on the slot list instead of the band). Every system runs the
+// same system-local slot list over its own rows, sys_rows rows after the
+// previous system's; a standalone call is the same kernel with one system.
+// gridDim.y is at most 65,535.
 //
 // Padding: FAR tails. A real body against a FAR pad gets w = 0 exactly
 // (r2^3 overflows and rsqrtf(inf) = 0, or rsqrtf(r2)^3 underflows), and a
@@ -103,19 +111,14 @@ __device__ __forceinline__ void col_sums(const float* W, const float* P,
   }
 }
 
-__device__ __forceinline__ void add3(float* dst, const float* v, float s) {
-  atomicAdd(dst, s * v[0]);
-  atomicAdd(dst + 1, s * v[1]);
-  atomicAdd(dst + 2, s * v[2]);
-}
-
-// pos_a / pos_b: (c, K) rows (x, y, z[, m]); acc_a / acc_b: (c, 3).
+// pos_a / pos_b: (c, K) rows (x, y, z[, m]); part: 2 (T, 3) tiles per slot
+// and system.
 template <int T, int K, bool kFast>
 __global__ void __launch_bounds__(2 * T)
     symmetric_force_kernel(const int* __restrict__ slots,
                            const float* __restrict__ pos_a,
-                           const float* __restrict__ pos_b, float* acc_a,
-                           float* acc_b, float softening) {
+                           const float* __restrict__ pos_b, float* part,
+                           long long sys_rows, float softening) {
   constexpr int LD = T + 1;
   constexpr bool kMass = K == 4;
   extern __shared__ float smem[];
@@ -127,6 +130,11 @@ __global__ void __launch_bounds__(2 * T)
   const int bi = slots[3 * blockIdx.x + 1];
   const int bj = slots[3 * blockIdx.x + 2];
   const bool fold = kind == kSlotFold;
+  const long long sys = blockIdx.y;
+  pos_a += sys * sys_rows * K;
+  pos_b += sys * sys_rows * K;
+  // Side 0's tile (block bi), then side 1's (block bj).
+  float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * 3;
 
   const float* ga = pos_a + static_cast<size_t>(bi) * T * K;
   const float* gb = pos_b + static_cast<size_t>(bj) * T * K;
@@ -158,87 +166,98 @@ __global__ void __launch_bounds__(2 * T)
   }
   __syncthreads();
 
-  float s[3] = {0.f, 0.f, 0.f};
-  if (threadIdx.x < T) {  // row pass
+  float s[3] = {0.f, 0.f, 0.f}, s2[3] = {0.f, 0.f, 0.f};
+  if (!fold) {
+    if (threadIdx.x < T) {  // row pass
+      const int r = threadIdx.x;
+      row_sums<T, kMass>(W + r * LD, pa, pb, r, 0, T, s);
+      for (int k = 0; k < 3; ++k) out[r * 3 + k] = s[k];
+    } else if (kind != kSlotDiag) {  // column pass
+      const int c = threadIdx.x - T;
+      col_sums<T, kMass>(W, pa, pb, c, 0, T, s);
+      for (int k = 0; k < 3; ++k) out[(T + c) * 3 + k] = -s[k];
+    }
+    return;
+  }
+  // FOLD: the row pass stores both sides' row sums, then the column pass
+  // adds its sums to the same tiles.
+  if (threadIdx.x < T) {
     const int r = threadIdx.x;
     const float* Wr = W + r * LD;
-    if (!fold) {
-      row_sums<T, kMass>(Wr, pa, pb, r, 0, T, s);
-      add3(acc_a + (static_cast<size_t>(bi) * T + r) * 3, s, 1.f);
-    } else {
-      row_sums<T, kMass>(Wr, pa, pa, r, 0, r, s);
-      add3(acc_a + (static_cast<size_t>(bi) * T + r) * 3, s, 1.f);
-      s[0] = s[1] = s[2] = 0.f;
-      row_sums<T, kMass>(Wr, pb, pb, r, r + 1, T, s);
-      add3(acc_b + (static_cast<size_t>(bj) * T + r) * 3, s, 1.f);
+    row_sums<T, kMass>(Wr, pa, pa, r, 0, r, s);
+    row_sums<T, kMass>(Wr, pb, pb, r, r + 1, T, s2);
+    for (int k = 0; k < 3; ++k) {
+      out[r * 3 + k] = s[k];
+      out[(T + r) * 3 + k] = s2[k];
     }
-  } else if (kind != kSlotDiag) {  // column pass
+  } else {
     const int c = threadIdx.x - T;
-    if (!fold) {
-      col_sums<T, kMass>(W, pa, pb, c, 0, T, s);
-      add3(acc_b + (static_cast<size_t>(bj) * T + c) * 3, s, -1.f);
-    } else {
-      col_sums<T, kMass>(W, pa, pa, c, c + 1, T, s);
-      add3(acc_a + (static_cast<size_t>(bi) * T + c) * 3, s, -1.f);
-      s[0] = s[1] = s[2] = 0.f;
-      col_sums<T, kMass>(W, pb, pb, c, 0, c, s);
-      add3(acc_b + (static_cast<size_t>(bj) * T + c) * 3, s, -1.f);
+    col_sums<T, kMass>(W, pa, pa, c, c + 1, T, s);
+    col_sums<T, kMass>(W, pb, pb, c, 0, c, s2);
+  }
+  __syncthreads();
+  if (threadIdx.x >= T) {
+    const int c = threadIdx.x - T;
+    for (int k = 0; k < 3; ++k) {
+      out[c * 3 + k] -= s[k];
+      out[(T + c) * 3 + k] -= s2[k];
     }
   }
 }
 
 template <int T, int K, bool kFast>
-int launch(const int* slots, int n_slots, const float* pos_a,
-           const float* pos_b, float* acc_a, float* acc_b, float softening,
-           cudaStream_t stream) {
+int launch(const int* slots, int n_slots, int n_sys, long long sys_rows,
+           const float* pos_a, const float* pos_b, float* part,
+           float softening, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       symmetric_force_kernel<T, K, kFast>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  symmetric_force_kernel<T, K, kFast><<<n_slots, 2 * T, smem, stream>>>(
-      slots, pos_a, pos_b, acc_a, acc_b, softening);
+  symmetric_force_kernel<T, K, kFast>
+      <<<dim3(n_slots, n_sys), 2 * T, smem, stream>>>(
+          slots, pos_a, pos_b, part, sys_rows, softening);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int T>
-int dispatch(const int* slots, int n_slots, const float* pos_a,
-             const float* pos_b, float* acc_a, float* acc_b, int k,
+int dispatch(const int* slots, int n_slots, int n_sys, long long sys_rows,
+             const float* pos_a, const float* pos_b, float* part, int k,
              float softening, int fast, cudaStream_t s) {
-  if (k == 3 && fast)
-    return launch<T, 3, true>(slots, n_slots, pos_a, pos_b, acc_a, acc_b,
-                              softening, s);
-  if (k == 3)
-    return launch<T, 3, false>(slots, n_slots, pos_a, pos_b, acc_a, acc_b,
-                               softening, s);
-  if (k == 4 && fast)
-    return launch<T, 4, true>(slots, n_slots, pos_a, pos_b, acc_a, acc_b,
-                              softening, s);
-  if (k == 4)
-    return launch<T, 4, false>(slots, n_slots, pos_a, pos_b, acc_a, acc_b,
-                               softening, s);
+#define NBODY_SYM_LAUNCH(K, FAST)                                        \
+  launch<T, K, FAST>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b, part, \
+                     softening, s)
+  if (k == 3 && fast) return NBODY_SYM_LAUNCH(3, true);
+  if (k == 3) return NBODY_SYM_LAUNCH(3, false);
+  if (k == 4 && fast) return NBODY_SYM_LAUNCH(4, true);
+  if (k == 4) return NBODY_SYM_LAUNCH(4, false);
+#undef NBODY_SYM_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b (rows, k) fp32 with
-// k = 3 (unit masses) or 4 (x, y, z, m); acc_a / acc_b (rows, 3) fp32; rows
-// of each a multiple of tile; all contiguous on the current device. The
-// sums are ADDED into acc_a / acc_b. tile: 64 or 128. Returns
-// cudaGetLastError() after the launch.
+// k = 3 (unit masses) or 4 (x, y, z, m), rows a multiple of tile; n_sys
+// systems of such rows, sys_rows rows apart (tri mode; 1 system in cross
+// mode); all contiguous on the current device. part: n_sys x n_slots x 2
+// tiles of (tile, 3) fp32, written (side 0 of slot s: block bi's sums; side
+// 1: block bj's; a DIAG slot writes side 0 only) for slot_reduce_launch.
+// tile: 64 or 128. Returns cudaGetLastError() after the launch.
 extern "C" int symmetric_force_launch(const int* slots, int n_slots,
+                                      int n_sys, long long sys_rows,
                                       const float* pos_a, const float* pos_b,
-                                      float* acc_a, float* acc_b, int k,
-                                      int tile, float softening, int fast,
+                                      float* part, int k, int tile,
+                                      float softening, int fast,
                                       void* stream) {
-  if (n_slots == 0) return 0;
+  if (n_slots == 0 || n_sys == 0) return 0;
+  if (n_sys > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 64)
-    return dispatch<64>(slots, n_slots, pos_a, pos_b, acc_a, acc_b, k,
-                        softening, fast, s);
+    return dispatch<64>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b, part,
+                        k, softening, fast, s);
   if (tile == 128)
-    return dispatch<128>(slots, n_slots, pos_a, pos_b, acc_a, acc_b, k,
-                         softening, fast, s);
+    return dispatch<128>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
+                         part, k, softening, fast, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,14 +37,16 @@
 //         (the rows cover both orders), always masked; with the mass
 //         cotangent, -sum_c w (g_c.d) per row (the sum JAX takes as column
 //         sums of the same block, :299-308).
-//   CROSS: rows into acc_a[bi], reactions into acc_b[bj].
+//   CROSS: rows to block bi (side a), reactions to block bj (side b).
 //   FOLD  (bj == bi + 1): entry (r, c) is pair (a_r, a_c) for c < r and
 //         (b_r, b_c) for c > r; the diagonal is skipped.
-// CROSS and FOLD pairs are masked where d2 == 0 iff mask_offdiag. Sums reach
-// the (c, 3|4) accumulators by atomicAdd (6T or 8T per slot), so results are
-// not bitwise reproducible (ROADMAP B17). The TPU's single-launch bound
-// (the (3|4, N) VMEM reaction buffer, _SYM_BWD_MAX = 131072) does not
-// apply: the wrapper keeps K3's chunk loop. Pads are FAR with zero mass and
+// CROSS and FOLD pairs are masked where d2 == 0 iff mask_offdiag. Each CTA
+// stores its two T x (3|4) partials (side 0: block bi, side 1: block bj; in
+// a FOLD the column pass adds into the row pass's tiles after a barrier),
+// and csrc/slot_reduce.cu adds each block's partials in slot order, so every
+// output bit is the same on every run. The TPU's single-launch bound (the
+// (3|4, N) VMEM reaction buffer, _SYM_BWD_MAX = 131072) does not apply: the
+// wrapper keeps K3's chunk loop. Pads are FAR with zero mass and
 // zero cotangent: real-vs-pad terms are exactly 0 and pad-pad terms are
 // w (0 - 0) + 0 d = 0.
 //
@@ -163,12 +165,14 @@ struct Blk {
   const float* g;  // g[k * T + r], k = 0..2
 };
 
-__device__ __forceinline__ void add_row(float* dst, const float* v, int ko,
-                                        float sign) {
-  atomicAdd(dst, sign * v[0]);
-  atomicAdd(dst + 1, sign * v[1]);
-  atomicAdd(dst + 2, sign * v[2]);
-  if (ko == 4) atomicAdd(dst + 3, v[3]);
+// dst = v (add: dst += v), the position columns times sign; the mass
+// cotangent column (ko == 4) is not negated.
+__device__ __forceinline__ void put_row(float* dst, const float* v, int ko,
+                                        float sign, bool add) {
+  for (int k = 0; k < ko; ++k) {
+    const float x = k < 3 ? sign * v[k] : v[k];
+    dst[k] = add ? dst[k] + x : x;
+  }
 }
 
 // The ordered row of receiver r of block P over every c of block Q (DIAG).
@@ -273,15 +277,15 @@ constexpr size_t sym_smem_bytes() {
   return (2 * T * (T + 1) + 14 * T) * sizeof(float);  // w, c tiles + blocks
 }
 
-// pos_a / pos_b: (c, K) rows (x, y, z[, m]); g_a / g_b: (c, 3); acc_a /
-// acc_b: (c, KO), KO = 4 with the mass cotangent.
+// pos_a / pos_b: (c, K) rows (x, y, z[, m]); g_a / g_b: (c, 3); part: 2
+// (T, KO) tiles per slot, KO = 4 with the mass cotangent.
 template <int T, int K, int KO>
 __global__ void __launch_bounds__(2 * T)
     vjp_sym_kernel(const int* __restrict__ slots,
                    const float* __restrict__ pos_a,
                    const float* __restrict__ pos_b,
                    const float* __restrict__ g_a,
-                   const float* __restrict__ g_b, float* acc_a, float* acc_b,
+                   const float* __restrict__ g_b, float* part,
                    float softening, int mask_offdiag) {
   constexpr int LD = T + 1;
   constexpr bool kMass = K == 4;
@@ -297,6 +301,8 @@ __global__ void __launch_bounds__(2 * T)
   const int bi = slots[3 * blockIdx.x + 1];
   const int bj = slots[3 * blockIdx.x + 2];
   const bool fold = kind == kSlotFold;
+  // Side 0's tile (block bi), then side 1's (block bj).
+  float* out = part + static_cast<size_t>(blockIdx.x) * 2 * T * KO;
 
   const float* pa = pos_a + static_cast<size_t>(bi) * T * K;
   const float* pb = pos_b + static_cast<size_t>(bj) * T * K;
@@ -314,12 +320,12 @@ __global__ void __launch_bounds__(2 * T)
   }
   __syncthreads();
 
-  float f[4] = {0.f, 0.f, 0.f, 0.f};
+  float f[4] = {0.f, 0.f, 0.f, 0.f}, f2[4] = {0.f, 0.f, 0.f, 0.f};
   if (kind == kSlotDiag) {
     if (threadIdx.x < T) {
       const int r = threadIdx.x;
       ordered_row<T, kMass, kMassGrad>(A, B, r, softening, f);
-      add_row(acc_a + (static_cast<size_t>(bi) * T + r) * KO, f, KO, 1.f);
+      put_row(out + r * KO, f, KO, 1.f, false);
     }
     return;
   }
@@ -350,38 +356,38 @@ __global__ void __launch_bounds__(2 * T)
     const int r = threadIdx.x;
     const float* Wr = W + r * LD;
     const float* Cr = C + r * LD;
-    float* dst_a = acc_a + (static_cast<size_t>(bi) * T + r) * KO;
     if (!fold) {
       row_sums<T, kMass, kMassGrad>(Wr, Cr, A, B, r, 0, T, f);
-      add_row(dst_a, f, KO, 1.f);
     } else {
       row_sums<T, kMass, kMassGrad>(Wr, Cr, A, A, r, 0, r, f);
-      add_row(dst_a, f, KO, 1.f);
-      f[0] = f[1] = f[2] = f[3] = 0.f;
-      row_sums<T, kMass, kMassGrad>(Wr, Cr, B, B, r, r + 1, T, f);
-      add_row(acc_b + (static_cast<size_t>(bj) * T + r) * KO, f, KO, 1.f);
+      row_sums<T, kMass, kMassGrad>(Wr, Cr, B, B, r, r + 1, T, f2);
+      put_row(out + (T + r) * KO, f2, KO, 1.f, false);
     }
+    put_row(out + r * KO, f, KO, 1.f, false);
   } else {  // reaction pass
     const int c = threadIdx.x - T;
-    float* dst_b = acc_b + (static_cast<size_t>(bj) * T + c) * KO;
     if (!fold) {
       col_sums<T, kMass, kMassGrad>(W, C, A, B, c, 0, T, f);
-      add_row(dst_b, f, KO, -1.f);
+      put_row(out + (T + c) * KO, f, KO, -1.f, false);
     } else {
       col_sums<T, kMass, kMassGrad>(W, C, A, A, c, c + 1, T, f);
-      add_row(acc_a + (static_cast<size_t>(bi) * T + c) * KO, f, KO,
-                 -1.f);
-      f[0] = f[1] = f[2] = f[3] = 0.f;
-      col_sums<T, kMass, kMassGrad>(W, C, B, B, c, 0, c, f);
-      add_row(dst_b, f, KO, -1.f);
+      col_sums<T, kMass, kMassGrad>(W, C, B, B, c, 0, c, f2);
     }
+  }
+  if (!fold) return;
+  // FOLD: the reaction pass adds into the tiles the row pass stored.
+  __syncthreads();
+  if (threadIdx.x >= T) {
+    const int c = threadIdx.x - T;
+    put_row(out + c * KO, f, KO, -1.f, true);
+    put_row(out + (T + c) * KO, f2, KO, -1.f, true);
   }
 }
 
 template <int T, int K, int KO>
 int launch_sym(const int* slots, int n_slots, const float* pos_a,
                const float* pos_b, const float* g_a, const float* g_b,
-               float* acc_a, float* acc_b, float softening, int mask_offdiag,
+               float* part, float softening, int mask_offdiag,
                cudaStream_t stream) {
   constexpr size_t smem = sym_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -389,24 +395,24 @@ int launch_sym(const int* slots, int n_slots, const float* pos_a,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   vjp_sym_kernel<T, K, KO><<<n_slots, 2 * T, smem, stream>>>(
-      slots, pos_a, pos_b, g_a, g_b, acc_a, acc_b, softening, mask_offdiag);
+      slots, pos_a, pos_b, g_a, g_b, part, softening, mask_offdiag);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int T>
 int dispatch_sym(const int* slots, int n_slots, const float* pos_a,
                  const float* pos_b, const float* g_a, const float* g_b,
-                 float* acc_a, float* acc_b, int k, int ko, float softening,
+                 float* part, int k, int ko, float softening,
                  int mask_offdiag, cudaStream_t s) {
   if (k == 3 && ko == 3)
-    return launch_sym<T, 3, 3>(slots, n_slots, pos_a, pos_b, g_a, g_b,
-                               acc_a, acc_b, softening, mask_offdiag, s);
+    return launch_sym<T, 3, 3>(slots, n_slots, pos_a, pos_b, g_a, g_b, part,
+                               softening, mask_offdiag, s);
   if (k == 4 && ko == 3)
-    return launch_sym<T, 4, 3>(slots, n_slots, pos_a, pos_b, g_a, g_b,
-                               acc_a, acc_b, softening, mask_offdiag, s);
+    return launch_sym<T, 4, 3>(slots, n_slots, pos_a, pos_b, g_a, g_b, part,
+                               softening, mask_offdiag, s);
   if (k == 4 && ko == 4)
-    return launch_sym<T, 4, 4>(slots, n_slots, pos_a, pos_b, g_a, g_b,
-                               acc_a, acc_b, softening, mask_offdiag, s);
+    return launch_sym<T, 4, 4>(slots, n_slots, pos_a, pos_b, g_a, g_b, part,
+                               softening, mask_offdiag, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -442,23 +448,25 @@ extern "C" int vjp_ordered_launch(const float* pos_k, const float* g_k,
 }
 
 // B11. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b (rows, k),
-// k = 3 (unit masses) or 4 (x, y, z, m); g_a / g_b (rows, 3); acc_a / acc_b
-// (rows, ko), ko = 3, or 4 with the mass cotangent (k = 4 only); rows of each
-// a multiple of tile; fp32, contiguous, on the current device. The sums are
-// ADDED into acc_a / acc_b. tile: 64 or 128. Returns cudaGetLastError().
+// k = 3 (unit masses) or 4 (x, y, z, m); g_a / g_b (rows, 3); rows of each a
+// multiple of tile; fp32, contiguous, on the current device. part: n_slots x
+// 2 tiles of (tile, ko) fp32, ko = 3, or 4 with the mass cotangent (k = 4
+// only), written (side 0 of slot s: block bi's sums; side 1: block bj's; a
+// DIAG slot writes side 0 only) for slot_reduce_launch. tile: 64 or 128.
+// Returns cudaGetLastError().
 extern "C" int vjp_sym_launch(const int* slots, int n_slots,
                               const float* pos_a, const float* pos_b,
                               const float* g_a, const float* g_b,
-                              float* acc_a, float* acc_b, int k, int ko,
-                              int tile, float softening, int mask_offdiag,
+                              float* part, int k, int ko, int tile,
+                              float softening, int mask_offdiag,
                               void* stream) {
   if (n_slots == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 64)
-    return dispatch_sym<64>(slots, n_slots, pos_a, pos_b, g_a, g_b, acc_a,
-                            acc_b, k, ko, softening, mask_offdiag, s);
+    return dispatch_sym<64>(slots, n_slots, pos_a, pos_b, g_a, g_b, part, k,
+                            ko, softening, mask_offdiag, s);
   if (tile == 128)
-    return dispatch_sym<128>(slots, n_slots, pos_a, pos_b, g_a, g_b, acc_a,
-                             acc_b, k, ko, softening, mask_offdiag, s);
+    return dispatch_sym<128>(slots, n_slots, pos_a, pos_b, g_a, g_b, part, k,
+                             ko, softening, mask_offdiag, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,8 +18,8 @@
 // bound. Both keep JAX's numerics: w and c in fp32 (_wc_block, :74-109),
 // rounded to bf16 in shared memory, operands split into compensated hi/lo
 // bf16 halves by the wrapper (_split8, :224-228), fp32 accumulation; JAX
-// folds hi + lo per block (:117-121), and so do these kernels before their
-// atomics (B13) or their store (B14).
+// folds hi + lo per block (:117-121), and so do these kernels before they
+// store their partials (B13) or rows (B14).
 //
 // B13: one CTA of 256 threads per slot (kind, bi, bj), as K2
 // (csrc/slot_pipe.cu). All threads compute the T x T tiles of w and c
@@ -29,22 +29,27 @@
 // same tiles, [W^T @ Qg | C^T @ Qp] for reactions.
 //   DIAG  (bi == bj): always masked where d2 == 0, row sums only (the rows
 //         cover both orders).
-//   CROSS: rows into acc_a[bi] with block bj's operands, reactions into
-//         acc_b[bj] with block bi's.
+//   CROSS: rows to block bi (side a) with block bj's operands, reactions
+//         to block bj (side b) with block bi's.
 //   FOLD  (bj == bi + 1): entry (r, c) is pair (a_r, a_c) for c < r (tiles
 //         0) and (b_r, b_c) for c > r (tiles 1); the diagonal is always
 //         masked; each block adds its tile's rows and reactions.
-// CROSS and FOLD are masked where d2 == 0 iff mask_offdiag. Results reach
-// the (c, 8|9) accumulators by atomicAdd (16 per body and side per slot,
-// one more for the mass column), so they are not bitwise reproducible
-// (ROADMAP B17). The TPU's single-launch bound does not apply: the wrapper
-// keeps K3's chunk loop.
+// CROSS and FOLD are masked where d2 == 0 iff mask_offdiag. Each CTA stores
+// its two T x (8|9) partials (side 0: block bi, side 1: block bj), and
+// csrc/slot_reduce.cu adds each block's partials in slot order; the mass
+// column is summed inside the CTA in a fixed order too (see the kernel), so
+// every output bit is the same on every run. The TPU's single-launch bound
+// does not apply: the wrapper keeps K3's chunk loop.
 //
 // B14: one CTA of 256 threads per k tile of T receivers, looping over the j
 // tiles: stage the j tile, compute its w and c tiles, and let warp
-// (product, m) accumulate one 32 x 8 fragment of [W @ Qg | C @ Qp] across
-// every j tile in registers. No reaction side, no atomics: each CTA writes
-// its own rows, so B14 is deterministic. overlap_only (square calls under
+// (product, m) run its 32 x 8 product of [W @ Qg | C @ Qp] over the tile
+// into a fresh fragment, then add that partial into running sums held in
+// registers with round-to-nearest fp32 adds, as B6 does
+// (csrc/mxu_force.cu). The tensor cores' fp32 accumulation does not round
+// to nearest: one fragment carried across all j tiles drifted, and its error
+// against the fp32 gradient grew with N. No reaction side, no atomics: each
+// CTA writes its own rows, so B14 is deterministic. overlap_only (square calls under
 // coincident routing, vjp_mxu.py:207-221) drops the d2 == 0 select in the
 // tiles whose j range is not the CTA's k range.
 //
@@ -64,8 +69,8 @@
 // operations and one rsqrt per pair, JAX's count, vjp_mxu.py:367), then
 // shared memory: each bf16 tile element is written once and read by two
 // wmma loads (B13: rows and reactions). The products are 32 x 8 x T
-// (N = 8) and keep the tensor cores mostly idle. B13 takes 61,440 bytes of
-// shared memory per CTA at T = 64 and 172,032 at T = 128; B14 89,088 at
+// (N = 8) and keep the tensor cores mostly idle. B13 takes 64,000 bytes of
+// shared memory per CTA at T = 64 and 177,152 at T = 128; B14 89,088 at
 // T = 128. The launches raise the dynamic limit first and return
 // cudaGetLastError().
 
@@ -167,7 +172,8 @@ constexpr size_t mxu_smem_bytes() {
   return 4 * T * (T + 8) * sizeof(__nv_bfloat16)  // W, C (x2 for a fold)
          + 4 * T * 8 * sizeof(__nv_bfloat16)     // Qg, Qp of both blocks
          + kWarps * 2 * 32 * 8 * sizeof(float)    // per-warp products
-         + (2 * kRows + 2) * T * sizeof(float);   // blocks, mass sums
+         + 2 * kRows * T * sizeof(float)          // blocks
+         + 2 * (T / 32 + kThreads / T) * T * sizeof(float);  // mass parts
 }
 
 template <int T, int K, int KO>
@@ -178,14 +184,18 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ g_a,
                    const float* __restrict__ g_b,
                    const float* __restrict__ q_a,
-                   const float* __restrict__ q_b, float* acc_a, float* acc_b,
+                   const float* __restrict__ q_b, float* part,
                    float softening, int mask_offdiag) {
   constexpr int LD = T + 8;
   constexpr int kTile = T * LD;
   constexpr int kMTiles = T / 32;
+  constexpr int kRowParts = T / 32;      // warp chunks per row
+  constexpr int kColParts = kThreads / T;  // threads per column
   constexpr bool kMass = K == 4;
   constexpr bool kMassGrad = KO == 9;
   static_assert(2 * kMTiles <= kWarps, "one warp per 32-row output tile");
+  static_assert(kThreads % T == 0 && 2 * T <= kThreads,
+                "a thread keeps one column; 2T threads fold the mass sums");
 
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -198,20 +208,31 @@ __global__ void __launch_bounds__(kThreads)
   float* scratch = reinterpret_cast<float*>(QpB + T * 8);
   float* SA = scratch + kWarps * 2 * 32 * 8;
   float* SB = SA + kRows * T;
-  float* MA = SB + kRows * T;  // mass cotangent sums of block bi
-  float* MB = MA + T;          // and of block bj
+  // Parts of the mass cotangent sums of block bi (A) and block bj (B): per
+  // (row, warp chunk) and per (column thread, column).
+  float* rowA = SB + kRows * T;
+  float* rowB = rowA + kRowParts * T;
+  float* colA = rowB + kRowParts * T;
+  float* colB = colA + kColParts * T;
 
   const int kind = slots[3 * blockIdx.x];
   const int bi = slots[3 * blockIdx.x + 1];
   const int bj = slots[3 * blockIdx.x + 2];
   const bool fold = kind == kSlotFold;
   const bool mask = kind == kSlotDiag || mask_offdiag;
+  // Side 0's tile (block bi), then side 1's (block bj).
+  float* out = part + static_cast<size_t>(blockIdx.x) * 2 * T * KO;
 
   stage<T, K>(pos_a, g_a, q_a, bi * T, (bi + 1) * T, SA, QgA, QpA);
   stage<T, K>(pos_b, g_b, q_b, bj * T, (bj + 1) * T, SB, QgB, QpB);
-  for (int t = threadIdx.x; t < 2 * T; t += kThreads) MA[t] = 0.f;
   __syncthreads();
 
+  // The mass cotangent of a pair, -w (g_b.d) to its row and w (g_a.d) to its
+  // column, is summed in a fixed order: a row's terms by warp shuffles within
+  // each 32-column chunk, then the chunks in order; a column's terms in
+  // registers by the one thread that visits it in each row it owns (the
+  // stride kThreads is a multiple of T), then those threads in order.
+  float col_a = 0.f, col_b = 0.f;
   for (int e = threadIdx.x; e < T * T; e += kThreads) {
     const int r = e / T, c = e % T;
     const bool upper = fold && c > r;
@@ -228,9 +249,7 @@ __global__ void __launch_bounds__(kThreads)
       tiles[(3 - 2 * s) * kTile + r * LD + c] = __float2bfloat16_rn(0.f);
     }
     if (kMassGrad) {
-      // A warp's 32 entries share row r (T is a multiple of 32): reduce the
-      // row terms in registers, one shared atomic per block side. The
-      // column terms go to 32 distinct columns.
+      // A warp's 32 entries share row r (T is a multiple of 32).
       const float m_r = -__fmul_rn(w, dot_b);
       float lo = upper ? 0.f : m_r, hi = upper ? m_r : 0.f;
 #pragma unroll
@@ -239,26 +258,37 @@ __global__ void __launch_bounds__(kThreads)
         hi += __shfl_xor_sync(0xffffffffu, hi, off);
       }
       if (threadIdx.x % 32 == 0) {
-        atomicAdd(MA + r, lo);
-        if (fold) atomicAdd(MB + r, hi);
+        rowA[r * kRowParts + c / 32] = lo;
+        rowB[r * kRowParts + c / 32] = hi;
       }
-      if (kind != kSlotDiag)
-        atomicAdd((upper ? MB : (fold ? MA : MB)) + c, __fmul_rn(w, dot_a));
+      if (kind != kSlotDiag) {
+        const float m_c = __fmul_rn(w, dot_a);
+        if (fold && !upper)
+          col_a += m_c;
+        else
+          col_b += m_c;
+      }
     }
+  }
+  if (kMassGrad) {
+    colA[threadIdx.x] = col_a;  // thread t keeps column t % T
+    colB[threadIdx.x] = col_b;
   }
   __syncthreads();
 
-  if (kMassGrad) {
-    const int t = threadIdx.x;
-    if (t < T)
-      atomicAdd(acc_a + (static_cast<size_t>(bi) * T + t) * KO + 8, MA[t]);
-    else if (t < 2 * T && kind != kSlotDiag)
-      atomicAdd(acc_b + (static_cast<size_t>(bj) * T + t - T) * KO + 8,
-                MB[t - T]);
+  if (kMassGrad && threadIdx.x < 2 * T) {
+    const int t = threadIdx.x % T;
+    const bool b = threadIdx.x >= T;
+    const float* rp = b ? rowB : rowA;
+    const float* cp = b ? colB : colA;
+    float m = 0.f;
+    for (int q = 0; q < kRowParts; ++q) m += rp[t * kRowParts + q];
+    for (int q = 0; q < kColParts; ++q) m += cp[q * T + t];
+    if (!b || kind != kSlotDiag) out[(b ? T + t : t) * KO + 8] = m;
   }
 
-  // Warp -> (side, 32-row output tile). Side 0 accumulates into block bi of
-  // acc_a, side 1 into block bj of acc_b.
+  // Warp -> (side, 32-row output tile). Side 0's partial belongs to block bi
+  // of side a, side 1's to block bj of side b.
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int side = warp / kMTiles, m = warp % kMTiles;
   if (side > 1 || (kind == kSlotDiag && side == 1)) return;
@@ -303,26 +333,23 @@ __global__ void __launch_bounds__(kThreads)
   float v[8];
   fold_row(sg, lane, v);
   fold_row(sp, lane, v + 4);
-  float* dst = (side == 0 ? acc_a + static_cast<size_t>(bi) * T * KO
-                          : acc_b + static_cast<size_t>(bj) * T * KO) +
-               static_cast<size_t>(m * 32 + lane) * KO;
+  float* dst = out + (side * T + m * 32 + lane) * KO;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) atomicAdd(dst + q, v[q]);
+  for (int q = 0; q < 8; ++q) dst[q] = v[q];
 }
 
 template <int T, int K, int KO>
 int launch_mxu(const int* slots, int n_slots, const float* pos_a,
                const float* pos_b, const float* g_a, const float* g_b,
-               const float* q_a, const float* q_b, float* acc_a,
-               float* acc_b, float softening, int mask_offdiag,
-               cudaStream_t stream) {
+               const float* q_a, const float* q_b, float* part,
+               float softening, int mask_offdiag, cudaStream_t stream) {
   constexpr size_t smem = mxu_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       vjp_mxu_kernel<T, K, KO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   vjp_mxu_kernel<T, K, KO><<<n_slots, kThreads, smem, stream>>>(
-      slots, pos_a, pos_b, g_a, g_b, q_a, q_b, acc_a, acc_b, softening,
+      slots, pos_a, pos_b, g_a, g_b, q_a, q_b, part, softening,
       mask_offdiag);
   return static_cast<int>(cudaGetLastError());
 }
@@ -330,18 +357,17 @@ int launch_mxu(const int* slots, int n_slots, const float* pos_a,
 template <int T>
 int dispatch_mxu(const int* slots, int n_slots, const float* pos_a,
                  const float* pos_b, const float* g_a, const float* g_b,
-                 const float* q_a, const float* q_b, float* acc_a,
-                 float* acc_b, int masses, int ko, float softening,
-                 int mask_offdiag, cudaStream_t s) {
+                 const float* q_a, const float* q_b, float* part, int masses,
+                 int ko, float softening, int mask_offdiag, cudaStream_t s) {
   if (!masses && ko == 8)
     return launch_mxu<T, 3, 8>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
-                               q_b, acc_a, acc_b, softening, mask_offdiag, s);
+                               q_b, part, softening, mask_offdiag, s);
   if (masses && ko == 8)
     return launch_mxu<T, 4, 8>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
-                               q_b, acc_a, acc_b, softening, mask_offdiag, s);
+                               q_b, part, softening, mask_offdiag, s);
   if (masses && ko == 9)
     return launch_mxu<T, 4, 9>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
-                               q_b, acc_a, acc_b, softening, mask_offdiag, s);
+                               q_b, part, softening, mask_offdiag, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -388,7 +414,7 @@ __global__ void __launch_bounds__(kThreads)
   const bool active = prod < 2;
   const __nv_bfloat16* A = prod == 0 ? Wt : Ct;
   const __nv_bfloat16* Bop = prod == 0 ? Qg : Qp;
-  Frag f;
+  Frag f, tile_part;
   wmma::fill_fragment(f, 0.f);
 
   const int n_jt = (nj + T - 1) / T;
@@ -406,14 +432,18 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     if (active) {
+      wmma::fill_fragment(tile_part, 0.f);
 #pragma unroll 2
       for (int k = 0; k < T / 16; ++k) {
         FragB b;
         wmma::load_matrix_sync(b, Bop + k * 16 * 8, 8);
         FragA a;
         wmma::load_matrix_sync(a, A + m * 32 * LD + k * 16, LD);
-        wmma::mma_sync(f, a, b, f);
+        wmma::mma_sync(tile_part, a, b, tile_part);
       }
+#pragma unroll
+      for (int q = 0; q < tile_part.num_elements; ++q)
+        f.x[q] = __fadd_rn(f.x[q], tile_part.x[q]);
     }
   }
   if (!active) return;
@@ -450,28 +480,28 @@ int launch_rect(const float* pos_k, const float* g_k, int nk,
 
 // B13. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b (rows, 3), or
 // (rows, 4) with masses (x, y, z, m); g_a / g_b (rows, 3); q_a / q_b
-// (rows, 16) operands [split([g | m]) | split([p | 1])]; acc_a / acc_b
-// (rows, ko), ko = 8, or 9 with the mass cotangent (masses only); rows of
-// each a multiple of tile; fp32, contiguous, on the current device. The
-// sums are ADDED into acc_a / acc_b. tile: 64 or 128. Returns
-// cudaGetLastError() after the launch.
+// (rows, 16) operands [split([g | m]) | split([p | 1])]; rows of each a
+// multiple of tile; fp32, contiguous, on the current device. part: n_slots
+// x 2 tiles of (tile, ko) fp32, ko = 8, or 9 with the mass cotangent
+// (masses only), written (side 0 of slot s: block bi's raw sums; side 1:
+// block bj's; a DIAG slot writes side 0 only) for slot_reduce_launch. tile:
+// 64 or 128. Returns cudaGetLastError() after the launch.
 extern "C" int vjp_mxu_launch(const int* slots, int n_slots,
                               const float* pos_a, const float* pos_b,
                               const float* g_a, const float* g_b,
                               const float* q_a, const float* q_b,
-                              float* acc_a, float* acc_b, int masses, int ko,
-                              int tile, float softening, int mask_offdiag,
+                              float* part, int masses, int ko, int tile,
+                              float softening, int mask_offdiag,
                               void* stream) {
   if (n_slots == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 64)
     return dispatch_mxu<64>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a, q_b,
-                            acc_a, acc_b, masses, ko, softening,
-                            mask_offdiag, s);
+                            part, masses, ko, softening, mask_offdiag, s);
   if (tile == 128)
     return dispatch_mxu<128>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
-                             q_b, acc_a, acc_b, masses, ko, softening,
-                             mask_offdiag, s);
+                             q_b, part, masses, ko, softening, mask_offdiag,
+                             s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

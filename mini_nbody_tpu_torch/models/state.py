@@ -3,7 +3,9 @@
 Counterpart of ``mini_nbody_tpu/models/state.py:23-90``: ``(N, 3)`` positions
 and velocities and ``(N,)`` masses, fp32, on the card unless the caller
 names another device (``device="cpu"``; without a card the default raises).
-Masses double as the tail-padding mask (mass 0 bodies exert no force).
+Masses double as the tail-padding mask (mass 0 bodies exert no force). An
+ensemble state (``sim.simulate_ensemble``) is batched: pos and vel
+``(B, N, 3)``, mass ``(B, N)``; ``n`` is the per-system N.
 ``from_numpy`` and
 ``to_numpy`` carry a state across from the JAX package, whose state is the
 system's only "parameters".
@@ -21,7 +23,8 @@ from mini_nbody_tpu_torch.utils.config import FAR
 
 @dataclasses.dataclass
 class BodyState:
-    """pos (N, 3), vel (N, 3), mass (N,) tensors on one device."""
+    """pos (N, 3), vel (N, 3), mass (N,) tensors on one device, or a batch
+    of B systems: (B, N, 3), (B, N, 3), (B, N)."""
 
     pos: torch.Tensor
     vel: torch.Tensor
@@ -29,7 +32,8 @@ class BodyState:
 
     @property
     def n(self) -> int:
-        return self.pos.shape[0]
+        """Bodies per system."""
+        return self.pos.shape[-2]
 
     @property
     def dtype(self):
@@ -45,15 +49,16 @@ class BodyState:
         pos = torch.as_tensor(pos, dtype=dtype, device=device)
         vel = torch.as_tensor(vel, dtype=dtype, device=pos.device)
         if mass is None:
-            mass = torch.ones(pos.shape[0], dtype=dtype, device=pos.device)
+            mass = torch.ones(pos.shape[:-1], dtype=dtype, device=pos.device)
         else:
             mass = torch.as_tensor(mass, dtype=dtype, device=pos.device)
-        if pos.shape != vel.shape or pos.ndim != 2 or pos.shape[1] != 3:
+        if (pos.shape != vel.shape or pos.ndim not in (2, 3)
+                or pos.shape[-1] != 3):
             raise ValueError(f"bad shapes pos={tuple(pos.shape)} "
                              f"vel={tuple(vel.shape)}")
-        if mass.shape != (pos.shape[0],):
+        if mass.shape != pos.shape[:-1]:
             raise ValueError(f"bad mass shape {tuple(mass.shape)} for "
-                             f"N={pos.shape[0]}")
+                             f"pos {tuple(pos.shape)}")
         return BodyState(pos=pos.contiguous(), vel=vel.contiguous(),
                          mass=mass.contiguous())
 
@@ -92,3 +97,10 @@ class BodyState:
     def unpad(self, n: int) -> "BodyState":
         return BodyState(pos=self.pos[:n], vel=self.vel[:n],
                          mass=self.mass[:n])
+
+
+def zeros(n: int, dtype=torch.float32, device="cuda") -> BodyState:
+    """n bodies at the origin, at rest, with unit masses."""
+    return BodyState(pos=torch.zeros((n, 3), dtype=dtype, device=device),
+                     vel=torch.zeros((n, 3), dtype=dtype, device=device),
+                     mass=torch.ones((n,), dtype=dtype, device=device))

@@ -7,7 +7,10 @@ and the BASELINE's energy-drift gate (<= 1e-5 over 1000 leapfrog steps).
 K4 for a CUDA state at every N and its plain version for a CPU state (JAX's
 ``n >= 65536`` threshold was for its TPU's jnp path and is not carried
 over). ``potential_energy`` is the plain reference on any device: K4's
-plain version. The ensemble variants wait for the ensembles (ROADMAP A13).
+plain version. ``total_energy_ensemble`` and ``momentum_ensemble``
+(``:115-136``) take a batched state (``sim.simulate_ensemble``): one
+``total_energy`` per system (one K4 launch each on the card), as JAX scans
+``total_energy`` over the systems.
 """
 
 from __future__ import annotations
@@ -66,3 +69,16 @@ def assert_finite(state: BodyState, context: str = ""):
     flags = {k: bool(v) for k, v in check_finite(state).items()}
     if not all(flags.values()):
         raise FloatingPointError(f"non-finite body state {context}: {flags}")
+
+
+def total_energy_ensemble(state: BodyState, softening: float = SOFTENING):
+    """Per-system total energy (B,) of a batched state: pos, vel (B, N, 3),
+    mass (B, N)."""
+    return torch.stack([
+        total_energy(BodyState(pos=p, vel=v, mass=m), softening)
+        for p, v, m in zip(state.pos, state.vel, state.mass)])
+
+
+def momentum_ensemble(state: BodyState):
+    """Per-system total momentum (B, 3) of a batched state."""
+    return torch.sum(state.vel * state.mass[..., None], dim=1)

@@ -56,6 +56,12 @@ KERNEL_TILE = 128
 #: Kernel launches made by hybrid_forces (B6), on CUDA tensors only.
 LAUNCHES = 0
 
+#: B6's coincident gate: below this many bodies a square call's 'auto' is
+#: 'masked', without the duplicate scan: the smallest N of chip_smoke.py's
+#: coincident_gate phase (4096 .. 262,144) from which the scan plus the
+#: overlap run beat the masked run on an H100.
+COINCIDENT_AUTO_MIN_N = 131072
+
 
 def bf16_pairs(pair_dtype: str) -> bool:
     """True for the bf16 class ("bfloat16"), False for "float32"."""
@@ -173,7 +179,8 @@ def square_overlap_only(pos, coincident: str) -> bool:
     """The masking of a square call: True for the overlap run ("fast", or
     "auto" with no duplicate found by the scan), False for the all-masked
     run. Below COINCIDENT_AUTO_MIN_N "auto" is "masked"."""
-    coincident = resolve_auto(coincident, pos.shape[0])
+    coincident = resolve_auto(coincident, pos.shape[0],
+                              COINCIDENT_AUTO_MIN_N)
     if coincident == "auto":
         return not any_coincident(pos)
     return coincident == "fast"

@@ -17,14 +17,25 @@ accumulator views: CUDA tensors launch the hand-written kernel
 rectangle B4, sym_mxu_force.py's ``_cross_kernel`` behind
 ``body_force_pair_mxu``), CPU tensors take
 the plain version ``_slot_sums_plain``, which walks the same slot list with
-the same masks. ``build_tri_slot_call`` / ``build_cross_slot_call`` return
+the same masks. ``tri_slot_sums_ensemble_`` (B9a, the counterpart of
+``build_tri_slot_ensemble``, ``:355-398``) runs K2's tri mode over B systems
+stacked in one (B c, 8) accumulator, each system the same slot list over its
+own blocks. ``build_tri_slot_call`` / ``build_cross_slot_call`` return
 the raw sums in the JAX (8, c) layout; the positions go in as (c, 3) only
 (no (3, c) transpose: the kernel reads both orientations from one copy).
+
+The slot kernels K2, K3 (ops/symmetric_force.py), B11 (ops/vjp_kernel.py)
+and B13 (ops/vjp_mxu.py) sum deterministically: ``run_slot_pieces`` cuts the
+slot list into pieces of PIECE_SLOTS system-local slots, launches a kernel
+that stores two partial tiles per slot, and then ``csrc/slot_reduce.cu``,
+which adds each block's partials in slot order. The plan of that reduction
+is built once per slot table (``reduce_plan``).
 """
 
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -41,13 +52,29 @@ SLOT_FOLD = 2
 #: The tiles the CUDA kernel is compiled for.
 KERNEL_TILES = (64, 128)
 
-#: Kernel launches made by tri_slot_sums_, cross_slot_sums_ and
-#: pair_slot_sums_ (CUDA tensors only); CROSS_LAUNCHES counts the cross-mode
-#: share of them, PAIR_LAUNCHES the share of that made for
-#: body_force_pair_mxu (B4) through pair_slot_sums_.
+#: Kernel launches on CUDA tensors, counted at each launch (a call makes
+#: one launch of its kernel per piece of its slot list and group of
+#: systems, and one slot_reduce launch after each; run_slot_pieces):
+#: LAUNCHES those of K2 made by tri_slot_sums_, cross_slot_sums_ and
+#: pair_slot_sums_, CROSS_LAUNCHES the cross-mode share of them,
+#: PAIR_LAUNCHES the share of that made for body_force_pair_mxu (B4);
+#: ENSEMBLE_LAUNCHES those of tri_slot_sums_ensemble_ (B9a); REDUCE_LAUNCHES
+#: those of csrc/slot_reduce.cu behind K2, K3, B11 and B13.
 LAUNCHES = 0
 CROSS_LAUNCHES = 0
 PAIR_LAUNCHES = 0
+ENSEMBLE_LAUNCHES = 0
+REDUCE_LAUNCHES = 0
+
+#: System-local slots per piece. A slot list is cut at multiples of this, so
+#: the grouping of every add depends on the slot list alone, never on the
+#: number of systems in a launch; an ensemble launch takes as many systems
+#: as keep it at or under PIECE_SLOTS slots (at most MAX_SYSTEMS, the
+#: kernels' gridDim.y). Each slot stores two
+#: (tile, width) fp32 partials: at tile 128 a piece's scratch holds 201 MB
+#: for K3 and 537 MB for K2.
+PIECE_SLOTS = 1 << 16
+MAX_SYSTEMS = 65535
 
 
 def tri_slot_list(nb: int, fold: bool = True):
@@ -91,6 +118,126 @@ def slot_table(nb: int, fold: bool, cross: bool, device,
     built once per (nb, fold, cross, device, nb_b)."""
     return _slot_table(nb, bool(fold) and not cross, bool(cross),
                        str(torch.device(device)), nb if nb_b is None else nb_b)
+
+
+def plan_pieces(rows: np.ndarray, tri: bool):
+    """The reduction plan of an (S, 3) slot list, per piece of PIECE_SLOTS
+    slots: (first slot, slots, targets, offsets, entries). Slot s of a
+    piece stores tile 2 s (side 0: block bi) and, unless it is DIAG, tile
+    2 s + 1 (side 1: block bj). A target is block * 2 + accumulator (1 for
+    side b of a cross launch, else 0); entries[offsets[t]:offsets[t + 1]]
+    are its tiles in slot order."""
+    pieces = []
+    for s0 in range(0, rows.shape[0], PIECE_SLOTS):
+        part = rows[s0:s0 + PIECE_SLOTS]
+        local = np.arange(part.shape[0])
+        two = part[:, 0] != SLOT_DIAG
+        target = np.concatenate([part[:, 1] * 2,
+                                 part[two, 2] * 2 + (0 if tri else 1)])
+        entry = np.concatenate([local * 2, local[two] * 2 + 1])
+        order = np.lexsort((entry, target))
+        target, entry = target[order], entry[order]
+        targets, starts = np.unique(target, return_index=True)
+        pieces.append((s0, part.shape[0], targets,
+                       np.append(starts, target.shape[0]), entry))
+    return pieces
+
+
+#: The reduction plans of the live slot tables: id(table) -> {(tri,
+#: PIECE_SLOTS): plan}, each entry dropped with its table.
+_PLANS: dict[int, dict] = {}
+
+
+def reduce_plan(slots: torch.Tensor, tri: bool):
+    """plan_pieces of a slot table, with its index arrays on the table's
+    device, built from one host copy of the table once per table, mode and
+    PIECE_SLOTS."""
+    key = id(slots)
+    if key not in _PLANS:
+        _PLANS[key] = {}
+        weakref.finalize(slots, _PLANS.pop, key, None)
+    plans = _PLANS[key]
+    if (tri, PIECE_SLOTS) not in plans:
+        plans[tri, PIECE_SLOTS] = [
+            (s0, n, *(torch.from_numpy(a.astype(np.int32)).to(slots.device)
+                      for a in arrays))
+            for s0, n, *arrays in plan_pieces(slots.cpu().numpy(), tri)]
+    return plans[tri, PIECE_SLOTS]
+
+
+def system_groups(n_sys: int, longest: int):
+    """(first system, systems) of each launch over n_sys systems whose
+    longest piece has ``longest`` slots: as many systems as keep a launch at
+    or under PIECE_SLOTS slots, at least one and at most MAX_SYSTEMS."""
+    group = min(n_sys, max(1, PIECE_SLOTS // longest), MAX_SYSTEMS)
+    return [(g0, min(group, n_sys - g0)) for g0 in range(0, n_sys, group)]
+
+
+def slot_reduce_(part, piece_plan, acc_a, acc_b, tile, width, n_sys=1,
+                 sys_rows=0):
+    """Add the partials ``part`` of one piece (n_sys systems of
+    2 n_slots (tile, width) fp32 tiles each) into acc_a / acc_b ((rows,
+    width), system s at row s * sys_rows) in slot order, as the piece's
+    plan (from reduce_plan) says: csrc/slot_reduce.cu on CUDA tensors,
+    slot_reduce_plain on CPU tensors."""
+    _, n, targets, offsets, entries = piece_plan
+    if not _build.on_card(part.device):
+        slot_reduce_plain(part, piece_plan, acc_a, acc_b, tile, width, n_sys,
+                          sys_rows)
+        return
+    lib = _build.load_library()
+    code = lib.slot_reduce_launch(
+        part.data_ptr(), tile * width, targets.shape[0], targets.data_ptr(),
+        offsets.data_ptr(), entries.data_ptr(), acc_a.data_ptr(),
+        acc_b.data_ptr(), n_sys, sys_rows * width, n * 2,
+        _build.stream_ptr(part.device))
+    _build.check(lib, code, "slot_reduce_launch")
+    global REDUCE_LAUNCHES
+    REDUCE_LAUNCHES += 1
+
+
+def slot_reduce_plain(part, piece_plan, acc_a, acc_b, tile, width, n_sys=1,
+                      sys_rows=0):
+    """Plain version of slot_reduce_: each target's tiles summed in slot
+    order, one target at a time."""
+    _, n, targets, offsets, entries = piece_plan
+    tiles = part[:n_sys * n * 2 * tile * width].view(n_sys, n * 2, tile,
+                                                     width)
+    offsets, entries = offsets.tolist(), entries.tolist()
+    for s in range(n_sys):
+        for t, target in enumerate(targets.tolist()):
+            acc = acc_b if target & 1 else acc_a
+            r0 = s * sys_rows + (target >> 1) * tile
+            total = torch.zeros((tile, width), dtype=part.dtype,
+                                device=part.device)
+            for e in entries[offsets[t]:offsets[t + 1]]:
+                total = total + tiles[s, e]
+            acc[r0:r0 + tile] += total
+
+
+def run_slot_pieces(what, slots, tri, tile, width, acc_a, acc_b, launch,
+                    count, n_sys=1, sys_rows=0):
+    """Drive one slot kernel deterministically: for each piece of the slot
+    list and each group of systems, ``launch(piece, n_slots, n_sys_group,
+    first_system, part)`` stores the per-slot partials ((tile, width) fp32
+    tiles, two per slot) in ``part`` and returns the CUDA status, and
+    ``count()`` counts that launch; then slot_reduce_ adds them into acc_a /
+    acc_b ((rows, width), system s at row s * sys_rows) in slot order."""
+    plan = reduce_plan(slots, tri)
+    if not plan or n_sys == 0:
+        return
+    lib = _build.load_library()
+    groups = system_groups(n_sys, max(n for _, n, *_ in plan))
+    part = torch.empty(groups[0][1] * min(slots.shape[0], PIECE_SLOTS) * 2
+                       * tile * width, dtype=torch.float32,
+                       device=acc_a.device)
+    for piece_plan in plan:
+        s0, n = piece_plan[:2]
+        for g0, g in groups:
+            _build.check(lib, launch(slots[s0:s0 + n], n, g, g0, part), what)
+            count()
+            slot_reduce_(part, piece_plan, acc_a[g0 * sys_rows:],
+                         acc_b[g0 * sys_rows:], tile, width, g, sys_rows)
 
 
 def _w_fold_block(pa, pb, softening, fast, mask_offdiag):
@@ -154,10 +301,7 @@ def _slot_sums_plain(acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
                 ab.index_add_(0, bj, _mm(w, va[bi], True, mma_dtype))
 
 
-def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
-            softening, split_w, mask_offdiag, pair=False):
-    """Side a has pos_a's rows and side b pos_b's (the same in tri mode and
-    for a chunk pair, any multiple of tile for a pair of sets)."""
+def _check_sides(acc_a, acc_b, pos_a, pos_b, v_a, v_b, tile):
     device = pos_a.device
     for side, c, tensors in (("a", pos_a.shape[0], (pos_a, v_a, acc_a)),
                              ("b", pos_b.shape[0], (pos_b, v_b, acc_b))):
@@ -167,6 +311,55 @@ def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
         for name, t, width in zip(("pos_", "v_", "acc_"), tensors, (3, 8, 8)):
             _build.check_tensor(name + side, t, (c, width), torch.float32,
                                 device)
+
+
+def _count(kind):
+    """The launch counter of a K2 call: "tri", "cross", "pair" (B4) or
+    "ensemble" (B9a)."""
+    def count():
+        global LAUNCHES, CROSS_LAUNCHES, PAIR_LAUNCHES, ENSEMBLE_LAUNCHES
+        if kind == "ensemble":
+            ENSEMBLE_LAUNCHES += 1
+            return
+        LAUNCHES += 1
+        CROSS_LAUNCHES += int(kind != "tri")
+        PAIR_LAUNCHES += int(kind == "pair")
+
+    return count
+
+
+def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
+                softening, split_w, mask_offdiag, n_sys=1, sys_rows=0):
+    """K2 on the card over n_sys systems of sys_rows rows (tri mode), a
+    call of _count's ``kind``."""
+    _build.refuse_grad("slot_pipe", pos_a, pos_b, v_a, v_b)
+    if tile not in KERNEL_TILES:
+        raise ValueError(f"the CUDA slot kernel takes tile in {KERNEL_TILES}, "
+                         f"got {tile}")
+    lib = _build.load_library()
+    device = pos_a.device
+    fast = int(fast_rsqrt_cube(softening))
+
+    def launch(piece, n, g, g0, part):
+        r0 = g0 * sys_rows
+        return lib.slot_pipe_launch(
+            piece.data_ptr(), n, g, sys_rows, pos_a[r0:].data_ptr(),
+            pos_b[r0:].data_ptr(), v_a[r0:].data_ptr(), v_b[r0:].data_ptr(),
+            part.data_ptr(), tile, float(softening), fast, int(split_w),
+            int(mask_offdiag), _build.stream_ptr(device))
+
+    with torch.cuda.device(device):
+        run_slot_pieces("slot_pipe_launch", slots,
+                        kind in ("tri", "ensemble"), tile, 8, acc_a, acc_b,
+                        launch, _count(kind), n_sys, sys_rows)
+
+
+def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
+            softening, split_w, mask_offdiag, pair=False):
+    """Side a has pos_a's rows and side b pos_b's (the same in tri mode and
+    for a chunk pair, any multiple of tile for a pair of sets)."""
+    device = pos_a.device
+    _check_sides(acc_a, acc_b, pos_a, pos_b, v_a, v_b, tile)
     if not cross and pos_a.shape[0] != pos_b.shape[0]:
         raise ValueError("tri mode takes one chunk: pos_a and pos_b rows "
                          "must agree")
@@ -176,23 +369,9 @@ def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
         _slot_sums_plain(acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
                          softening, split_w, mask_offdiag)
         return
-    _build.refuse_grad("slot_pipe", pos_a, pos_b, v_a, v_b)
-    if tile not in KERNEL_TILES:
-        raise ValueError(f"the CUDA slot kernel takes tile in {KERNEL_TILES}, "
-                         f"got {tile}")
-    global LAUNCHES, CROSS_LAUNCHES, PAIR_LAUNCHES
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        code = lib.slot_pipe_launch(
-            slots.data_ptr(), slots.shape[0], pos_a.data_ptr(),
-            pos_b.data_ptr(), v_a.data_ptr(), v_b.data_ptr(),
-            acc_a.data_ptr(), acc_b.data_ptr(), tile, float(softening),
-            int(fast_rsqrt_cube(softening)), int(split_w), int(mask_offdiag),
-            _build.stream_ptr(device))
-    _build.check(lib, code, "slot_pipe_launch")
-    LAUNCHES += 1
-    CROSS_LAUNCHES += int(cross)
-    PAIR_LAUNCHES += int(pair)
+    kind = "pair" if pair else "cross" if cross else "tri"
+    _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
+                softening, split_w, mask_offdiag)
 
 
 def tri_slot_sums_(acc, pos, v, slots, tile, softening, split_w=False,
@@ -201,6 +380,36 @@ def tri_slot_sums_(acc, pos, v, slots, tile, softening, split_w=False,
     (a tri slot_table) into acc (c, 8)."""
     _launch(False, acc, acc, pos, pos, v, v, slots, tile, softening,
             split_w, mask_offdiag)
+
+
+def tri_slot_sums_ensemble_(acc, pos, v, slots, tile, softening, n_sys,
+                            split_w=False, mask_offdiag=True):
+    """B independent self chunks (B9a): systems of c = rows / n_sys rows
+    stacked in pos (B c, 3), v (B c, 8) and acc (B c, 8), each summed over
+    the same tri ``slots`` into its own rows. System i's sums are bitwise
+    those of tri_slot_sums_ on its rows alone, on the card (one kernel,
+    the same pieces; a launch takes as many systems as system_groups
+    allows) and on the CPU (the same plain walk, system by system)."""
+    rows = pos.shape[0]
+    if n_sys < 1 or rows % n_sys != 0:
+        raise ValueError(f"{rows} rows do not split into {n_sys} systems")
+    c = rows // n_sys
+    device = pos.device
+    _check_sides(acc, acc, pos, pos, v, v, tile)
+    if c % tile != 0:
+        raise ValueError(f"a system has {c} rows, not a multiple of tile "
+                         f"{tile}")
+    _build.check_tensor("slots", slots, (slots.shape[0], 3), torch.int32,
+                        device)
+    if not _build.on_card(device):
+        for i in range(n_sys):
+            sl = slice(i * c, (i + 1) * c)
+            _slot_sums_plain(acc[sl], acc[sl], pos[sl], pos[sl], v[sl],
+                             v[sl], slots, tile, softening, split_w,
+                             mask_offdiag)
+        return
+    _run_kernel("ensemble", acc, acc, pos, pos, v, v, slots, tile,
+                softening, split_w, mask_offdiag, n_sys, c)
 
 
 def cross_slot_sums_(acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,

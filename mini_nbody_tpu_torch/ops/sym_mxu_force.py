@@ -4,7 +4,8 @@ fp32 accumulation.
 
 Counterpart of ``mini_nbody_tpu/ops/sym_mxu_force.py`` (the parts on the
 slot path: ``:105-192`` any_coincident / COINCIDENT_AUTO_MIN_N /
-resolve_auto, ``:203-224`` _w_parts, ``:431-464`` _resolve_tiling / _pack,
+resolve_auto (K2's gate; the other modules keep their own), ``:203-224``
+_w_parts, ``:431-464`` _resolve_tiling / _pack,
 ``:507-559`` the chunk loop of _slot_accumulate, ``:588-651``
 body_force_sym_mxu, ``:665-669`` _combine, ``:672-730``
 body_force_pair_mxu). The accumulation identity is the
@@ -27,11 +28,18 @@ when no two distinct bodies can have d2 == 0.
 ``body_force_pair_mxu`` (B4) computes the forces between two disjoint sets
 of any lengths, each cross pair once: K2's cross mode over the na x nb block
 rectangle (``slot_pipe.pair_slot_sums_``), rows into a and reactions into b.
-The band traversal, the ensembles and the segmented drivers are not ported
-yet (ROADMAP).
+
+``body_force_sym_mxu_ensemble`` (``:785-890``) computes B independent
+systems batched (B9a, ``slot_pipe.tri_slot_sums_ensemble_``): each
+system one chunk of c = round_up(N, tile) bodies with its own FAR pads, only
+the tri pass, system i bitwise ``body_force_sym_mxu(pos[i], mass[i],
+tile=t, chunk=c)``. ``ensemble_tiling`` picks the tile of both ensembles.
+The band traversal and the segmented drivers are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -42,10 +50,16 @@ from mini_nbody_tpu_torch.utils.config import (FAR, SOFTENING,
 #: 1024 is a VMEM-sized tile).
 DEFAULT_TILE = 128
 
-#: Below this many bodies 'auto' goes straight to the masked kernel without
-#: the duplicate scan (the JAX gate, sym_mxu_force.py:181, measured on a
-#: TPU; the H100 crossover is not measured yet).
-COINCIDENT_AUTO_MIN_N = 8192
+#: Below this many bodies 'auto' goes straight to K2's masked kernel
+#: without the duplicate scan. Each module that reads a gate keeps its own
+#: (mxu_force, vjp_kernel, vjp_mxu); JAX's single gate (sym_mxu_force.py:181)
+#: was measured on a TPU. This one is K2's (and B4's, and the ensembles'
+#: per system): chip_smoke.py's coincident_gate phase times 'masked' against
+#: the scan plus the maskless kernel, and on an H100 the scan paid at no N
+#: from 4096 to 262,144, the maskless K2 being no faster; so 'auto' is
+#: 'masked' at every N. A caller that lowers the gate gets the scan and its
+#: routing, with the same output bits.
+COINCIDENT_AUTO_MIN_N = math.inf
 
 
 def _w_block(pi, pj, softening, fast, mask=True):
@@ -81,7 +95,8 @@ def _w_parts(w, split_w):
 
 
 def any_coincident(pos) -> bool:
-    """True iff pos (N,3) could hold a d2 == 0 pair between DISTINCT bodies
+    """True iff pos (N,3) (or rows with more columns, all compared) could
+    hold a d2 == 0 pair between DISTINCT bodies
     (JAX sym_mxu_force.py:105-142): exact duplicate rows (after -0.0 ->
     +0.0), any coordinate with 0 < |c| < 2^-48, or any |c| >= FAR. Returns
     a Python bool, so it syncs with the device."""
@@ -92,10 +107,23 @@ def any_coincident(pos) -> bool:
     return dup or bool(flags)
 
 
-def resolve_auto(coincident: str, n: int) -> str:
-    """Below COINCIDENT_AUTO_MIN_N 'auto' is 'masked' (same outputs, no
-    duplicate scan)."""
-    if coincident == "auto" and n < COINCIDENT_AUTO_MIN_N:
+def any_coincident_ensemble(pos) -> bool:
+    """any_coincident within each system of pos (B, N, 3), in one scan of
+    the rows tagged with their system's index: two systems may hold bodies
+    at the same point, since their pairs are never computed. Returns a
+    Python bool, so it syncs with the device."""
+    b, n = pos.shape[0], pos.shape[1]
+    sys_id = torch.arange(b, dtype=torch.float32, device=pos.device)
+    return any_coincident(torch.cat([sys_id.repeat_interleave(n)[:, None],
+                                     pos.reshape(b * n, 3).float()], dim=1))
+
+
+def resolve_auto(coincident: str, n: int, min_n: float | None = None) -> str:
+    """Below the gate min_n (COINCIDENT_AUTO_MIN_N, K2's, when None; each
+    module passes its own) 'auto' is 'masked' (same outputs, no duplicate
+    scan)."""
+    gate = COINCIDENT_AUTO_MIN_N if min_n is None else min_n
+    if coincident == "auto" and n < gate:
         return "masked"
     return coincident
 
@@ -126,6 +154,49 @@ def _pack(pos, mass, n, np_):
         v = torch.cat([pos * m[:, None], m[:, None]], dim=1)
     vhi = v.to(torch.bfloat16).float()
     return pos.contiguous(), torch.cat([vhi, v - vhi], dim=1).contiguous()
+
+
+def ensemble_tiling(n, tile, kernel):
+    """(tile, c) of the ensembles: one chunk per system, _resolve_tiling
+    with chunk = n. On the card the default tile is whichever of the
+    kernels' tiles (64, 128) pads less pair work, round_up(n, t)^2, ties to
+    128 (JAX's padded_auto_tile and its TPU calibration are not carried
+    over); on the CPU it is DEFAULT_TILE, shrunk to the problem as the plain
+    path does."""
+    if tile is None:
+        tile = DEFAULT_TILE
+        if kernel:
+            tile = min((128, 64), key=lambda t: round_up(n, t) ** 2)
+    t, c, _, _ = _resolve_tiling(n, tile, n, kernel)
+    return t, c
+
+
+def check_ensemble(pos, mass):
+    """Raise unless pos is (B, N, 3) and mass None or (B, N)."""
+    if pos.ndim != 3 or pos.shape[-1] != 3:
+        raise ValueError(f"ensemble pos must be (B, N, 3), got "
+                         f"{tuple(pos.shape)}")
+    if mass is not None and tuple(mass.shape) != tuple(pos.shape[:2]):
+        raise ValueError(f"ensemble mass must be (B, N) = "
+                         f"{tuple(pos.shape[:2])}, got {tuple(mass.shape)}")
+
+
+def pack_ensemble(pos, mass, c, pack):
+    """Pad each system of pos (B, N, 3) [mass (B, N)] to c bodies (FAR
+    positions, zero masses) and pack the stack of B c bodies with
+    ``pack(pos (B c, 3), mass (B c,) or None, B c, B c)``, the standalone
+    packing of each system."""
+    b, n = pos.shape[0], pos.shape[1]
+    pos = pos.float()
+    if c != n:
+        pos = torch.cat([pos, pos.new_full((b, c - n, 3), FAR)], dim=1)
+    m = None
+    if mass is not None:
+        m = mass.float()
+        if c != n:
+            m = torch.cat([m, m.new_zeros((b, c - n))], dim=1)
+        m = m.reshape(b * c)
+    return pack(pos.reshape(b * c, 3), m, b * c, b * c)
 
 
 def _slot_accumulate(pos, v, softening, tile, c, nc, split_w, mask_offdiag,
@@ -227,3 +298,47 @@ def body_force_pair_mxu(pos_a, pos_b, mass_a=None, mass_b=None,
     slot_pipe.pair_slot_sums_(acc_a, acc_b, pa, pb, va, vb, slots, t,
                               softening, split_w, mask)
     return _combine(pa, acc_a)[:na], _combine(pb, acc_b)[:nb]
+
+
+def body_force_sym_mxu_ensemble(pos, mass=None,
+                                softening: float = SOFTENING,
+                                tile: int | None = None,
+                                split_w: bool = False,
+                                coincident: str = "auto",
+                                traversal: str = "auto"):
+    """Forces of B INDEPENDENT systems: pos (B, N, 3) [, mass (B, N)] ->
+    (B, N, 3), no cross-system pairs. Each system is one chunk (c =
+    round_up(N, tile), its own FAR pads) and K2's tri mode runs the same
+    slot list over every system (B9a), as many systems in a launch as
+    slot_pipe.system_groups allows; system i is bitwise
+    ``body_force_sym_mxu(pos[i], mass[i], tile=t, chunk=c)`` with (t, c) =
+    ensemble_tiling(N, tile, ...).
+
+    coincident='auto' scans for duplicates WITHIN each system only (the
+    gate is the per-system N): two systems may hold bodies at the same
+    positions, since their pairs are never computed. CUDA tensors run the
+    kernel, CPU tensors its plain version."""
+    from mini_nbody_tpu_torch import _build
+    from mini_nbody_tpu_torch.ops import slot_pipe
+
+    check_coincident(coincident)
+    check_ensemble(pos, mass)
+    if traversal == "band":
+        raise NotImplementedError(
+            "traversal='band' is not ported yet (ROADMAP B16)")
+    if traversal not in ("auto", "slots"):
+        raise ValueError(f"unknown traversal {traversal!r}")
+    b, n = pos.shape[0], pos.shape[1]
+    t, c = ensemble_tiling(n, tile, kernel=_build.on_card(pos.device))
+    coincident = resolve_auto(coincident, n)
+    if coincident == "auto":
+        mask_offdiag = any_coincident_ensemble(pos)
+    else:
+        mask_offdiag = coincident == "masked"
+    pos_p, v = pack_ensemble(pos, mass, c, _pack)
+    acc = torch.zeros((b * c, 8), dtype=torch.float32, device=pos_p.device)
+    nb = c // t
+    slot_pipe.tri_slot_sums_ensemble_(
+        acc, pos_p, v, slot_pipe.slot_table(nb, nb > 1, False, pos_p.device),
+        t, softening, b, split_w, mask_offdiag)
+    return _combine(pos_p, acc).view(b, c, 3)[:, :n]

@@ -21,9 +21,19 @@ accumulator views: CUDA tensors launch the hand-written kernel
 Positions are packed (Np, 3), or (Np, 4) with the mass as the 4th column;
 tails are FAR-padded with zero mass, so pads add exactly zero. A coincident
 pair has d = 0 and adds exactly zero, so this backend needs no coincident
-mask. The ensemble path (B9), padded_auto_tile (its TPU calibration
-tables serve the ensembles) and the tunnel-only segmented path are not
-ported.
+mask. The kernel sums deterministically (``slot_pipe.run_slot_pieces``):
+every output bit is the same on every run.
+
+``body_force_symmetric_ensemble`` (``:369-389``, ``:453-520``) computes B
+independent systems batched (B9b): each system is one chunk of its own,
+c = round_up(N, tile) with its own FAR pads, and K3's tri mode runs the
+same slot list over every system's blocks (``symmetric_sums_ensemble_``),
+as many systems in a launch as fit in a piece of the slot list;
+no chunk-pair pass runs. System i is bitwise
+``body_force_symmetric(pos[i], mass[i], tile=t, chunk=c)``. JAX's
+padded_auto_tile and its TPU calibration tables are not carried over: the
+ensemble tile is ``ensemble_tiling``'s (ops/sym_mxu_force.py). The
+tunnel-only segmented path is not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +43,10 @@ import torch
 from mini_nbody_tpu_torch import _build
 from mini_nbody_tpu_torch.ops import slot_pipe
 from mini_nbody_tpu_torch.ops.slot_pipe import SLOT_CROSS, SLOT_DIAG, SLOT_FOLD
-from mini_nbody_tpu_torch.ops.sym_mxu_force import _resolve_tiling
+from mini_nbody_tpu_torch.ops.sym_mxu_force import (_resolve_tiling,
+                                                    check_ensemble,
+                                                    ensemble_tiling,
+                                                    pack_ensemble)
 from mini_nbody_tpu_torch.utils.config import (FAR, SOFTENING,
                                                fast_rsqrt_cube,
                                                plain_block_elems, round_up)
@@ -42,10 +55,13 @@ from mini_nbody_tpu_torch.utils.config import (FAR, SOFTENING,
 DEFAULT_TILE = 128
 KERNEL_TILES = (64, 128)
 
-#: Kernel launches made by symmetric_sums_ (CUDA tensors only);
-#: CROSS_LAUNCHES counts the cross-mode share of them.
+#: Kernel launches on CUDA tensors, counted at each launch (one per piece
+#: of the slot list and group of systems, slot_pipe.run_slot_pieces): made
+#: by symmetric_sums_ (LAUNCHES; CROSS_LAUNCHES their cross-mode share) and
+#: by symmetric_sums_ensemble_ (ENSEMBLE_LAUNCHES, B9b).
 LAUNCHES = 0
 CROSS_LAUNCHES = 0
+ENSEMBLE_LAUNCHES = 0
 
 
 def _pack(pos, mass, n, np_):
@@ -128,11 +144,7 @@ def symmetric_sums_plain(acc_a, acc_b, pos_a, pos_b, slots, tile, softening):
             ab.index_add_(0, bj, rows - cols)
 
 
-def symmetric_sums_(acc_a, acc_b, pos_a, pos_b, slots, tile, softening):
-    """Add the pair-once sums of one self chunk (tri mode: acc_a and acc_b
-    are the same memory, pos_a is pos_b, a tri slot table) or one pair of
-    disjoint sets (cross mode: rows into acc_a, reactions into acc_b, a
-    cross table)."""
+def _check(acc_a, acc_b, pos_a, pos_b, slots, tile):
     device = pos_a.device
     k = pos_a.shape[1]
     if k not in (3, 4):
@@ -149,25 +161,85 @@ def symmetric_sums_(acc_a, acc_b, pos_a, pos_b, slots, tile, softening):
             raise ValueError("each accumulator needs the rows of its bodies")
     _build.check_tensor("slots", slots, (slots.shape[0], 3), torch.int32,
                         device)
-    if not _build.on_card(device):
-        symmetric_sums_plain(acc_a, acc_b, pos_a, pos_b, slots, tile,
-                             softening)
-        return
+
+
+def _count(kind):
+    """The launch counter of a K3 call: "tri", "cross" or "ensemble"."""
+    def count():
+        global LAUNCHES, CROSS_LAUNCHES, ENSEMBLE_LAUNCHES
+        if kind == "ensemble":
+            ENSEMBLE_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+            CROSS_LAUNCHES += int(kind == "cross")
+
+    return count
+
+
+def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, slots, tile, softening,
+                n_sys=1, sys_rows=0):
+    """K3 on the card over n_sys systems of sys_rows rows (tri mode), a
+    call of _count's ``kind``."""
     _build.refuse_grad("symmetric_sums_", pos_a, pos_b)
     if tile not in KERNEL_TILES:
         raise ValueError(f"the CUDA symmetric kernel takes tile in "
                          f"{KERNEL_TILES}, got {tile}")
-    global LAUNCHES, CROSS_LAUNCHES
     lib = _build.load_library()
+    device = pos_a.device
+    k = pos_a.shape[1]
+    fast = int(fast_rsqrt_cube(softening))
+
+    def launch(piece, n, g, g0, part):
+        r0 = g0 * sys_rows
+        return lib.symmetric_force_launch(
+            piece.data_ptr(), n, g, sys_rows, pos_a[r0:].data_ptr(),
+            pos_b[r0:].data_ptr(), part.data_ptr(), k, tile,
+            float(softening), fast, _build.stream_ptr(device))
+
     with torch.cuda.device(device):
-        code = lib.symmetric_force_launch(
-            slots.data_ptr(), slots.shape[0], pos_a.data_ptr(),
-            pos_b.data_ptr(), acc_a.data_ptr(), acc_b.data_ptr(), k, tile,
-            float(softening), int(fast_rsqrt_cube(softening)),
-            _build.stream_ptr(device))
-    _build.check(lib, code, "symmetric_force_launch")
-    LAUNCHES += 1
-    CROSS_LAUNCHES += int(acc_a.data_ptr() != acc_b.data_ptr())
+        slot_pipe.run_slot_pieces("symmetric_force_launch", slots,
+                                  kind != "cross", tile, 3, acc_a, acc_b,
+                                  launch, _count(kind), n_sys, sys_rows)
+
+
+def symmetric_sums_(acc_a, acc_b, pos_a, pos_b, slots, tile, softening):
+    """Add the pair-once sums of one self chunk (tri mode: acc_a and acc_b
+    are the same memory, pos_a is pos_b, a tri slot table) or one pair of
+    disjoint sets (cross mode: rows into acc_a, reactions into acc_b, a
+    cross table)."""
+    _check(acc_a, acc_b, pos_a, pos_b, slots, tile)
+    if not _build.on_card(pos_a.device):
+        symmetric_sums_plain(acc_a, acc_b, pos_a, pos_b, slots, tile,
+                             softening)
+        return
+    cross = acc_a.data_ptr() != acc_b.data_ptr()
+    _run_kernel("cross" if cross else "tri", acc_a, acc_b, pos_a, pos_b,
+                slots, tile, softening)
+
+
+def symmetric_sums_ensemble_(acc, pos, slots, tile, softening, n_sys):
+    """B independent self chunks (B9b): systems of c = rows / n_sys rows
+    stacked in pos (B c, 3|4) and acc (B c, 3), each summed over the same
+    tri ``slots`` into its own rows. System i's sums are bitwise those of
+    symmetric_sums_ on its rows alone, on the card (one kernel, the same
+    pieces; a launch takes as many systems as slot_pipe.system_groups
+    allows) and on the CPU (the same plain walk, system by system)."""
+    rows = pos.shape[0]
+    if n_sys < 1 or rows % n_sys != 0:
+        raise ValueError(f"{rows} rows do not split into {n_sys} systems")
+    c = rows // n_sys
+    _check(acc, acc, pos, pos, slots, tile)
+    if c % tile != 0:
+        raise ValueError(f"a system has {c} rows, not a multiple of tile "
+                         f"{tile}")
+    if not _build.on_card(pos.device):
+        for i in range(n_sys):
+            sl = slice(i * c, (i + 1) * c)
+            symmetric_sums_plain(acc[sl], acc[sl], pos[sl], pos[sl], slots,
+                                 tile, softening)
+        return
+    _run_kernel("ensemble", acc, acc, pos, pos, slots, tile, softening,
+                n_sys, c)
 
 
 def body_force_symmetric(pos, mass=None, softening: float = SOFTENING,
@@ -219,3 +291,27 @@ def body_force_pair(pos_a, pos_b, mass_a=None, mass_b=None,
                                  nb_b=pb.shape[0] // tile)
     symmetric_sums_(acc_a, acc_b, pa, pb, slots, tile, softening)
     return acc_a[:na], acc_b[:nb]
+
+
+def body_force_symmetric_ensemble(pos, mass=None,
+                                  softening: float = SOFTENING,
+                                  tile: int | None = None):
+    """fp32 forces of B INDEPENDENT systems: pos (B, N, 3) [, mass (B, N)]
+    -> (B, N, 3), no cross-system pairs. Each system is one chunk (c =
+    round_up(N, tile), its own FAR pads) and K3's tri mode runs them with
+    a system axis (B9b): one launch per piece of the slot list and group of
+    systems, a group as many systems as keep it at or under
+    slot_pipe.PIECE_SLOTS slots (all of them at small N, one at N = 65,536
+    and tile 128); system i is bitwise ``body_force_symmetric(pos[i], mass[i],
+    tile=t, chunk=c)`` with (t, c) = ensemble_tiling(N, tile, ...). CUDA
+    tensors run the kernel, CPU tensors its plain version."""
+    check_ensemble(pos, mass)
+    b, n = pos.shape[0], pos.shape[1]
+    t, c = ensemble_tiling(n, tile, kernel=_build.on_card(pos.device))
+    p = pack_ensemble(pos, mass, c, _pack)
+    acc = torch.zeros((b * c, 3), dtype=torch.float32, device=p.device)
+    nb = c // t
+    symmetric_sums_ensemble_(acc, p, slot_pipe.slot_table(nb, nb > 1, False,
+                                                          p.device),
+                             t, softening, b)
+    return acc.view(b, c, 3)[:, :n]

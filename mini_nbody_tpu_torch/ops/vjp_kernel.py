@@ -27,17 +27,20 @@ softening 1e-9 the self pair's eps^-1.5 weight would swamp the fp32 sums
   -w (g_b.d) on the row side and +w (g_a.d) on the reaction side (NOT
   antisymmetric). CPU tensors take ``vjp_sym_sums_plain``, which walks the
   same slot list. The port's B11 has no single-launch bound: it chunks as
-  K3 does, so autodiff may send it any N.
+  K3 does, so autodiff may send it any N. It sums deterministically
+  (``slot_pipe.run_slot_pieces``), as K3 does.
 
 Padding: B10 pads nothing (the kernel fills its ragged j tile with FAR,
 zero mass and zero cotangent in shared memory); B11 reuses K3's packing,
 FAR tails with zero mass in both mass modes, and zero cotangents (JAX pads
 mass mode at the origin instead; both are inert). The ensemble VJP
-(``vjp_pos_sym_ensemble``) waits for the ensembles (ROADMAP B9) and the
-2-D grid's ``vjp_pos_pair`` for the sharding (B12).
+(``vjp_pos_sym_ensemble``) is not ported yet (ROADMAP B9c) and the 2-D
+grid's ``vjp_pos_pair`` waits for the sharding (B12).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -55,16 +58,26 @@ from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
 
 #: Tile of the pair-once backward when the caller names none: its two
 #: fp32 tiles (w and c) take 33 KB of shared memory at 64 and 132 KB at
-#: 128. One launch at N = 65,536 took 9.68 ms at 64 and 11.41 ms at 128
+#: 128. One call at N = 65,536 took 9.68 ms at 64 and 11.41 ms at 128
 #: (chip_smoke.py --bwd-tile 64|128, NVIDIA H100 80GB HBM3 at 700 W).
 DEFAULT_TILE = 64
 
-#: Kernel launches made by vjp_pos_direct / vjp_pos_rect (B10) and by
-#: vjp_sym_sums_ (B11; SYM_CROSS_LAUNCHES counts its cross-mode share), on
-#: CUDA tensors only.
+#: Kernel launches on CUDA tensors, counted at each launch: made by
+#: vjp_pos_direct / vjp_pos_rect (B10, one per call) and by vjp_sym_sums_
+#: (B11, one per piece of the slot list, slot_pipe.run_slot_pieces;
+#: SYM_CROSS_LAUNCHES counts their cross-mode share).
 LAUNCHES = 0
 SYM_LAUNCHES = 0
 SYM_CROSS_LAUNCHES = 0
+
+#: The coincident gates: below this many bodies 'auto' is 'masked', without
+#: the duplicate scan. chip_smoke.py's coincident_gate phase (4096 ..
+#: 262,144, an H100): the scan pays for B10, which autodiff runs beyond
+#: 131,072, from 131,072 on (COINCIDENT_AUTO_MIN_N); for B11 at no measured
+#: N, its maskless kernel being no faster, so B11's 'auto' is 'masked' at
+#: every N (SYM_COINCIDENT_AUTO_MIN_N infinite).
+COINCIDENT_AUTO_MIN_N = 131072
+SYM_COINCIDENT_AUTO_MIN_N = math.inf
 
 
 def _w_u(d2, softening, mask):
@@ -152,7 +165,8 @@ def _ordered(pos_k, g_k, pos_j, g_j, mass_k, mass_j, softening, block,
     _build.refuse_grad("vjp_ordered", pos_k, g_k, pos_j, g_j, mass_k, mass_j)
     overlap_only = False
     if square_coincident is not None:
-        mode = resolve_auto(square_coincident, nk)
+        mode = resolve_auto(square_coincident, nk,
+                            COINCIDENT_AUTO_MIN_N)
         overlap_only = mode == "fast" or (mode == "auto"
                                           and not any_coincident(pos_k))
     global LAUNCHES
@@ -307,17 +321,23 @@ def vjp_sym_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
         raise ValueError(f"the CUDA pair-once VJP kernel takes tile in "
                          f"{SYM_BWD_TILES}, got {tile}")
     _build.refuse_grad("vjp_sym_sums_", pos_a, pos_b, g_a, g_b)
-    global SYM_LAUNCHES, SYM_CROSS_LAUNCHES
     lib = _build.load_library()
-    with torch.cuda.device(device):
-        code = lib.vjp_sym_launch(
-            slots.data_ptr(), slots.shape[0], pos_a.data_ptr(),
-            pos_b.data_ptr(), g_a.data_ptr(), g_b.data_ptr(),
-            acc_a.data_ptr(), acc_b.data_ptr(), k, ko, tile,
+    cross = acc_a.data_ptr() != acc_b.data_ptr()
+
+    def count():
+        global SYM_LAUNCHES, SYM_CROSS_LAUNCHES
+        SYM_LAUNCHES += 1
+        SYM_CROSS_LAUNCHES += int(cross)
+
+    def launch(piece, n, _g, _g0, part):
+        return lib.vjp_sym_launch(
+            piece.data_ptr(), n, pos_a.data_ptr(), pos_b.data_ptr(),
+            g_a.data_ptr(), g_b.data_ptr(), part.data_ptr(), k, ko, tile,
             float(softening), int(mask_offdiag), _build.stream_ptr(device))
-    _build.check(lib, code, "vjp_sym_launch")
-    SYM_LAUNCHES += 1
-    SYM_CROSS_LAUNCHES += int(acc_a.data_ptr() != acc_b.data_ptr())
+
+    with torch.cuda.device(device):
+        slot_pipe.run_slot_pieces("vjp_sym_launch", slots, not cross, tile,
+                                  ko, acc_a, acc_b, launch, count)
 
 
 def _pad_rows(t, np_):
@@ -366,7 +386,7 @@ def vjp_pos_sym(pos, g, mass=None, softening: float = SOFTENING,
     tile, c, nc, np_ = _resolve_tiling(
         n, DEFAULT_TILE if tile is None else tile, chunk,
         kernel=_build.on_card(pos.device))
-    coincident = resolve_auto(coincident, n)
+    coincident = resolve_auto(coincident, n, SYM_COINCIDENT_AUTO_MIN_N)
     if coincident == "auto":
         mask_offdiag = any_coincident(pos)
     else:

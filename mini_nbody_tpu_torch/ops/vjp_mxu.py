@@ -26,8 +26,8 @@ mass cotangent, -w (g_b.d) to a and +w (g_a.d) to b, is a 9th column summed
 in fp32.
 
 - ``vjp_pos_sym_mxu`` launches B13 (``csrc/vjp_mxu.cu``) on K2's slot +
-  fold geometry and the chunk loop of K3; CPU tensors take
-  ``vjp_mxu_sums_plain``.
+  fold geometry and the chunk loop of K3, summing deterministically
+  (``slot_pipe.run_slot_pieces``); CPU tensors take ``vjp_mxu_sums_plain``.
 - ``vjp_rect_mxu`` launches B14 (same source), B13's row half on a full
   rectangular grid; CPU tensors take ``vjp_rect_mxu_plain``.
 
@@ -36,14 +36,17 @@ operations; ``mma_dtype=torch.float32`` multiplies in fp32 (JAX's CPU
 interpret run) and ``torch.bfloat16`` rounds w, c and the operands to bf16
 as the tensor cores do. Pads are FAR in both mass modes (zero mass in mass
 mode, unit mass otherwise) with zero cotangents; the self diagonal always
-masks. The ensemble VJP waits for the ensembles (ROADMAP B9).
+masks. The ensemble VJP is not ported yet (ROADMAP B9d).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from mini_nbody_tpu_torch import _build
+from mini_nbody_tpu_torch.ops import slot_pipe
 from mini_nbody_tpu_torch.ops.slot_pipe import SLOT_CROSS, SLOT_DIAG, SLOT_FOLD
 from mini_nbody_tpu_torch.ops.sym_mxu_force import (_resolve_tiling,
                                                     any_coincident,
@@ -56,18 +59,28 @@ from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
 
 #: Tile of the pair-once backward when the caller names none, and of the
 #: rectangular one. B13's four bf16 tiles take 37 KB of shared memory at
-#: 64 and 139 KB at 128, yet 128 is the faster: one launch at N = 65,536
+#: 64 and 139 KB at 128, yet 128 is the faster: one call at N = 65,536
 #: took 13.86 ms against 39.59 ms at 64 (chip_smoke.py --bwd-tile 128|64,
-#: NVIDIA H100 80GB HBM3 at 700 W), with a quarter of the slots and half
-#: the atomics.
+#: NVIDIA H100 80GB HBM3 at 700 W), with a quarter of the slots.
 DEFAULT_TILE = 128
 RECT_TILE = 128
 
-#: Kernel launches made by vjp_mxu_sums_ (B13; CROSS_LAUNCHES counts its
-#: cross-mode share) and by vjp_rect_mxu (B14), on CUDA tensors only.
+#: Kernel launches on CUDA tensors, counted at each launch: made by
+#: vjp_mxu_sums_ (B13, one per piece of the slot list,
+#: slot_pipe.run_slot_pieces; CROSS_LAUNCHES counts their cross-mode share)
+#: and by vjp_rect_mxu (B14, RECT_LAUNCHES, one per call).
 LAUNCHES = 0
 CROSS_LAUNCHES = 0
 RECT_LAUNCHES = 0
+
+#: The coincident gates: below this many bodies 'auto' is 'masked', without
+#: the duplicate scan. chip_smoke.py's coincident_gate phase (4096 ..
+#: 262,144, an H100): the scan pays for B14, which autodiff runs beyond
+#: 131,072, from 131,072 on (COINCIDENT_AUTO_MIN_N); for B13 at no measured
+#: N, its maskless kernel being no faster, so B13's 'auto' is 'masked' at
+#: every N (SYM_COINCIDENT_AUTO_MIN_N infinite).
+COINCIDENT_AUTO_MIN_N = 131072
+SYM_COINCIDENT_AUTO_MIN_N = math.inf
 
 
 def _split8(v):
@@ -220,18 +233,24 @@ def vjp_mxu_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
         raise ValueError(f"the CUDA pair-once VJP kernel takes tile in "
                          f"{SYM_BWD_TILES}, got {tile}")
     _build.refuse_grad("vjp_mxu_sums_", pos_a, pos_b, g_a, g_b, q_a, q_b)
-    global LAUNCHES, CROSS_LAUNCHES
     lib = _build.load_library()
-    with torch.cuda.device(device):
-        code = lib.vjp_mxu_launch(
-            slots.data_ptr(), slots.shape[0], pos_a.data_ptr(),
-            pos_b.data_ptr(), g_a.data_ptr(), g_b.data_ptr(),
-            q_a.data_ptr(), q_b.data_ptr(), acc_a.data_ptr(),
-            acc_b.data_ptr(), int(k == 4), ko, tile, float(softening),
+    cross = acc_a.data_ptr() != acc_b.data_ptr()
+
+    def count():
+        global LAUNCHES, CROSS_LAUNCHES
+        LAUNCHES += 1
+        CROSS_LAUNCHES += int(cross)
+
+    def launch(piece, n, _g, _g0, part):
+        return lib.vjp_mxu_launch(
+            piece.data_ptr(), n, pos_a.data_ptr(), pos_b.data_ptr(),
+            g_a.data_ptr(), g_b.data_ptr(), q_a.data_ptr(), q_b.data_ptr(),
+            part.data_ptr(), int(k == 4), ko, tile, float(softening),
             int(mask_offdiag), _build.stream_ptr(device))
-    _build.check(lib, code, "vjp_mxu_launch")
-    LAUNCHES += 1
-    CROSS_LAUNCHES += int(acc_a.data_ptr() != acc_b.data_ptr())
+
+    with torch.cuda.device(device):
+        slot_pipe.run_slot_pieces("vjp_mxu_launch", slots, not cross, tile,
+                                  ko, acc_a, acc_b, launch, count)
 
 
 def sums_inputs(pos, g, mass=None, tile: int | None = None,
@@ -262,7 +281,7 @@ def vjp_pos_sym_mxu(pos, g, mass=None, softening: float = SOFTENING,
     check_coincident(coincident)
     n = pos.shape[0]
     (tile, c, nc, np_), (p, gp, q) = sums_inputs(pos, g, mass, tile, chunk)
-    coincident = resolve_auto(coincident, n)
+    coincident = resolve_auto(coincident, n, SYM_COINCIDENT_AUTO_MIN_N)
     if coincident == "auto":
         mask_offdiag = any_coincident(pos)
     else:
@@ -328,7 +347,8 @@ def vjp_rect_mxu_rows(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
     _build.refuse_grad("vjp_rect_mxu", pos_k, g_k, pos_j, g_j, mass_k, mass_j)
     overlap_only = False
     if square_coincident is not None:
-        mode = resolve_auto(square_coincident, nk)
+        mode = resolve_auto(square_coincident, nk,
+                            COINCIDENT_AUTO_MIN_N)
         overlap_only = mode == "fast" or (mode == "auto"
                                           and not any_coincident(pos_k))
     masses = mass_k is not None

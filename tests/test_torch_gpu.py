@@ -13,13 +13,19 @@ sums (2e-3 of each column's scale), sym_mxu forces vs a float64 oracle at
 the on-card bf16-accumulate bound (rtol 2e-2, atol 5e-3 of the scale), K4's
 U within 1e-5 of |U|, and K5 against its plain version at the K1 bound.
 The VJP kernels: B10 and B11 against their plain versions at the K1 bound
-(fp32 sums in another order, atomics in B11); B13 and B14 raw sums against
+(fp32 sums in another order); B13 and B14 raw sums against
 their bf16-mode plain sums at K2's per-column bound, and B13's gradient
 against the fp32 B11 at the sym_mxu bound (rtol 2e-2, atol 5e-3). B6
 (the mxu backend) and B4 (body_force_pair_mxu on K2's cross mode): raw sums
 against their bf16-mode plain sums at K2's per-column bound, the fp32 mode
 of B6 against a float64 oracle at the K1 bound, and B6's auto and fast runs
-bitwise equal to its masked run (no atomics)."""
+bitwise equal to its masked run (no atomics).
+
+The pair-once slot kernels K2, K3, B11 and B13 sum in a fixed order: two
+runs are bitwise equal, 'auto' and 'fast' are bitwise 'masked', a
+checkpointed rollout gradient is bitwise the unchecked one, and every system
+of an ensemble (B9a on K2, B9b on K3) is bitwise its standalone call. B14
+against its bf16-mode plain version with 131,072 sources per row."""
 
 import numpy as np
 import pytest
@@ -129,17 +135,19 @@ def test_sym_mxu_vs_fp64_oracle(cuda, masses):
     _close(got, want, 2e-2, 5e-3)
 
 
-def test_auto_equals_masked_to_tolerance(cuda):
-    # Bitwise on the plain path; on the card the atomics sum in another
-    # order from run to run, so the two agree to the K2 tolerance.
-    pos = _pos(sm.COINCIDENT_AUTO_MIN_N, 8, cuda)
+def test_auto_equals_masked_to_tolerance(cuda, monkeypatch):
+    # The bitwise contract is test_sym_mxu_auto_and_fast_bitwise_masked.
+    # K2's gate at 8192, so 'auto' runs the duplicate scan.
+    monkeypatch.setattr(sm, "COINCIDENT_AUTO_MIN_N", 8192)
+    pos = _pos(8192, 8, cuda)
     a = sm.body_force_sym_mxu(pos, coincident="auto")
     b = sm.body_force_sym_mxu(pos, coincident="masked")
     _close(a, b, 1e-3, 1e-4)
 
 
-def test_duplicates_route_to_masked(cuda):
-    cloud = torch.full((sm.COINCIDENT_AUTO_MIN_N, 3), 0.25, device=cuda)
+def test_duplicates_route_to_masked(cuda, monkeypatch):
+    monkeypatch.setattr(sm, "COINCIDENT_AUTO_MIN_N", 8192)
+    cloud = torch.full((8192, 3), 0.25, device=cuda)
     assert sm.any_coincident(cloud)
     f = sm.body_force_sym_mxu(cloud, coincident="auto")
     assert torch.equal(f, torch.zeros_like(f))
@@ -474,7 +482,7 @@ def test_rollout_sqrt_matches_none_on_the_card(cuda):
         out, _ = make_rollout_fn(cfg, 10, remat)((st, carry0[1]))
         (out.pos ** 2).sum().backward()
         grads[remat] = p.grad
-    # The recompute sums with atomics in another order: a tolerance.
+    # A tolerance; test_rollout_remat_bitwise holds the bits.
     _close(grads["sqrt"], grads["none"], 1e-4, 1e-5)
 
 
@@ -665,3 +673,208 @@ def test_mxu_simulate_and_grad_go_through_b6(cuda, monkeypatch, pair_dtype):
         want = vk.vjp_ordered_plain(state.pos, g, state.pos, g, state.mass,
                                     state.mass, 1e-2)
         _close(p.grad, want, *((2e-2, 5e-3) if bf16 else (1e-3, 1e-4)))
+
+
+def _slot_runs(kernel, pos, g, m):
+    """One whole call of a slot kernel's wrapper at three chunks (tri and
+    cross launches)."""
+    masses = m is not None
+    if kernel == "K2":
+        return sm.body_force_sym_mxu(pos, m, chunk=1024, coincident="fast")
+    if kernel == "K3":
+        return sf.body_force_symmetric(pos, m, chunk=1024)
+    if kernel == "B11":
+        return vk.vjp_pos_sym(pos, g, m, 1e-2, chunk=1024,
+                              mass_grad=masses)
+    return vm.vjp_pos_sym_mxu(pos, g, m, 1e-2, chunk=1024, mass_grad=masses)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "B11", "B13"])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("piece", [None, 100])
+def test_slot_kernels_bitwise_run_to_run(cuda, monkeypatch, kernel, masses,
+                                         piece):
+    # piece = 100 cuts each slot list into many pieces.
+    if piece is not None:
+        monkeypatch.setattr(sp, "PIECE_SLOTS", piece)
+    case = _vjp_case(3000, 40, masses, cuda)
+    first = _slot_runs(kernel, *case)
+    for _ in range(3):
+        again = _slot_runs(kernel, *case)
+        for a, b in zip(first if isinstance(first, tuple) else (first,),
+                        again if isinstance(again, tuple) else (again,)):
+            assert torch.equal(a, b)
+
+
+def test_sym_mxu_auto_and_fast_bitwise_masked(cuda, monkeypatch):
+    # K2's gate at 8192, so 'auto' runs the duplicate scan at 9192.
+    monkeypatch.setattr(sm, "COINCIDENT_AUTO_MIN_N", 8192)
+    pos = _pos(9192, 41, cuda)
+    assert not sm.any_coincident(pos)
+    ref = sm.body_force_sym_mxu(pos, chunk=4096, coincident="masked")
+    for mode in ("auto", "fast"):
+        got = sm.body_force_sym_mxu(pos, chunk=4096, coincident=mode)
+        assert torch.equal(got, ref), mode
+
+
+@pytest.mark.parametrize("backend", ["auto", "sym_mxu"])
+def test_rollout_remat_bitwise(cuda, backend):
+    n = 4096
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    s = init.plummer(n, generator=gen, device=cuda)
+    cfg = SimConfig(n=n, dt=1e-3, softening=1e-2, integrator="leapfrog",
+                    use_masses=True, backend=backend, sym_chunk=2048)
+    carry0 = init_carry(cfg, s)
+    grads = {}
+    for remat in ("none", "step", "sqrt"):
+        p = s.pos.clone().requires_grad_(True)
+        st = BodyState(pos=p, vel=s.vel, mass=s.mass)
+        out, _ = make_rollout_fn(cfg, 10, remat)((st, carry0[1]))
+        (out.vel ** 2).sum().backward()
+        grads[remat] = p.grad
+    assert torch.equal(grads["sqrt"], grads["none"])
+    assert torch.equal(grads["step"], grads["none"])
+
+
+def _ensemble(n, b, masses, device, seed=42):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ss = [init.plummer(n, generator=gen, device=device) for _ in range(b)]
+    return ss, BodyState(pos=torch.stack([s.pos for s in ss]),
+                         vel=torch.stack([s.vel for s in ss]),
+                         mass=torch.stack([s.mass for s in ss]))
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("n,tile", [(192, 64), (300, 64), (128, 128),
+                                    (1000, None), (5000, None)])
+def test_ensemble_force_bitwise_vs_standalone(cuda, mxu, masses, n, tile):
+    # nb = 3, 5 (ragged), 1, and the default tile.
+    ss, st = _ensemble(n, 3, masses, cuda)
+    m = st.mass if masses else None
+    t, c = sm.ensemble_tiling(n, tile, kernel=True)
+    counts = (sp.ENSEMBLE_LAUNCHES, sf.ENSEMBLE_LAUNCHES)
+    if mxu:
+        f = sm.body_force_sym_mxu_ensemble(st.pos, m, tile=tile)
+    else:
+        f = sf.body_force_symmetric_ensemble(st.pos, m, tile=tile)
+    assert (sp.ENSEMBLE_LAUNCHES - counts[0],
+            sf.ENSEMBLE_LAUNCHES - counts[1]) == (int(mxu), int(not mxu))
+    for i in range(3):
+        mi = ss[i].mass if masses else None
+        ref = (sm.body_force_sym_mxu(ss[i].pos, mi, tile=t, chunk=c) if mxu
+               else sf.body_force_symmetric(ss[i].pos, mi, tile=t, chunk=c))
+        assert torch.equal(f[i], ref), i
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_ensemble_grouping_keeps_the_bits(cuda, monkeypatch, mxu):
+    # PIECE_SLOTS = 2 S: launches of 2, 2 and 1 systems against the
+    # one-system standalone calls.
+    n, tile = 1000, 128
+    ss, st = _ensemble(n, 5, True, cuda, seed=43)
+    t, c = sm.ensemble_tiling(n, tile, kernel=True)
+    monkeypatch.setattr(sp, "PIECE_SLOTS", 2 * sp.n_slots_tri(c // t))
+    run = (sm.body_force_sym_mxu_ensemble if mxu
+           else sf.body_force_symmetric_ensemble)
+    f = run(st.pos, st.mass, tile=tile)
+    for i in range(5):
+        one = run(st.pos[i:i + 1], st.mass[i:i + 1], tile=tile)
+        assert torch.equal(f[i], one[0]), i
+
+
+@pytest.mark.parametrize("backend", ["auto", "sym_mxu"])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "yoshida4"])
+def test_simulate_ensemble_bitwise_vs_simulate(cuda, backend, integrator):
+    from mini_nbody_tpu_torch import simulate_ensemble, trajectory_ensemble
+
+    n = 700
+    ss, st = _ensemble(n, 3, True, cuda, seed=44)
+    cfg = SimConfig(n=n, dt=1e-3, steps=4, softening=1e-2, backend=backend,
+                    integrator=integrator, use_masses=True)
+    before = (sp.ENSEMBLE_LAUNCHES, sf.ENSEMBLE_LAUNCHES)
+    out = simulate_ensemble(cfg, st)
+    passes = {"euler": 4, "leapfrog": 5, "yoshida4": 13}[integrator]
+    mxu = backend == "sym_mxu"
+    assert (sp.ENSEMBLE_LAUNCHES - before[0],
+            sf.ENSEMBLE_LAUNCHES - before[1]) == (passes * mxu,
+                                                  passes * (not mxu))
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    for i in range(3):
+        ref = simulate(cfg.replace(sym_tile=t, sym_chunk=c), ss[i])
+        assert torch.equal(out.pos[i], ref.pos)
+        assert torch.equal(out.vel[i], ref.vel)
+    final, hist = trajectory_ensemble(cfg, st, save_every=2)
+    assert hist.shape == (2, 3, n, 3)
+    assert torch.equal(hist[-1], out.pos) and torch.equal(final.pos, out.pos)
+
+
+def test_trajectory_last_snapshot_is_simulate(cuda):
+    from mini_nbody_tpu_torch import trajectory
+
+    n = 3000
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    s = init.plummer(n, generator=gen, device=cuda)
+    cfg = SimConfig(n=n, dt=1e-3, softening=1e-2, integrator="leapfrog",
+                    use_masses=True, sym_chunk=1024)
+    final, hist = trajectory(cfg, s, 6, save_every=3)
+    ref = simulate(cfg, s, 6)
+    assert hist.shape == (2, n, 3)
+    assert torch.equal(hist[-1], ref.pos) and torch.equal(final.vel, ref.vel)
+
+
+def test_b14_long_rows_vs_bf16_plain(cuda):
+    # 131,072 sources per row: B14 adds a fresh tensor-core partial per j
+    # tile in fp32, as B6 does; one fragment carried across all 1024 tiles
+    # drifts (its adds do not round to nearest).
+    n = 131072
+    pos, g, _ = _vjp_case(n, 46, False, cuda)
+    pk_, gk_ = pos[:512].contiguous(), g[:512].contiguous()
+    got = vm.vjp_rect_mxu_rows(pk_, gk_, pos, g)
+    want = vm.vjp_rect_mxu_plain(pk_, gk_, pos, g, mma_dtype=torch.bfloat16)
+    _close_cols(got, want)
+    ones = pos.new_ones(512)
+    _close(vm._combine(got, ones, gk_, pk_), vm._combine(want, ones, gk_, pk_),
+           2e-2, 5e-3)
+    _close(vm.vjp_rect_mxu(pk_, gk_, pos, g),
+           vk.vjp_ordered_plain(pk_, gk_, pos, g), 2e-2, 5e-3)
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_ensemble_past_the_grid_limit(cuda, mxu):
+    # 65,600 one-slot systems (N = 64, tile 64): two launches, of 65,535
+    # systems (gridDim.y's limit) and 65, each system bitwise standalone.
+    b, n = 65600, 64
+    pos = _pos(b * n, 47, cuda).view(b, n, 3)
+    m = torch.rand((b, n), device=cuda) + 0.5
+    counts = (sp.ENSEMBLE_LAUNCHES, sf.ENSEMBLE_LAUNCHES, sp.REDUCE_LAUNCHES)
+    if mxu:
+        f = sm.body_force_sym_mxu_ensemble(pos, m)
+    else:
+        f = sf.body_force_symmetric_ensemble(pos, m)
+    assert (sp.ENSEMBLE_LAUNCHES - counts[0], sf.ENSEMBLE_LAUNCHES - counts[1],
+            sp.REDUCE_LAUNCHES - counts[2]) == (2 * mxu, 2 * (not mxu), 2)
+    for i in (0, 65534, 65535, b - 1):
+        ref = (sm.body_force_sym_mxu(pos[i], m[i], tile=64, chunk=64) if mxu
+               else sf.body_force_symmetric(pos[i], m[i], tile=64, chunk=64))
+        assert torch.equal(f[i], ref), i
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_slot_reduce_bitwise_plain(cuda, cross):
+    # The kernel adds each block's partials in slot order, as the plain
+    # version does: the same bits, for two systems of a piece.
+    tile, width, nb, n_sys = 64, 8, 12, 2
+    slots = sp.slot_table(nb, True, cross, cuda)
+    piece_plan = sp.reduce_plan(slots, not cross)[0]
+    part = torch.randn(n_sys * slots.shape[0] * 2 * tile * width,
+                       device=cuda)
+    accs = []
+    for run in (sp.slot_reduce_, sp.slot_reduce_plain):
+        a, b = (torch.ones((n_sys * nb * tile, width), device=cuda)
+                for _ in range(2))
+        run(part, piece_plan, a, b if cross else a, tile, width, n_sys,
+            nb * tile)
+        accs.append((a, b))
+    assert torch.equal(accs[0][0], accs[1][0])
+    assert torch.equal(accs[0][1], accs[1][1])

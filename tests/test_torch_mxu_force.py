@@ -170,10 +170,11 @@ class TestCoincidentRouting:
                                     coincident=mode, **KW)
             assert torch.equal(got, ref), mode
 
-    def test_auto_above_the_gate_bitwise(self):
-        # N = COINCIDENT_AUTO_MIN_N: 'auto' runs the duplicate scan and takes
-        # the overlap run, bitwise the masked one.
-        n = sm.COINCIDENT_AUTO_MIN_N
+    def test_auto_above_the_gate_bitwise(self, monkeypatch):
+        # N = B6's gate, set to 8192: 'auto' runs the duplicate scan and
+        # takes the overlap run, bitwise the masked one.
+        n = 8192
+        monkeypatch.setattr(mf, "COINCIDENT_AUTO_MIN_N", n)
         p = torch.from_numpy(_uniform(10, n))
         assert mf.square_overlap_only(p, "auto")
         ref = mf.body_force_mxu(p, p, coincident="masked", tile_i=2048,
@@ -224,7 +225,9 @@ class TestCoincidentRouting:
     ("masked", 9000, False, False), ("fast", 10, True, True),
     ("auto", 100, False, False), ("auto", 8192, False, True),
     ("auto", 8192, True, False)])
-def test_square_overlap_only(mode, n, dup, want):
+def test_square_overlap_only(mode, n, dup, want, monkeypatch):
+    # B6's gate at 8192.
+    monkeypatch.setattr(mf, "COINCIDENT_AUTO_MIN_N", 8192)
     pos = _uniform(11, n)
     if dup:
         pos[n - 1] = pos[0]

@@ -94,11 +94,12 @@ def test_fast_and_auto_bitwise_equal_masked(coincident):
 
 
 @pytest.mark.parametrize("dup", [False, True])
-def test_auto_above_the_gate(dup):
-    # na + nb = COINCIDENT_AUTO_MIN_N: 'auto' scans the concatenated sets;
+def test_auto_above_the_gate(dup, monkeypatch):
+    # na + nb = K2's gate, set to 8192: 'auto' scans the concatenated sets;
     # a cross-set duplicate routes to masked, and either way the result is
     # bitwise the masked one.
-    na = sm.COINCIDENT_AUTO_MIN_N // 2
+    monkeypatch.setattr(sm, "COINCIDENT_AUTO_MIN_N", 8192)
+    na = 8192 // 2
     pa, pb, _, _ = _sets(na, na, 5, False, shift=0.0)
     if dup:
         pb[7] = pa[3]

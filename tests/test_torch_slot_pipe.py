@@ -194,3 +194,49 @@ def test_wrappers_take_plain_on_cpu_and_check_inputs():
         sp.tri_slot_sums_(acc, tp, tv, slots.long(), 64, 1e-9)
     with pytest.raises(ValueError):
         sp.tri_slot_sums_(acc[:128], tp, tv, slots, 64, 1e-9)
+
+
+def test_system_groups_cap_at_the_grid_limit(monkeypatch):
+    # One-slot systems: a launch takes every system up to gridDim.y's
+    # 65,535; a piece of PIECE_SLOTS slots takes one system per launch.
+    assert sp.system_groups(70000, 1) == [(0, 65535), (65535, 4465)]
+    assert sp.system_groups(3, 1) == [(0, 3)]
+    assert sp.system_groups(3, sp.PIECE_SLOTS) == [(0, 1), (1, 1), (2, 1)]
+    monkeypatch.setattr(sp, "PIECE_SLOTS", 20)
+    assert sp.system_groups(5, 8) == [(0, 2), (2, 2), (4, 1)]
+
+
+@pytest.mark.parametrize("nb,cross,piece", [(5, False, 1 << 16),
+                                             (5, False, 4), (4, True, 3)])
+def test_slot_reduce_adds_each_blocks_partials_in_slot_order(
+        monkeypatch, nb, cross, piece):
+    # The plan against a walk of the slot list itself: slot s adds partial
+    # tile 2 s into block bi and, unless it is DIAG, tile 2 s + 1 into block
+    # bj (of the second accumulator in cross mode), in slot order, bitwise.
+    monkeypatch.setattr(sp, "PIECE_SLOTS", piece)
+    tile, width, n_sys = 4, 3, 2
+    slots = sp.slot_table(nb, True, cross, "cpu")
+    rows = slots.numpy()
+    part = torch.from_numpy(np.random.default_rng(30).normal(
+        size=(n_sys * rows.shape[0] * 2, tile, width)).astype(np.float32))
+    got = [torch.zeros((n_sys * nb * tile, width)) for _ in range(2)]
+    want = [torch.zeros((n_sys, nb, tile, width)) for _ in range(2)]
+    for piece_plan in sp.reduce_plan(slots, not cross):
+        s0, n = piece_plan[:2]
+        tiles = part.view(n_sys, -1, tile, width)[:, 2 * s0:2 * (s0 + n)]
+        sp.slot_reduce_(tiles.contiguous().view(-1), piece_plan, got[0],
+                        got[1] if cross else got[0], tile, width, n_sys,
+                        nb * tile)
+        for s in range(n_sys):
+            sums = {}
+            for local, (kind, bi, bj) in enumerate(rows[s0:s0 + n]):
+                sides = [(0, bi, 2 * local)]
+                if kind != sp.SLOT_DIAG:
+                    sides.append((int(cross), bj, 2 * local + 1))
+                for acc, blk, e in sides:
+                    key = (acc, blk)
+                    sums[key] = sums.get(key, 0) + tiles[s, e]
+            for (acc, blk), total in sums.items():
+                want[acc][s, blk] += total
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.view(-1, width))

@@ -78,8 +78,8 @@ def test_split_w_vs_jax():
 
 def test_fast_bitwise_equals_masked_on_plain_path():
     # No coincident pair -> maskless w == masked w exactly and the same
-    # accumulation order -> bitwise (tests/test_slot_pipe.py:84-93). On the
-    # card the atomics reorder the sums, so there it holds to tolerance.
+    # accumulation order -> bitwise (tests/test_slot_pipe.py:84-93), on the
+    # card too (tests/test_torch_gpu.py).
     pos = torch.from_numpy(_state(256, 3, False)[0])
     a = sm.body_force_sym_mxu(pos, tile=64, chunk=256, coincident="fast")
     b = sm.body_force_sym_mxu(pos, tile=64, chunk=256, coincident="masked")
@@ -87,11 +87,12 @@ def test_fast_bitwise_equals_masked_on_plain_path():
 
 
 @pytest.mark.parametrize("dups", [False, True])
-def test_auto_bitwise_equals_masked_above_gate(dups):
-    # N = COINCIDENT_AUTO_MIN_N: 'auto' runs the duplicate scan and routes to
-    # the maskless (no duplicates) or masked (duplicates) kernel; either way
-    # the result is bitwise the masked one.
-    n = sm.COINCIDENT_AUTO_MIN_N
+def test_auto_bitwise_equals_masked_above_gate(dups, monkeypatch):
+    # N = K2's gate, set to JAX's 8192: 'auto' runs the duplicate scan and
+    # routes to the maskless (no duplicates) or masked (duplicates) kernel;
+    # either way the result is bitwise the masked one.
+    n = jsm.COINCIDENT_AUTO_MIN_N
+    monkeypatch.setattr(sm, "COINCIDENT_AUTO_MIN_N", n)
     pos = np.random.default_rng(4).uniform(-1, 1, (n, 3)).astype(np.float32)
     if dups:
         pos[4000] = pos[5]
@@ -121,8 +122,13 @@ def test_duplicates_have_zero_mutual_force(oracle):
     ("auto", 100), ("auto", 8191), ("auto", 8192), ("masked", 10),
     ("fast", 10**6)])
 def test_resolve_auto_matches_jax(coincident, n):
-    assert sm.COINCIDENT_AUTO_MIN_N == jsm.COINCIDENT_AUTO_MIN_N
-    assert sm.resolve_auto(coincident, n) == jsm.resolve_auto(coincident, n)
+    # The rule is JAX's; the gate is each module's own (K2's by default),
+    # measured on the card.
+    gate = jsm.COINCIDENT_AUTO_MIN_N
+    assert sm.resolve_auto(coincident, n, gate) == jsm.resolve_auto(
+        coincident, n)
+    assert sm.resolve_auto(coincident, n) == sm.resolve_auto(
+        coincident, n, sm.COINCIDENT_AUTO_MIN_N)
 
 
 @pytest.mark.parametrize("n,tile,chunk", [
