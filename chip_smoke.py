@@ -49,7 +49,25 @@ each with every launch count set to 0 just before it and read just after:
   the last snapshot bitwise ``simulate``'s final positions;
 - ``coincident_gate``: for each kernel behind a coincident gate (K2, B6,
   B10, B11, B13, B14), 'masked' against the duplicate scan plus the
-  maskless kernel at N = 4096 .. 262,144.
+  maskless kernel at N = 4096 .. 262,144;
+- ``grad_ensemble``: gradients of sum(sin(F)) through
+  ``make_differentiable_ensemble_force`` for B = 16 plummer systems of
+  config 2's N = 65,536 with masses, on ``sym`` (forward B9b, backward
+  B9c) and ``sym_mxu`` (B9a, B9d): every system bitwise its standalone
+  VJP at the same tile, the mass cotangent too, no gradient in other
+  systems from a loss on system 0, 16 x 4096 in one launch, and each
+  kernel against its plain version at 3 x 4096;
+- ``resident``: the resident kernel B15 (one launch per trajectory) in
+  both classes: BASELINE config 1 (N = 4096 uniform, 10 Euler steps, dt
+  0.01) against the streamed run, 200 leapfrog and Yoshida-4 steps at
+  4096, config 2's N = 65,536 with masses, the cap N = 131,072,
+  examples/parameter_sweep.py's defaults on the resident ensemble (systems
+  0 and 31 bitwise their standalone resident runs), reruns and a split
+  Yoshida-4 phase bitwise, a 'fast' fold over pads finite, and B15 against
+  its plain version at N = 1000;
+- ``resident_crossover``: ms per step of B15 (fold on and off) against the
+  streamed loop at N = 512 .. 16,384, and of the resident ensemble against
+  B9a / B9b at (B, N) = (256, 256) .. (8, 8192): the card's crossovers.
 
 A slot kernel (K2, K3, B11, B13, and the ensembles B9a and B9b) makes one
 launch per piece of its slot list (``slot_pipe.PIECE_SLOTS`` slots) and
@@ -82,13 +100,16 @@ import numpy as np
 import torch
 
 from mini_nbody_tpu_torch import (BodyState, SimConfig, _build, init,
+                                  make_differentiable_ensemble_force,
                                   make_differentiable_force, make_force_fn,
                                   make_rollout_fn, simulate,
                                   simulate_ensemble, trajectory)
+from mini_nbody_tpu_torch import sim as tsim
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import direct_force as df
 from mini_nbody_tpu_torch.ops import mxu_force as mf
 from mini_nbody_tpu_torch.ops import pe_kernel as pk
+from mini_nbody_tpu_torch.ops import resident_sym as rs
 from mini_nbody_tpu_torch.ops import slot_pipe as sp
 from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
 from mini_nbody_tpu_torch.ops import symmetric_force as sf
@@ -96,7 +117,7 @@ from mini_nbody_tpu_torch.ops import vjp_kernel as vk
 from mini_nbody_tpu_torch.ops import vjp_mxu as vm
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
 from mini_nbody_tpu_torch.sim import init_carry
-from mini_nbody_tpu_torch.utils.config import SYM_BWD_TILES
+from mini_nbody_tpu_torch.utils.config import SOFTENING, SYM_BWD_TILES
 from mini_nbody_tpu_torch.utils.harness import FLOPS_PER_INTERACTION, time_fn
 
 N_MAIN = 1 << 20
@@ -186,6 +207,48 @@ N_TRAJ, TRAJ_STEPS, TRAJ_EVERY = 65536, 20, 5
 #: The sizes of the coincident_gate phase and its timed calls per mode.
 GATE_NS = (4096, 8192, 16384, 32768, 65536, 131072, 262144)
 GATE_REPS = 6
+#: grad_ensemble: B = 16 systems of config 2's N (the B9b shape), one case
+#: of 16 x 4096 (every system in one launch) and the plain check at 3 x
+#: 4096.
+GENS_B, GENS_N, GENS_SMALL_N, GENS_CHECK_B = 16, 65536, 4096, 3
+#: resident: BASELINE config 1 (configs[0]: N = 4096, 10 Euler steps, dt
+#: 0.01, uniform, the default softening); 200 leapfrog and Yoshida-4 steps
+#: at its N; config 2's N with masses; the cap; the plain check.
+N_CONFIG1, STEPS_CONFIG1, DT_CONFIG1 = 4096, 10, 0.01
+RES_LONG_STEPS, RES_CONFIG2_STEPS, RES_CAP_STEPS = 200, 10, 2
+RES_PLAIN_N, RES_PLAIN_STEPS = 1000, 5
+#: B15's class bounds (tests/test_resident_sym.py:21-48), here for C4's
+#: 'fast' fold against 'masked': fp32 rtol 1e-4, atol 1e-5 of the scale;
+#: bf16 rtol 2e-2, atol 2e-3 of the scale. Against the streamed path B15 is
+#: held bitwise.
+RES_FP32, RES_BF16 = (1e-4, 1e-5), (2e-2, 2e-3)
+#: B15 against its plain version (bf16 mode in the bf16 class): the change
+#: of each body's velocity and position over the run, each within this
+#: share of its own scale (max |plain change|), per case, as (fp32 class,
+#: bf16 class). A B15 that dropped the forces is off by the whole scale.
+#: Measured on an H100 (the larger of the two changes): config 1, one step,
+#: 3.8e-7 and 1.5e-4; its 10 steps (softening 1e-9, chaotic) 5.4e-4 and
+#: 9.7e-3; RES_PLAIN_N plummer bodies with masses 1.2e-5 in both (the
+#: rounding of v itself against a small change).
+RES_PLAIN_TOL = {"config1_1step": (4e-6, 2e-3), "config1": (5e-3, 5e-2),
+                 "plummer": (1e-4, 1e-4)}
+#: resident_crossover: the sizes of JAX's crossover probes (sim.py:205-217),
+#: Euler steps per timed run, timed runs per variant (turns interleaved).
+CROSS_NS = (512, 1024, 2048, 4096, 8192, 16384)
+CROSS_ENS = ((256, 256), (64, 1024), (32, 2048), (16, 4096), (8, 8192))
+CROSS_STEPS, CROSS_REPS = 100, 5
+#: The short runs of resident_crossover: whole simulate calls of this many
+#: steps, each integrator, routed (resident=True) against the streamed loop
+#: at the sizes of CROSS_NS and CROSS_ENS up to these per-system N (where
+#: B15 won at CROSS_STEPS steps).
+CROSS_SHORT_STEPS = (2, 3, 5, 10, 20)
+CROSS_SHORT_MAX_N, CROSS_SHORT_MAX_ENS_N = 8192, 2048
+#: B15's fp32 operations per unordered pair and step in the fp32 class
+#: (JAX's cost estimate, resident_sym.py:656, :796; below K3's 24, so the
+#: bound is if anything short) and its bytes per body (state in and out).
+#: The bf16 class runs K2's slot body and takes K2's count (OPS_K2_FP32 and
+#: OPS_K2_MMA).
+OPS_B15, BYTES_B15 = 19, 64
 
 DEV = torch.device("cuda", 0)
 
@@ -244,12 +307,16 @@ COUNTERS = {"direct": (df, "LAUNCHES"), "fused": (df, "FUSED_LAUNCHES"),
             "pair": (sp, "PAIR_LAUNCHES"),
             "slot_ensemble": (sp, "ENSEMBLE_LAUNCHES"),
             "sym_ensemble": (sf, "ENSEMBLE_LAUNCHES"),
+            "vjp_sym_ensemble": (vk, "SYM_ENSEMBLE_LAUNCHES"),
+            "vjp_mxu_ensemble": (vm, "ENSEMBLE_LAUNCHES"),
+            "resident": (rs, "LAUNCHES"),
             "slot_reduce": (sp, "REDUCE_LAUNCHES")}
 #: The slot kernels of read_counts: slot_reduce runs once after each of
-#: their launches.
+#: their launches (B15 adds its partials inside its own launch).
 SLOT_KERNELS = ("slot_tri", "slot_cross", "pair_mxu", "slot_ensemble",
                 "sym_tri", "sym_cross", "sym_ensemble", "vjp_sym_tri",
-                "vjp_sym_cross", "vjp_mxu_tri", "vjp_mxu_cross")
+                "vjp_sym_cross", "vjp_mxu_tri", "vjp_mxu_cross",
+                "vjp_sym_ensemble", "vjp_mxu_ensemble")
 
 
 def reset_counts():
@@ -273,6 +340,9 @@ def read_counts():
             "vjp_rect_mxu": c["vjp_rect_mxu"],
             "slot_ensemble": c["slot_ensemble"],
             "sym_ensemble": c["sym_ensemble"],
+            "vjp_sym_ensemble": c["vjp_sym_ensemble"],
+            "vjp_mxu_ensemble": c["vjp_mxu_ensemble"],
+            "resident": c["resident"],
             "slot_reduce": c["slot_reduce"]}
 
 
@@ -1814,13 +1884,10 @@ def b9a_sums(pos, v, slots, tile, soft, n_sys, plain=False):
     return acc
 
 
-def ensemble_sweep_phase():
-    """examples/parameter_sweep.py at its defaults through
-    simulate_ensemble on sym_mxu (B9a): per-system energy drift, the sweep
-    trend (cold systems contract, hot ones expand), systems 0 and B - 1
-    bitwise their standalone simulate at the ensemble's tile and chunk;
-    then one B9a call (one launch: every system fits in one piece) held per
-    column against its plain version and timed. Returns B9a's record."""
+def sweep_case():
+    """examples/parameter_sweep.py at its defaults: SWEEP_B copies of one
+    plummer sphere of SWEEP_N with velocity scales q = 0.2 .. 1.6, and its
+    config on sym_mxu with the streamed path pinned: (state, q, cfg)."""
     b, n = SWEEP_B, SWEEP_N
     gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
     base = init.plummer(n, generator=gen, device=DEV)
@@ -1829,7 +1896,20 @@ def ensemble_sweep_phase():
                    vel=(base.vel[None] * q[:, None, None]).contiguous(),
                    mass=base.mass.expand(b, n).contiguous())
     cfg = SimConfig(n=n, dt=SWEEP_DT, steps=SWEEP_STEPS, softening=SWEEP_SOFT,
-                    integrator="leapfrog", use_masses=True, backend="sym_mxu")
+                    integrator="leapfrog", use_masses=True, backend="sym_mxu",
+                    resident=False)
+    return st, q, cfg
+
+
+def ensemble_sweep_phase():
+    """examples/parameter_sweep.py at its defaults through
+    simulate_ensemble on sym_mxu (B9a): per-system energy drift, the sweep
+    trend (cold systems contract, hot ones expand), systems 0 and B - 1
+    bitwise their standalone simulate at the ensemble's tile and chunk;
+    then one B9a call (one launch: every system fits in one piece) held per
+    column against its plain version and timed. Returns B9a's record."""
+    b, n = SWEEP_B, SWEEP_N
+    st, q, cfg = sweep_case()
     e0 = dg.total_energy_ensemble(st, SWEEP_SOFT)
     r0 = half_mass_radius(st.pos, st.mass)
     t, c = sm.ensemble_tiling(n, None, kernel=True)
@@ -2041,6 +2121,508 @@ def coincident_gate_phase(rng):
     line("coincident_gate", reps=GATE_REPS, kernels=out, scan_only_ms=scan_ms)
 
 
+# ------------------------------------------------ grad_ensemble (B9c, B9d)
+
+def ens_state(b, n, gen):
+    """b plummer systems of n bodies with masses, stacked."""
+    systems = [init.plummer(n, generator=gen, device=DEV) for _ in range(b)]
+    return BodyState(pos=torch.stack([s.pos for s in systems]),
+                     vel=torch.stack([s.vel for s in systems]),
+                     mass=torch.stack([s.mass for s in systems]))
+
+
+def ens_grad(force, pos, mass, system=None):
+    """The forces and the gradient in pos of sum(sin(F)) (of system
+    ``system`` alone when given) through the differentiable ensemble
+    force."""
+    p = pos.clone().requires_grad_(True)
+    f = force(p, mass)
+    torch.sin(f if system is None else f[system]).sum().backward()
+    return f.detach(), p.grad
+
+
+#: Per class: (backend, the ensemble VJP, the standalone VJP, the counter,
+#: the VJP module's default tile, the counter of the forward).
+ENS_VJPS = (("sym", vk.vjp_pos_sym_ensemble, vk.vjp_pos_sym,
+             "vjp_sym_ensemble", vk, "sym_ensemble"),
+            ("sym_mxu", vm.vjp_pos_sym_mxu_ensemble, vm.vjp_pos_sym_mxu,
+             "vjp_mxu_ensemble", vm, "slot_ensemble"))
+
+
+def ens_vjp_sums(mxu, pos, g, mass, tile, plain=False):
+    """The raw sums (with the mass cotangent) of one B9c / B9d call over
+    the systems of pos (B, N, 3), or of its plain version with the system
+    axis (B9d's in bf16 mode)."""
+    b, n = pos.shape[0], pos.shape[1]
+    if mxu:
+        (t, c), (p, gp, q) = vm.ensemble_sums_inputs(pos, g, mass, tile)
+    else:
+        t, c = sm.ensemble_tiling(n, tile, kernel=True)
+        p = sm.pack_ensemble(pos, mass, c, sf._pack)
+        gp = vk.pad_systems(g, c)
+    slots = sp.slot_table(c // t, c // t > 1, False, DEV)
+    acc = torch.zeros((b * c, 9 if mxu else 4), device=DEV)
+    if mxu and plain:
+        vm.vjp_mxu_sums_plain(acc, acc, p, p, gp, gp, q, q, slots, t, 1e-2,
+                              True, mma_dtype=torch.bfloat16, n_sys=b)
+    elif mxu:
+        vm.vjp_mxu_sums_ensemble_(acc, p, gp, q, slots, t, 1e-2, b)
+    elif plain:
+        vk.vjp_sym_sums_plain(acc, acc, p, p, gp, gp, slots, t, 1e-2, True,
+                              n_sys=b)
+    else:
+        vk.vjp_sym_sums_ensemble_(acc, p, gp, slots, t, 1e-2, b)
+    return acc.view(b, c, -1)[:, :n]
+
+
+def grad_ensemble_phase():
+    """B9c and B9d on their path: for each class, the gradient of
+    sum(sin(F)) through make_differentiable_ensemble_force for GENS_B
+    plummer systems of GENS_N with masses (forward B9b / B9a, backward B9c
+    / B9d, exact launch counts); each system's gradient and mass cotangent
+    bitwise the standalone VJP at the same tile; a loss on system 0 leaves
+    exact zeros in the others; GENS_B x GENS_SMALL_N in one launch, every
+    system bitwise; the raw sums against the plain version with the system
+    axis at GENS_CHECK_B x GENS_SMALL_N; then one backward timed beside its
+    plain version and its bound. Returns the two records."""
+    b, n = GENS_B, GENS_N
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    st = ens_state(b, n, gen)
+    small = ens_state(b, GENS_SMALL_N, gen)
+    out, records = {}, []
+    for backend, ens, one, counter, mod, fwd_counter in ENS_VJPS:
+        mxu = backend == "sym_mxu"
+        cfg = SimConfig(n=n, backend=backend, use_masses=True, softening=1e-2)
+        force = make_differentiable_ensemble_force(cfg)
+        t_f, c_f = sm.ensemble_tiling(n, None, kernel=True)
+        t, c = sm.ensemble_tiling(n, mod.DEFAULT_TILE, kernel=True)
+        per = per_call(tri_slots(c, t), b)
+        reset_counts()
+        seconds, (f, grad) = host_time(ens_grad, force, st.pos, st.mass)
+        launches = read_counts()
+        expect_counts(launches, f"grad_ensemble {backend}", **{
+            fwd_counter: per_call(tri_slots(c_f, t_f), b), counter: per})
+        g = torch.cos(f)  # the cotangent of sum(sin(F))
+        pbar, mbar = ens(st.pos, g, st.mass, cfg.softening, mass_grad=True)
+        for i in range(b):
+            gi = g[i].contiguous()
+            ref = one(st.pos[i], gi, st.mass[i], cfg.softening, tile=t)
+            ref_p, ref_m = one(st.pos[i], gi, st.mass[i], cfg.softening,
+                               tile=t, mass_grad=True)
+            if not (torch.equal(grad[i], ref) and torch.equal(pbar[i], ref_p)
+                    and torch.equal(mbar[i], ref_m)):
+                fail(f"grad_ensemble {backend}: system {i} is not bitwise "
+                     "its standalone VJP")
+        _, leak = ens_grad(force, st.pos, st.mass, system=0)
+        if not (leak[0].abs().max() > 0
+                and torch.equal(leak[1:], torch.zeros_like(leak[1:]))):
+            fail(f"grad_ensemble {backend}: a loss on system 0 reached "
+                 "other systems")
+        # All GENS_B systems of GENS_SMALL_N in one launch.
+        gs = torch.sin(7.0 * small.pos)
+        reset_counts()
+        bars = ens(small.pos, gs, small.mass, cfg.softening)
+        one_launch = read_counts()[counter]
+        if one_launch != 1:
+            fail(f"grad_ensemble {backend}: {b} x {GENS_SMALL_N} took "
+                 f"{one_launch} launches")
+        for i in range(b):
+            if not torch.equal(bars[i], one(small.pos[i], gs[i],
+                                            small.mass[i], cfg.softening)):
+                fail(f"grad_ensemble {backend}: system {i} of {b} x "
+                     f"{GENS_SMALL_N} is not bitwise its standalone VJP")
+        # The kernel against its plain version at GENS_CHECK_B systems.
+        k = slice(0, GENS_CHECK_B)
+        got, want = (ens_vjp_sums(mxu, small.pos[k], gs[k], small.mass[k],
+                                  mod.DEFAULT_TILE, plain=pl)
+                     for pl in (False, True))
+        if mxu:
+            check_err = close_cols(got.reshape(-1, 9), want.reshape(-1, 9),
+                                   K2_ATOL, "B9d vs bf16 plain")
+        else:
+            check_err = close_grad(got, want, K1_RTOL, K1_ATOL,
+                                   "B9c vs plain")
+        # One backward at full size, timed, and its plain version.
+        args = (st.pos, g, st.mass, cfg.softening)
+        call_ms = time_fn(ens, *args, reps=3) * 1e3
+        got = ens(*args)
+        with plain_versions():
+            plain_s, want = host_time(ens, *args)
+        bound_rt = (SYM_RTOL, SYM_ATOL) if mxu else (K1_RTOL, K1_ATOL)
+        err = close_grad(got, want, *bound_rt, f"{backend} ensemble VJP "
+                         "vs plain")
+        slots = sp.slot_table(c // t, True, False, DEV)
+        red = reduce_ms(slots, True, t, 8 if mxu else 3, c, b)
+        pairs = b * n * (n - 1) / 2
+        bnd = (bound(pairs * OPS_B13_FP32, b * n * 40.0, pairs * OPS_B13_MMA)
+               if mxu else bound(pairs * OPS_B11, b * n * 40.0))
+        out[backend] = {"seconds": seconds, "launches": launches,
+                        "tile": t, "bitwise_systems": b,
+                        "small_one_launch_bitwise": b,
+                        "check_vs_plain_max_abs_err": check_err,
+                        "backward_ms": call_ms,
+                        "backward_bound_ms": bnd["bound_ms"],
+                        "plain_ms": plain_s * 1e3,
+                        "vs_plain_max_err_of_scale": scale_err(got, want)}
+        name = ("vjp_mxu pair-once, ensemble (B9d)" if mxu
+                else "vjp_kernel pair-once, ensemble (B9c)")
+        records.append(slot_entry(
+            name, "vjp_mxu.cu" if mxu else "vjp_kernel.cu",
+            "vjp_mxu.py:430" if mxu else "vjp_kernel.py:483",
+            launches[counter], err, call_ms, red, per, plain_s * 1e3, bnd,
+            b=b, n=n, tile=t))
+    line("grad_ensemble", b=b, n=n, loss="sum(sin(F))", runs=out)
+    return records
+
+
+# ---------------------------------------------------------- resident (B15)
+
+def res_cfg(n, backend, **kw):
+    """A resident config: plummer physics (softening 1e-2, dt 1e-3, masses)
+    unless kw says otherwise."""
+    return SimConfig(n=n, **{**dict(dt=1e-3, softening=1e-2, use_masses=True,
+                                    backend=backend), **kw})
+
+
+def res_bound(mxu):
+    return RES_BF16 if mxu else RES_FP32
+
+
+def res_vs_streamed(cfg, state, what, **want):
+    """simulate with resident=True (launches held to ``want``) against
+    resident=False: bitwise, as sim.py's docstring says; returns a
+    summary."""
+    reset_counts()
+    seconds, out = host_time(simulate, cfg.replace(resident=True), state)
+    launches = read_counts()
+    expect_counts(launches, what, **want)
+    stream_s, ref = host_time(simulate, cfg.replace(resident=False), state)
+    if not (torch.equal(out.pos, ref.pos) and torch.equal(out.vel, ref.vel)):
+        fail(f"{what}: the resident run is not bitwise the streamed run "
+             f"(max err of scale: pos {scale_err(out.pos, ref.pos):.3g}, "
+             f"vel {scale_err(out.vel, ref.vel):.3g})")
+    return {"seconds": seconds, "streamed_seconds": stream_s,
+            "launches": launches, "bitwise_streamed": True}
+
+
+def end_passes(n, mxu, passes=2):
+    """The launch counts of the streamed end passes of a resident leapfrog
+    or Yoshida-4 run (one tri call of the class per pass)."""
+    tile = sm.DEFAULT_TILE if mxu else sf.DEFAULT_TILE
+    tri, cross = pass_launches(n, tile, passes)
+    return ({"slot_tri": tri, "slot_cross": cross} if mxu
+            else {"sym_tri": tri, "sym_cross": cross})
+
+
+def res_plain(s, masses, steps, dt, softening, mxu):
+    """B15's plain version on the card's tensors (bf16 mode in the bf16
+    class): (pos, vel) after ``steps`` Euler steps of one system at B15's
+    default tile and fold."""
+    n = s.pos.shape[0]
+    tile = rs.auto_tile(n)
+    pad = -(-n // tile) * tile - n
+    p = torch.cat([s.pos, s.pos.new_full((pad, 3), 1.0e18)])[None]
+    v = torch.cat([s.vel, s.vel.new_zeros((pad, 3))])[None]
+    m = torch.cat([s.mass, s.mass.new_zeros(pad)])[None] if masses else None
+    nb = p.shape[1] // tile
+    slots = sp.slot_table(nb, rs.FOLD_DEFAULT and nb >= 2, False, DEV)
+    rs.resident_plain(p, v, m, slots, tile, n, steps, dt, softening, mxu,
+                      True, mma_dtype=torch.bfloat16 if mxu else torch.float32)
+    return p[0, :n], v[0, :n]
+
+
+def res_vs_plain(s, masses, steps, dt, softening, mxu, tol, what):
+    """B15 against its plain version on one system: the change of velocity
+    and of position over the run, each within tol of its own scale.
+    Returns (max abs error of pos and vel, {change: error of scale}, the
+    plain version's seconds)."""
+    got = rs.simulate_resident_sym(s.pos, s.vel, s.mass if masses else None,
+                                   steps=steps, dt=dt, softening=softening,
+                                   mxu=mxu)
+    plain_s, want = host_time(res_plain, s, masses, steps, dt, softening, mxu)
+    errs = {}
+    for g, w, x0, name in zip(got, want, (s.pos, s.vel), ("pos", "vel")):
+        dg_, dw = g.double() - x0.double(), w.double() - x0.double()
+        close(dg_, dw, 0.0, tol, f"{what}: {name} change vs plain", floor=0.0)
+        errs[f"{name}_change"] = scale_err(dg_, dw)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    return err, errs, plain_s
+
+
+def resident_phase():
+    """B15 on its paths, in both classes (module docstring), each path with
+    every count set to 0 just before it; then B15 on config 1 against its
+    plain version, timed beside it and its bound. Returns the two
+    records."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    out, records = {}, []
+    s1 = init.uniform_random(N_CONFIG1, generator=gen, device=DEV)
+    s4k = init.plummer(N_CONFIG1, generator=gen, device=DEV)
+    s2 = init.plummer(N_CONFIG2, generator=gen, device=DEV)
+    cap = init.plummer(rs.RESIDENT_SYM_MAX_N, generator=gen, device=DEV)
+    sp_ = init.plummer(RES_PLAIN_N, generator=gen, device=DEV)
+    for backend in ("auto", "sym_mxu"):
+        mxu = backend == "sym_mxu"
+        runs = {}
+        cfg1 = SimConfig(n=N_CONFIG1, steps=STEPS_CONFIG1, dt=DT_CONFIG1,
+                         backend=backend)
+        runs["config1"] = res_vs_streamed(cfg1, s1, f"config1 {backend}",
+                                          resident=1)
+        for integ in ("leapfrog", "yoshida4"):
+            cfg = res_cfg(N_CONFIG1, backend, steps=RES_LONG_STEPS,
+                          integrator=integ)
+            runs[integ] = res_vs_streamed(
+                cfg, s4k, f"{integ} {backend}", resident=1,
+                **end_passes(N_CONFIG1, mxu))
+        runs["config2"] = res_vs_streamed(
+            res_cfg(N_CONFIG2, backend, steps=RES_CONFIG2_STEPS), s2,
+            f"config2 {backend}", resident=1)
+        runs["cap"] = res_vs_streamed(
+            res_cfg(rs.RESIDENT_SYM_MAX_N, backend, steps=RES_CAP_STEPS),
+            cap, f"cap {backend}", resident=1)
+        # Reruns and a split Yoshida-4 phase, bitwise.
+        cycle, _ = rs.y4_cycle(1e-3)
+        kw = dict(dt=1e-3, softening=1e-2, mxu=mxu, y4=cycle)
+        one = rs.simulate_resident_sym(s4k.pos, s4k.vel, s4k.mass, steps=8,
+                                       **kw)
+        again = rs.simulate_resident_sym(s4k.pos, s4k.vel, s4k.mass,
+                                         steps=8, **kw)
+        p, v = s4k.pos, s4k.vel
+        for start, k in ((0, 3), (3, 4), (7, 1)):
+            p, v = rs.simulate_resident_sym(p, v, s4k.mass, steps=k,
+                                            y4_phase=start, **kw)
+        if not all(torch.equal(a, b) for a, b in ((one[0], again[0]),
+                                                  (one[1], again[1]),
+                                                  (p, one[0]), (v, one[1]))):
+            fail(f"resident {backend}: reruns or a split Yoshida-4 phase "
+                 "are not bitwise one run")
+        # C4: a ragged N whose pads sit in a fold, coincident 'fast'.
+        n4 = N_CONFIG1 - 96  # at tile 128 the pads sit in block 31, folded
+        kw = dict(steps=20, dt=1e-3, softening=1e-9, mxu=mxu, tile=128,
+                  fold=True)
+        fast = rs.simulate_resident_sym(s1.pos[:n4], s1.vel[:n4], None,
+                                        coincident="fast", **kw)
+        masked = rs.simulate_resident_sym(s1.pos[:n4], s1.vel[:n4], None,
+                                          coincident="masked", **kw)
+        for a, b in zip(fast, masked):
+            close(a, b, *res_bound(mxu), f"C4 fast fold {backend}")
+        # B15 against its plain version: config 1 (one step and the run),
+        # and plummer bodies with masses.
+        vs_plain = {}
+        for case, (s, masses, steps, dt, soft) in {
+                "config1_1step": (s1, False, 1, DT_CONFIG1, SOFTENING),
+                "config1": (s1, False, STEPS_CONFIG1, DT_CONFIG1, SOFTENING),
+                "plummer": (sp_, True, RES_PLAIN_STEPS, 1e-3, 1e-2)}.items():
+            vs_plain[case] = res_vs_plain(s, masses, steps, dt, soft, mxu,
+                                          RES_PLAIN_TOL[case][mxu],
+                                          f"B15 {backend} {case}")
+        err, _, plain_s = vs_plain["config1"]
+
+        # Timed on config 1.
+        def config1():
+            return rs.simulate_resident_sym(s1.pos, s1.vel, None,
+                                            steps=STEPS_CONFIG1,
+                                            dt=DT_CONFIG1, mxu=mxu)
+
+        ms = time_fn(config1, reps=3) * 1e3
+        n = float(N_CONFIG1)
+        pairs = STEPS_CONFIG1 * n * (n - 1) / 2
+        bnd = (bound(pairs * OPS_K2_FP32, n * BYTES_B15, pairs * OPS_K2_MMA)
+               if mxu else bound(pairs * OPS_B15, n * BYTES_B15))
+        runs.update(fold_c4_finite=True, config1_launch_ms=ms,
+                    config1_plain_ms=plain_s * 1e3,
+                    vs_plain={k: {"max_abs_err": e, "err_of_scale": sc}
+                              for k, (e, sc, _) in vs_plain.items()})
+        out[backend] = runs
+        records.append(entry(
+            f"resident_sym {'bf16' if mxu else 'fp32'} class (B15)",
+            "resident_sym.cu", "resident_sym.py:441",
+            runs["config1"]["launches"]["resident"], err, ms, plain_s * 1e3,
+            bnd, n=N_CONFIG1, steps=STEPS_CONFIG1, tile=rs.auto_tile(
+                N_CONFIG1), per="launch (a whole trajectory)"))
+    out["sweep"] = resident_sweep()
+    line("resident", runs=out)
+    return records
+
+
+def resident_sweep():
+    """examples/parameter_sweep.py at its defaults on the resident ensemble
+    (one B15 launch and two B9a end passes): systems 0 and B - 1 bitwise
+    their standalone resident runs at the ensemble's tiles, and the sweep
+    bitwise the streamed ensemble."""
+    b, n = SWEEP_B, SWEEP_N
+    st, q, cfg = sweep_case()
+    cfg = cfg.replace(resident=True)
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    reset_counts()
+    seconds, res = host_time(simulate_ensemble, cfg, st)
+    launches = read_counts()
+    expect_counts(launches, "resident sweep", resident=1,
+                  slot_ensemble=2 * per_call(tri_slots(c, t), b))
+    for i in (0, b - 1):
+        one = BodyState(pos=st.pos[i], vel=st.vel[i], mass=st.mass[i])
+        ref = simulate(cfg.replace(sym_tile=t, sym_chunk=c), one)
+        if not (torch.equal(res.pos[i], ref.pos)
+                and torch.equal(res.vel[i], ref.vel)):
+            fail(f"resident sweep: system {i} is not bitwise its standalone "
+                 "resident run")
+    stream_s, ref = host_time(simulate_ensemble, cfg.replace(resident=False),
+                              st)
+    if not (torch.equal(res.pos, ref.pos) and torch.equal(res.vel, ref.vel)):
+        fail("resident sweep: not bitwise the streamed ensemble (max err of "
+             f"scale {scale_err(res.pos, ref.pos):.3g})")
+    e0 = dg.total_energy_ensemble(st, SWEEP_SOFT)
+    drift = ((dg.total_energy_ensemble(res, SWEEP_SOFT) - e0) / e0).abs()
+    return {"b": b, "n": n, "steps": SWEEP_STEPS, "seconds": seconds,
+            "streamed_seconds": stream_s, "launches": launches,
+            "bitwise_systems": [0, b - 1], "bitwise_streamed": True,
+            "max_energy_drift": drift.max().item()}
+
+
+# -------------------------------------------------- resident_crossover
+
+def per_step_ms(variants, steps):
+    """Median host ms per step of each variant (a callable running
+    ``steps`` steps): one warm-up each, then CROSS_REPS turns, the order
+    rotated each turn."""
+    for fn in variants.values():
+        fn()
+    times = {k: [] for k in variants}
+    keys = list(variants)
+    for r in range(CROSS_REPS):
+        for k in keys[r % len(keys):] + keys[:r % len(keys)]:
+            times[k].append(host_time(variants[k])[0] * 1e3 / steps)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def crossover(rows, key):
+    """The largest measured size from which down every smaller measured
+    size had B15 (at the fold default) faster than the streamed loop; None
+    if it lost at the smallest."""
+    best = None
+    for size, t in rows:
+        if t[key] >= t["streamed"]:
+            break
+        best = size
+    return best
+
+
+def first_won(rows, max_n):
+    """The fewest steps k of CROSS_SHORT_STEPS from which on the resident
+    route won every measured short run of at most max_n bodies per system
+    (rows: {(label, n, k): {"resident", "streamed"}}); None if it lost at
+    the longest."""
+    best = None
+    for k in sorted(CROSS_SHORT_STEPS, reverse=True):
+        if any(t["resident"] >= t["streamed"]
+               for (_, n, kk), t in rows.items() if kk == k and n <= max_n):
+            break
+        best = k
+    return best
+
+
+def short_runs(backend, gen):
+    """Whole simulate and simulate_ensemble calls of CROSS_SHORT_STEPS
+    steps of each integrator, resident=True against resident=False (median
+    ms per call), up to CROSS_SHORT_MAX_N and CROSS_SHORT_MAX_ENS_N; per
+    integrator, the fewest steps from which the resident route won every
+    run at the sizes sim.py routes."""
+    eff = "sym" if backend == "auto" else backend
+    out = {}
+    for integ in ("euler", "leapfrog", "yoshida4"):
+        single, ens = {}, {}
+        cases = ([(str(n), n, None) for n in CROSS_NS
+                  if n <= CROSS_SHORT_MAX_N]
+                 + [(f"{b}x{n}", n, b) for b, n in CROSS_ENS
+                    if n <= CROSS_SHORT_MAX_ENS_N])
+        for label, n, b in cases:
+            if b is None:
+                st, run, rows = (init.uniform_random(n, generator=gen,
+                                                     device=DEV),
+                                 simulate, single)
+            else:
+                pos = torch.rand((b, n, 3), generator=gen, device=DEV) * 2 - 1
+                st, run, rows = (BodyState(pos=pos, vel=torch.zeros_like(pos),
+                                           mass=torch.ones((b, n),
+                                                           device=DEV)),
+                                 simulate_ensemble, ens)
+            for k in CROSS_SHORT_STEPS:
+                cfg = SimConfig(n=n, steps=k, dt=1e-4, backend=backend,
+                                integrator=integ)
+                rows[label, n, k] = per_step_ms({
+                    "resident": lambda: run(cfg.replace(resident=True), st),
+                    "streamed": lambda: run(cfg.replace(resident=False),
+                                            st)}, 1)
+        out[integ] = {
+            "single_ms_per_call": {f"{lb} {k}": t
+                                   for (lb, _, k), t in single.items()},
+            "ensemble_ms_per_call": {f"{lb} {k}": t
+                                     for (lb, _, k), t in ens.items()},
+            "single_won_from_steps": first_won(
+                single, tsim.RESIDENT_AUTO_MAX_N[eff]),
+            "ensemble_won_from_steps": first_won(
+                ens, tsim.RESIDENT_ENSEMBLE_AUTO_MAX_N[eff])}
+    return out
+
+
+def resident_crossover_phase():
+    """ms per Euler step of B15 with fold on and off against the streamed
+    loop (K3 or K2 per pass plus the integrate), one system at each N of
+    CROSS_NS and ensembles at CROSS_ENS against B9b / B9a, in both classes
+    (uniform bodies, unit masses, dt 1e-4); the crossovers and where fold
+    wins; then the short runs (short_runs); beside the values sim.py routes
+    by."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    out = {}
+    steps = CROSS_STEPS
+    dflt = "fold" if rs.FOLD_DEFAULT else "nofold"
+    for backend in ("auto", "sym_mxu"):
+        mxu = backend == "sym_mxu"
+        single, ens = [], []
+        for n in CROSS_NS:
+            s = init.uniform_random(n, generator=gen, device=DEV)
+            cfg = SimConfig(n=n, steps=steps, dt=1e-4, backend=backend,
+                            resident=False)
+            kw = dict(steps=steps, dt=1e-4, softening=cfg.softening, mxu=mxu)
+            single.append((n, per_step_ms({
+                "streamed": lambda: simulate(cfg, s),
+                "fold": lambda: rs.simulate_resident_sym(
+                    s.pos, s.vel, None, fold=True, **kw),
+                "nofold": lambda: rs.simulate_resident_sym(
+                    s.pos, s.vel, None, fold=False, **kw)}, steps)))
+        for b, n in CROSS_ENS:
+            pos = torch.rand((b, n, 3), generator=gen, device=DEV) * 2 - 1
+            st = BodyState(pos=pos, vel=torch.zeros_like(pos),
+                           mass=torch.ones((b, n), device=DEV))
+            cfg = SimConfig(n=n, steps=steps, dt=1e-4, backend=backend,
+                            resident=False)
+            kw = dict(steps=steps, dt=1e-4, softening=cfg.softening, mxu=mxu)
+            ens.append(((b, n), per_step_ms({
+                "streamed": lambda: simulate_ensemble(cfg, st),
+                "fold": lambda: rs.simulate_resident_sym_ensemble(
+                    st.pos, st.vel, None, fold=True, **kw),
+                "nofold": lambda: rs.simulate_resident_sym_ensemble(
+                    st.pos, st.vel, None, fold=False, **kw)}, steps)))
+        fold_wins = [size for size, t in single + ens
+                     if t["fold"] < t["nofold"]]
+        ens_cross = crossover(ens, dflt)
+        out[backend] = {
+            "single_ms_per_step": {n: t for n, t in single},
+            "ensemble_ms_per_step": {f"{b}x{n}": t for (b, n), t in ens},
+            "crossover_n": crossover(single, dflt),
+            "ensemble_crossover_n": None if ens_cross is None else
+            ens_cross[1],
+            "fold_faster_at": [str(x) for x in fold_wins],
+            "sim_routes_up_to": tsim.RESIDENT_AUTO_MAX_N.get(
+                "sym" if backend == "auto" else backend),
+            "sim_routes_ensembles_up_to": tsim.RESIDENT_ENSEMBLE_AUTO_MAX_N
+            .get("sym" if backend == "auto" else backend),
+            "short_runs": short_runs(backend, gen),
+            "sim_routes_from_steps": tsim.RESIDENT_AUTO_MIN_STEPS}
+    line("resident_crossover", steps=steps, reps=CROSS_REPS,
+         fold_default=rs.FOLD_DEFAULT, classes=out)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -2077,12 +2659,15 @@ def main(argv=None):
     b9b = ensemble_fp32_phase()
     trajectory_phase()
     coincident_gate_phase(rng)
+    b9cd = grad_ensemble_phase()
+    b15 = resident_phase()
+    resident_crossover_phase()
     kernels = (times_phase(state, launches, k1_err, cfg_sym, cfg_dir)
                + time_k3(state, auto_launches, cfg_auto)
                + time_k4(state3, state, c3_launches)
                + time_k5(state2, c2_launches) + [b10, b11] + mxu_records
                + [time_b6(state3, c3_mxu_launches, mxu_pass_s), b4, b9a,
-                  b9b])
+                  b9b] + b9cd + b15)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on its path")

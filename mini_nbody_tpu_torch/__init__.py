@@ -11,7 +11,8 @@ package, which stays the reference the port is tested against.
 from mini_nbody_tpu_torch.utils.config import SimConfig
 from mini_nbody_tpu_torch.models.state import BodyState
 from mini_nbody_tpu_torch.models import init
-from mini_nbody_tpu_torch.ops.autodiff import make_differentiable_force
+from mini_nbody_tpu_torch.ops.autodiff import (
+    make_differentiable_ensemble_force, make_differentiable_force)
 from mini_nbody_tpu_torch.ops.force import body_force, make_force_fn
 from mini_nbody_tpu_torch.sim import (make_rollout_fn, make_step_fn, simulate,
                                       simulate_ensemble, trajectory,
@@ -25,6 +26,7 @@ __all__ = [
     "init",
     "body_force",
     "make_force_fn",
+    "make_differentiable_ensemble_force",
     "make_differentiable_force",
     "make_rollout_fn",
     "make_step_fn",

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
 ``sm_90a`` (all started together), and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, never at import, and writes to ``build/mini_nbody_tpu_torch/`` next
-to the package; the file name carries a hash of the sources and flags, so a
-changed source builds a new library and an unchanged one is reused.
+to the package; the file name carries a hash of the sources, the headers
+(``csrc/*.cuh``) and the flags, so a changed source builds a new library and
+an unchanged one is reused.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
 turns a non-zero code into an exception.
@@ -61,14 +62,14 @@ SIGNATURES = {
     # out, softening, overlap_only, block, stream
     "vjp_ordered_launch": ([_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _I, _I,
                             _P], _I),
-    # slots, n_slots, pos_a, pos_b, g_a, g_b, part, k, ko, tile, softening,
-    # mask_offdiag, stream
-    "vjp_sym_launch": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-                       _I),
-    # slots, n_slots, pos_a, pos_b, g_a, g_b, q_a, q_b, part, masses, ko,
+    # slots, n_slots, n_sys, sys_rows, pos_a, pos_b, g_a, g_b, part, k, ko,
     # tile, softening, mask_offdiag, stream
-    "vjp_mxu_launch": ([_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+    "vjp_sym_launch": ([_P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                         _I, _P], _I),
+    # slots, n_slots, n_sys, sys_rows, pos_a, pos_b, g_a, g_b, q_a, q_b, part,
+    # masses, ko, tile, softening, mask_offdiag, stream
+    "vjp_mxu_launch": ([_P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _F, _I, _P], _I),
     # pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows, masses, tile, softening,
     # overlap_only, stream
     "vjp_rect_mxu_launch": ([_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _I,
@@ -76,6 +77,12 @@ SIGNATURES = {
     # pos_i, ni, pos_j, mass_j (or NULL), nj, out, sums (or NULL), softening,
     # overlap_only, bf16, stream
     "mxu_force_launch": ([_P, _I, _P, _P, _I, _P, _P, _F, _I, _I, _P], _I),
+    # slots, pieces, n_pieces, targets, entries, pos, vel, mass (or NULL), q,
+    # acc, part, n_sys, np, n_real, steps, dt, softening, fast, mask_offdiag,
+    # y4c (9 host floats or NULL), y4_phase, tile, mxu, k, stream
+    "resident_sym_launch": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _L, _I, _I, _F, _F, _I, _I, _P, _I, _I, _I, _I,
+                             _P], _I),
     "nbody_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -131,7 +138,7 @@ def load_library() -> ctypes.CDLL:
     global BUILD_SECONDS, BUILD_LOG
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libnbody_kernels_{h.hexdigest()[:16]}.so"

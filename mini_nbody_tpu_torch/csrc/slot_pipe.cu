@@ -37,7 +37,9 @@
 // costs no second rsqrt). The products are tiny (N = 8) and the tensor cores
 // idle most of the time.
 //
-// Design: W for the whole T x T slot tile is computed by all 256 threads into
+// Design (the slot body is slot_body::mxu_slot in csrc/slot_body.cuh, which
+// B15 shares): W for the whole T x T slot tile is computed by all 256
+// threads into
 // shared memory (bf16, rows padded to T + 8 to spread banks), then each warp
 // owns one 32-row output tile of one side and runs m32n8k16 wmma products
 // over the tile's K = T columns. The Pallas grid's sequential carry of the
@@ -65,27 +67,14 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "slot_body.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kSlotDiag = 0;
-constexpr int kSlotFold = 2;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
+// The slot body is slot_body::mxu_slot, which B15 shares.
 template <int T, bool kSplit>
-constexpr size_t smem_bytes() {
-  constexpr int kParts = kSplit ? 2 : 1;
-  return 2 * kParts * T * (T + 8) * sizeof(__nv_bfloat16)  // W tiles
-         + 2 * T * 8 * sizeof(__nv_bfloat16)               // v_a, v_b
-         + 6 * T * sizeof(float);                          // positions
-}
-
-template <int T, bool kSplit>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(slot_body::kMxuThreads)
     slot_pipe_kernel(const int* __restrict__ slots,
                      const float* __restrict__ pos_a,
                      const float* __restrict__ pos_b,
@@ -93,129 +82,16 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ v_b, float* part,
                      long long sys_rows, float softening, int fast,
                      int mask_offdiag) {
-  constexpr int LD = T + 8;
-  constexpr int kParts = kSplit ? 2 : 1;
-  constexpr int kTile = T * LD;
-  constexpr int kMTiles = T / 32;
-  static_assert(2 * kMTiles <= kWarps, "one warp per 32-row output tile");
-
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* W = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Va = W + 2 * kParts * kTile;
-  __nv_bfloat16* Vb = Va + T * 8;
-  float* xa = reinterpret_cast<float*>(Vb + T * 8);
-  float* ya = xa + T;
-  float* za = ya + T;
-  float* xb = za + T;
-  float* yb = xb + T;
-  float* zb = yb + T;
-
   const int kind = slots[3 * blockIdx.x];
   const int bi = slots[3 * blockIdx.x + 1];
   const int bj = slots[3 * blockIdx.x + 2];
-  const bool fold = kind == kSlotFold;
-  const bool mask = kind == kSlotDiag || mask_offdiag;
   const long long sys = blockIdx.y;
-  pos_a += sys * sys_rows * 3;
-  pos_b += sys * sys_rows * 3;
-  v_a += sys * sys_rows * 8;
-  v_b += sys * sys_rows * 8;
-
-  const float* pa = pos_a + static_cast<size_t>(bi) * T * 3;
-  const float* pb = pos_b + static_cast<size_t>(bj) * T * 3;
-  for (int t = threadIdx.x; t < T * 3; t += kThreads) {
-    const int r = t / 3, k = t - 3 * (t / 3);
-    xa[k * T + r] = pa[t];
-    xb[k * T + r] = pb[t];
-  }
-  const float* va = v_a + static_cast<size_t>(bi) * T * 8;
-  const float* vb = v_b + static_cast<size_t>(bj) * T * 8;
-  for (int t = threadIdx.x; t < T * 8; t += kThreads) {
-    Va[t] = __float2bfloat16_rn(va[t]);
-    Vb[t] = __float2bfloat16_rn(vb[t]);
-  }
-  __syncthreads();
-
-  // Pair weights. Tile 0 holds W (DIAG, CROSS) or W_lo (FOLD); tile 1 holds
-  // W_hi (FOLD only).
-  for (int e = threadIdx.x; e < T * T; e += kThreads) {
-    const int r = e / T, c = e % T;
-    const bool upper = fold && c > r;
-    float dx, dy, dz;
-    if (!fold) {
-      dx = xb[c] - xa[r];
-      dy = yb[c] - ya[r];
-      dz = zb[c] - za[r];
-    } else if (upper) {
-      dx = xb[c] - xb[r];
-      dy = yb[c] - yb[r];
-      dz = zb[c] - zb[r];
-    } else {
-      dx = xa[c] - xa[r];
-      dy = ya[c] - ya[r];
-      dz = za[c] - za[r];
-    }
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    const float r2 = d2 + softening;
-    float w;
-    if (fast) {
-      w = rsqrtf((r2 * r2) * r2);
-    } else {
-      const float inv = rsqrtf(r2);
-      w = (inv * inv) * inv;
-    }
-    if ((fold && r == c) || (mask && d2 == 0.f)) w = 0.f;
-    const __nv_bfloat16 hi = __float2bfloat16_rn(w);
-    __nv_bfloat16* dst = W + (upper ? kParts * kTile : 0) + r * LD + c;
-    dst[0] = hi;
-    if (kSplit) dst[kTile] = __float2bfloat16_rn(w - __bfloat162float(hi));
-    if (fold) {
-      __nv_bfloat16* other = W + (upper ? 0 : kParts * kTile) + r * LD + c;
-      other[0] = __float2bfloat16_rn(0.f);
-      if (kSplit) other[kTile] = __float2bfloat16_rn(0.f);
-    }
-  }
-  __syncthreads();
-
-  // Warp -> (side, 32-row output tile). Side 0's partial belongs to block bi
-  // of side a, side 1's to block bj of side b.
-  const int warp = threadIdx.x / 32;
-  const int side = warp / kMTiles, m = warp % kMTiles;
-  if (side > 1 || (kind == kSlotDiag && side == 1)) return;
-  const bool rows = fold || side == 0;  // W @ v
-  const bool cols = fold || side == 1;  // W^T @ v
-  const __nv_bfloat16* Wt = W + (fold && side == 1 ? kParts * kTile : 0);
-  // FOLD: each side multiplies its own block's v; DIAG/CROSS: rows take
-  // v_b (the column bodies), reactions v_a (the row bodies).
-  const __nv_bfloat16* V = ((side == 0) == fold) ? Va : Vb;
-
-  wmma::fragment<wmma::accumulator, 32, 8, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int p = 0; p < kParts; ++p) {
-    const __nv_bfloat16* Wp = Wt + p * kTile;
-#pragma unroll 2
-    for (int k = 0; k < T / 16; ++k) {
-      wmma::fragment<wmma::matrix_b, 32, 8, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(b, V + k * 16 * 8, 8);
-      if (rows) {
-        wmma::fragment<wmma::matrix_a, 32, 8, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, Wp + m * 32 * LD + k * 16, LD);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      if (cols) {
-        wmma::fragment<wmma::matrix_a, 32, 8, 16, __nv_bfloat16,
-                       wmma::col_major> at;
-        wmma::load_matrix_sync(at, Wp + k * 16 * LD + m * 32, LD);
-        wmma::mma_sync(acc, at, b, acc);
-      }
-    }
-  }
-  const long long tile = (sys * gridDim.x + blockIdx.x) * 2 + side;
-  wmma::store_matrix_sync(part + tile * T * 8 + m * 32 * 8, acc, 8,
-                          wmma::mem_row_major);
+  float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * 8;
+  slot_body::mxu_slot<T, kSplit, false>(
+      kind, bi, bj, pos_a + sys * sys_rows * 3, pos_b + sys * sys_rows * 3,
+      v_a + sys * sys_rows * 8, v_b + sys * sys_rows * 8, out, softening,
+      fast, mask_offdiag, 0, smem);
 }
 
 template <int T, bool kSplit>
@@ -223,15 +99,15 @@ int launch(const int* slots, int n_slots, int n_sys, long long sys_rows,
            const float* pos_a, const float* pos_b, const float* v_a,
            const float* v_b, float* part, float softening, int fast,
            int mask_offdiag, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, kSplit>();
+  constexpr size_t smem = slot_body::mxu_smem_bytes<T, kSplit>();
   cudaError_t err = cudaFuncSetAttribute(
       slot_pipe_kernel<T, kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  slot_pipe_kernel<T, kSplit><<<dim3(n_slots, n_sys), kThreads, smem,
-                                 stream>>>(slots, pos_a, pos_b, v_a, v_b,
-                                           part, sys_rows, softening, fast,
-                                           mask_offdiag);
+  slot_pipe_kernel<T, kSplit>
+      <<<dim3(n_slots, n_sys), slot_body::kMxuThreads, smem, stream>>>(
+          slots, pos_a, pos_b, v_a, v_b, part, sys_rows, softening, fast,
+          mask_offdiag);
   return static_cast<int>(cudaGetLastError());
 }
 

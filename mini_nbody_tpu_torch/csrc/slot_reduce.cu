@@ -30,10 +30,11 @@
 
 #include <cuda_runtime.h>
 
+#include "slot_body.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 8;
 
 __global__ void __launch_bounds__(kThreads)
     slot_reduce_kernel(const float* __restrict__ part, int tile_elems,
@@ -50,20 +51,8 @@ __global__ void __launch_bounds__(kThreads)
   float* acc = ((target & 1) ? acc_b : acc_a) + sys * sys_acc_stride +
                static_cast<long long>(target >> 1) * tile_elems;
   const float* base = part + sys * sys_part_tiles * tile_elems + i;
-  const int e1 = offsets[t + 1];
-  int e = offsets[t];
-  float s = 0.f;
-  for (; e + kUnroll <= e1; e += kUnroll) {
-    float v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      v[u] = base[static_cast<long long>(entries[e + u]) * tile_elems];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) s += v[u];
-  }
-  for (; e < e1; ++e)
-    s += base[static_cast<long long>(entries[e]) * tile_elems];
-  acc[i] += s;
+  acc[i] += slot_body::ordered_sum(base, entries, offsets[t], offsets[t + 1],
+                                   tile_elems);
 }
 
 }  // namespace

@@ -33,7 +33,9 @@
 // JAX's mass mode recomputes it (symmetric_force.py:77-92). Shared memory
 // carries one 4-byte store and two 4-byte loads per pair.
 //
-// Design (simple first): stage block bi and block bj (x, y, z[, m]) in shared
+// Design (simple first; the slot body is slot_body::fp32_slot in
+// csrc/slot_body.cuh, which B15 shares): stage block bi and block bj (x, y,
+// z[, m]) in shared
 // memory, compute the T x T w tile once into shared memory (rows padded to
 // T + 1 floats, so both the row pass, one thread per row, and the column
 // pass, one thread per column, read it without bank conflicts), then run the
@@ -68,148 +70,35 @@
 
 #include <cuda_runtime.h>
 
+#include "slot_body.cuh"
+
 namespace {
 
-constexpr int kSlotDiag = 0;
-constexpr int kSlotFold = 2;
-
-template <int T>
-constexpr size_t smem_bytes() {
-  return (T * (T + 1) + 8 * T) * sizeof(float);  // w tile + two 4 x T blocks
-}
-
-// f += sum over c in [c0, c1) of (Q[c] - P[r]) w(r, c) [* m_Q[c]]: the row
-// sums of body P[r] against partners Q[c]. P, Q: 4 x T (x, y, z, m).
-template <int T, bool kMass>
-__device__ __forceinline__ void row_sums(const float* Wr, const float* P,
-                                         const float* Q, int r, int c0,
-                                         int c1, float* f) {
-  const float x = P[r], y = P[T + r], z = P[2 * T + r];
-  for (int c = c0; c < c1; ++c) {
-    float w = Wr[c];
-    if (kMass) w *= Q[3 * T + c];
-    f[0] += (Q[c] - x) * w;
-    f[1] += (Q[T + c] - y) * w;
-    f[2] += (Q[2 * T + c] - z) * w;
-  }
-}
-
-// g += sum over r in [r0, r1) of (Q[c] - P[r]) w(r, c) [* m_P[r]]: the
-// reaction sums of body Q[c] (to be subtracted) against partners P[r].
-template <int T, bool kMass>
-__device__ __forceinline__ void col_sums(const float* W, const float* P,
-                                         const float* Q, int c, int r0,
-                                         int r1, float* g) {
-  constexpr int LD = T + 1;
-  const float x = Q[c], y = Q[T + c], z = Q[2 * T + c];
-  for (int r = r0; r < r1; ++r) {
-    float w = W[r * LD + c];
-    if (kMass) w *= P[3 * T + r];
-    g[0] += (x - P[r]) * w;
-    g[1] += (y - P[T + r]) * w;
-    g[2] += (z - P[2 * T + r]) * w;
-  }
-}
-
 // pos_a / pos_b: (c, K) rows (x, y, z[, m]); part: 2 (T, 3) tiles per slot
-// and system.
+// and system. The slot body is slot_body::fp32_slot, which B15 shares.
 template <int T, int K, bool kFast>
 __global__ void __launch_bounds__(2 * T)
     symmetric_force_kernel(const int* __restrict__ slots,
                            const float* __restrict__ pos_a,
                            const float* __restrict__ pos_b, float* part,
                            long long sys_rows, float softening) {
-  constexpr int LD = T + 1;
-  constexpr bool kMass = K == 4;
   extern __shared__ float smem[];
-  float* W = smem;          // T x LD
-  float* pa = W + T * LD;   // 4 x T, block bi
-  float* pb = pa + 4 * T;   // 4 x T, block bj
-
   const int kind = slots[3 * blockIdx.x];
   const int bi = slots[3 * blockIdx.x + 1];
   const int bj = slots[3 * blockIdx.x + 2];
-  const bool fold = kind == kSlotFold;
   const long long sys = blockIdx.y;
-  pos_a += sys * sys_rows * K;
-  pos_b += sys * sys_rows * K;
   // Side 0's tile (block bi), then side 1's (block bj).
   float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * 3;
-
-  const float* ga = pos_a + static_cast<size_t>(bi) * T * K;
-  const float* gb = pos_b + static_cast<size_t>(bj) * T * K;
-  for (int t = threadIdx.x; t < T * K; t += 2 * T) {
-    const int r = t / K, k = t - K * (t / K);
-    pa[k * T + r] = ga[t];
-    pb[k * T + r] = gb[t];
-  }
-  __syncthreads();
-
-  // w once per (r, c). Rows are block a and columns block b, except in a
-  // fold, where both are block a below the diagonal and block b above it.
-  for (int e = threadIdx.x; e < T * T; e += 2 * T) {
-    const int r = e / T, c = e % T;
-    const float* P = (fold && c > r) ? pb : pa;
-    const float* Q = fold ? P : pb;
-    const float dx = Q[c] - P[r];
-    const float dy = Q[T + c] - P[T + r];
-    const float dz = Q[2 * T + c] - P[2 * T + r];
-    const float r2 = dx * dx + dy * dy + (dz * dz + softening);
-    float w;
-    if (kFast) {
-      w = rsqrtf((r2 * r2) * r2);
-    } else {
-      const float inv = rsqrtf(r2);
-      w = (inv * inv) * inv;
-    }
-    W[r * LD + c] = w;
-  }
-  __syncthreads();
-
-  float s[3] = {0.f, 0.f, 0.f}, s2[3] = {0.f, 0.f, 0.f};
-  if (!fold) {
-    if (threadIdx.x < T) {  // row pass
-      const int r = threadIdx.x;
-      row_sums<T, kMass>(W + r * LD, pa, pb, r, 0, T, s);
-      for (int k = 0; k < 3; ++k) out[r * 3 + k] = s[k];
-    } else if (kind != kSlotDiag) {  // column pass
-      const int c = threadIdx.x - T;
-      col_sums<T, kMass>(W, pa, pb, c, 0, T, s);
-      for (int k = 0; k < 3; ++k) out[(T + c) * 3 + k] = -s[k];
-    }
-    return;
-  }
-  // FOLD: the row pass stores both sides' row sums, then the column pass
-  // adds its sums to the same tiles.
-  if (threadIdx.x < T) {
-    const int r = threadIdx.x;
-    const float* Wr = W + r * LD;
-    row_sums<T, kMass>(Wr, pa, pa, r, 0, r, s);
-    row_sums<T, kMass>(Wr, pb, pb, r, r + 1, T, s2);
-    for (int k = 0; k < 3; ++k) {
-      out[r * 3 + k] = s[k];
-      out[(T + r) * 3 + k] = s2[k];
-    }
-  } else {
-    const int c = threadIdx.x - T;
-    col_sums<T, kMass>(W, pa, pa, c, c + 1, T, s);
-    col_sums<T, kMass>(W, pb, pb, c, 0, c, s2);
-  }
-  __syncthreads();
-  if (threadIdx.x >= T) {
-    const int c = threadIdx.x - T;
-    for (int k = 0; k < 3; ++k) {
-      out[c * 3 + k] -= s[k];
-      out[(T + c) * 3 + k] -= s2[k];
-    }
-  }
+  slot_body::fp32_slot<T, K, kFast, false>(
+      kind, bi, bj, pos_a + sys * sys_rows * K, pos_b + sys * sys_rows * K,
+      out, softening, 0, smem);
 }
 
 template <int T, int K, bool kFast>
 int launch(const int* slots, int n_slots, int n_sys, long long sys_rows,
            const float* pos_a, const float* pos_b, float* part,
            float softening, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T>();
+  constexpr size_t smem = slot_body::fp32_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       symmetric_force_kernel<T, K, kFast>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -46,7 +46,15 @@
 // and csrc/slot_reduce.cu adds each block's partials in slot order, so every
 // output bit is the same on every run. The TPU's single-launch bound (the
 // (3|4, N) VMEM reaction buffer, _SYM_BWD_MAX = 131072) does not apply: the
-// wrapper keeps K3's chunk loop. Pads are FAR with zero mass and
+// wrapper keeps K3's chunk loop.
+//
+// B9c: blockIdx.y is the system of an ensemble launch, which replaces
+// vjp_kernel.py:483 `_vjp_sym_ensemble_impl` (`pallas_call` :527, B11's
+// kernel under a leading system axis). Every system runs the same
+// system-local slot list over its own rows, sys_rows rows after the previous
+// system's; a standalone call is the same kernel with one system, so each
+// system's sums are bitwise its standalone call's. gridDim.y is at most
+// 65,535. Pads are FAR with zero mass and
 // zero cotangent: real-vs-pad terms are exactly 0 and pad-pad terms are
 // w (0 - 0) + 0 d = 0.
 //
@@ -286,7 +294,7 @@ __global__ void __launch_bounds__(2 * T)
                    const float* __restrict__ pos_b,
                    const float* __restrict__ g_a,
                    const float* __restrict__ g_b, float* part,
-                   float softening, int mask_offdiag) {
+                   long long sys_rows, float softening, int mask_offdiag) {
   constexpr int LD = T + 1;
   constexpr bool kMass = K == 4;
   constexpr bool kMassGrad = KO == 4;
@@ -301,8 +309,13 @@ __global__ void __launch_bounds__(2 * T)
   const int bi = slots[3 * blockIdx.x + 1];
   const int bj = slots[3 * blockIdx.x + 2];
   const bool fold = kind == kSlotFold;
+  const long long sys = blockIdx.y;
+  pos_a += sys * sys_rows * K;
+  pos_b += sys * sys_rows * K;
+  g_a += sys * sys_rows * 3;
+  g_b += sys * sys_rows * 3;
   // Side 0's tile (block bi), then side 1's (block bj).
-  float* out = part + static_cast<size_t>(blockIdx.x) * 2 * T * KO;
+  float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * KO;
 
   const float* pa = pos_a + static_cast<size_t>(bi) * T * K;
   const float* pb = pos_b + static_cast<size_t>(bj) * T * K;
@@ -385,34 +398,33 @@ __global__ void __launch_bounds__(2 * T)
 }
 
 template <int T, int K, int KO>
-int launch_sym(const int* slots, int n_slots, const float* pos_a,
-               const float* pos_b, const float* g_a, const float* g_b,
-               float* part, float softening, int mask_offdiag,
-               cudaStream_t stream) {
+int launch_sym(const int* slots, int n_slots, int n_sys, long long sys_rows,
+               const float* pos_a, const float* pos_b, const float* g_a,
+               const float* g_b, float* part, float softening,
+               int mask_offdiag, cudaStream_t stream) {
   constexpr size_t smem = sym_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       vjp_sym_kernel<T, K, KO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  vjp_sym_kernel<T, K, KO><<<n_slots, 2 * T, smem, stream>>>(
-      slots, pos_a, pos_b, g_a, g_b, part, softening, mask_offdiag);
+  vjp_sym_kernel<T, K, KO><<<dim3(n_slots, n_sys), 2 * T, smem, stream>>>(
+      slots, pos_a, pos_b, g_a, g_b, part, sys_rows, softening,
+      mask_offdiag);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int T>
-int dispatch_sym(const int* slots, int n_slots, const float* pos_a,
-                 const float* pos_b, const float* g_a, const float* g_b,
-                 float* part, int k, int ko, float softening,
-                 int mask_offdiag, cudaStream_t s) {
-  if (k == 3 && ko == 3)
-    return launch_sym<T, 3, 3>(slots, n_slots, pos_a, pos_b, g_a, g_b, part,
-                               softening, mask_offdiag, s);
-  if (k == 4 && ko == 3)
-    return launch_sym<T, 4, 3>(slots, n_slots, pos_a, pos_b, g_a, g_b, part,
-                               softening, mask_offdiag, s);
-  if (k == 4 && ko == 4)
-    return launch_sym<T, 4, 4>(slots, n_slots, pos_a, pos_b, g_a, g_b, part,
-                               softening, mask_offdiag, s);
+int dispatch_sym(const int* slots, int n_slots, int n_sys, long long sys_rows,
+                 const float* pos_a, const float* pos_b, const float* g_a,
+                 const float* g_b, float* part, int k, int ko,
+                 float softening, int mask_offdiag, cudaStream_t s) {
+#define NBODY_VJP_SYM_LAUNCH(K, KO)                                      \
+  launch_sym<T, K, KO>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b, g_a, \
+                       g_b, part, softening, mask_offdiag, s)
+  if (k == 3 && ko == 3) return NBODY_VJP_SYM_LAUNCH(3, 3);
+  if (k == 4 && ko == 3) return NBODY_VJP_SYM_LAUNCH(4, 3);
+  if (k == 4 && ko == 4) return NBODY_VJP_SYM_LAUNCH(4, 4);
+#undef NBODY_VJP_SYM_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -447,26 +459,30 @@ extern "C" int vjp_ordered_launch(const float* pos_k, const float* g_k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B11. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b (rows, k),
-// k = 3 (unit masses) or 4 (x, y, z, m); g_a / g_b (rows, 3); rows of each a
-// multiple of tile; fp32, contiguous, on the current device. part: n_slots x
-// 2 tiles of (tile, ko) fp32, ko = 3, or 4 with the mass cotangent (k = 4
-// only), written (side 0 of slot s: block bi's sums; side 1: block bj's; a
-// DIAG slot writes side 0 only) for slot_reduce_launch. tile: 64 or 128.
-// Returns cudaGetLastError().
-extern "C" int vjp_sym_launch(const int* slots, int n_slots,
-                              const float* pos_a, const float* pos_b,
-                              const float* g_a, const float* g_b,
-                              float* part, int k, int ko, int tile,
-                              float softening, int mask_offdiag,
+// B11 and B9c. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b
+// (rows, k), k = 3 (unit masses) or 4 (x, y, z, m); g_a / g_b (rows, 3);
+// rows of each a multiple of tile; n_sys systems of such rows, sys_rows rows
+// apart (tri mode; 1 system in cross mode); fp32, contiguous, on the current
+// device. part: n_sys x n_slots x 2 tiles of (tile, ko) fp32, ko = 3, or 4
+// with the mass cotangent (k = 4 only), written (side 0 of slot s: block
+// bi's sums; side 1: block bj's; a DIAG slot writes side 0 only) for
+// slot_reduce_launch. tile: 64 or 128. Returns cudaGetLastError().
+extern "C" int vjp_sym_launch(const int* slots, int n_slots, int n_sys,
+                              long long sys_rows, const float* pos_a,
+                              const float* pos_b, const float* g_a,
+                              const float* g_b, float* part, int k, int ko,
+                              int tile, float softening, int mask_offdiag,
                               void* stream) {
-  if (n_slots == 0) return 0;
+  if (n_slots == 0 || n_sys == 0) return 0;
+  if (n_sys > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 64)
-    return dispatch_sym<64>(slots, n_slots, pos_a, pos_b, g_a, g_b, part, k,
-                            ko, softening, mask_offdiag, s);
+    return dispatch_sym<64>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
+                            g_a, g_b, part, k, ko, softening, mask_offdiag,
+                            s);
   if (tile == 128)
-    return dispatch_sym<128>(slots, n_slots, pos_a, pos_b, g_a, g_b, part, k,
-                             ko, softening, mask_offdiag, s);
+    return dispatch_sym<128>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
+                             g_a, g_b, part, k, ko, softening, mask_offdiag,
+                             s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -41,6 +41,14 @@
 // every output bit is the same on every run. The TPU's single-launch bound
 // does not apply: the wrapper keeps K3's chunk loop.
 //
+// B9d: blockIdx.y is the system of an ensemble launch, which replaces
+// vjp_mxu.py:430 `_vjp_ensemble_impl` (`pallas_call` :485, B13's kernel
+// under a leading system axis). Every system runs the same system-local
+// slot list over its own rows (positions, cotangents and operands),
+// sys_rows rows after the previous system's; a standalone call is the same
+// kernel with one system, so each system's sums are bitwise its standalone
+// call's. gridDim.y is at most 65,535.
+//
 // B14: one CTA of 256 threads per k tile of T receivers, looping over the j
 // tiles: stage the j tile, compute its w and c tiles, and let warp
 // (product, m) run its 32 x 8 product of [W @ Qg | C @ Qp] over the tile
@@ -185,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ g_b,
                    const float* __restrict__ q_a,
                    const float* __restrict__ q_b, float* part,
-                   float softening, int mask_offdiag) {
+                   long long sys_rows, float softening, int mask_offdiag) {
   constexpr int LD = T + 8;
   constexpr int kTile = T * LD;
   constexpr int kMTiles = T / 32;
@@ -220,8 +228,15 @@ __global__ void __launch_bounds__(kThreads)
   const int bj = slots[3 * blockIdx.x + 2];
   const bool fold = kind == kSlotFold;
   const bool mask = kind == kSlotDiag || mask_offdiag;
+  const long long sys = blockIdx.y;
+  pos_a += sys * sys_rows * K;
+  pos_b += sys * sys_rows * K;
+  g_a += sys * sys_rows * 3;
+  g_b += sys * sys_rows * 3;
+  q_a += sys * sys_rows * 16;
+  q_b += sys * sys_rows * 16;
   // Side 0's tile (block bi), then side 1's (block bj).
-  float* out = part + static_cast<size_t>(blockIdx.x) * 2 * T * KO;
+  float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * KO;
 
   stage<T, K>(pos_a, g_a, q_a, bi * T, (bi + 1) * T, SA, QgA, QpA);
   stage<T, K>(pos_b, g_b, q_b, bj * T, (bj + 1) * T, SB, QgB, QpB);
@@ -339,35 +354,35 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int T, int K, int KO>
-int launch_mxu(const int* slots, int n_slots, const float* pos_a,
-               const float* pos_b, const float* g_a, const float* g_b,
-               const float* q_a, const float* q_b, float* part,
-               float softening, int mask_offdiag, cudaStream_t stream) {
+int launch_mxu(const int* slots, int n_slots, int n_sys, long long sys_rows,
+               const float* pos_a, const float* pos_b, const float* g_a,
+               const float* g_b, const float* q_a, const float* q_b,
+               float* part, float softening, int mask_offdiag,
+               cudaStream_t stream) {
   constexpr size_t smem = mxu_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       vjp_mxu_kernel<T, K, KO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  vjp_mxu_kernel<T, K, KO><<<n_slots, kThreads, smem, stream>>>(
-      slots, pos_a, pos_b, g_a, g_b, q_a, q_b, part, softening,
+  vjp_mxu_kernel<T, K, KO><<<dim3(n_slots, n_sys), kThreads, smem, stream>>>(
+      slots, pos_a, pos_b, g_a, g_b, q_a, q_b, part, sys_rows, softening,
       mask_offdiag);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int T>
-int dispatch_mxu(const int* slots, int n_slots, const float* pos_a,
-                 const float* pos_b, const float* g_a, const float* g_b,
-                 const float* q_a, const float* q_b, float* part, int masses,
-                 int ko, float softening, int mask_offdiag, cudaStream_t s) {
-  if (!masses && ko == 8)
-    return launch_mxu<T, 3, 8>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
-                               q_b, part, softening, mask_offdiag, s);
-  if (masses && ko == 8)
-    return launch_mxu<T, 4, 8>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
-                               q_b, part, softening, mask_offdiag, s);
-  if (masses && ko == 9)
-    return launch_mxu<T, 4, 9>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
-                               q_b, part, softening, mask_offdiag, s);
+int dispatch_mxu(const int* slots, int n_slots, int n_sys, long long sys_rows,
+                 const float* pos_a, const float* pos_b, const float* g_a,
+                 const float* g_b, const float* q_a, const float* q_b,
+                 float* part, int masses, int ko, float softening,
+                 int mask_offdiag, cudaStream_t s) {
+#define NBODY_VJP_MXU_LAUNCH(K, KO)                                        \
+  launch_mxu<T, K, KO>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b, g_a, \
+                       g_b, q_a, q_b, part, softening, mask_offdiag, s)
+  if (!masses && ko == 8) return NBODY_VJP_MXU_LAUNCH(3, 8);
+  if (masses && ko == 8) return NBODY_VJP_MXU_LAUNCH(4, 8);
+  if (masses && ko == 9) return NBODY_VJP_MXU_LAUNCH(4, 9);
+#undef NBODY_VJP_MXU_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -478,30 +493,34 @@ int launch_rect(const float* pos_k, const float* g_k, int nk,
 
 }  // namespace
 
-// B13. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b (rows, 3), or
-// (rows, 4) with masses (x, y, z, m); g_a / g_b (rows, 3); q_a / q_b
-// (rows, 16) operands [split([g | m]) | split([p | 1])]; rows of each a
-// multiple of tile; fp32, contiguous, on the current device. part: n_slots
-// x 2 tiles of (tile, ko) fp32, ko = 8, or 9 with the mass cotangent
-// (masses only), written (side 0 of slot s: block bi's raw sums; side 1:
-// block bj's; a DIAG slot writes side 0 only) for slot_reduce_launch. tile:
-// 64 or 128. Returns cudaGetLastError() after the launch.
-extern "C" int vjp_mxu_launch(const int* slots, int n_slots,
-                              const float* pos_a, const float* pos_b,
-                              const float* g_a, const float* g_b,
-                              const float* q_a, const float* q_b,
-                              float* part, int masses, int ko, int tile,
-                              float softening, int mask_offdiag,
-                              void* stream) {
-  if (n_slots == 0) return 0;
+// B13 and B9d. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b
+// (rows, 3), or (rows, 4) with masses (x, y, z, m); g_a / g_b (rows, 3);
+// q_a / q_b (rows, 16) operands [split([g | m]) | split([p | 1])]; rows of
+// each a multiple of tile; n_sys systems of such rows, sys_rows rows apart
+// (tri mode; 1 system in cross mode); fp32, contiguous, on the current
+// device. part: n_sys x n_slots x 2 tiles of (tile, ko) fp32, ko = 8, or 9
+// with the mass cotangent (masses only), written (side 0 of slot s: block
+// bi's raw sums; side 1: block bj's; a DIAG slot writes side 0 only) for
+// slot_reduce_launch. tile: 64 or 128. Returns cudaGetLastError() after the
+// launch.
+extern "C" int vjp_mxu_launch(const int* slots, int n_slots, int n_sys,
+                              long long sys_rows, const float* pos_a,
+                              const float* pos_b, const float* g_a,
+                              const float* g_b, const float* q_a,
+                              const float* q_b, float* part, int masses,
+                              int ko, int tile, float softening,
+                              int mask_offdiag, void* stream) {
+  if (n_slots == 0 || n_sys == 0) return 0;
+  if (n_sys > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 64)
-    return dispatch_mxu<64>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a, q_b,
-                            part, masses, ko, softening, mask_offdiag, s);
+    return dispatch_mxu<64>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
+                            g_a, g_b, q_a, q_b, part, masses, ko, softening,
+                            mask_offdiag, s);
   if (tile == 128)
-    return dispatch_mxu<128>(slots, n_slots, pos_a, pos_b, g_a, g_b, q_a,
-                             q_b, part, masses, ko, softening, mask_offdiag,
-                             s);
+    return dispatch_mxu<128>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
+                             g_a, g_b, q_a, q_b, part, masses, ko, softening,
+                             mask_offdiag, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -31,6 +31,12 @@ have no mass output. On a CUDA tensor the port sends it to B11, which runs
 on K3's chunked slot geometry and has no single-launch bound, so no plain
 version runs on the card's path; a CPU tensor takes ``_vjp_pos`` as JAX
 does. Without mass_grad the mass cotangent is zeros, as in JAX.
+
+``make_differentiable_ensemble_force`` (``autodiff.py:267-336``) is the
+same for B independent systems: the forward is the ensemble force (B9a on
+``sym_mxu``, B9b on ``sym``) and the backward the ensemble VJP of the same
+precision class (B9d, B9c), block-diagonal over the systems, so each
+system's gradient is its own standalone backward's.
 """
 
 from __future__ import annotations
@@ -201,5 +207,71 @@ def make_differentiable_force(cfg, mass_grad: bool = False):
             mass = torch.ones(pos.shape[0], dtype=pos.dtype,
                               device=pos.device)
         return diff(pos, mass)
+
+    return force
+
+
+class _EnsembleForceDiff(torch.autograd.Function):
+    """forward: the ensemble force kernel; backward: the ensemble VJP
+    kernel of its class. The masses are static (no gradient), as in JAX."""
+
+    @staticmethod
+    def forward(ctx, pos, mass, fwd, bwd):
+        ctx.save_for_backward(pos, mass)
+        ctx.bwd = bwd
+        return fwd(pos, mass)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, mass = ctx.saved_tensors
+        return ctx.bwd(pos, g.contiguous(), mass), None, None, None
+
+
+def make_differentiable_ensemble_force(cfg):
+    """Differentiable ``force(pos, mass=None) -> (B, N, 3)`` over B
+    independent systems (sim.simulate_ensemble's force): forward
+    body_force_sym_mxu_ensemble (B9a) for 'sym_mxu' or
+    body_force_symmetric_ensemble (B9b) for 'sym' and 'auto'; backward
+    vjp_pos_sym_mxu_ensemble (B9d) or vjp_pos_sym_ensemble (B9c), at
+    cfg.sym_bwd_tile. Gradients flow to pos only; the masses are static."""
+    eff = cfg.effective_backend()
+    if eff not in ("sym", "sym_mxu"):
+        raise ValueError(
+            "ensemble force requires backend='sym_mxu' or 'sym', got "
+            f"{eff!r}")
+    soft = float(cfg.softening)
+    use_masses = cfg.use_masses
+    if eff == "sym_mxu":
+        from mini_nbody_tpu_torch.ops.sym_mxu_force import (
+            body_force_sym_mxu_ensemble)
+        from mini_nbody_tpu_torch.ops.vjp_mxu import (
+            vjp_pos_sym_mxu_ensemble as vjp_ensemble)
+
+        def fwd(pos, mass):
+            return body_force_sym_mxu_ensemble(
+                pos, mass if use_masses else None, softening=soft,
+                tile=cfg.sym_tile, split_w=cfg.split_w,
+                coincident=cfg.coincident)
+    else:
+        from mini_nbody_tpu_torch.ops.symmetric_force import (
+            body_force_symmetric_ensemble)
+        from mini_nbody_tpu_torch.ops.vjp_kernel import (
+            vjp_pos_sym_ensemble as vjp_ensemble)
+
+        def fwd(pos, mass):
+            return body_force_symmetric_ensemble(
+                pos, mass if use_masses else None, softening=soft,
+                tile=cfg.sym_tile)
+
+    def bwd(pos, g, mass):
+        return vjp_ensemble(pos, g, mass if use_masses else None,
+                            softening=soft, tile=cfg.sym_bwd_tile,
+                            coincident=cfg.coincident)
+
+    def force(pos, mass=None):
+        if mass is None:
+            mass = torch.ones(pos.shape[:2], dtype=pos.dtype,
+                              device=pos.device)
+        return _EnsembleForceDiff.apply(pos, mass, fwd, bwd)
 
     return force

@@ -30,12 +30,19 @@ softening 1e-9 the self pair's eps^-1.5 weight would swamp the fp32 sums
   K3 does, so autodiff may send it any N. It sums deterministically
   (``slot_pipe.run_slot_pieces``), as K3 does.
 
+``vjp_pos_sym_ensemble`` (JAX ``:451-572``) launches B9c: B11 with the
+system on ``blockIdx.y``, B systems of c = round_up(N, tile) rows stacked,
+each its own chunk over the same tri slot list (``vjp_sym_sums_ensemble_``,
+as many systems in a launch as ``slot_pipe.system_groups`` allows). System
+i is bitwise ``vjp_pos_sym(pos[i], g[i], mass[i], tile=t)`` for N up to
+the chunk. Its plain version is ``vjp_sym_sums_plain`` with the system
+axis.
+
 Padding: B10 pads nothing (the kernel fills its ragged j tile with FAR,
-zero mass and zero cotangent in shared memory); B11 reuses K3's packing,
-FAR tails with zero mass in both mass modes, and zero cotangents (JAX pads
-mass mode at the origin instead; both are inert). The ensemble VJP
-(``vjp_pos_sym_ensemble``) is not ported yet (ROADMAP B9c) and the 2-D
-grid's ``vjp_pos_pair`` waits for the sharding (B12).
+zero mass and zero cotangent in shared memory); B11 and B9c reuse K3's
+packing, FAR tails with zero mass in both mass modes, and zero cotangents
+(JAX pads mass mode at the origin instead; both are inert). The 2-D grid's
+``vjp_pos_pair`` waits for the sharding (B12).
 """
 
 from __future__ import annotations
@@ -48,9 +55,9 @@ from mini_nbody_tpu_torch import _build
 from mini_nbody_tpu_torch.ops import slot_pipe
 from mini_nbody_tpu_torch.ops.direct_force import _check_block
 from mini_nbody_tpu_torch.ops.slot_pipe import SLOT_CROSS, SLOT_DIAG, SLOT_FOLD
-from mini_nbody_tpu_torch.ops.sym_mxu_force import (_resolve_tiling,
-                                                    any_coincident,
-                                                    resolve_auto)
+from mini_nbody_tpu_torch.ops.sym_mxu_force import (
+    _resolve_tiling, any_coincident, any_coincident_ensemble, ensemble_tiling,
+    pack_ensemble, resolve_auto)
 from mini_nbody_tpu_torch.ops.symmetric_force import _pack
 from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
                                                check_coincident,
@@ -63,12 +70,15 @@ from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
 DEFAULT_TILE = 64
 
 #: Kernel launches on CUDA tensors, counted at each launch: made by
-#: vjp_pos_direct / vjp_pos_rect (B10, one per call) and by vjp_sym_sums_
+#: vjp_pos_direct / vjp_pos_rect (B10, one per call), by vjp_sym_sums_
 #: (B11, one per piece of the slot list, slot_pipe.run_slot_pieces;
-#: SYM_CROSS_LAUNCHES counts their cross-mode share).
+#: SYM_CROSS_LAUNCHES counts their cross-mode share) and by
+#: vjp_sym_sums_ensemble_ (B9c, SYM_ENSEMBLE_LAUNCHES, one per piece and
+#: group of systems).
 LAUNCHES = 0
 SYM_LAUNCHES = 0
 SYM_CROSS_LAUNCHES = 0
+SYM_ENSEMBLE_LAUNCHES = 0
 
 #: The coincident gates: below this many bodies 'auto' is 'masked', without
 #: the duplicate scan. chip_smoke.py's coincident_gate phase (4096 ..
@@ -250,14 +260,17 @@ def _side_sums(t, m_row, m_col, ko):
 
 
 def vjp_sym_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
-                       softening, mask_offdiag):
-    """Plain version of B11: for every slot add the row sums into acc_a
-    (block bi) and the reaction sums into acc_b (block bj), in batches of
-    slots; acc (c, 3), or (c, 4) with the mass cotangent."""
+                       softening, mask_offdiag, n_sys=1):
+    """Plain version of B11 and B9c: for every slot add the row sums into
+    acc_a (block bi) and the reaction sums into acc_b (block bj), in batches
+    of slots; acc (c, 3), or (c, 4) with the mass cotangent. n_sys systems
+    stacked in the rows (tri mode) each take every slot over their own
+    blocks, system by system inside each batch of slots."""
     ko, k = acc_a.shape[1], pos_a.shape[1]
-    pa, pb = pos_a.view(-1, tile, k), pos_b.view(-1, tile, k)
-    ga, gb = g_a.view(-1, tile, 3), g_b.view(-1, tile, 3)
-    aa, ab = acc_a.view(-1, tile, ko), acc_b.view(-1, tile, ko)
+    pa, pb = pos_a.view(n_sys, -1, tile, k), pos_b.view(n_sys, -1, tile, k)
+    ga, gb = g_a.view(n_sys, -1, tile, 3), g_b.view(n_sys, -1, tile, 3)
+    aa = acc_a.view(n_sys, -1, tile, ko)
+    ab = acc_b.view(n_sys, -1, tile, ko)
     slots = slots.to(device=pos_a.device, dtype=torch.long)
     batch = max(1, plain_block_elems(pos_a.device) // (tile * tile))
     idx = torch.arange(tile, device=pos_a.device)
@@ -266,35 +279,39 @@ def vjp_sym_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
         sel = slots[slots[:, 0] == kind]
         for s in range(0, sel.shape[0], batch):
             bi, bj = sel[s:s + batch, 1], sel[s:s + batch, 2]
-            if kind == SLOT_DIAG:
-                out = _ordered_rows(pa[bi], ga[bi], pb[bj], gb[bj],
-                                    softening, mass_rows=ko == 4)
-                if ko == 4:
-                    out = torch.cat([out[0], out[1][..., None]], -1)
-                aa.index_add_(0, bi, out)
-                continue
-            if kind == SLOT_CROSS:
-                rows, cols = _side_sums(*_pair_terms(
-                    pa[bi], pb[bj], ga[bi], gb[bj], softening,
-                    mask_offdiag), ko)
-                aa.index_add_(0, bi, rows)
-                ab.index_add_(0, bj, cols)
-                continue
-            # FOLD: pairs of block bi below the diagonal, of bj above it.
-            for acc, blk, p, g, keep in ((aa, bi, pa, ga, lower),
-                                         (ab, bj, pb, gb, lower.T)):
-                rows, cols = _side_sums(*_pair_terms(
-                    p[blk], p[blk], g[blk], g[blk], softening, mask_offdiag,
-                    keep), ko)
-                acc.index_add_(0, blk, rows + cols)
+            for y in range(n_sys):
+                _vjp_sym_batch(kind, bi, bj, pa[y], pb[y], ga[y], gb[y],
+                               aa[y], ab[y], ko, softening, mask_offdiag,
+                               lower)
 
 
-def vjp_sym_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
-                  softening, mask_offdiag=True):
-    """Add the pair-once VJP sums of one self chunk (tri mode: acc_a and
-    acc_b the same memory, pos_a is pos_b, a tri slot table) or one pair of
-    disjoint sets (cross mode: rows into acc_a, reactions into acc_b, a
-    cross table). pos (c, 3|4) packed as K3's, g (c, 3), acc (c, 3|4)."""
+def _vjp_sym_batch(kind, bi, bj, pa, pb, ga, gb, aa, ab, ko, softening,
+                   mask_offdiag, lower):
+    """One batch of slots of one kind for one system (vjp_sym_sums_plain)."""
+    if kind == SLOT_DIAG:
+        out = _ordered_rows(pa[bi], ga[bi], pb[bj], gb[bj], softening,
+                            mass_rows=ko == 4)
+        if ko == 4:
+            out = torch.cat([out[0], out[1][..., None]], -1)
+        aa.index_add_(0, bi, out)
+        return
+    if kind == SLOT_CROSS:
+        rows, cols = _side_sums(*_pair_terms(
+            pa[bi], pb[bj], ga[bi], gb[bj], softening, mask_offdiag), ko)
+        aa.index_add_(0, bi, rows)
+        ab.index_add_(0, bj, cols)
+        return
+    # FOLD: pairs of block bi below the diagonal, of bj above it.
+    for acc, blk, p, g, keep in ((aa, bi, pa, ga, lower),
+                                 (ab, bj, pb, gb, lower.T)):
+        rows, cols = _side_sums(*_pair_terms(
+            p[blk], p[blk], g[blk], g[blk], softening, mask_offdiag, keep),
+            ko)
+        acc.index_add_(0, blk, rows + cols)
+
+
+def _check_sums(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile):
+    """Validate the inputs of vjp_sym_sums_ / vjp_sym_sums_ensemble_."""
     device = pos_a.device
     k, ko = pos_a.shape[1], acc_a.shape[1]
     if k not in (3, 4) or ko not in (3, 4) or (ko == 4 and k != 4):
@@ -313,31 +330,79 @@ def vjp_sym_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
             raise ValueError("each accumulator needs the rows of its bodies")
     _build.check_tensor("slots", slots, (slots.shape[0], 3), torch.int32,
                         device)
-    if not _build.on_card(device):
-        vjp_sym_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
-                           softening, mask_offdiag)
-        return
+
+
+def _run_sym_kernel(kind, acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
+                    softening, mask_offdiag, n_sys=1, sys_rows=0):
+    """B11 on the card ("tri" or "cross" calls) or B9c ("ensemble": n_sys
+    systems of sys_rows rows, tri mode)."""
     if tile not in SYM_BWD_TILES:
         raise ValueError(f"the CUDA pair-once VJP kernel takes tile in "
                          f"{SYM_BWD_TILES}, got {tile}")
     _build.refuse_grad("vjp_sym_sums_", pos_a, pos_b, g_a, g_b)
     lib = _build.load_library()
-    cross = acc_a.data_ptr() != acc_b.data_ptr()
+    device = pos_a.device
+    k, ko = pos_a.shape[1], acc_a.shape[1]
 
     def count():
-        global SYM_LAUNCHES, SYM_CROSS_LAUNCHES
+        global SYM_LAUNCHES, SYM_CROSS_LAUNCHES, SYM_ENSEMBLE_LAUNCHES
+        if kind == "ensemble":
+            SYM_ENSEMBLE_LAUNCHES += 1
+            return
         SYM_LAUNCHES += 1
-        SYM_CROSS_LAUNCHES += int(cross)
+        SYM_CROSS_LAUNCHES += int(kind == "cross")
 
-    def launch(piece, n, _g, _g0, part):
+    def launch(piece, n, g, g0, part):
+        r0 = g0 * sys_rows
         return lib.vjp_sym_launch(
-            piece.data_ptr(), n, pos_a.data_ptr(), pos_b.data_ptr(),
-            g_a.data_ptr(), g_b.data_ptr(), part.data_ptr(), k, ko, tile,
-            float(softening), int(mask_offdiag), _build.stream_ptr(device))
+            piece.data_ptr(), n, g, sys_rows, pos_a[r0:].data_ptr(),
+            pos_b[r0:].data_ptr(), g_a[r0:].data_ptr(), g_b[r0:].data_ptr(),
+            part.data_ptr(), k, ko, tile, float(softening),
+            int(mask_offdiag), _build.stream_ptr(device))
 
     with torch.cuda.device(device):
-        slot_pipe.run_slot_pieces("vjp_sym_launch", slots, not cross, tile,
-                                  ko, acc_a, acc_b, launch, count)
+        slot_pipe.run_slot_pieces("vjp_sym_launch", slots, kind != "cross",
+                                  tile, ko, acc_a, acc_b, launch, count,
+                                  n_sys, sys_rows)
+
+
+def vjp_sym_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
+                  softening, mask_offdiag=True):
+    """Add the pair-once VJP sums of one self chunk (tri mode: acc_a and
+    acc_b the same memory, pos_a is pos_b, a tri slot table) or one pair of
+    disjoint sets (cross mode: rows into acc_a, reactions into acc_b, a
+    cross table). pos (c, 3|4) packed as K3's, g (c, 3), acc (c, 3|4)."""
+    _check_sums(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile)
+    if not _build.on_card(pos_a.device):
+        vjp_sym_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
+                           softening, mask_offdiag)
+        return
+    cross = acc_a.data_ptr() != acc_b.data_ptr()
+    _run_sym_kernel("cross" if cross else "tri", acc_a, acc_b, pos_a, pos_b,
+                    g_a, g_b, slots, tile, softening, mask_offdiag)
+
+
+def vjp_sym_sums_ensemble_(acc, pos, g, slots, tile, softening, n_sys,
+                           mask_offdiag=True):
+    """B independent self chunks (B9c): systems of c = rows / n_sys rows
+    stacked in pos (B c, 3|4), g (B c, 3) and acc (B c, 3|4), each summed
+    over the same tri ``slots`` into its own rows. System i's sums are
+    bitwise those of vjp_sym_sums_ on its rows alone, on the card (one
+    kernel, the same pieces) and on the CPU (the same plain walk)."""
+    rows = pos.shape[0]
+    if n_sys < 1 or rows % n_sys != 0:
+        raise ValueError(f"{rows} rows do not split into {n_sys} systems")
+    c = rows // n_sys
+    _check_sums(acc, acc, pos, pos, g, g, slots, tile)
+    if c % tile != 0:
+        raise ValueError(f"a system has {c} rows, not a multiple of tile "
+                         f"{tile}")
+    if not _build.on_card(pos.device):
+        vjp_sym_sums_plain(acc, acc, pos, pos, g, g, slots, tile, softening,
+                           mask_offdiag, n_sys)
+        return
+    _run_sym_kernel("ensemble", acc, acc, pos, pos, g, g, slots, tile,
+                    softening, mask_offdiag, n_sys, c)
 
 
 def _pad_rows(t, np_):
@@ -404,3 +469,65 @@ def vjp_pos_sym(pos, g, mass=None, softening: float = SOFTENING,
     if mass_grad:
         return acc[:n, :3], acc[:n, 3]
     return acc[:n]
+
+
+def check_ensemble_vjp(pos, g, mass, mass_grad):
+    """The argument checks of the ensemble VJPs (JAX's messages)."""
+    if mass_grad and mass is None:
+        raise ValueError("mass_grad=True requires per-body masses")
+    if pos.ndim != 3:
+        raise ValueError(f"ensemble pos must be (B, N, 3), got "
+                         f"{tuple(pos.shape)}")
+    if tuple(g.shape) != tuple(pos.shape):
+        raise ValueError(f"ensemble g must be (B, N, 3) = "
+                         f"{tuple(pos.shape)}, got {tuple(g.shape)}")
+
+
+def ensemble_mask(coincident, pos, gate):
+    """The off-diagonal mask of an ensemble VJP: resolve_auto at the
+    per-system N against the module's gate, then for 'auto' the duplicate
+    scan within each system."""
+    coincident = resolve_auto(coincident, pos.shape[1], gate)
+    if coincident == "auto":
+        return any_coincident_ensemble(pos)
+    return coincident == "masked"
+
+
+def pad_systems(g, c):
+    """Zero-pad each system of g (B, N, 3) to c rows, stacked (B c, 3)."""
+    b, n = g.shape[0], g.shape[1]
+    g = g.float()
+    if c != n:
+        g = torch.cat([g, g.new_zeros((b, c - n, 3))], dim=1)
+    return g.reshape(b * c, 3).contiguous()
+
+
+def vjp_pos_sym_ensemble(pos, g, mass=None, softening: float = SOFTENING,
+                         tile: int | None = None, mass_grad: bool = False,
+                         coincident: str = "auto"):
+    """pos_bar (B, N, 3) for cotangent g (B, N, 3) of the forces of B
+    INDEPENDENT systems pos (B, N, 3) [, mass (B, N)], each unordered pair
+    of a system once (B9c); with mass_grad (masses required) returns
+    (pos_bar, mass_bar (B, N)). Each system is one chunk of c =
+    round_up(N, t) rows with its own FAR pads, t = tile (this module's
+    DEFAULT_TILE when None; shrunk to the problem on the CPU): system i is
+    bitwise ``vjp_pos_sym(pos[i], g[i], mass[i], tile=t, chunk=c)``.
+    coincident as in vjp_pos_sym; 'auto' scans within each system only.
+    CUDA tensors run the kernel, CPU tensors its plain version."""
+    check_ensemble_vjp(pos, g, mass, mass_grad)
+    check_coincident(coincident)
+    b, n = pos.shape[0], pos.shape[1]
+    t, c = ensemble_tiling(n, DEFAULT_TILE if tile is None else tile,
+                           kernel=_build.on_card(pos.device))
+    mask_offdiag = ensemble_mask(coincident, pos, SYM_COINCIDENT_AUTO_MIN_N)
+    p = pack_ensemble(pos, mass, c, _pack)
+    gp = pad_systems(g, c)
+    acc = torch.zeros((b * c, 4 if mass_grad else 3), dtype=torch.float32,
+                      device=p.device)
+    nb = c // t
+    vjp_sym_sums_ensemble_(acc, p, gp, slot_pipe.slot_table(
+        nb, nb > 1, False, p.device), t, softening, b, mask_offdiag)
+    acc = acc.view(b, c, -1)[:, :n]
+    if mass_grad:
+        return acc[..., :3], acc[..., 3]
+    return acc

@@ -36,7 +36,14 @@ operations; ``mma_dtype=torch.float32`` multiplies in fp32 (JAX's CPU
 interpret run) and ``torch.bfloat16`` rounds w, c and the operands to bf16
 as the tensor cores do. Pads are FAR in both mass modes (zero mass in mass
 mode, unit mass otherwise) with zero cotangents; the self diagonal always
-masks. The ensemble VJP is not ported yet (ROADMAP B9d).
+masks.
+
+``vjp_pos_sym_mxu_ensemble`` (JAX ``:386-528``) launches B9d: B13 with the
+system on ``blockIdx.y``, B systems of c = round_up(N, tile) rows stacked,
+each its own chunk over the same tri slot list with its own operands
+(``vjp_mxu_sums_ensemble_``). System i is bitwise ``vjp_pos_sym_mxu(pos[i],
+g[i], mass[i], tile=t)`` for N up to the chunk. Its plain version is
+``vjp_mxu_sums_plain`` with the system axis.
 """
 
 from __future__ import annotations
@@ -50,9 +57,13 @@ from mini_nbody_tpu_torch.ops import slot_pipe
 from mini_nbody_tpu_torch.ops.slot_pipe import SLOT_CROSS, SLOT_DIAG, SLOT_FOLD
 from mini_nbody_tpu_torch.ops.sym_mxu_force import (_resolve_tiling,
                                                     any_coincident,
+                                                    ensemble_tiling,
+                                                    pack_ensemble,
                                                     resolve_auto)
 from mini_nbody_tpu_torch.ops.symmetric_force import _pack
-from mini_nbody_tpu_torch.ops.vjp_kernel import _pad_rows, chunk_loop
+from mini_nbody_tpu_torch.ops.vjp_kernel import (_pad_rows, check_ensemble_vjp,
+                                                 chunk_loop, ensemble_mask,
+                                                 pad_systems)
 from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
                                                check_coincident,
                                                plain_block_elems)
@@ -67,10 +78,12 @@ RECT_TILE = 128
 
 #: Kernel launches on CUDA tensors, counted at each launch: made by
 #: vjp_mxu_sums_ (B13, one per piece of the slot list,
-#: slot_pipe.run_slot_pieces; CROSS_LAUNCHES counts their cross-mode share)
-#: and by vjp_rect_mxu (B14, RECT_LAUNCHES, one per call).
+#: slot_pipe.run_slot_pieces; CROSS_LAUNCHES counts their cross-mode share),
+#: by vjp_mxu_sums_ensemble_ (B9d, ENSEMBLE_LAUNCHES, one per piece and
+#: group of systems) and by vjp_rect_mxu (B14, RECT_LAUNCHES, one per call).
 LAUNCHES = 0
 CROSS_LAUNCHES = 0
+ENSEMBLE_LAUNCHES = 0
 RECT_LAUNCHES = 0
 
 #: The coincident gates: below this many bodies 'auto' is 'masked', without
@@ -158,12 +171,14 @@ def _sums(w, c, q, transpose, mma_dtype):
 
 def vjp_mxu_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
                        tile, softening, mask_offdiag,
-                       mma_dtype=torch.float32):
-    """Plain version of B13: for every slot add the row sums into acc_a
-    (block bi) and the reaction sums into acc_b (block bj), in batches of
-    slots; acc (c, 8), or (c, 9) with the mass cotangent."""
+                       mma_dtype=torch.float32, n_sys=1):
+    """Plain version of B13 and B9d: for every slot add the row sums into
+    acc_a (block bi) and the reaction sums into acc_b (block bj), in batches
+    of slots; acc (c, 8), or (c, 9) with the mass cotangent. n_sys systems
+    stacked in the rows (tri mode) each take every slot over their own
+    blocks, system by system inside each batch of slots."""
     ko, k = acc_a.shape[1], pos_a.shape[1]
-    view = lambda t, w: t.view(-1, tile, w)  # noqa: E731
+    view = lambda t, w: t.view(n_sys, -1, tile, w)  # noqa: E731
     pa, pb, ga, gb = view(pos_a, k), view(pos_b, k), view(g_a, 3), view(g_b, 3)
     qa, qb = view(q_a, 16), view(q_b, 16)
     aa, ab = view(acc_a, ko), view(acc_b, ko)
@@ -171,41 +186,44 @@ def vjp_mxu_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
     batch = max(1, plain_block_elems(pos_a.device) // (tile * tile))
     idx = torch.arange(tile, device=pos_a.device)
     lower = idx[None, :] < idx[:, None]  # [r, c]: c < r
-
-    def with_mass(s, m):
-        return torch.cat([s, m[..., None]], -1) if ko == 9 else s
-
     for kind in (SLOT_DIAG, SLOT_CROSS, SLOT_FOLD):
         sel = slots[slots[:, 0] == kind]
         for s in range(0, sel.shape[0], batch):
             bi, bj = sel[s:s + batch, 1], sel[s:s + batch, 2]
-            if kind != SLOT_FOLD:
-                w, c, m_row, m_col = _wc(
-                    pa[bi], pb[bj], ga[bi], gb[bj], softening,
-                    kind == SLOT_DIAG or mask_offdiag)
-                aa.index_add_(0, bi, with_mass(
-                    _sums(w, c, qb[bj], False, mma_dtype), m_row.sum(-1)))
-                if kind == SLOT_CROSS:
-                    ab.index_add_(0, bj, with_mass(
-                        _sums(w, c, qa[bi], True, mma_dtype), m_col.sum(-2)))
-                continue
-            # FOLD: pairs of block bi below the diagonal, of bj above it.
-            for acc, blk, p, g, q, keep in ((aa, bi, pa, ga, qa, lower),
-                                            (ab, bj, pb, gb, qb, lower.T)):
-                w, c, m_row, m_col = _wc(p[blk], p[blk], g[blk], g[blk],
-                                         softening, mask_offdiag, keep)
-                acc.index_add_(0, blk, with_mass(
-                    _sums(w, c, q[blk], False, mma_dtype)
-                    + _sums(w, c, q[blk], True, mma_dtype),
-                    m_row.sum(-1) + m_col.sum(-2)))
+            for y in range(n_sys):
+                _vjp_mxu_batch(kind, bi, bj, pa[y], pb[y], ga[y], gb[y],
+                               qa[y], qb[y], aa[y], ab[y], ko, softening,
+                               mask_offdiag, mma_dtype, lower)
 
 
-def vjp_mxu_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
-                  tile, softening, mask_offdiag=True):
-    """Add B13's raw sums of one self chunk (tri mode: acc_a and acc_b the
-    same memory, pos_a is pos_b, a tri slot table) or one chunk pair (cross
-    mode). pos (c, 3|4) packed as K3's, g (c, 3), q (c, 16) from
-    _operands, acc (c, 8|9)."""
+def _vjp_mxu_batch(kind, bi, bj, pa, pb, ga, gb, qa, qb, aa, ab, ko,
+                   softening, mask_offdiag, mma_dtype, lower):
+    """One batch of slots of one kind for one system (vjp_mxu_sums_plain)."""
+    def with_mass(s, m):
+        return torch.cat([s, m[..., None]], -1) if ko == 9 else s
+
+    if kind != SLOT_FOLD:
+        w, c, m_row, m_col = _wc(pa[bi], pb[bj], ga[bi], gb[bj], softening,
+                                 kind == SLOT_DIAG or mask_offdiag)
+        aa.index_add_(0, bi, with_mass(
+            _sums(w, c, qb[bj], False, mma_dtype), m_row.sum(-1)))
+        if kind == SLOT_CROSS:
+            ab.index_add_(0, bj, with_mass(
+                _sums(w, c, qa[bi], True, mma_dtype), m_col.sum(-2)))
+        return
+    # FOLD: pairs of block bi below the diagonal, of bj above it.
+    for acc, blk, p, g, q, keep in ((aa, bi, pa, ga, qa, lower),
+                                    (ab, bj, pb, gb, qb, lower.T)):
+        w, c, m_row, m_col = _wc(p[blk], p[blk], g[blk], g[blk], softening,
+                                 mask_offdiag, keep)
+        acc.index_add_(0, blk, with_mass(
+            _sums(w, c, q[blk], False, mma_dtype)
+            + _sums(w, c, q[blk], True, mma_dtype),
+            m_row.sum(-1) + m_col.sum(-2)))
+
+
+def _check_sums(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots, tile):
+    """Validate the inputs of vjp_mxu_sums_ / vjp_mxu_sums_ensemble_."""
     device = pos_a.device
     k, ko = pos_a.shape[1], acc_a.shape[1]
     if k not in (3, 4) or ko not in (8, 9) or (ko == 9 and k != 4):
@@ -225,32 +243,80 @@ def vjp_mxu_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
             raise ValueError("each accumulator needs the rows of its bodies")
     _build.check_tensor("slots", slots, (slots.shape[0], 3), torch.int32,
                         device)
-    if not _build.on_card(device):
-        vjp_mxu_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b,
-                           slots, tile, softening, mask_offdiag)
-        return
+
+
+def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
+                tile, softening, mask_offdiag, n_sys=1, sys_rows=0):
+    """B13 on the card ("tri" or "cross" calls) or B9d ("ensemble": n_sys
+    systems of sys_rows rows, tri mode)."""
     if tile not in SYM_BWD_TILES:
         raise ValueError(f"the CUDA pair-once VJP kernel takes tile in "
                          f"{SYM_BWD_TILES}, got {tile}")
     _build.refuse_grad("vjp_mxu_sums_", pos_a, pos_b, g_a, g_b, q_a, q_b)
     lib = _build.load_library()
-    cross = acc_a.data_ptr() != acc_b.data_ptr()
+    device = pos_a.device
+    k, ko = pos_a.shape[1], acc_a.shape[1]
 
     def count():
-        global LAUNCHES, CROSS_LAUNCHES
+        global LAUNCHES, CROSS_LAUNCHES, ENSEMBLE_LAUNCHES
+        if kind == "ensemble":
+            ENSEMBLE_LAUNCHES += 1
+            return
         LAUNCHES += 1
-        CROSS_LAUNCHES += int(cross)
+        CROSS_LAUNCHES += int(kind == "cross")
 
-    def launch(piece, n, _g, _g0, part):
+    def launch(piece, n, g, g0, part):
+        r0 = g0 * sys_rows
         return lib.vjp_mxu_launch(
-            piece.data_ptr(), n, pos_a.data_ptr(), pos_b.data_ptr(),
-            g_a.data_ptr(), g_b.data_ptr(), q_a.data_ptr(), q_b.data_ptr(),
-            part.data_ptr(), int(k == 4), ko, tile, float(softening),
-            int(mask_offdiag), _build.stream_ptr(device))
+            piece.data_ptr(), n, g, sys_rows, pos_a[r0:].data_ptr(),
+            pos_b[r0:].data_ptr(), g_a[r0:].data_ptr(), g_b[r0:].data_ptr(),
+            q_a[r0:].data_ptr(), q_b[r0:].data_ptr(), part.data_ptr(),
+            int(k == 4), ko, tile, float(softening), int(mask_offdiag),
+            _build.stream_ptr(device))
 
     with torch.cuda.device(device):
-        slot_pipe.run_slot_pieces("vjp_mxu_launch", slots, not cross, tile,
-                                  ko, acc_a, acc_b, launch, count)
+        slot_pipe.run_slot_pieces("vjp_mxu_launch", slots, kind != "cross",
+                                  tile, ko, acc_a, acc_b, launch, count,
+                                  n_sys, sys_rows)
+
+
+def vjp_mxu_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
+                  tile, softening, mask_offdiag=True):
+    """Add B13's raw sums of one self chunk (tri mode: acc_a and acc_b the
+    same memory, pos_a is pos_b, a tri slot table) or one chunk pair (cross
+    mode). pos (c, 3|4) packed as K3's, g (c, 3), q (c, 16) from
+    _operands, acc (c, 8|9)."""
+    _check_sums(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots, tile)
+    if not _build.on_card(pos_a.device):
+        vjp_mxu_sums_plain(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b,
+                           slots, tile, softening, mask_offdiag)
+        return
+    cross = acc_a.data_ptr() != acc_b.data_ptr()
+    _run_kernel("cross" if cross else "tri", acc_a, acc_b, pos_a, pos_b, g_a,
+                g_b, q_a, q_b, slots, tile, softening, mask_offdiag)
+
+
+def vjp_mxu_sums_ensemble_(acc, pos, g, q, slots, tile, softening, n_sys,
+                           mask_offdiag=True):
+    """B independent self chunks (B9d): systems of c = rows / n_sys rows
+    stacked in pos (B c, 3|4), g (B c, 3), q (B c, 16) and acc (B c, 8|9),
+    each summed over the same tri ``slots`` into its own rows. System i's
+    sums are bitwise those of vjp_mxu_sums_ on its rows alone, on the card
+    (one kernel, the same pieces) and on the CPU (the same plain walk)."""
+    rows = pos.shape[0]
+    if n_sys < 1 or rows % n_sys != 0:
+        raise ValueError(f"{rows} rows do not split into {n_sys} systems")
+    c = rows // n_sys
+    _check_sums(acc, acc, pos, pos, g, g, q, q, slots, tile)
+    if c % tile != 0:
+        raise ValueError(f"a system has {c} rows, not a multiple of tile "
+                         f"{tile}")
+    if not _build.on_card(pos.device):
+        vjp_mxu_sums_plain(acc, acc, pos, pos, g, g, q, q, slots, tile,
+                           softening, mask_offdiag, n_sys=n_sys)
+        return
+    _run_kernel("ensemble", acc, acc, pos, pos, g, g, q, q, slots, tile,
+                softening, mask_offdiag, n_sys, c)
 
 
 def sums_inputs(pos, g, mass=None, tile: int | None = None,
@@ -298,6 +364,47 @@ def vjp_pos_sym_mxu(pos, g, mass=None, softening: float = SOFTENING,
     pos_bar = _combine(acc[:, :8], mf, gp, p[:, :3])[:n]
     if mass_grad:
         return pos_bar, acc[:n, 8]
+    return pos_bar
+
+
+def ensemble_sums_inputs(pos, g, mass=None, tile: int | None = None):
+    """The tiling (tile t, per-system rows c) and the stacked padded inputs
+    (p (B c, 3|4), gp (B c, 3), q (B c, 16)) of B9d's raw sums: each system
+    padded and packed as sums_inputs pads and packs it alone."""
+    t, c = ensemble_tiling(pos.shape[1], DEFAULT_TILE if tile is None
+                           else tile, kernel=_build.on_card(pos.device))
+    p = pack_ensemble(pos, mass, c, _pack)
+    gp = pad_systems(g, c)
+    return (t, c), (p, gp, _operands(p, gp))
+
+
+def vjp_pos_sym_mxu_ensemble(pos, g, mass=None, softening: float = SOFTENING,
+                             tile: int | None = None, mass_grad: bool = False,
+                             coincident: str = "auto"):
+    """pos_bar (B, N, 3) for cotangent g (B, N, 3) of the forces of B
+    INDEPENDENT systems pos (B, N, 3) [, mass (B, N)] through the bf16-class
+    pair-once backward (B9d); with mass_grad (masses required) returns
+    (pos_bar, mass_bar (B, N)). Each system is one chunk of c =
+    round_up(N, t) rows with its own FAR pads and operands, t = tile (this
+    module's DEFAULT_TILE when None; shrunk to the problem on the CPU):
+    system i is bitwise ``vjp_pos_sym_mxu(pos[i], g[i], mass[i], tile=t,
+    chunk=c)``. coincident as in vjp_pos_sym_mxu; 'auto' scans within each
+    system only. CUDA tensors run the kernel, CPU tensors its plain version
+    in fp32."""
+    check_ensemble_vjp(pos, g, mass, mass_grad)
+    check_coincident(coincident)
+    b, n = pos.shape[0], pos.shape[1]
+    (t, c), (p, gp, q) = ensemble_sums_inputs(pos, g, mass, tile)
+    mask_offdiag = ensemble_mask(coincident, pos, SYM_COINCIDENT_AUTO_MIN_N)
+    acc = torch.zeros((b * c, 9 if mass_grad else 8), dtype=torch.float32,
+                      device=p.device)
+    nb = c // t
+    vjp_mxu_sums_ensemble_(acc, p, gp, q, slot_pipe.slot_table(
+        nb, nb > 1, False, p.device), t, softening, b, mask_offdiag)
+    mf = p[:, 3] if mass is not None else p.new_ones(b * c)
+    pos_bar = _combine(acc[:, :8], mf, gp, p[:, :3]).view(b, c, 3)[:, :n]
+    if mass_grad:
+        return pos_bar, acc[:, 8].view(b, c)[:, :n]
     return pos_bar
 
 

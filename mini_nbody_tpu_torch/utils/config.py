@@ -58,6 +58,9 @@ def check_coincident(value: str) -> str:
 #: Tiles the CUDA pair-once backward kernels are built for.
 SYM_BWD_TILES = (64, 128)
 
+#: Tiles the CUDA resident kernel (B15) is built for.
+RESIDENT_TILES = (64, 128)
+
 #: What backend='auto' runs, on every device: the fp32-exact pair-once
 #: kernel, as JAX's single-chip auto does.
 AUTO_BACKEND = "sym"
@@ -108,8 +111,14 @@ class SimConfig:
       traversal: "auto" or "slots" (the band traversal is not ported).
       fused_integrate: the fused force + Euler kernel; JAX's rule holds
         (integrator "euler", backend "direct", one card).
-      mesh_shape, comm, resident: not ported; only their defaults are
-        accepted.
+      resident: the whole-trajectory resident kernel (ops/resident_sym.py,
+        B15): True forces it (JAX's rules: one card, no fused_integrate, no
+        split_w, integrator euler, leapfrog or yoshida4, a symmetric-class
+        backend), False pins the streamed path, None routes by the card's
+        crossovers (sim.py).
+      resident_tile: the resident kernel's tile: None (its default) or one
+        of RESIDENT_TILES, the tiles the CUDA kernel is built for.
+      mesh_shape, comm: not ported; only their defaults are accepted.
     """
 
     n: int
@@ -130,6 +139,7 @@ class SimConfig:
     fused_integrate: bool = False
     split_w: bool = False
     resident: Optional[bool] = None
+    resident_tile: Optional[int] = None
     coincident: str = "auto"
     traversal: str = "auto"
 
@@ -161,8 +171,28 @@ class SimConfig:
                 "sharding (mesh_shape / comm) is not ported yet "
                 "(ROADMAP A16)")
         if self.resident:
-            raise NotImplementedError(
-                "resident=True is not ported yet (ROADMAP B15)")
+            if self.fused_integrate:
+                raise ValueError(
+                    "resident=True needs a single card and no "
+                    "fused_integrate (the resident kernel fuses its own)")
+            if self.integrator not in ("euler", "leapfrog", "yoshida4"):
+                raise ValueError(
+                    "resident=True supports integrator 'euler', 'leapfrog' "
+                    f"or 'yoshida4', got {self.integrator!r}")
+            if self.split_w:
+                raise ValueError(
+                    "resident=True has no split_w accuracy mode (the "
+                    "resident kernel runs the plain compensated operand "
+                    "split); use the streamed path for split_w")
+            if self.effective_backend() not in ("sym", "sym_mxu", "torch"):
+                raise ValueError(
+                    "resident=True requires a symmetric-class backend "
+                    "('auto'/'sym'/'sym_mxu'), got "
+                    f"{self.backend!r}")
+        if self.resident_tile not in (None, *RESIDENT_TILES):
+            raise ValueError(
+                f"resident_tile must be None or one of {RESIDENT_TILES} (the "
+                f"CUDA resident kernel's tiles), got {self.resident_tile}")
         if self.fused_integrate and (self.integrator != "euler"
                                      or self.backend != "direct"):
             raise ValueError(
@@ -182,13 +212,9 @@ class SimConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "SimConfig":
         """Build from ``dataclasses.asdict(jax_cfg)``: maps the JAX backend
-        names, drops ``interpret`` and accepts the unported JAX-only field
-        ``resident_tile`` at its default only."""
+        names and drops ``interpret``."""
         d = dict(d)
         d.pop("interpret", None)
-        if d.pop("resident_tile", None) is not None:
-            raise NotImplementedError(
-                "resident_tile is not ported yet (ROADMAP B15)")
         if d.get("mesh_shape") is not None:
             d["mesh_shape"] = tuple(d["mesh_shape"])
         backend = d.get("backend", "auto")

@@ -21,6 +21,20 @@ against their bf16-mode plain sums at K2's per-column bound, the fp32 mode
 of B6 against a float64 oracle at the K1 bound, and B6's auto and fast runs
 bitwise equal to its masked run (no atomics).
 
+The ensemble VJPs B9c (B11 per system) and B9d (B13 per system): each
+system bitwise its standalone VJP at the same tile, raw sums against the
+plain versions with the system axis (B9c at the K1 bound, B9d at K2's
+per-column bound against the bf16-mode plain sums), and no gradient leaks
+from one system into another. The resident kernel B15: a trajectory against
+its plain version (the bf16 class against the bf16-mode one), the change of
+each velocity and position within RES_PLAIN of its own scale (chip_smoke.py's
+limits), each ensemble system bitwise its standalone run, two runs and a
+split Yoshida-4 phase bitwise one run, 'auto' bitwise 'masked', a 'fast'
+fold over pads within the class bound of 'masked' (tests/test_resident_sym.py:
+rtol 1e-4, atol 1e-5 of the scale in the fp32 class, 2e-2 and 2e-3 in the
+bf16 class), and simulate's resident route, forced or by default, bitwise
+the streamed loop.
+
 The pair-once slot kernels K2, K3, B11 and B13 sum in a fixed order: two
 runs are bitwise equal, 'auto' and 'fast' are bitwise 'masked', a
 checkpointed rollout gradient is bitwise the unchecked one, and every system
@@ -32,12 +46,14 @@ import pytest
 import torch
 
 from mini_nbody_tpu_torch import (BodyState, SimConfig, init,
+                                  make_differentiable_ensemble_force,
                                   make_differentiable_force, make_rollout_fn,
-                                  simulate)
+                                  simulate, simulate_ensemble)
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import direct_force as df
 from mini_nbody_tpu_torch.ops import mxu_force as mf
 from mini_nbody_tpu_torch.ops import pe_kernel as pk
+from mini_nbody_tpu_torch.ops import resident_sym as rs
 from mini_nbody_tpu_torch.ops import slot_pipe as sp
 from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
 from mini_nbody_tpu_torch.ops import symmetric_force as sf
@@ -791,7 +807,8 @@ def test_simulate_ensemble_bitwise_vs_simulate(cuda, backend, integrator):
     n = 700
     ss, st = _ensemble(n, 3, True, cuda, seed=44)
     cfg = SimConfig(n=n, dt=1e-3, steps=4, softening=1e-2, backend=backend,
-                    integrator=integrator, use_masses=True)
+                    integrator=integrator, use_masses=True,
+                    resident=False)  # the streamed loop, not B15
     before = (sp.ENSEMBLE_LAUNCHES, sf.ENSEMBLE_LAUNCHES)
     out = simulate_ensemble(cfg, st)
     passes = {"euler": 4, "leapfrog": 5, "yoshida4": 13}[integrator]
@@ -878,3 +895,313 @@ def test_slot_reduce_bitwise_plain(cuda, cross):
         accs.append((a, b))
     assert torch.equal(accs[0][0], accs[1][0])
     assert torch.equal(accs[0][1], accs[1][1])
+
+
+# ------------------------------------------------- B9c, B9d: ensemble VJPs
+
+def _ens_vjp(mxu):
+    if mxu:
+        return (vm.vjp_pos_sym_mxu_ensemble, vm.vjp_pos_sym_mxu,
+                (vm, "ENSEMBLE_LAUNCHES"))
+    return (vk.vjp_pos_sym_ensemble, vk.vjp_pos_sym,
+            (vk, "SYM_ENSEMBLE_LAUNCHES"))
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("mass_grad", [False, True])
+@pytest.mark.parametrize("n,tile", [(192, 64), (300, 64), (128, 128)])
+def test_ensemble_vjp_bitwise_vs_standalone(cuda, mxu, mass_grad, n, tile):
+    # nb = 3 (odd), 5 (odd, ragged), 1: one launch holds the 3 systems.
+    ss, st = _ensemble(n, 3, True, cuda, seed=48)
+    g = torch.sin(7.0 * st.pos)
+    ens, one, counter = _ens_vjp(mxu)
+    before = getattr(*counter)
+    got = ens(st.pos, g, st.mass, tile=tile, mass_grad=mass_grad)
+    assert getattr(*counter) == before + 1
+    got = got if mass_grad else (got,)
+    for i in range(3):
+        ref = one(st.pos[i], g[i], st.mass[i], tile=tile,
+                  mass_grad=mass_grad)
+        ref = ref if mass_grad else (ref,)
+        for a, b in zip(got, ref):
+            assert torch.equal(a[i], b), i
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("masses", [False, True])
+def test_ensemble_vjp_sums_vs_plain(cuda, mxu, masses):
+    b, n, tile = 3, 1000, 64
+    _, st = _ensemble(n, b, True, cuda, seed=49)
+    g = torch.sin(7.0 * st.pos)
+    m = st.mass if masses else None
+    c = 1024
+    slots = sp.slot_table(c // tile, True, False, cuda)
+    if mxu:
+        (_, _), (p, gp, q) = vm.ensemble_sums_inputs(st.pos, g, m, tile)
+        ko = 9 if masses else 8
+        got, want = (torch.zeros((b * c, ko), device=cuda) for _ in range(2))
+        vm.vjp_mxu_sums_ensemble_(got, p, gp, q, slots, tile, 1e-2, b)
+        vm.vjp_mxu_sums_plain(want, want, p, p, gp, gp, q, q, slots, tile,
+                              1e-2, True, mma_dtype=torch.bfloat16, n_sys=b)
+        _close_cols(got, want)
+    else:
+        p = sm.pack_ensemble(st.pos, m, c, sf._pack)
+        gp = vk.pad_systems(g, c)
+        ko = 4 if masses else 3
+        got, want = (torch.zeros((b * c, ko), device=cuda) for _ in range(2))
+        vk.vjp_sym_sums_ensemble_(got, p, gp, slots, tile, 1e-2, b)
+        vk.vjp_sym_sums_plain(want, want, p, p, gp, gp, slots, tile, 1e-2,
+                              True, n_sys=b)
+        _close(got, want, 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("backend", ["sym", "sym_mxu"])
+def test_ensemble_grad_per_system_and_no_leakage(cuda, backend):
+    n, tile = 300, 64
+    ss, st = _ensemble(n, 3, True, cuda, seed=50)
+    cfg = SimConfig(n=n, backend=backend, use_masses=True, softening=1e-2,
+                    sym_tile=tile, sym_bwd_tile=tile)
+    force = make_differentiable_ensemble_force(cfg)
+    p = st.pos.clone().requires_grad_(True)
+    torch.sin(force(p, st.mass)).sum().backward()
+    one = make_differentiable_force(cfg)
+    for i in range(3):
+        q = ss[i].pos.clone().requires_grad_(True)
+        torch.sin(one(q, ss[i].mass)).sum().backward()
+        assert torch.equal(p.grad[i], q.grad), i
+    p = st.pos.clone().requires_grad_(True)
+    (force(p, st.mass)[0] ** 2).sum().backward()
+    assert p.grad[0].abs().max() > 0
+    assert torch.equal(p.grad[1:], torch.zeros_like(p.grad[1:]))
+
+
+# ------------------------------------------ B15: the resident trajectory
+
+#: B15 against its plain version, by class (mxu), at 1000 plummer bodies
+#: and 5 steps: chip_smoke.py's RES_PLAIN_TOL["plummer"]. Measured on an
+#: H100 over test_b15_vs_plain's cases: at most 1.15e-5 in both classes.
+RES_PLAIN = {False: 1e-4, True: 1e-4}
+
+
+def _close_change(got, want, start, tol):
+    """got's change from start within tol of the scale of want's change
+    (max |want - start|): a run that dropped the forces is off by all of
+    it."""
+    start = start.double().cpu()
+    dg_, dw = got.double().cpu() - start, want.double().cpu() - start
+    assert torch.isfinite(dg_).all()
+    assert ((dg_ - dw).abs() <= tol * dw.abs().max()).all()
+
+
+def _padded(s, n, tile, masses):
+    """pos, vel (1, Np, 3) and mass (1, Np) or None, FAR-padded as B15
+    pads them."""
+    pad = -(-n // tile) * tile - n
+    pos = torch.cat([s.pos, s.pos.new_full((pad, 3), 1.0e18)])[None]
+    vel = torch.cat([s.vel, s.vel.new_zeros((pad, 3))])[None]
+    m = torch.cat([s.mass, s.mass.new_zeros(pad)])[None] if masses else None
+    return pos.contiguous(), vel.contiguous(), m
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_b15_vs_plain(cuda, mxu, masses, fold, tile):
+    n, steps = 1000, 5
+    ss, _ = _ensemble(n, 1, True, cuda, seed=51)
+    s = ss[0]
+    before = rs.LAUNCHES
+    pos, vel = rs.simulate_resident_sym(
+        s.pos, s.vel, s.mass if masses else None, steps=steps, dt=1e-3,
+        softening=1e-2, mxu=mxu, tile=tile, fold=fold)
+    assert rs.LAUNCHES == before + 1
+    p, v, m = _padded(s, n, tile, masses)
+    slots = sp.slot_table(p.shape[1] // tile, fold, False, cuda)
+    rs.resident_plain(p, v, m, slots, tile, n, steps, 1e-3, 1e-2, mxu, True,
+                      mma_dtype=torch.bfloat16 if mxu else torch.float32)
+    _close_change(pos, p[0, :n], s.pos, RES_PLAIN[mxu])
+    _close_change(vel, v[0, :n], s.vel, RES_PLAIN[mxu])
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("masses", [False, True])
+def test_b15_ensemble_bitwise_vs_standalone(cuda, mxu, masses):
+    n, b = 300, 3
+    ss, st = _ensemble(n, b, masses, cuda, seed=52)
+    m = st.mass if masses else None
+    kw = dict(steps=4, dt=1e-3, softening=1e-2, mxu=mxu, tile=64)
+    before = rs.LAUNCHES
+    p, v = rs.simulate_resident_sym_ensemble(st.pos, st.vel, m, **kw)
+    assert rs.LAUNCHES == before + 1
+    for i in range(b):
+        pi, vi = rs.simulate_resident_sym(ss[i].pos, ss[i].vel,
+                                          ss[i].mass if masses else None,
+                                          **kw)
+        assert torch.equal(p[i], pi) and torch.equal(v[i], vi), i
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_b15_reruns_and_y4_phase_split_bitwise(cuda, mxu):
+    ss, _ = _ensemble(200, 1, True, cuda, seed=53)
+    s = ss[0]
+    cycle, _ = rs.y4_cycle(1e-3)
+    kw = dict(dt=1e-3, softening=1e-2, mxu=mxu, tile=64, y4=cycle)
+    one = rs.simulate_resident_sym(s.pos, s.vel, s.mass, steps=8, **kw)
+    again = rs.simulate_resident_sym(s.pos, s.vel, s.mass, steps=8, **kw)
+    assert torch.equal(one[0], again[0]) and torch.equal(one[1], again[1])
+    p, v = s.pos, s.vel
+    for start, k in ((0, 3), (3, 4), (7, 1)):
+        p, v = rs.simulate_resident_sym(p, v, s.mass, steps=k,
+                                        y4_phase=start, **kw)
+    assert torch.equal(p, one[0]) and torch.equal(v, one[1])
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_b15_auto_is_masked_and_fast_fold_over_pads_is_finite(cuda, mxu):
+    # N = 200 at tile 64: 56 pads in block 3, which folds with block 2.
+    n = 200
+    ss, _ = _ensemble(n, 1, False, cuda, seed=54)
+    s = ss[0]
+    kw = dict(steps=20, dt=1e-3, softening=1e-9, mxu=mxu, tile=64, fold=True)
+    out = {mode: rs.simulate_resident_sym(s.pos, s.vel, None,
+                                          coincident=mode, **kw)
+           for mode in ("auto", "masked", "fast")}
+    assert torch.equal(out["auto"][0], out["masked"][0])
+    assert torch.equal(out["auto"][1], out["masked"][1])
+    rtol, atol = (2e-2, 2e-3) if mxu else (1e-4, 1e-5)
+    for k in (0, 1):
+        _close(out["fast"][k], out["masked"][k], rtol, atol)
+
+
+@pytest.mark.parametrize("backend", ["auto", "sym_mxu"])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "yoshida4"])
+def test_simulate_resident_route(cuda, backend, integrator):
+    n = 1000
+    ss, st = _ensemble(n, 3, True, cuda, seed=55)
+    cfg = SimConfig(n=n, dt=1e-3, steps=4, softening=1e-2, backend=backend,
+                    integrator=integrator, use_masses=True)
+    before = rs.LAUNCHES
+    res = simulate(cfg.replace(resident=True), ss[0])
+    assert rs.LAUNCHES == before + 1
+    ref = simulate(cfg.replace(resident=False), ss[0])
+    assert torch.equal(res.pos, ref.pos) and torch.equal(res.vel, ref.vel)
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    rcfg = cfg.replace(resident=True, sym_tile=t, sym_chunk=c)
+    before = rs.LAUNCHES
+    out = simulate_ensemble(rcfg, st)
+    assert rs.LAUNCHES == before + 1
+    for i in range(3):
+        one = simulate(rcfg, ss[i])
+        assert torch.equal(out.pos[i], one.pos)
+        assert torch.equal(out.vel[i], one.vel)
+
+
+@pytest.mark.parametrize("backend", ["auto", "sym_mxu"])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "yoshida4"])
+def test_default_route_changes_no_bit(cuda, backend, integrator):
+    # resident=None: simulate routes N = 3000 to B15 at the streamed tile
+    # (128; B15's own default would take 64); trajectory, which streams,
+    # ends on simulate's bits. An ensemble above the ensemble crossover
+    # streams while each system alone routes to B15: each system is bitwise
+    # its simulate all the same.
+    from mini_nbody_tpu_torch import sim as tsim
+    from mini_nbody_tpu_torch import trajectory
+
+    eff = "sym" if backend == "auto" else backend
+    steps = max(4, tsim.RESIDENT_AUTO_MIN_STEPS[integrator])
+    n = 3000
+    assert n <= tsim.RESIDENT_AUTO_MAX_N[eff] and rs.auto_tile(n) == 64
+    cfg = SimConfig(n=n, dt=1e-3, steps=steps, softening=1e-2,
+                    backend=backend, integrator=integrator, use_masses=True)
+    s = _ensemble(n, 1, True, cuda, seed=60)[0][0]
+    before = rs.LAUNCHES
+    out = simulate(cfg, s)
+    assert rs.LAUNCHES == before + 1
+    ref = simulate(cfg.replace(resident=False), s)
+    assert torch.equal(out.pos, ref.pos) and torch.equal(out.vel, ref.vel)
+    final, hist = trajectory(cfg, s, steps)
+    assert torch.equal(final.pos, out.pos) and torch.equal(final.vel, out.vel)
+    assert torch.equal(hist[-1], out.pos)
+    n = 2 * tsim.RESIDENT_ENSEMBLE_AUTO_MAX_N[eff]
+    assert n <= tsim.RESIDENT_AUTO_MAX_N[eff]
+    ss, st = _ensemble(n, 3, True, cuda, seed=61)
+    cfg = cfg.replace(n=n)
+    before = rs.LAUNCHES
+    ens = simulate_ensemble(cfg, st)
+    assert rs.LAUNCHES == before
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    for i in range(3):
+        one = simulate(cfg.replace(sym_tile=t, sym_chunk=c), ss[i])
+        assert torch.equal(ens.pos[i], one.pos), i
+        assert torch.equal(ens.vel[i], one.vel), i
+    assert rs.LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("backend", ["auto", "sym_mxu"])
+def test_auto_routes_small_n_to_b15(cuda, backend):
+    # resident=None: B15 at or below the card's crossover (sim.py), the
+    # streamed loop above it; an ensemble likewise by its per-system N.
+    from mini_nbody_tpu_torch import sim as tsim
+
+    eff = "sym" if backend == "auto" else backend
+    steps = tsim.RESIDENT_AUTO_MIN_STEPS["euler"]
+    for n, routed in ((tsim.RESIDENT_AUTO_MAX_N[eff], True),
+                      (2 * tsim.RESIDENT_AUTO_MAX_N[eff], False)):
+        s = init.uniform_random(n, generator=torch.Generator(
+            device=cuda).manual_seed(56), device=cuda)
+        before = rs.LAUNCHES
+        simulate(SimConfig(n=n, steps=steps, backend=backend), s)
+        assert rs.LAUNCHES - before == int(routed), n
+    n = tsim.RESIDENT_ENSEMBLE_AUTO_MAX_N[eff]
+    _, st = _ensemble(n, 4, True, cuda, seed=57)
+    before = rs.LAUNCHES
+    simulate_ensemble(SimConfig(n=n, steps=steps, backend=backend), st)
+    assert rs.LAUNCHES - before == 1
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_ensemble_vjp_grouping_keeps_the_bits(cuda, monkeypatch, mxu):
+    # PIECE_SLOTS = 2 S: B9c / B9d launches of 2, 2 and 1 systems against
+    # one-system calls, the mass cotangent included.
+    n = 1000
+    _, st = _ensemble(n, 5, True, cuda, seed=58)
+    g = torch.sin(7.0 * st.pos)
+    ens, _, _ = _ens_vjp(mxu)
+    tile = vm.DEFAULT_TILE if mxu else vk.DEFAULT_TILE
+    t, c = sm.ensemble_tiling(n, tile, kernel=True)
+    monkeypatch.setattr(sp, "PIECE_SLOTS", 2 * sp.n_slots_tri(c // t))
+    got = ens(st.pos, g, st.mass, mass_grad=True)
+    for i in range(5):
+        k = slice(i, i + 1)
+        one = ens(st.pos[k], g[k], st.mass[k], mass_grad=True)
+        assert torch.equal(got[0][i], one[0][0]), i
+        assert torch.equal(got[1][i], one[1][0]), i
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_b15_many_pieces(cuda, monkeypatch, mxu):
+    # Pieces of 7 slots: B15's per-piece barriers and reduces. Each system
+    # bitwise its standalone run, the run bitwise the streamed Euler run
+    # (the same slot bodies, pieces and adds), and the plain schedule
+    # within the class bound.
+    monkeypatch.setattr(sp, "PIECE_SLOTS", 7)
+    n, tile = 1000, 64
+    ss, st = _ensemble(n, 3, True, cuda, seed=59)
+    kw = dict(steps=3, dt=1e-3, softening=1e-2, mxu=mxu, tile=tile)
+    p, v = rs.simulate_resident_sym_ensemble(st.pos, st.vel, st.mass, **kw)
+    for i in range(3):
+        pi, vi = rs.simulate_resident_sym(ss[i].pos, ss[i].vel, ss[i].mass,
+                                          **kw)
+        assert torch.equal(p[i], pi) and torch.equal(v[i], vi), i
+    ref = simulate(SimConfig(n=n, steps=3, dt=1e-3, softening=1e-2,
+                             use_masses=True, sym_tile=tile,
+                             backend="sym_mxu" if mxu else "sym",
+                             resident=False), ss[0])
+    assert torch.equal(p[0], ref.pos) and torch.equal(v[0], ref.vel)
+    pp, vv, mm = _padded(ss[0], n, tile, True)
+    slots = sp.slot_table(pp.shape[1] // tile, True, False, cuda)
+    rs.resident_plain(pp, vv, mm, slots, tile, n, 3, 1e-3, 1e-2, mxu, True,
+                      mma_dtype=torch.bfloat16 if mxu else torch.float32)
+    _close_change(p[0], pp[0, :n], ss[0].pos, RES_PLAIN[mxu])
+    _close_change(v[0], vv[0, :n], ss[0].vel, RES_PLAIN[mxu])
