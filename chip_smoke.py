@@ -67,7 +67,18 @@ each with every launch count set to 0 just before it and read just after:
   its plain version at N = 1000;
 - ``resident_crossover``: ms per step of B15 (fold on and off) against the
   streamed loop at N = 512 .. 16,384, and of the resident ensemble against
-  B9a / B9b at (B, N) = (256, 256) .. (8, 8192): the card's crossovers.
+  B9a / B9b at (B, N) = (256, 256) .. (8, 8192): the card's crossovers;
+- ``sharded``: the sharded path (``parallel/``) on a one-rank NCCL group
+  over ``make_mesh((1,))`` and ``make_mesh((1, 1))``: BASELINE config 4's
+  N = 1,048,576, 2 Euler steps of ``simulate_sharded`` under
+  ``all_gather``, ``ring`` and ``ring_sym`` on ``auto``, ``grid`` on
+  ``direct`` and ``all_gather`` on ``sym_mxu``, each bitwise the
+  single-card ``simulate`` on the kernel its shard runs, with exact kernel
+  and collective counts and the ms per step beside the single card's;
+  config 3 (plummer, N = 262,144) through one differentiable step under
+  ``grid`` (backward B12, two launches) and ``ring`` on ``sym_mxu``
+  (backward B14) against the single-card gradient (B10); the parameter
+  sweep with a mesh, bitwise the unsharded ensemble.
 
 A slot kernel (K2, K3, B11, B13, and the ensembles B9a and B9b) makes one
 launch per piece of its slot list (``slot_pipe.PIECE_SLOTS`` slots) and
@@ -76,9 +87,12 @@ which adds the piece's partial sums in slot order; the launch counts and
 the per-launch times of the kernels line count those launches.
 
 Before the paths, ``vjp_vs_plain`` holds the VJP kernels B10, B11, B13 and
-B14 against their plain versions, and ``b6_vs_plain`` and ``b4_vs_plain``
-hold B6 and B4 against theirs. Then it times each kernel beside its plain
-version and its bound. Every
+B14 against their plain versions, ``b6_vs_plain`` and ``b4_vs_plain``
+hold B6 and B4 against theirs, and ``b12_vs_plain`` holds B12
+(``vjp_pos_pair``, the grid backward) against its plain version on the
+tiles of 2 x 2 and 4 x 2 grids at N = 262,144, a ragged pair and the whole
+262,144 x 262,144 pair matrix the sharded grid gradient gives it. Then it
+times each kernel beside its plain version and its bound. Every
 phase prints one JSON line; the line before the last is the card's name
 and power limit from nvidia-smi, preceded by one JSON line of per-kernel
 results, and the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -94,16 +108,21 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mini_nbody_tpu_torch import (BodyState, SimConfig, _build, init,
                                   make_differentiable_ensemble_force,
                                   make_differentiable_force, make_force_fn,
-                                  make_rollout_fn, simulate,
-                                  simulate_ensemble, trajectory)
+                                  make_mesh, make_rollout_fn, simulate,
+                                  simulate_ensemble, simulate_sharded,
+                                  trajectory)
+from mini_nbody_tpu_torch.parallel import _comm
+from mini_nbody_tpu_torch.parallel import sharded as psh
 from mini_nbody_tpu_torch import sim as tsim
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import direct_force as df
@@ -249,6 +268,16 @@ CROSS_SHORT_MAX_N, CROSS_SHORT_MAX_ENS_N = 8192, 2048
 #: The bf16 class runs K2's slot body and takes K2's count (OPS_K2_FP32 and
 #: OPS_K2_MMA).
 OPS_B15, BYTES_B15 = 19, 64
+#: B12: JAX's count, 26 fp32 operations per ordered pair
+#: (vjp_kernel.py:944); its two one-sided launches do ~22 each. Its checks:
+#: the tiles a device of a 2 x 2 and a 4 x 2 grid holds at config 3's N
+#: (row group x column group, sharing half or a quarter of their bodies),
+#: and a ragged pair; its time on the whole pair matrix (a 1 x 1 grid).
+OPS_B12 = 26
+B12_TILES = ((2, 2), (4, 2))
+B12_RAGGED = (3001, 9001)
+#: sharded: Euler steps at N_MAIN per comm.
+SHARDED_STEPS = 2
 
 DEV = torch.device("cuda", 0)
 
@@ -310,6 +339,7 @@ COUNTERS = {"direct": (df, "LAUNCHES"), "fused": (df, "FUSED_LAUNCHES"),
             "vjp_sym_ensemble": (vk, "SYM_ENSEMBLE_LAUNCHES"),
             "vjp_mxu_ensemble": (vm, "ENSEMBLE_LAUNCHES"),
             "resident": (rs, "LAUNCHES"),
+            "vjp_pair": (vk, "PAIR_LAUNCHES"),
             "slot_reduce": (sp, "REDUCE_LAUNCHES")}
 #: The slot kernels of read_counts: slot_reduce runs once after each of
 #: their launches (B15 adds its partials inside its own launch).
@@ -322,6 +352,18 @@ SLOT_KERNELS = ("slot_tri", "slot_cross", "pair_mxu", "slot_ensemble",
 def reset_counts():
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    for k in _comm.CALLS:
+        _comm.CALLS[k] = 0
+
+
+def expect_calls(path, **want):
+    """Fail unless the sharded path made exactly ``want`` collective calls
+    since reset_counts; returns them."""
+    got = dict(_comm.CALLS)
+    full = dict(dict.fromkeys(got, 0), **want)
+    if got != full:
+        fail(f"{path}: collectives {got}, expected {full}")
+    return got
 
 
 def read_counts():
@@ -342,7 +384,7 @@ def read_counts():
             "sym_ensemble": c["sym_ensemble"],
             "vjp_sym_ensemble": c["vjp_sym_ensemble"],
             "vjp_mxu_ensemble": c["vjp_mxu_ensemble"],
-            "resident": c["resident"],
+            "resident": c["resident"], "vjp_pair": c["vjp_pair"],
             "slot_reduce": c["slot_reduce"]}
 
 
@@ -2623,6 +2665,243 @@ def resident_crossover_phase():
          fold_default=rs.FOLD_DEFAULT, classes=out)
 
 
+def b12_tile(pos, mass, shape):
+    """The (row group, column group) bodies of rank (0, 0) of a (Pi, Pj)
+    grid over pos (the blocks of ranks 0 .. Pj - 1, and of ranks 0, Pj, 2
+    Pj, ..), with their masses."""
+    pi, pj = shape
+    blk = pos.shape[0] // (pi * pj)
+
+    def rows(ranks):
+        idx = torch.cat([torch.arange(r * blk, (r + 1) * blk, device=DEV)
+                         for r in ranks])
+        return pos[idx].contiguous(), mass[idx].contiguous()
+
+    return rows(range(pj)), rows(range(0, pi * pj, pj))
+
+
+def b12_bound(na, nb):
+    """B12's bound: 26 fp32 operations per ordered pair; bytes: pos_a, g_a,
+    pos_b and m_b in, a_bar and b_bar out."""
+    return bound(float(na) * nb * OPS_B12, (na * 9 + nb * 7) * 4.0)
+
+
+def b12_phase(rng):
+    """B12 (vjp_pos_pair) against vjp_pos_pair_plain on the card: the tile
+    of rank (0, 0) of a 2 x 2 and a 4 x 2 grid over config 3's plummer
+    state (131,072 x 131,072 sharing half the bodies, 65,536 x 131,072
+    sharing a quarter), and a ragged 3001 x 9001, with masses and unit
+    masses, at K1's bound on each output's scale; every call twice,
+    bitwise. Then B12 on the whole pair matrix (262,144 x 262,144, a 1 x 1
+    grid, what the grid gradient of the sharded phase gives it) against its
+    plain version at the same bound, and timed beside its bound and its
+    plain version. Every call takes the grid backward's block
+    (SimConfig.tile_i). Returns (its max error, its kernels-line record
+    without its launches)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    state = init.plummer(N_CONFIG3, generator=gen, device=DEV)
+    soft = 1e-2
+    block = grad_cfg(N_CONFIG3).tile_i
+    cases = []
+    for shape in B12_TILES:
+        (pa, ma), (pb, mb) = b12_tile(state.pos, state.mass, shape)
+        cases.append((f"grid {shape}", pa, ma, pb, mb))
+    na, nb = B12_RAGGED
+    pr = to_dev(rng.uniform(-1, 1, (na + nb, 3)).astype(np.float32))
+    mr = to_dev(rng.uniform(0.5, 2.0, na + nb).astype(np.float32))
+    cases.append(("ragged", pr[:na], mr[:na], pr[na:], mr[na:]))
+    errs, of_scale, shapes = [], [], []
+    for what, pa, ma, pb, mb in cases:
+        g = normal(rng, pa.shape[0])
+        for masses in (True, False):
+            m = (ma, mb) if masses else (None, None)
+            reset_counts()
+            got = vk.vjp_pos_pair(pa, g, pb, *m, softening=soft, block=block)
+            again = vk.vjp_pos_pair(pa, g, pb, *m, softening=soft,
+                                    block=block)
+            expect_counts(read_counts(), f"b12 {what}", vjp_pair=4)
+            want = vk.vjp_pos_pair_plain(pa, g, pb, *m, softening=soft)
+            for a, b, w, side in zip(got, again, want, ("a_bar", "b_bar")):
+                if not torch.equal(a, b):
+                    fail(f"B12 {what} masses={masses}: {side} differs "
+                         "between two runs")
+                errs.append(close_grad(a, w, K1_RTOL, K1_ATOL,
+                                       f"B12 {what} masses={masses} "
+                                       f"{side}"))
+                of_scale.append(scale_err(a, w))
+        shapes.append([what, pa.shape[0], pb.shape[0]])
+    g = normal(rng, N_CONFIG3)
+    args = (state.pos, g, state.pos, None, state.mass, soft)
+    reset_counts()
+    got = vk.vjp_pos_pair(*args, block=block)
+    expect_counts(read_counts(), "b12 whole pair matrix", vjp_pair=2)
+    plain_s, want = host_time(vk.vjp_pos_pair_plain, *args)
+    whole = [close_grad(a, w, K1_RTOL, K1_ATOL,
+                        f"B12 {N_CONFIG3}^2 {side}")
+             for a, w, side in zip(got, want, ("a_bar", "b_bar"))]
+    of_scale += [scale_err(a, w) for a, w in zip(got, want)]
+    shapes.append(["whole", N_CONFIG3, N_CONFIG3])
+    err = max(errs + whole)
+    ms = time_fn(vk.vjp_pos_pair, *args, block, reps=3) * 1e3
+    bnd = b12_bound(N_CONFIG3, N_CONFIG3)
+    line("b12_vs_plain", cases=shapes, masses=[True, False],
+         max_abs_err=err, max_err_of_scale=max(of_scale),
+         whole_max_abs_err=max(whole), bitwise_rerun=True, n=N_CONFIG3,
+         block=block, kernel_ms=ms, plain_ms=plain_s * 1e3, **bnd,
+         share=bnd["bound_ms"] / ms)
+    return err, entry("vjp_pos_pair (B12)", "vjp_kernel.cu",
+                      "vjp_kernel.py:831", 0, max(whole), ms, plain_s * 1e3,
+                      bnd, n=N_CONFIG3, block=block, launches_per_call=2)
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL process group on DEV (rendezvous through a file in
+    a temporary directory), destroyed on the way out."""
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rdv",
+                                world_size=1, rank=0, device_id=DEV)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_grad(step, state, acc):
+    """Gradient of sum(vel^2) after one step from (state, acc) in the
+    initial positions (the acceleration carry held constant)."""
+    p = state.pos.clone().requires_grad_(True)
+    out, _ = step((BodyState(pos=p, vel=state.vel, mass=state.mass), acc))
+    (out.vel ** 2).sum().backward()
+    torch.cuda.synchronize()
+    if not torch.isfinite(p.grad).all():
+        fail("sharded gradient: non-finite")
+    return p.grad
+
+
+def sharded_phase():
+    """The sharded path on a one-rank NCCL group (module docstring): every
+    comm at config 4's N bitwise the single-card run on its shard's kernel,
+    with exact kernel and collective counts (at P = 1 a gather or a
+    reduce-scatter is an identity; ring and ring_sym make no hop); config
+    3's gradient through one differentiable step under grid (B12) and ring
+    on sym_mxu (B14) against the single card's (B10); the sweep with a
+    mesh bitwise the unsharded ensemble. Returns the B12 launches of the
+    grid gradient."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    state = init.uniform_random(N_MAIN, generator=gen, device=DEV)
+    base = SimConfig(n=N_MAIN, steps=SHARDED_STEPS, integrator="euler")
+    tri, cross = pass_launches(N_MAIN, sf.DEFAULT_TILE, SHARDED_STEPS)
+    k1 = dict(direct=SHARDED_STEPS)
+    k3 = dict(sym_tri=tri, sym_cross=cross)
+    # comm, backend, mesh shape, the single-card run it is bitwise, its
+    # kernel launches and collectives (every run gathers its state once).
+    runs = [("all_gather", "auto", (1,), "direct", k1,
+             dict(all_gather=SHARDED_STEPS + 1)),
+            ("ring", "auto", (1,), "sym", k3, dict(all_gather=1)),
+            ("ring_sym", "auto", (1,), "sym", k3, dict(all_gather=1)),
+            ("grid", "direct", (1, 1), "direct", k1,
+             dict(all_gather=2 * SHARDED_STEPS + 1,
+                  reduce_scatter=SHARDED_STEPS)),
+            ("all_gather", "sym_mxu", (1,), "mxu", dict(mxu=SHARDED_STEPS),
+             dict(all_gather=SHARDED_STEPS + 1))]
+    out = {"forward": [], "single_ms_per_step": {}}
+    with one_rank_group():
+        meshes = {(1,): make_mesh((1,)), (1, 1): make_mesh((1, 1))}
+        singles = {}
+        for single in ("direct", "sym", "mxu"):
+            cfg = base.replace(backend=single, pair_dtype="bfloat16")
+            simulate(cfg, state, 1)  # warm: first-use costs (slot plans)
+            secs, singles[single] = host_time(simulate, cfg, state)
+            out["single_ms_per_step"][single] = secs / SHARDED_STEPS * 1e3
+        for comm, backend, shape, single, kern, calls in runs:
+            cfg = base.replace(backend=backend, comm=comm, mesh_shape=shape)
+            reset_counts()
+            secs, got = host_time(simulate_sharded, cfg, meshes[shape],
+                                  state)
+            what = f"sharded {comm} on {backend}"
+            expect_counts(read_counts(), what, **kern)
+            comm_calls = expect_calls(what, **calls)
+            ref = singles[single]
+            if not (torch.equal(got.pos, ref.pos)
+                    and torch.equal(got.vel, ref.vel)):
+                fail(f"{what}: not bitwise the single-card {single} run")
+            out["forward"].append({
+                "comm": comm, "backend": backend, "mesh": shape,
+                "bitwise_single_card": single, "collectives": comm_calls,
+                "ms_per_step": secs / SHARDED_STEPS * 1e3,
+                "single_ms_per_step":
+                    out["single_ms_per_step"][single]})
+        grads, b12_launches = sharded_grads(meshes, out)
+        out["gradients"] = grads
+        out["ensemble"] = sharded_ensemble(meshes[(1,)])
+    line("sharded", n=N_MAIN, steps=SHARDED_STEPS, **out)
+    return b12_launches
+
+
+def sharded_grads(meshes, out):
+    """Config 3's one-step gradients under grid (B12) and ring on sym_mxu
+    (B14), against the single card's B10 gradient; returns (their records,
+    the B12 launches of the grid run)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    s3 = init.plummer(N_CONFIG3, generator=gen, device=DEV)
+    cfg = grad_cfg(N_CONFIG3)
+    with torch.no_grad():
+        acc = init_carry(cfg, s3)[1]
+    reset_counts()
+    secs, want = host_time(sharded_grad,
+                           tsim.make_step_fn(cfg, differentiable=True), s3,
+                           acc)
+    tri, cross = pass_launches(N_CONFIG3, sf.DEFAULT_TILE)
+    expect_counts(read_counts(), "single-card gradient", sym_tri=tri,
+                  sym_cross=cross, vjp_ordered=1)
+    recs = {"single_card_b10_s": secs}
+    m_tri, m_cross = pass_launches(N_CONFIG3, sm.DEFAULT_TILE)
+    for comm, backend, shape, tol, kern, calls in (
+            ("grid", "direct", (1, 1), (K1_RTOL, K1_ATOL),
+             dict(direct=1, vjp_pair=2),
+             dict(all_gather=3 + 4, reduce_scatter=1 + 2)),
+            ("ring", "sym_mxu", (1,), (SYM_RTOL, SYM_ATOL),
+             dict(slot_tri=m_tri, slot_cross=m_cross, vjp_rect_mxu=1),
+             dict(all_gather=3))):
+        c = cfg.replace(backend=backend, comm=comm, mesh_shape=shape)
+        mesh = meshes[shape]
+        local = psh.shard_state(s3, mesh)
+        step = psh.make_sharded_step_fn(c, mesh, differentiable=True)
+        reset_counts()
+        secs, got = host_time(sharded_grad, step, local, acc)
+        what = f"sharded gradient, {comm} on {backend}"
+        launches = read_counts()
+        expect_counts(launches, what, **kern)
+        comm_calls = expect_calls(what, **calls)
+        err = close_grad(got, want, *tol, what)
+        recs[f"{comm}_{backend}"] = {
+            "seconds": secs, "max_abs_err": err,
+            "err_of_scale": scale_err(got, want), "launches": launches,
+            "collectives": comm_calls}
+        if comm == "grid":
+            b12 = launches["vjp_pair"]
+    return recs, b12
+
+
+def sharded_ensemble(mesh):
+    """examples/parameter_sweep.py's defaults through simulate_ensemble with
+    mesh=make_mesh((1,)): bitwise the unsharded run, one gather."""
+    st, _, cfg = sweep_case()
+    t, c = sm.ensemble_tiling(SWEEP_N, None, kernel=True)
+    want = simulate_ensemble(cfg, st)
+    reset_counts()
+    secs, got = host_time(simulate_ensemble, cfg, st, None, mesh)
+    expect_counts(read_counts(), "sharded ensemble", slot_ensemble=(
+        SWEEP_STEPS + 1) * per_call(tri_slots(c, t), SWEEP_B))
+    calls = expect_calls("sharded ensemble", all_gather=1)
+    if not (torch.equal(got.pos, want.pos) and torch.equal(got.vel,
+                                                           want.vel)):
+        fail("sharded ensemble: not bitwise the unsharded run")
+    return {"b": SWEEP_B, "n": SWEEP_N, "steps": SWEEP_STEPS,
+            "seconds": secs, "collectives": calls, "bitwise": True}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -2660,6 +2939,8 @@ def main(argv=None):
     trajectory_phase()
     coincident_gate_phase(rng)
     b9cd = grad_ensemble_phase()
+    _, b12 = b12_phase(rng)
+    b12["launches"] = sharded_phase()
     b15 = resident_phase()
     resident_crossover_phase()
     kernels = (times_phase(state, launches, k1_err, cfg_sym, cfg_dir)
@@ -2667,7 +2948,7 @@ def main(argv=None):
                + time_k4(state3, state, c3_launches)
                + time_k5(state2, c2_launches) + [b10, b11] + mxu_records
                + [time_b6(state3, c3_mxu_launches, mxu_pass_s), b4, b9a,
-                  b9b] + b9cd + b15)
+                  b9b] + b9cd + b15 + [b12])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on its path")

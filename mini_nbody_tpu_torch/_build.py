@@ -62,6 +62,9 @@ SIGNATURES = {
     # out, softening, overlap_only, block, stream
     "vjp_ordered_launch": ([_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _I, _I,
                             _P], _I),
+    # side, pos_a, g_a, na, pos_b, mass_b (or NULL), nb, out, softening,
+    # block, stream
+    "vjp_pair_launch": ([_I, _P, _P, _I, _P, _P, _I, _P, _F, _I, _P], _I),
     # slots, n_slots, n_sys, sys_rows, pos_a, pos_b, g_a, g_b, part, k, ko,
     # tile, softening, mask_offdiag, stream
     "vjp_sym_launch": ([_P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I, _I, _F,

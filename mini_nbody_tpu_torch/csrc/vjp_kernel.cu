@@ -1,5 +1,7 @@
 // B10: the ordered fp32 force VJP, one thread per receiver k.
 // B11: the pair-once fp32 force VJP on K3's slot + fold geometry.
+// B12: the one-cotangent VJP of the ordered pairs a <- b, one side of B10's
+//      kernel per launch.
 //
 // With d = p_j - p_k, s = |d|^2 + softening, inv = rsqrt(s), w = inv^3,
 // u = w inv^2 and the cotangent g of F:
@@ -58,6 +60,24 @@
 // zero cotangent: real-vs-pad terms are exactly 0 and pad-pad terms are
 // w (0 - 0) + 0 d = 0.
 //
+// B12 replaces vjp_kernel.py:831 `_pair_vjp_kernel` (`vjp_pos_pair`, :861,
+// `pallas_call` :923), the per-device tile of the 2-D grid backward
+// (parallel/sharded.py): with d = p_b - p_a and only a's cotangents g_a,
+//   t(a, b) = 3 u m_b (g_a.d) d - w m_b g_a,
+//   a_bar[a] = sum_b t(a, b),   b_bar[b] = -sum_a t(a, b).
+// The TPU kernel carries b_bar as a whole-B buffer across its sequential
+// grid; blocks here run in no order and nothing carries over, so B12 is B10's
+// ordered kernel with a compile-time side (kSide): a_bar is B10's receiver
+// half over (a <- b) with g_k = g_a, and b_bar is B10's source half over
+// (b <- a) with g_j = g_a, m_k[sum_j w g_j - 3 u (g_j.d) d] = -sum_a t(a, b)
+// (the sign of d flips, (g.d) d does not). Each launch drops the other half's
+// terms and loads: the receiver side stages no g_j, the source side no m_j,
+// and the unit-mass source side needs no mass at all. No atomics, no scratch:
+// every output bit is the same on every run. B12 always masks d2 == 0 (a body
+// present in both sets meets itself), with no coincident routing. Its w and u
+// are computed once per side, twice per pair; JAX's single pass counts 26
+// fp32 operations per pair (vjp_kernel.py:944), the two sides here ~22 each.
+//
 // What bounds them on an H100: fp32 arithmetic. B10: ~35 fp32 operations and
 // one rsqrt per ordered pair (JAX's count, vjp_kernel.py:656). B11: ~26 for
 // w, u, c once per pair and ~12 for each side's sum (+5 with the mass
@@ -88,7 +108,11 @@ __device__ __forceinline__ void weights(float d2, float softening, bool mask,
 
 // ---------------------------------------------------------------- B10 ---
 
-template <bool kMass>
+// kSide of vjp_ordered_kernel: both halves (B10), the receiver half only
+// (B12's a_bar) or the source half only (B12's b_bar).
+constexpr int kBoth = 0, kReceiver = 1, kSource = 2;
+
+template <bool kMass, int kSide>
 __global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
                                    const float* __restrict__ g_k,
                                    const float* __restrict__ mass_k, int nk,
@@ -97,6 +121,8 @@ __global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
                                    const float* __restrict__ mass_j, int nj,
                                    float* __restrict__ out, float softening,
                                    int overlap_only) {
+  constexpr bool kRecv = kSide != kSource;  // the receiver half: g_k, m_j
+  constexpr bool kSrc = kSide != kReceiver;  // the source half: g_j, m_k
   extern __shared__ float4 smem4[];
   float4* sp = smem4;               // (x, y, z, m) of the j tile
   float4* sg = smem4 + blockDim.x;  // (gx, gy, gz, 0)
@@ -107,12 +133,18 @@ __global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
     x = pos_k[3 * i];
     y = pos_k[3 * i + 1];
     z = pos_k[3 * i + 2];
-    gx = g_k[3 * i];
-    gy = g_k[3 * i + 1];
-    gz = g_k[3 * i + 2];
-    mk = kMass ? mass_k[i] : 1.f;
+    if (kRecv) {
+      gx = g_k[3 * i];
+      gy = g_k[3 * i + 1];
+      gz = g_k[3 * i + 2];
+    }
+    mk = kMass && kSrc ? mass_k[i] : 1.f;
   }
-  // unit masses: t (3), sum w; masses: r (3), sum m w, s (3).
+  // unit masses: t (3), sum w; masses: r (3), sum m w, s (3). One side:
+  // t and sum (m) w (receiver), s (source). Each j tile is summed into its
+  // own partials (pt*, ps*), which are then added to the row's totals: one
+  // running fp32 sum over all N partners drifts from the exact sum by
+  // several 1e-4 of the output's scale at N = 262,144.
   float t0 = 0.f, t1 = 0.f, t2 = 0.f, sw = 0.f;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
   for (int base = 0; base < nj; base += blockDim.x) {
@@ -121,47 +153,89 @@ __global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
     float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
     if (j < nj) {
       p = make_float4(pos_j[3 * j], pos_j[3 * j + 1], pos_j[3 * j + 2],
-                      kMass ? mass_j[j] : 1.f);
-      h = make_float4(g_j[3 * j], g_j[3 * j + 1], g_j[3 * j + 2], 0.f);
+                      kMass && kRecv ? mass_j[j] : 1.f);
+      if (kSrc)
+        h = make_float4(g_j[3 * j], g_j[3 * j + 1], g_j[3 * j + 2], 0.f);
     }
     __syncthreads();  // every thread is done with the previous tile
     sp[threadIdx.x] = p;
-    sg[threadIdx.x] = h;
+    if (kSrc) sg[threadIdx.x] = h;
     __syncthreads();
     const bool mask = !overlap_only || base == k0;
+    float pt0 = 0.f, pt1 = 0.f, pt2 = 0.f, ptw = 0.f;
+    float ps0 = 0.f, ps1 = 0.f, ps2 = 0.f;
 #pragma unroll 4
     for (int c = 0; c < blockDim.x; ++c) {
       const float4 q = sp[c];
-      const float4 gj = sg[c];
       const float dx = q.x - x, dy = q.y - y, dz = q.z - z;
       float w, u;
       weights(dx * dx + dy * dy + dz * dz, softening, mask, &w, &u);
-      const float dot_k = gx * dx + gy * dy + gz * dz;
-      const float dot_j = gj.x * dx + gj.y * dy + gj.z * dz;
-      if (kMass) {
-        const float a = 3.f * (u * q.w * dot_k);
-        const float b = 3.f * (u * dot_j);
-        t0 += a * dx;
-        t1 += a * dy;
-        t2 += a * dz;
-        sw += w * q.w;
-        s0 += w * gj.x - b * dx;
-        s1 += w * gj.y - b * dy;
-        s2 += w * gj.z - b * dz;
-      } else {
+      if (kSide == kBoth && !kMass) {  // both halves fused at unit mass
+        const float4 gj = sg[c];
+        const float dot_k = gx * dx + gy * dy + gz * dz;
+        const float dot_j = gj.x * dx + gj.y * dy + gj.z * dz;
         const float coeff = 3.f * (u * (dot_k - dot_j));
-        t0 += coeff * dx + w * gj.x;
-        t1 += coeff * dy + w * gj.y;
-        t2 += coeff * dz + w * gj.z;
-        sw += w;
+        pt0 += coeff * dx + w * gj.x;
+        pt1 += coeff * dy + w * gj.y;
+        pt2 += coeff * dz + w * gj.z;
+        ptw += w;
+      } else {
+        if (kRecv) {
+          const float dot_k = gx * dx + gy * dy + gz * dz;
+          const float a = kMass ? 3.f * (u * q.w * dot_k) : 3.f * (u * dot_k);
+          pt0 += a * dx;
+          pt1 += a * dy;
+          pt2 += a * dz;
+          ptw += kMass ? w * q.w : w;
+        }
+        if (kSrc) {
+          const float4 gj = sg[c];
+          const float b = 3.f * (u * (gj.x * dx + gj.y * dy + gj.z * dz));
+          ps0 += w * gj.x - b * dx;
+          ps1 += w * gj.y - b * dy;
+          ps2 += w * gj.z - b * dz;
+        }
       }
     }
+    t0 += pt0;
+    t1 += pt1;
+    t2 += pt2;
+    sw += ptw;
+    s0 += ps0;
+    s1 += ps1;
+    s2 += ps2;
   }
   if (i < nk) {
-    out[3 * i] = (t0 - gx * sw) + mk * s0;
-    out[3 * i + 1] = (t1 - gy * sw) + mk * s1;
-    out[3 * i + 2] = (t2 - gz * sw) + mk * s2;
+    if (kSide == kSource) {
+      out[3 * i] = mk * s0;
+      out[3 * i + 1] = mk * s1;
+      out[3 * i + 2] = mk * s2;
+    } else {
+      out[3 * i] = (t0 - gx * sw) + mk * s0;
+      out[3 * i + 1] = (t1 - gy * sw) + mk * s1;
+      out[3 * i + 2] = (t2 - gz * sw) + mk * s2;
+    }
   }
+}
+
+template <int kSide>
+int launch_ordered(bool masses, const float* pos_k, const float* g_k,
+                   const float* mass_k, int nk, const float* pos_j,
+                   const float* g_j, const float* mass_j, int nj, float* out,
+                   float softening, int overlap_only, int block,
+                   cudaStream_t s) {
+  if (nk == 0) return 0;
+  const int grid = (nk + block - 1) / block;
+  const size_t smem = 2 * block * sizeof(float4);
+  if (masses)
+    vjp_ordered_kernel<true, kSide><<<grid, block, smem, s>>>(
+        pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
+        overlap_only);
+  else
+    vjp_ordered_kernel<false, kSide><<<grid, block, smem, s>>>(
+        pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
+        overlap_only);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- B11 ---
@@ -444,19 +518,34 @@ extern "C" int vjp_ordered_launch(const float* pos_k, const float* g_k,
   if (block <= 0 || block > 1024 || block % 32 != 0 ||
       (mass_k == nullptr) != (mass_j == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (nk == 0) return 0;
+  return launch_ordered<kBoth>(mass_k != nullptr, pos_k, g_k, mass_k, nk,
+                               pos_j, g_j, mass_j, nj, out, softening,
+                               overlap_only, block,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// B12, one side per call; every tile masks d2 == 0. side 1 (a_bar): pos_a,
+// g_a (na, 3) receivers, pos_b (nb, 3) sources, mass_b (nb,) or NULL, out
+// (na, 3). side 2 (b_bar): pos_b (nb, 3) receivers with mass_b or NULL,
+// pos_a, g_a (na, 3) sources, out (nb, 3). fp32, contiguous, on the current
+// device; block as B10's. Returns cudaGetLastError().
+extern "C" int vjp_pair_launch(int side, const float* pos_a, const float* g_a,
+                               int na, const float* pos_b,
+                               const float* mass_b, int nb, float* out,
+                               float softening, int block, void* stream) {
+  if (block <= 0 || block > 1024 || block % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (nk + block - 1) / block;
-  const size_t smem = 2 * block * sizeof(float4);
-  if (mass_k != nullptr)
-    vjp_ordered_kernel<true><<<grid, block, smem, s>>>(
-        pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
-        overlap_only);
-  else
-    vjp_ordered_kernel<false><<<grid, block, smem, s>>>(
-        pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
-        overlap_only);
-  return static_cast<int>(cudaGetLastError());
+  const bool masses = mass_b != nullptr;
+  if (side == kReceiver)
+    return launch_ordered<kReceiver>(masses, pos_a, g_a, nullptr, na, pos_b,
+                                     nullptr, mass_b, nb, out, softening, 0,
+                                     block, s);
+  if (side == kSource)
+    return launch_ordered<kSource>(masses, pos_b, nullptr, mass_b, nb, pos_a,
+                                   g_a, nullptr, na, out, softening, 0, block,
+                                   s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // B11 and B9c. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b

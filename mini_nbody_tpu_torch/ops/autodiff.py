@@ -211,9 +211,12 @@ def make_differentiable_force(cfg, mass_grad: bool = False):
     return force
 
 
-class _EnsembleForceDiff(torch.autograd.Function):
-    """forward: the ensemble force kernel; backward: the ensemble VJP
-    kernel of its class. The masses are static (no gradient), as in JAX."""
+class StaticMassForce(torch.autograd.Function):
+    """forward: a force fwd(pos, mass) that has no autograd history;
+    backward: its VJP bwd(pos, g, mass). The masses are static (no
+    gradient), as in JAX's ensemble and sharded forces. Used by
+    make_differentiable_ensemble_force and the sharded step
+    (parallel/sharded.py)."""
 
     @staticmethod
     def forward(ctx, pos, mass, fwd, bwd):
@@ -272,6 +275,6 @@ def make_differentiable_ensemble_force(cfg):
         if mass is None:
             mass = torch.ones(pos.shape[:2], dtype=pos.dtype,
                               device=pos.device)
-        return _EnsembleForceDiff.apply(pos, mass, fwd, bwd)
+        return StaticMassForce.apply(pos, mass, fwd, bwd)
 
     return force

@@ -41,8 +41,14 @@ axis.
 Padding: B10 pads nothing (the kernel fills its ragged j tile with FAR,
 zero mass and zero cotangent in shared memory); B11 and B9c reuse K3's
 packing, FAR tails with zero mass in both mass modes, and zero cotangents
-(JAX pads mass mode at the origin instead; both are inert). The 2-D grid's
-``vjp_pos_pair`` waits for the sharding (B12).
+(JAX pads mass mode at the origin instead; both are inert).
+
+``vjp_pos_pair`` (JAX ``:776-949``) launches B12, the 2-D grid's backward
+(``parallel/sharded.py``): the VJP of the ordered pairs a <- b with a's
+cotangents only, as two one-sided launches of B10's kernel, the receiver
+half for a_bar and the source half for b_bar, every tile masked. CPU
+tensors take ``vjp_pos_pair_plain``, JAX's ``_onesided_grad_block`` in row
+blocks.
 """
 
 from __future__ import annotations
@@ -77,6 +83,8 @@ DEFAULT_TILE = 64
 #: group of systems).
 LAUNCHES = 0
 SYM_LAUNCHES = 0
+#: B12's launches, made by vjp_pos_pair: two per call (a_bar, then b_bar).
+PAIR_LAUNCHES = 0
 SYM_CROSS_LAUNCHES = 0
 SYM_ENSEMBLE_LAUNCHES = 0
 
@@ -218,6 +226,83 @@ def vjp_pos_direct(pos, g, mass=None, softening: float = SOFTENING,
     check_coincident(coincident)
     return _ordered(pos, g, pos, g, mass, mass, softening, block,
                     square_coincident=coincident)
+
+
+#: The sides of csrc/vjp_kernel.cu's vjp_pair_launch.
+_SIDE_ROWS, _SIDE_COLS = 1, 2
+
+
+def vjp_pos_pair_plain(pos_a, g_a, pos_b, mass_a=None, mass_b=None,
+                       softening: float = SOFTENING):
+    """B12's function in PyTorch (JAX _onesided_grad_block), in row blocks
+    of a: with d = p_b - p_a, t = 3 u m_b (g_a.d) d - w m_b g_a (d2 == 0
+    masked), returns (a_bar = sum_b t, b_bar = -sum_a t). Only mass_b is
+    read; mass_a keeps JAX's signature."""
+    na, nb = pos_a.shape[0], pos_b.shape[0]
+    rows = max(1, plain_block_elems(pos_a.device) // max(1, nb))
+    a_bar, b_bar = [], pos_b.new_zeros((nb, 3))
+    for r in range(0, na, rows):
+        pa, ga = pos_a[r:r + rows], g_a[r:r + rows]
+        d = [pos_b[None, :, k] - pa[:, None, k] for k in range(3)]
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        w, u = _w_u(d2, softening, d2 == 0.0)
+        gk = [ga[:, None, k] for k in range(3)]
+        dot = gk[0] * d[0] + gk[1] * d[1] + gk[2] * d[2]
+        if mass_b is not None:
+            mb = mass_b[None, :]
+            coeff = 3.0 * (u * mb * dot)
+            w = w * mb
+        else:
+            coeff = 3.0 * (u * dot)
+        t = [coeff * dk - w * gkk for dk, gkk in zip(d, gk)]
+        a_bar.append(torch.stack([tk.sum(1) for tk in t], -1))
+        b_bar -= torch.stack([tk.sum(0) for tk in t], -1)
+    if not a_bar:
+        return pos_a.new_zeros((0, 3)), b_bar
+    return torch.cat(a_bar), b_bar
+
+
+def vjp_pos_pair(pos_a, g_a, pos_b, mass_a=None, mass_b=None,
+                 softening: float = SOFTENING, block: int = 256):
+    """Both-sided position cotangents of the ordered pairs (a <- b) with
+    receiver cotangents g_a only: (a_bar (Na,3), b_bar (Nb,3)). The 2-D
+    grid backward runs it once per device on its (row group, column group)
+    tile; a body in both sets meets itself under the d2 == 0 mask. The
+    function reads the column masses mass_b only: mass_a (JAX's signature)
+    may be left out, and is refused without mass_b; the mass cotangent is
+    zero by contract. CUDA tensors launch B12 twice (``block`` threads per
+    block, SimConfig.tile_i on the grid backward as for B10), CPU tensors
+    take vjp_pos_pair_plain."""
+    if mass_a is not None and mass_b is None:
+        raise ValueError("vjp_pos_pair: mass_a without mass_b")
+    device = pos_a.device
+    na, nb = pos_a.shape[0], pos_b.shape[0]
+    f32 = torch.float32
+    for name, t, shape in (("pos_a", pos_a, (na, 3)), ("g_a", g_a, (na, 3)),
+                           ("pos_b", pos_b, (nb, 3)),
+                           ("mass_a", mass_a, (na,)),
+                           ("mass_b", mass_b, (nb,))):
+        if t is not None:
+            _build.check_tensor(name, t, shape, f32, device)
+    if not _build.on_card(device):
+        return vjp_pos_pair_plain(pos_a, g_a, pos_b, mass_a, mass_b,
+                                  softening)
+    _check_block(block)
+    _build.refuse_grad("vjp_pos_pair", pos_a, g_a, pos_b, mass_a, mass_b)
+    global PAIR_LAUNCHES
+    lib = _build.load_library()
+    outs = (torch.empty((na, 3), dtype=f32, device=device),
+            torch.empty((nb, 3), dtype=f32, device=device))
+    with torch.cuda.device(device):
+        for side, out in zip((_SIDE_ROWS, _SIDE_COLS), outs):
+            code = lib.vjp_pair_launch(
+                side, pos_a.data_ptr(), g_a.data_ptr(), na, pos_b.data_ptr(),
+                None if mass_b is None else mass_b.data_ptr(), nb,
+                out.data_ptr(), float(softening), block,
+                _build.stream_ptr(device))
+            _build.check(lib, code, "vjp_pair_launch")
+            PAIR_LAUNCHES += 1
+    return outs
 
 
 def _pair_terms(p, q, gp, gq, softening, mask, keep=None):

@@ -2,11 +2,10 @@
 
 Counterpart of ``mini_nbody_tpu/utils/config.py:18-287``: the same physical
 constants and the same frozen ``SimConfig`` with the same validation, cut to
-the fields the port honours. Fields whose features are not ported yet accept
-only their defaults and raise ``NotImplementedError`` naming the ROADMAP
-item otherwise. ``interpret`` is gone: there is no interpreter, a tensor on
-the CPU takes each kernel's plain PyTorch version and a tensor on the card
-takes the kernel.
+the fields the port honours. ``traversal='band'`` is not ported yet and
+raises ``NotImplementedError`` naming the ROADMAP item. ``interpret`` is
+gone: there is no interpreter, a tensor on the CPU takes each kernel's plain
+PyTorch version and a tensor on the card takes the kernel.
 
 Backend names follow PyTorch rather than JAX: ``"torch"`` is the plain
 all-pairs op (JAX ``"jnp"``), ``"direct"`` the hand-written ordered kernel
@@ -118,7 +117,10 @@ class SimConfig:
         crossovers (sim.py).
       resident_tile: the resident kernel's tile: None (its default) or one
         of RESIDENT_TILES, the tiles the CUDA kernel is built for.
-      mesh_shape, comm: not ported; only their defaults are accepted.
+      mesh_shape, comm: the mesh and exchange of the sharded path
+        (``parallel/sharded.py``), JAX's rules: 'grid' needs a 2-D
+        mesh_shape and every other comm a 1-D one; fused_integrate and
+        resident=True need mesh_shape=None.
     """
 
     n: int
@@ -166,12 +168,14 @@ class SimConfig:
         if self.comm not in _COMMS:
             raise ValueError(
                 f"comm must be one of {_COMMS}, got {self.comm!r}")
-        if self.mesh_shape is not None or self.comm != "all_gather":
-            raise NotImplementedError(
-                "sharding (mesh_shape / comm) is not ported yet "
-                "(ROADMAP A16)")
+        if self.mesh_shape is not None:
+            want = 2 if self.comm == "grid" else 1
+            if len(self.mesh_shape) != want:
+                raise ValueError(
+                    f"comm {self.comm!r} needs a {want}-D mesh_shape, got "
+                    f"{self.mesh_shape}")
         if self.resident:
-            if self.fused_integrate:
+            if self.mesh_shape is not None or self.fused_integrate:
                 raise ValueError(
                     "resident=True needs a single card and no "
                     "fused_integrate (the resident kernel fuses its own)")
@@ -194,7 +198,8 @@ class SimConfig:
                 f"resident_tile must be None or one of {RESIDENT_TILES} (the "
                 f"CUDA resident kernel's tiles), got {self.resident_tile}")
         if self.fused_integrate and (self.integrator != "euler"
-                                     or self.backend != "direct"):
+                                     or self.backend != "direct"
+                                     or self.mesh_shape is not None):
             raise ValueError(
                 "fused_integrate requires integrator='euler', "
                 "backend='direct', single card")
@@ -223,9 +228,13 @@ class SimConfig:
         d["backend"] = JAX_BACKENDS[backend]
         return cls(**d)
 
-    def effective_backend(self) -> str:
-        """The backend make_force_fn runs: 'auto' is AUTO_BACKEND."""
-        return AUTO_BACKEND if self.backend == "auto" else self.backend
+    def effective_backend(self, sharded: bool = False) -> str:
+        """The backend make_force_fn runs: 'auto' is AUTO_BACKEND on one
+        card and 'direct' under sharding, where JAX's auto stays on its
+        ordered kernel (``mini_nbody_tpu/utils/config.py:246-253``)."""
+        if self.backend != "auto":
+            return self.backend
+        return "direct" if sharded else AUTO_BACKEND
 
     def bf16_class(self) -> bool:
         """True when the force path accumulates through bf16 tensor-core

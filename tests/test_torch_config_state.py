@@ -47,6 +47,9 @@ def test_constants_match():
     dict(n=0), dict(n=-3), dict(integrator="verlet"), dict(tile_i=7),
     dict(tile_j=100), dict(coincident="sometimes"), dict(traversal="zigzag"),
     dict(comm="mesh"), dict(backend="cuda"),
+    dict(comm="grid", mesh_shape=(4,)), dict(comm="ring", mesh_shape=(2, 2)),
+    dict(mesh_shape=(2, 2)),
+    dict(resident=True, mesh_shape=(2,)),
 ])
 def test_validation_mirrors_jax(kw):
     kw = {"n": 64, **kw}
@@ -56,16 +59,44 @@ def test_validation_mirrors_jax(kw):
         SimConfig(**kw)
 
 
+def test_fused_integrate_needs_one_card():
+    # JAX's rule (backend 'pallas' there, 'direct' here).
+    for cfg, kw in ((jconfig.SimConfig, dict(backend="pallas")),
+                    (SimConfig, dict(backend="direct"))):
+        cfg(n=64, fused_integrate=True, **kw)
+        with pytest.raises(ValueError, match="single"):
+            cfg(n=64, fused_integrate=True, mesh_shape=(2,), **kw)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(comm="ring_sym"), dict(backend="sym_mxu", traversal="band"),
-    dict(traversal="band"),
-    dict(mesh_shape=(2,)), dict(comm="ring"),
-    dict(mesh_shape=(2, 2), comm="grid"), dict(comm="grid"),
+    dict(backend="sym_mxu", traversal="band"), dict(traversal="band"),
 ])
 def test_unported_options_raise(kw):
     jconfig.SimConfig(n=64, **kw)  # valid in the JAX package
     with pytest.raises(NotImplementedError):
         SimConfig(n=64, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(comm="ring_sym"), dict(mesh_shape=(2,)), dict(comm="ring"),
+    dict(mesh_shape=(2, 2), comm="grid"), dict(comm="grid"),
+])
+def test_sharding_options_accepted(kw):
+    # The sharded path is ported (parallel/): what JAX accepts, the port
+    # accepts, field for field.
+    jcfg = jconfig.SimConfig(n=64, **kw)
+    cfg = SimConfig(n=64, **kw)
+    assert (cfg.mesh_shape, cfg.comm) == (jcfg.mesh_shape, jcfg.comm)
+
+
+def test_auto_is_direct_under_sharding():
+    # JAX: auto stays on its ordered kernel under sharding (pallas, not
+    # sym); the port's ordered kernel is 'direct'.
+    cfg = SimConfig(n=64, mesh_shape=(2,))
+    assert cfg.effective_backend() == "sym"
+    assert cfg.effective_backend(sharded=True) == "direct"
+    assert cfg.replace(backend="sym_mxu").effective_backend(
+        sharded=True) == "sym_mxu"
 
 
 @pytest.mark.parametrize("jax_backend,port_backend", [
@@ -85,8 +116,7 @@ def test_from_dict_maps_backends(jax_backend, port_backend):
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape=(2,), comm="ring"),
-                                dict(traversal="band"),
+@pytest.mark.parametrize("kw", [dict(traversal="band"),
                                 dict(resident_tile=512)])
 def test_from_dict_rejects_unported(kw):
     # pair_dtype, backend "mxu", resident and resident_tile are ported
@@ -95,6 +125,15 @@ def test_from_dict_rejects_unported(kw):
     err = ValueError if "resident_tile" in kw else NotImplementedError
     with pytest.raises(err):
         SimConfig.from_dict(dataclasses.asdict(jconfig.SimConfig(n=8, **kw)))
+
+
+def test_from_dict_maps_mesh():
+    # JAX keeps mesh_shape as a tuple (a list after a JSON round trip).
+    d = dataclasses.asdict(jconfig.SimConfig(n=8, mesh_shape=(2, 4),
+                                             comm="grid"))
+    d["mesh_shape"] = list(d["mesh_shape"])
+    cfg = SimConfig.from_dict(d)
+    assert cfg.mesh_shape == (2, 4) and cfg.comm == "grid"
 
 
 def test_auto_resolves_by_device(monkeypatch):

@@ -34,6 +34,7 @@ from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import slot_pipe as sp
 from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
 from mini_nbody_tpu_torch.ops import symmetric_force as sf
+from mini_nbody_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
 
@@ -296,8 +297,14 @@ def test_validation():
         simulate_ensemble(cfg.replace(backend="direct"), state)
     with pytest.raises(ValueError, match="cfg.n"):
         simulate_ensemble(cfg.replace(n=N + 1), state)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="Mesh"):
         simulate_ensemble(cfg, state, mesh=object())
+    # B = 3 systems do not split over two ranks (refused before any
+    # collective, so this rank's view of the mesh is enough).
+    two = Mesh((2,), (0,), 0, torch.device("cpu"), None, {})
+    for fn in (simulate_ensemble, trajectory_ensemble):
+        with pytest.raises(ValueError, match="divisible by the mesh size"):
+            fn(cfg, state, mesh=two)
     with pytest.raises(ValueError, match="divisible"):
         trajectory_ensemble(cfg.replace(steps=5), state, save_every=2)
     with pytest.raises(ValueError, match="systems"):

@@ -35,6 +35,13 @@ rtol 1e-4, atol 1e-5 of the scale in the fp32 class, 2e-2 and 2e-3 in the
 bf16 class), and simulate's resident route, forced or by default, bitwise
 the streamed loop.
 
+B12 (vjp_pos_pair, the 2-D grid backward) against its plain version at the
+K1 bound, with sets that share bodies, two launches per call, two calls
+bitwise equal. The sharded path on a one-rank NCCL group: every comm
+bitwise the single-card run on its shard's kernel, and the grid's gradient
+through B12 within the fp32 class of the single-card B10 gradient (rtol
+1e-3, atol 1e-4 of its scale).
+
 The pair-once slot kernels K2, K3, B11 and B13 sum in a fixed order: two
 runs are bitwise equal, 'auto' and 'fast' are bitwise 'masked', a
 checkpointed rollout gradient is bitwise the unchecked one, and every system
@@ -339,6 +346,94 @@ def test_b10_vs_plain(cuda, n, masses, softening, coincident, block):
                            g, None if m is None else m[:700].contiguous(), m,
                            softening, block)
     _close(rect, got[:700], 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("na,nb,shared", [(1000, 3001, True),
+                                          (3001, 1000, False),
+                                          (4096, 4096, True)])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("block", [128, 256])
+def test_b12_vs_plain(cuda, na, nb, shared, masses, block):
+    # A grid tile: a's first half of its bodies are also b's last ones.
+    pos_a, g, m_a = _vjp_case(na, 21, masses, cuda, False)
+    pos_b, _, m_b = _vjp_case(nb, 22, masses, cuda, False)
+    if shared:
+        k = min(na, nb) // 2
+        pos_b[nb - k:] = pos_a[:k]
+        if masses:
+            m_b[nb - k:] = m_a[:k]
+    before = vk.PAIR_LAUNCHES
+    got = vk.vjp_pos_pair(pos_a, g, pos_b, m_a, m_b, 1e-2, block=block)
+    assert vk.PAIR_LAUNCHES == before + 2
+    again = vk.vjp_pos_pair(pos_a, g, pos_b, m_a, m_b, 1e-2, block=block)
+    want = vk.vjp_pos_pair_plain(pos_a, g, pos_b, m_a, m_b, 1e-2)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _close(a, w, 1e-3, 1e-4)
+
+
+@pytest.fixture
+def nccl_one_rank(cuda, tmp_path):
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0, device_id=dev)
+    yield dev
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("comm,backend,shape,single", [
+    ("all_gather", "auto", (1,), "direct"), ("ring", "auto", (1,), "sym"),
+    ("ring_sym", "sym", (1,), "sym"), ("grid", "direct", (1, 1), "direct")])
+def test_sharded_one_rank_is_bitwise_the_card(nccl_one_rank, comm, backend,
+                                              shape, single):
+    from mini_nbody_tpu_torch import make_mesh, simulate_sharded
+
+    dev = nccl_one_rank
+    s = init.plummer(3000, generator=torch.Generator(device=dev)
+                     .manual_seed(23), device=dev)
+    cfg = SimConfig(n=3000, steps=2, dt=1e-3, softening=1e-2,
+                    integrator="leapfrog", use_masses=True, backend=backend,
+                    comm=comm, mesh_shape=shape)
+    out = simulate_sharded(cfg, make_mesh(shape), s)
+    ref = simulate(cfg.replace(mesh_shape=None, comm="all_gather",
+                               backend=single, resident=False), s)
+    assert torch.equal(out.pos, ref.pos) and torch.equal(out.vel, ref.vel)
+
+
+def test_sharded_grid_gradient_goes_through_b12(nccl_one_rank):
+    from mini_nbody_tpu_torch import make_mesh
+    from mini_nbody_tpu_torch.parallel.sharded import (make_sharded_step_fn,
+                                                       shard_state)
+    from mini_nbody_tpu_torch.sim import make_step_fn
+
+    dev = nccl_one_rank
+    n = 3000
+    s = init.plummer(n, generator=torch.Generator(device=dev)
+                     .manual_seed(24), device=dev)
+    cfg = SimConfig(n=n, dt=1e-3, softening=1e-2, use_masses=True,
+                    backend="direct", comm="grid", mesh_shape=(1, 1))
+
+    def grad(step, st):
+        p = st.pos.clone().requires_grad_(True)
+        carry = (BodyState(pos=p, vel=st.vel, mass=st.mass),
+                 torch.zeros_like(p))
+        for _ in range(2):
+            carry = step(carry)
+        (carry[0].vel ** 2).sum().backward()
+        return p.grad
+
+    before = vk.PAIR_LAUNCHES
+    got = grad(make_sharded_step_fn(cfg, make_mesh((1, 1)),
+                                    differentiable=True),
+               shard_state(s, make_mesh((1, 1))))
+    assert vk.PAIR_LAUNCHES == before + 4  # two per backward pass
+    want = grad(make_step_fn(cfg.replace(mesh_shape=None, comm="all_gather",
+                                         backend="auto"),
+                             differentiable=True), s)
+    scale = want.abs().max().item()
+    assert ((got - want).abs() <= 1e-3 * want.abs() + 1e-4 * scale).all()
 
 
 @pytest.mark.parametrize("tile", [64, 128])
