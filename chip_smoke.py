@@ -35,10 +35,11 @@ each with every launch count set to 0 just before it and read just after:
 - ``pair_mxu``: ``body_force_pair_mxu`` (B4, K2's cross mode over a
   rectangle) on the two halves of config 3's state, against the B6
   rectangles and the float64 oracle;
-- ``determinism``: K2, K3, B11 and B13 twice at N = 262,144 (two chunks:
-  tri and cross launches), bitwise equal; ``sym_mxu`` with 'auto' and
-  'fast' bitwise 'masked' at N = 65,536; a 10-step rollout gradient with
-  remat "sqrt" bitwise the one with "none", on ``auto`` and ``sym_mxu``;
+- ``determinism``: K2, K3, B11, B13 and B16 twice at N = 262,144 (two
+  chunks: tri and cross launches), bitwise equal; ``sym_mxu`` with 'auto'
+  and 'fast' bitwise 'masked' at N = 65,536 on the slots and on the band;
+  a 10-step rollout gradient with remat "sqrt" bitwise the one with
+  "none", on ``auto`` and ``sym_mxu``;
 - ``ensemble_sweep``: examples/parameter_sweep.py at its defaults, B = 32
   plummer spheres of N = 1024 with velocity scales 0.2 .. 1.6, 200 leapfrog
   steps of ``simulate_ensemble`` on ``sym_mxu`` (B9a): per-system energy
@@ -47,8 +48,8 @@ each with every launch count set to 0 just before it and read just after:
   ``auto`` (B9b), 5 leapfrog steps, each system bitwise its ``simulate``;
 - ``trajectory``: N = 65,536 on ``auto``, 20 steps with a snapshot every 5,
   the last snapshot bitwise ``simulate``'s final positions;
-- ``coincident_gate``: for each kernel behind a coincident gate (K2, B6,
-  B10, B11, B13, B14), 'masked' against the duplicate scan plus the
+- ``coincident_gate``: for each kernel behind a coincident gate (K2, B16,
+  B6, B10, B11, B13, B14), 'masked' against the duplicate scan plus the
   maskless kernel at N = 4096 .. 262,144;
 - ``grad_ensemble``: gradients of sum(sin(F)) through
   ``make_differentiable_ensemble_force`` for B = 16 plummer systems of
@@ -68,6 +69,16 @@ each with every launch count set to 0 just before it and read just after:
 - ``resident_crossover``: ms per step of B15 (fold on and off) against the
   streamed loop at N = 512 .. 16,384, and of the resident ensemble against
   B9a / B9b at (B, N) = (256, 256) .. (8, 8192): the card's crossovers;
+- ``band_main_path``: ``simulate`` at N = 1,048,576 on ``sym_mxu`` with
+  ``traversal='band'`` (B16), 2 Euler steps: B16's tri and cross launches
+  and no K2 launch, forces against the float64 oracle and against the slot
+  traversal, the step time beside ``main_path``'s K2 step;
+- ``config3_band_drift``: config 3 on the band (B16), 1000 leapfrog steps,
+  energies through K4, the drift gate 1e-5;
+- ``band_ensemble``: ``body_force_sym_mxu_ensemble(traversal='band')`` (B16's
+  ensemble mode) on the parameter sweep's 32 x 1024 and on 16 x 65,536
+  with masses: every system bitwise its standalone band call, the distance
+  from B9a's slot result;
 - ``sharded``: the sharded path (``parallel/``) on a one-rank NCCL group
   over ``make_mesh((1,))`` and ``make_mesh((1, 1))``: BASELINE config 4's
   N = 1,048,576, 2 Euler steps of ``simulate_sharded`` under
@@ -80,7 +91,11 @@ each with every launch count set to 0 just before it and read just after:
   (backward B14) against the single-card gradient (B10); the parameter
   sweep with a mesh, bitwise the unsharded ensemble.
 
-A slot kernel (K2, K3, B11, B13, and the ensembles B9a and B9b) makes one
+B16 makes one launch per piece of its row blocks
+(``sym_mxu_force.BAND_PIECE_TILES``) and group of systems, each followed by
+one launch of ``csrc/slot_reduce.cu`` that adds the piece's column partials
+in increasing row block. A slot kernel (K2, K3, B11, B13, and the ensembles
+B9a and B9b) makes one
 launch per piece of its slot list (``slot_pipe.PIECE_SLOTS`` slots) and
 group of systems, each followed by one launch of ``csrc/slot_reduce.cu``,
 which adds the piece's partial sums in slot order; the launch counts and
@@ -88,7 +103,11 @@ the per-launch times of the kernels line count those launches.
 
 Before the paths, ``vjp_vs_plain`` holds the VJP kernels B10, B11, B13 and
 B14 against their plain versions, ``b6_vs_plain`` and ``b4_vs_plain``
-hold B6 and B4 against theirs, and ``b12_vs_plain`` holds B12
+hold B6 and B4 against theirs, ``band_vs_plain`` holds B16 (the band
+traversal) against its plain version in its tri, cross and ensemble modes
+(one block, odd with a ragged tail, even; masked and maskless; masses;
+split_w; each call twice, bitwise) and on one whole tri call at c =
+131,072 with masses, and ``b12_vs_plain`` holds B12
 (``vjp_pos_pair``, the grid backward) against its plain version on the
 tiles of 2 x 2 and 4 x 2 grids at N = 262,144, a ragged pair and the whole
 262,144 x 262,144 pair matrix the sharded grid gradient gives it. Then it
@@ -340,13 +359,23 @@ COUNTERS = {"direct": (df, "LAUNCHES"), "fused": (df, "FUSED_LAUNCHES"),
             "vjp_mxu_ensemble": (vm, "ENSEMBLE_LAUNCHES"),
             "resident": (rs, "LAUNCHES"),
             "vjp_pair": (vk, "PAIR_LAUNCHES"),
-            "slot_reduce": (sp, "REDUCE_LAUNCHES")}
+            "slot_reduce": (sp, "REDUCE_LAUNCHES"),
+            "band": (sm, "BAND_LAUNCHES"),
+            "band_cross": (sm, "BAND_CROSS_LAUNCHES"),
+            "band_ensemble": (sm, "BAND_ENSEMBLE_LAUNCHES"),
+            "band_reduce": (sm, "BAND_REDUCE_LAUNCHES")}
 #: The slot kernels of read_counts: slot_reduce runs once after each of
 #: their launches (B15 adds its partials inside its own launch).
 SLOT_KERNELS = ("slot_tri", "slot_cross", "pair_mxu", "slot_ensemble",
                 "sym_tri", "sym_cross", "sym_ensemble", "vjp_sym_tri",
                 "vjp_sym_cross", "vjp_mxu_tri", "vjp_mxu_cross",
                 "vjp_sym_ensemble", "vjp_mxu_ensemble")
+
+
+#: B16's modes. csrc/slot_reduce.cu runs once after each launch that stores
+#: column partials: every launch but those of a one-block self chunk, whose
+#: callers give band_reduce.
+BAND_KERNELS = ("band_tri", "band_cross", "band_ensemble")
 
 
 def reset_counts():
@@ -385,16 +414,22 @@ def read_counts():
             "vjp_sym_ensemble": c["vjp_sym_ensemble"],
             "vjp_mxu_ensemble": c["vjp_mxu_ensemble"],
             "resident": c["resident"], "vjp_pair": c["vjp_pair"],
-            "slot_reduce": c["slot_reduce"]}
+            "slot_reduce": c["slot_reduce"], "band_tri": c["band"],
+            "band_cross": c["band_cross"],
+            "band_ensemble": c["band_ensemble"],
+            "band_reduce": c["band_reduce"]}
 
 
 def expect_counts(got, path, **want):
     """Fail unless the path launched exactly ``want`` and nothing else;
-    slot_reduce, unless given, once per launch of a slot kernel."""
+    slot_reduce, unless given, once per launch of a slot kernel, and
+    band_reduce once per B16 launch."""
     full = dict.fromkeys(got, 0)
     full.update(want)
     if "slot_reduce" not in want:
         full["slot_reduce"] = sum(full[k] for k in SLOT_KERNELS)
+    if "band_reduce" not in want:
+        full["band_reduce"] = sum(full[k] for k in BAND_KERNELS)
     if got != full:
         fail(f"{path}: launch counts {got}, expected {full}")
 
@@ -763,7 +798,8 @@ def main_phase():
          sym_mxu_2_steps_s=t_sym, direct_1_step_s=t_dir, launches=launches,
          sym_mxu_vs_fp64=rel_err_stats(f_sym, oracle),
          direct_vs_fp64=dir_stats)
-    return state, launches, k1_err, cfg_sym, cfg_dir, (idx, oracle, dir_stats)
+    return (state, launches, k1_err, cfg_sym, cfg_dir,
+            (idx, oracle, dir_stats, t_sym))
 
 
 def leapfrog_phase():
@@ -782,7 +818,7 @@ def leapfrog_phase():
 def auto_phase(state, check):
     """simulate at N_MAIN with the backend left at 'auto': K3 only, and
     its forces on the main path's rows vs the fp64 oracle."""
-    idx, oracle, dir_stats = check
+    idx, oracle, dir_stats, _ = check
     cfg = SimConfig(n=N_MAIN, steps=1)
     reset_counts()
     step_s, out = host_time(simulate, cfg, state)
@@ -1116,6 +1152,7 @@ def plain_versions():
 
 #: The coincident gate of each kernel behind one: (module, attribute).
 GATES = {"K2": (sm, "COINCIDENT_AUTO_MIN_N"),
+         "B16": (sm, "BAND_COINCIDENT_AUTO_MIN_N"),
          "B6": (mf, "COINCIDENT_AUTO_MIN_N"),
          "B10": (vk, "COINCIDENT_AUTO_MIN_N"),
          "B11": (vk, "SYM_COINCIDENT_AUTO_MIN_N"),
@@ -1676,7 +1713,7 @@ def mxu_main_phase(state, check):
     """simulate, one Euler step at N_MAIN on mxu with bf16 pairs from the
     main path's state: exactly one B6 launch; forces on the main path's
     rows against the fp64 oracle at the sym_mxu bound; ms per pass."""
-    idx, oracle, _ = check
+    idx, oracle, *_ = check
     cfg = SimConfig(n=N_MAIN, steps=1, backend="mxu", pair_dtype="bfloat16")
     route = ("overlap" if mf.square_overlap_only(state.pos, cfg.coincident)
              else "masked")
@@ -1840,9 +1877,10 @@ def _outputs(x):
 
 
 def determinism_phase(rng):
-    """C2: K2, K3, B11 and B13 each run twice at N_DETERMINISM (two chunks,
-    so tri and cross launches) and must agree bit for bit; sym_mxu's 'auto'
-    and 'fast' must be bitwise 'masked' at N_GRAD_SYM; and a GRAD_STEPS
+    """C2: K2, K3, B11, B13 and B16 each run twice at N_DETERMINISM (two
+    chunks, so tri and cross launches) and must agree bit for bit; sym_mxu's
+    'auto' and 'fast' must be bitwise 'masked' at N_GRAD_SYM on the slots
+    and on the band; and a GRAD_STEPS
     rollout gradient with remat "sqrt" bitwise the one with "none", on
     'auto' (K3, B11) and 'sym_mxu' (K2, B13) at N_GRAD_SYM."""
     n = N_DETERMINISM
@@ -1857,6 +1895,9 @@ def determinism_phase(rng):
                                       mass_grad=True, coincident="fast"),
         "B13": lambda: vm.vjp_pos_sym_mxu(pos, g, m, 1e-2, chunk=CHUNK,
                                           mass_grad=True, coincident="fast"),
+        "B16": lambda: sm.body_force_sym_mxu(pos, m, chunk=CHUNK,
+                                             coincident="fast",
+                                             traversal="band"),
     }
     reset_counts()
     for name, run in runs.items():
@@ -1873,6 +1914,8 @@ def determinism_phase(rng):
                               ("vjp_mxu", vm.DEFAULT_TILE, vm)):
         want[f"{kernel}_tri"], want[f"{kernel}_cross"] = pass_launches(
             n, tile, 2)
+    want["band_tri"], want["band_cross"] = band_pass_launches(
+        n, sm.DEFAULT_TILE, 2)
     expect_counts(launches, "determinism", **want)
     # 'auto' with K2's gate at 0: the duplicate scan runs, finds nothing in
     # the uniform bodies and routes to the maskless kernel.
@@ -1880,12 +1923,15 @@ def determinism_phase(rng):
     route = "masked" if sm.any_coincident(p2) else "maskless"
     if route != "maskless":
         fail("determinism: the duplicate-free bodies route to masked")
-    ref = sm.body_force_sym_mxu(p2, coincident="masked")
-    with gate_at(0, "K2"):
-        for mode in ("auto", "fast"):
-            if not torch.equal(sm.body_force_sym_mxu(p2, coincident=mode),
-                               ref):
-                fail(f"determinism: sym_mxu {mode} is not bitwise masked")
+    with gate_at(0, "K2", "B16"):
+        for traversal in ("slots", "band"):
+            ref = sm.body_force_sym_mxu(p2, coincident="masked",
+                                        traversal=traversal)
+            for mode in ("auto", "fast"):
+                if not torch.equal(sm.body_force_sym_mxu(
+                        p2, coincident=mode, traversal=traversal), ref):
+                    fail(f"determinism: sym_mxu {mode} on the {traversal} "
+                         "is not bitwise masked")
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     state = init.plummer(N_GRAD_SYM, generator=gen, device=DEV)
     remat = {}
@@ -1899,7 +1945,8 @@ def determinism_phase(rng):
                  f"unchecked one, max {(none - sqrt).abs().max().item():.4g}")
         remat[backend] = True
     line("determinism", n=n, chunk=CHUNK, two_runs_bitwise=list(runs),
-         launches=launches, sym_mxu_auto_fast_bitwise_masked=True,
+         launches=launches,
+         sym_mxu_auto_fast_bitwise_masked=["slots", "band"],
          sym_mxu_auto_route=route, n_auto=N_GRAD_SYM,
          remat_sqrt_bitwise_none=remat, remat_n=N_GRAD_SYM)
 
@@ -2105,6 +2152,8 @@ def trajectory_phase():
 #: The call of each kernel behind a coincident gate (GATES).
 GATE_CALLS = {
     "K2": lambda p, g, mode: sm.body_force_sym_mxu(p, coincident=mode),
+    "B16": lambda p, g, mode: sm.body_force_sym_mxu(p, coincident=mode,
+                                                    traversal="band"),
     "B6": lambda p, g, mode: mf.body_force_mxu(
         p, p, pair_dtype="bfloat16", coincident=mode),
     "B10": lambda p, g, mode: vk.vjp_pos_direct(p, g, coincident=mode),
@@ -2902,6 +2951,376 @@ def sharded_ensemble(mesh):
             "seconds": secs, "collectives": calls, "bitwise": True}
 
 
+# ------------------------------------------------ band traversal (B16)
+
+#: B16 against its plain version in bf16 mode, per column: the bf16 class,
+#: |err| <= BAND_RTOL |want| + BAND_ATOL max|want[:, col]|
+#: (tests/test_slot_pipe.py:24). Both round w and v to bf16; FMA contraction
+#: in the kernel can move a w across a bf16 rounding boundary, and the
+#: tensor cores add in another order.
+BAND_RTOL, BAND_ATOL = SYM_RTOL, SYM_ATOL
+#: Tile-level cases of band_vs_plain: (blocks per chunk, pad rows in the
+#: last chunk): one block, odd with a ragged tail, even (the half-active
+#: wrap band).
+BAND_BLOCKS = ((1, 0), (5, 37), (6, 0))
+
+
+def band_calls(c, tile, cross, n_sys=1):
+    """Launches of one B16 call over n_sys chunks of c rows
+    (sym_mxu_force._band_kernel): one per piece and group of systems."""
+    pieces, group, _ = sm.band_launches(c // tile, cross, n_sys)
+    return len(pieces) * -(-n_sys // group)
+
+
+def band_pass_launches(n, tile, passes=1):
+    """(tri, cross) B16 launches of ``passes`` band passes over n bodies at
+    CHUNK."""
+    tile, c, nc, _ = sm._resolve_tiling(n, tile, CHUNK, kernel=True)
+    return (passes * nc * band_calls(c, tile, False),
+            passes * nc * (nc - 1) // 2 * band_calls(c, tile, True))
+
+
+def band_partial_tiles(nb, cross):
+    """Column partials a call stores: every tile off a self chunk's
+    diagonal (the wrap band half), every tile of a chunk pair."""
+    return nb * nb if cross else nb * (nb - 1) // 2
+
+
+def band_bound(c, tile, cross, n_sys=1):
+    """B16's bound per call, counted as K2's: 12 fp32 and 32 bf16
+    operations per unordered pair; bytes: pos and v in, rows and cols out,
+    and the column partials written and read once."""
+    pairs = n_sys * (float(c) * c if cross else c * (c - 1) / 2)
+    io = n_sys * c * (3 + 8 + 8 + 8) * 4.0 * (2 if cross else 1)
+    part = n_sys * band_partial_tiles(c // tile, cross) * tile * 8 * 4.0 * 2
+    return bound(pairs * OPS_K2_FP32, io + part, pairs * OPS_K2_MMA)
+
+
+def band_sums(mode, p, v, c, tile, soft, split_w=False, mask=True, n_sys=1,
+              plain=False):
+    """One B16 call on packed bodies, or its plain version in bf16 mode:
+    'tri' on rows [0, c), 'ensemble' on n_sys systems of c rows from row 0,
+    'cross' on the chunk pair ([0, c), [c, 2c)). Returns the rows then the
+    cols, stacked ((2 c, 8) in cross mode, the rows of a then the cols of
+    b)."""
+    rows_n = c * (2 if mode == "cross" else n_sys)
+    rows = torch.zeros((rows_n, 8), device=p.device)
+    cols = torch.zeros_like(rows)
+    if mode == "cross":
+        a, b = slice(0, c), slice(c, 2 * c)
+        args = (rows[a], cols[b], p[a], p[b], v[a], v[b])
+        if plain:
+            sm._band_sums_plain(*args, tile, soft, split_w, mask, True,
+                                torch.bfloat16)
+        else:
+            sm.band_cross_sums_(*args, tile, soft, split_w, mask)
+        return torch.cat([rows[a], cols[b]])
+    sl = slice(0, n_sys * c)
+    if not plain:
+        if mode == "tri":
+            sm.band_tri_sums_(rows, cols, p[sl], v[sl], tile, soft, split_w,
+                              mask)
+        else:
+            sm.band_tri_sums_ensemble_(rows, cols, p[sl], v[sl], tile, soft,
+                                       n_sys, split_w, mask)
+        return torch.cat([rows, cols])
+    for s in range(n_sys):
+        q = slice(s * c, (s + 1) * c)
+        sm._band_sums_plain(rows[q], cols[q], p[q], p[q], v[q], v[q], tile,
+                            soft, split_w, mask, False, torch.bfloat16)
+    return torch.cat([rows, cols])
+
+
+def close_band(got, want, what, real=None):
+    """B16's raw sums against the plain version's, per column (BAND_RTOL,
+    BAND_ATOL), on the rows ``real`` selects (the pad rows' sums are sliced
+    off by the epilogue); returns (max abs error, median error over the
+    column scale)."""
+    if real is not None:
+        got, want = got[real], want[real]
+    got, want = got.double(), want.double()
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite values")
+    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+    err = (got - want).abs()
+    if (err > BAND_RTOL * want.abs() + BAND_ATOL * scale).any():
+        fail(f"{what}: max err/col scale {(err / scale).max().item():.4g}")
+    return err.max().item(), (err / scale).median().item()
+
+
+def band_case(rng, n, np_, masses):
+    """Packed (pos, v) of n uniform bodies padded to np_ rows."""
+    pos = to_dev(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
+    m = to_dev(rng.uniform(0.5, 2.0, n).astype(np.float32)) if masses \
+        else None
+    return sm._pack(pos, m, n, np_)
+
+
+def band_vs_plain_phase(rng):
+    """B16 against its plain version (bf16 mode) in its three modes: tri
+    chunks of 1, 5 (ragged tail) and 6 (even: the wrap band) blocks, the
+    cross mode on a chunk pair whose second chunk is ragged, and the
+    ensemble mode on 3 ragged systems; masked and maskless, unit masses and
+    masses, split_w; each kernel call run twice, bitwise. Then one whole
+    tri call at c = CHUNK with masses, timed beside its plain version."""
+    errs, med, cases = [], [], 0
+    for tile in (64, 128):
+        for blocks, pads in BAND_BLOCKS:
+            c = blocks * tile
+            for masses, split_w, mask in ((False, False, True),
+                                          (True, False, False),
+                                          (True, True, True)):
+                p, v = band_case(rng, c - pads, c, masses)
+                what = (f"B16 tri tile={tile} nb={blocks} masses={masses} "
+                        f"split_w={split_w} mask={mask}")
+                args = ("tri", p, v, c, tile, 1e-9, split_w, mask)
+                got = band_sums(*args)
+                if not torch.equal(got, band_sums(*args)):
+                    fail(f"{what}: two runs differ")
+                real = torch.arange(2 * c, device=DEV) % c < c - pads
+                e, m = close_band(got, band_sums(*args, plain=True), what,
+                                  real)
+                errs.append(e)
+                med.append(m)
+                cases += 1
+        c = 4 * tile
+        for masses, mask in ((False, True), (True, False)):
+            p, v = band_case(rng, 2 * c - 37, 2 * c, masses)
+            args = ("cross", p, v, c, tile, 1e-9, False, mask)
+            got = band_sums(*args)
+            if not torch.equal(got, band_sums(*args)):
+                fail(f"B16 cross tile={tile}: two runs differ")
+            e, m = close_band(got, band_sums(*args, plain=True),
+                              f"B16 cross tile={tile} masses={masses}",
+                              slice(0, 2 * c - 37))
+            errs.append(e)
+            med.append(m)
+            cases += 1
+        c, b = 5 * tile, 3
+        pv = [band_case(rng, c - 37, c, True) for _ in range(b)]
+        p, v = (torch.cat([x[k] for x in pv]) for k in (0, 1))
+        args = ("ensemble", p, v, c, tile, 1e-9, False, True, b)
+        got = band_sums(*args)
+        if not torch.equal(got, band_sums(*args)):
+            fail(f"B16 ensemble tile={tile}: two runs differ")
+        real = torch.arange(2 * b * c, device=DEV) % c < c - 37
+        e, m = close_band(got, band_sums(*args, plain=True),
+                          f"B16 ensemble tile={tile}", real)
+        errs.append(e)
+        med.append(m)
+        cases += 1
+    # One whole tri call at the main path's chunk, with masses.
+    tile = sm.DEFAULT_TILE
+    p, v = band_case(rng, CHUNK, CHUNK, True)
+    reset_counts()
+    got = band_sums("tri", p, v, CHUNK, tile, 1e-9)
+    launches = read_counts()
+    expect_counts(launches, "band_vs_plain",
+                  band_tri=band_calls(CHUNK, tile, False))
+    plain_s, want = host_time(band_sums, "tri", p, v, CHUNK, tile, 1e-9,
+                              False, True, 1, True)
+    whole = close_band(got, want, f"B16 tri at c={CHUNK} with masses")
+    line("band_vs_plain", cases=cases, rtol=BAND_RTOL, atol_of_col_scale=
+         BAND_ATOL, max_abs_err=max(errs), median_err_of_col_scale=float(
+             np.median(med)), bitwise_reruns=cases, whole_tri_c=CHUNK,
+         whole_tri_max_abs_err=whole[0],
+         whole_tri_median_err_of_col_scale=whole[1],
+         whole_tri_plain_ms=plain_s * 1e3, whole_tri_launches=launches)
+
+
+def band_main_phase(state, check):
+    """simulate at N_MAIN on sym_mxu with traversal='band', 2 Euler steps
+    from the main path's state: B16's tri and cross launches and no K2
+    launch; the forces on the main path's rows against the fp64 oracle, the
+    whole force against the slot traversal's at the bf16 class's bound,
+    the step time beside main_path's K2 step. Returns (config, launches)."""
+    idx, oracle, _, k2_2_steps_s = check
+    cfg = SimConfig(n=N_MAIN, steps=2, backend="sym_mxu", traversal="band",
+                    integrator="euler", sym_chunk=CHUNK)
+    reset_counts()
+    seconds, out = host_time(simulate, cfg, state)
+    launches = read_counts()
+    tri, cross = band_pass_launches(N_MAIN, sm.DEFAULT_TILE, 2)
+    expect_counts(launches, "band_main_path", band_tri=tri, band_cross=cross)
+    for t in (out.pos, out.vel):
+        if t.shape != (N_MAIN, 3) or not torch.isfinite(t).all():
+            fail("band: non-finite or misshapen state")
+    f_band = make_force_fn(cfg)(state.pos, state.pos)
+    f_slots = make_force_fn(cfg.replace(traversal="slots"))(state.pos,
+                                                            state.pos)
+    close(f_band[idx], oracle, SYM_RTOL, SYM_ATOL, "band vs fp64 oracle")
+    err = close(f_band, f_slots, SYM_RTOL, SYM_ATOL, "band vs slots")
+    line("band_main_path", n=N_MAIN, chunk=CHUNK, tile=sm.DEFAULT_TILE,
+         euler_2_steps_s=seconds, step_s=seconds / 2,
+         k2_main_path_step_s=k2_2_steps_s / 2, launches=launches,
+         band_vs_fp64=rel_err_stats(f_band[idx], oracle),
+         band_vs_slots_max_abs_err=err,
+         band_vs_slots_max_err_of_scale=scale_err(f_band, f_slots),
+         band_vs_slots=rel_err_stats(f_band, f_slots.double()))
+    return cfg, launches
+
+
+def config3_band_phase():
+    """BASELINE config 3 on the band: plummer with masses, N = 262,144,
+    softening 1e-2, dt 1e-3, 1000 leapfrog steps on sym_mxu with
+    traversal='band' (B16), E0 and E1 through K4; fails above the drift
+    gate."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    state = init.plummer(N_CONFIG3, generator=gen, device=DEV)
+    cfg = SimConfig(n=N_CONFIG3, steps=STEPS_CONFIG3, dt=1e-3,
+                    softening=1e-2, integrator="leapfrog", use_masses=True,
+                    backend="sym_mxu", traversal="band")
+    probe_s, _ = host_time(simulate, cfg, state, 1)
+    estimate_s = probe_s * (STEPS_CONFIG3 + 1) / 2
+    if estimate_s > CONFIG3_MAX_S:
+        fail(f"config3_band: one step took {probe_s:.3f} s, so "
+             f"{STEPS_CONFIG3} steps would take ~{estimate_s:.0f} s")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0 = dg.total_energy(state, cfg.softening)
+    out = simulate(cfg, state)
+    e1 = dg.total_energy(out, cfg.softening)
+    drift = dg.energy_drift(e0, e1).item()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    tri, cross = band_pass_launches(N_CONFIG3, sm.DEFAULT_TILE,
+                                    STEPS_CONFIG3 + 1)
+    expect_counts(launches, "config3_band_drift", band_tri=tri,
+                  band_cross=cross, pe=2)
+    dg.assert_finite(out, "after config 3 on the band")
+    if not drift <= DRIFT_GATE:
+        fail(f"config3_band: energy drift {drift:.3g} > {DRIFT_GATE}")
+    line("config3_band_drift", n=N_CONFIG3, steps=STEPS_CONFIG3,
+         drift=drift, e0=e0.item(), e1=e1.item(), launches=launches,
+         seconds=seconds, one_step_probe_s=probe_s,
+         momentum_after=dg.momentum(out).tolist())
+
+
+def band_ensemble_phase():
+    """body_force_sym_mxu_ensemble with traversal='band' (B16's ensemble
+    mode) on examples/parameter_sweep.py's systems (32 x 1024) and on
+    ENS_B plummer systems of ENS_N with masses (ensemble_fp32's): exact
+    launch counts, every system bitwise its standalone band call at the
+    ensemble's tile and chunk, the distance from B9a's slot result on the
+    same systems. The larger call's raw sums are held against the plain
+    version (bf16 mode) system by system and timed. Returns B16's ensemble
+    record."""
+    st, _, _ = sweep_case()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    systems = [init.plummer(ENS_N, generator=gen, device=DEV)
+               for _ in range(ENS_B)]
+    cases = {"sweep": (st.pos, st.mass, SWEEP_SOFT),
+             "masses": (torch.stack([s.pos for s in systems]),
+                        torch.stack([s.mass for s in systems]), 1e-2)}
+    out = {}
+    for name, (pos, mass, soft) in cases.items():
+        b, n = pos.shape[:2]
+        t, c = sm.ensemble_tiling(n, None, kernel=True)
+        reset_counts()
+        seconds, f = host_time(sm.body_force_sym_mxu_ensemble, pos, mass,
+                               soft, None, False, "auto", "band")
+        launches = read_counts()
+        expect_counts(launches, f"band_ensemble {name}",
+                      band_ensemble=band_calls(c, t, False, b))
+        for i in range(b):
+            alone = sm.body_force_sym_mxu(pos[i], mass[i], soft, tile=t,
+                                          chunk=c, traversal="band")
+            if not torch.equal(f[i], alone):
+                fail(f"band_ensemble {name}: system {i} is not bitwise its "
+                     "standalone band call")
+        slots = sm.body_force_sym_mxu_ensemble(pos, mass, soft)
+        err = close(f, slots, SYM_RTOL, SYM_ATOL, f"band_ensemble {name} "
+                    "vs the slots (B9a)")
+        out[name] = {"b": b, "n": n, "tile": t, "chunk": c,
+                     "seconds": seconds, "launches": launches,
+                     "bitwise_systems": b, "vs_b9a_max_abs_err": err,
+                     "vs_b9a_max_err_of_scale": scale_err(f, slots)}
+    pos, mass, soft = cases["masses"]
+    b, n = pos.shape[:2]
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    p, v = sm.pack_ensemble(pos, mass, c, sm._pack)
+    args = ("ensemble", p, v, c, t, soft, False, True, b)
+    ms = time_fn(band_sums, *args, reps=3) * 1e3
+    got = band_sums(*args)
+    plain_s, want = host_time(band_sums, *args, True)
+    real = torch.arange(2 * b * c, device=DEV) % c < n
+    err, med = close_band(got, want, f"B16 ensemble at B={b} N={n}", real)
+    per = band_calls(c, t, False, b)
+    red = band_reduce_ms(c, t, False, b)
+    line("band_ensemble", cases=out, kernel_ms=ms, plain_ms=plain_s * 1e3,
+         raw_sums_max_abs_err=err, raw_sums_median_err_of_col_scale=med)
+    return slot_entry("band_mxu ensemble mode (B16)", "band_mxu.cu",
+                      "sym_mxu_force.py:368", out["masses"]["launches"]
+                      ["band_ensemble"], err, ms, red, per, plain_s * 1e3,
+                      band_bound(c, t, False, b), b=b, n=n, tile=t,
+                      masses=True)
+
+
+def band_reduce_ms(c, tile, cross, n_sys=1):
+    """CUDA-event ms of the slot_reduce launches of one B16 call: each
+    piece's plan over scratch of whatever it holds."""
+    nb = c // tile
+    steps = sm.band_steps(nb, cross)
+    pieces, group, longest = sm.band_launches(nb, cross, n_sys)
+    part = torch.empty(group * longest * tile * 8, device=DEV)
+    cols = torch.zeros((n_sys * c, 8), device=DEV)
+    lib = _build.load_library()
+    stream = _build.stream_ptr(DEV)
+
+    def run():
+        for i0, i1 in pieces:
+            tg, off, ent = sm._band_plan(nb, cross, i0, i1, str(DEV))
+            for g0 in range(0, n_sys, group):
+                g = min(group, n_sys - g0)
+                _build.check(lib, lib.slot_reduce_launch(
+                    part.data_ptr(), tile * 8, tg.shape[0], tg.data_ptr(),
+                    off.data_ptr(), ent.data_ptr(),
+                    cols[g0 * c:].data_ptr(), cols[g0 * c:].data_ptr(), g,
+                    c * 8, (i1 - i0) * steps, stream), "slot_reduce_launch")
+
+    return time_fn(run, reps=3) * 1e3
+
+
+def time_band(state, launches, cfg_band):
+    """One B16 tri call (chunk 0) and one cross call (chunks 0, 1) at the
+    band path's chunk and tile, unit masses, masked as the path runs them,
+    each beside its plain version (bf16 mode) and held to it; a whole band
+    pass at N_MAIN. Returns the tri and cross records."""
+    soft = cfg_band.softening
+    tile, c, nc, np_ = sm._resolve_tiling(N_MAIN, sm.DEFAULT_TILE, CHUNK,
+                                          kernel=True)
+    p, v = sm._pack(state.pos, None, N_MAIN, np_)
+    rec = {}
+    for mode in ("tri", "cross"):
+        call_s = time_fn(band_sums, mode, p, v, c, tile, soft, reps=3)
+        got = band_sums(mode, p, v, c, tile, soft)
+        plain_s, want = host_time(band_sums, mode, p, v, c, tile, soft,
+                                  False, True, 1, True)
+        err, med = close_band(got, want, f"B16 {mode} at c={c}")
+        del want
+        rec[mode] = (call_s * 1e3, plain_s * 1e3, err, med,
+                     band_reduce_ms(c, tile, mode == "cross"))
+    pass_s = time_fn(make_force_fn(cfg_band), state.pos, state.pos, reps=2)
+    line("time_band", n=N_MAIN, chunk=c, tile=tile,
+         calls={m: {"call_ms": r[0], "plain_ms": r[1], "max_abs_err": r[2],
+                    "median_err_of_col_scale": r[3], "slot_reduce_ms": r[4]}
+                for m, r in rec.items()},
+         pass_ms=pass_s * 1e3, pass_ginter_s=gips(N_MAIN, pass_s))
+    out = []
+    for mode, line_no in (("tri", 226), ("cross", 267)):
+        call_ms, plain_ms, err, _, red = rec[mode]
+        cross = mode == "cross"
+        out.append(slot_entry(
+            f"band_mxu {mode} mode (B16)", "band_mxu.cu",
+            f"sym_mxu_force.py:{line_no}", launches[f"band_{mode}"], err,
+            call_ms, red, band_calls(c, tile, cross), plain_ms,
+            band_bound(c, tile, cross), chunk=c,
+            pass_ms_n_2_20=pass_s * 1e3))
+    return out
+
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -2920,12 +3339,15 @@ def main(argv=None):
     k4_phase(rng)
     b6_phase(rng)
     b4_phase(rng)
+    band_vs_plain_phase(rng)
     state, launches, k1_err, cfg_sym, cfg_dir, check = main_phase()
     cfg_auto, auto_launches = auto_phase(state, check)
     mxu_pass_s = mxu_main_phase(state, check)
+    cfg_band, band_launches = band_main_phase(state, check)
     leapfrog_phase()
     state3, c3_launches = config3_phase()
     _, c3_mxu_launches = config3_mxu_phase()
+    config3_band_phase()
     state2, c2_launches = config2_phase()
     vjp_phase(rng)
     *config3, b10 = grad_config3_phase(rng)
@@ -2936,6 +3358,7 @@ def main(argv=None):
     determinism_phase(rng)
     b9a = ensemble_sweep_phase()
     b9b = ensemble_fp32_phase()
+    b16_ensemble = band_ensemble_phase()
     trajectory_phase()
     coincident_gate_phase(rng)
     b9cd = grad_ensemble_phase()
@@ -2948,7 +3371,8 @@ def main(argv=None):
                + time_k4(state3, state, c3_launches)
                + time_k5(state2, c2_launches) + [b10, b11] + mxu_records
                + [time_b6(state3, c3_mxu_launches, mxu_pass_s), b4, b9a,
-                  b9b] + b9cd + b15 + [b12])
+                  b9b] + b9cd + b15 + [b12]
+               + time_band(state, band_launches, cfg_band) + [b16_ensemble])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on its path")

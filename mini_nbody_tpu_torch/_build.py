@@ -52,6 +52,10 @@ SIGNATURES = {
     # softening, fast, stream
     "symmetric_force_launch": ([_P, _I, _I, _L, _P, _P, _P, _I, _I, _F, _I,
                                 _P], _I),
+    # pos_a, pos_b, v_a, v_b, rows, part, nb, i0, n_rows, cross, n_sys,
+    # sys_rows, tile, softening, fast, split_w, mask_offdiag, stream
+    "band_mxu_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I,
+                         _F, _I, _I, _I, _P], _I),
     # part, tile_elems, n_targets, targets, offsets, entries, acc_a, acc_b,
     # n_sys, sys_acc_stride, sys_part_tiles, stream
     "slot_reduce_launch": ([_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _P],

@@ -34,17 +34,29 @@ systems batched (B9a, ``slot_pipe.tri_slot_sums_ensemble_``): each
 system one chunk of c = round_up(N, tile) bodies with its own FAR pads, only
 the tri pass, system i bitwise ``body_force_sym_mxu(pos[i], mass[i],
 tile=t, chunk=c)``. ``ensemble_tiling`` picks the tile of both ensembles.
-The band traversal and the segmented drivers are not ported yet (ROADMAP).
+
+``traversal='band'`` runs the band traversal (``:226-428``, ``:562-580``,
+``:653-662``, ``:880-890``) on B16 (``csrc/band_mxu.cu``): block pair
+(i, (i + d) mod nb) at band step d of a self chunk, every (i, j) of a chunk
+pair, row sums and reaction sums in separate (Np, 8) buffers that the
+epilogue adds. ``band_tri_sums_``, ``band_cross_sums_`` and
+``band_tri_sums_ensemble_`` launch B16 on CUDA tensors and take its plain
+version ``_band_sums_plain`` on CPU tensors. The JAX segmented drivers are
+tunnel-only and not ported (ROADMAP).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from mini_nbody_tpu_torch.utils.config import (FAR, SOFTENING,
-                                               check_coincident, round_up)
+                                               check_coincident,
+                                               fast_rsqrt_cube,
+                                               plain_block_elems, round_up)
 
 #: The port's default slot tile (the CUDA kernel takes 64 or 128; JAX's
 #: 1024 is a VMEM-sized tile).
@@ -60,6 +72,31 @@ DEFAULT_TILE = 128
 #: 'masked' at every N. A caller that lowers the gate gets the scan and its
 #: routing, with the same output bits.
 COINCIDENT_AUTO_MIN_N = math.inf
+
+#: The band traversal's gate (B16's own): below it 'auto' is 'masked'.
+#: chip_smoke.py's coincident_gate phase on an H100 (median ms, masked
+#: against the scan plus the maskless B16): the scan lost at every N from
+#: 4096 to 131,072 (17.07 / 17.25 at 131,072) and paid at 262,144 (65.51 /
+#: 63.86), the largest N it measures.
+BAND_COINCIDENT_AUTO_MIN_N = 262144
+
+#: B16 launches on CUDA tensors, counted at each launch, one counter per
+#: mode: BAND_LAUNCHES (tri), BAND_CROSS_LAUNCHES (cross) and
+#: BAND_ENSEMBLE_LAUNCHES (tri over a system axis). A call launches once per
+#: piece of its row blocks and group of systems (band_pieces), and after
+#: each launch that stores column partials, csrc/slot_reduce.cu once
+#: (BAND_REDUCE_LAUNCHES).
+BAND_LAUNCHES = 0
+BAND_CROSS_LAUNCHES = 0
+BAND_ENSEMBLE_LAUNCHES = 0
+BAND_REDUCE_LAUNCHES = 0
+
+#: (tile, 8) fp32 column-partial tiles of one B16 launch: one per row block
+#: and band step of its piece and systems (4 GiB at tile 128). A call's row
+#: blocks split into the fewest equal ranges that keep one system's piece at
+#: or under this; at tile 128 and chunk 131,072 a tri call and a cross call
+#: are one piece each, so one launch of 1024 CTAs.
+BAND_PIECE_TILES = 1 << 20
 
 
 def _w_block(pi, pj, softening, fast, mask=True):
@@ -229,6 +266,258 @@ def _combine(pos, s):
     return s[:, 0:3] - pos * s[:, 3:4]
 
 
+# ---------------------------------------------------- band traversal (B16)
+
+def band_steps(nb: int, cross: bool) -> int:
+    """Band steps per row block: d = 0 .. nb // 2 of a self chunk (block
+    pair (i, (i + d) mod nb)), j = 0 .. nb - 1 of a chunk pair."""
+    return nb if cross else nb // 2 + 1
+
+
+def band_pieces(nb: int, cross: bool):
+    """One system's row blocks as (i0, i1) ranges, ascending: the fewest
+    equal contiguous ranges of at most BAND_PIECE_TILES tiles each."""
+    per = max(1, BAND_PIECE_TILES // band_steps(nb, cross))
+    size = -(-nb // -(-nb // per))
+    return [(i0, min(nb, i0 + size)) for i0 in range(0, nb, size)]
+
+
+def band_launches(nb: int, cross: bool, n_sys: int = 1):
+    """How a B16 call over n_sys systems of nb row blocks launches:
+    (band_pieces, systems per launch, scratch tiles of one system's
+    largest piece). A launch takes as many systems as keep its scratch at
+    or under BAND_PIECE_TILES tiles, at least one, at most the kernels'
+    gridDim.y."""
+    from mini_nbody_tpu_torch.ops.slot_pipe import MAX_SYSTEMS
+
+    pieces = band_pieces(nb, cross)
+    longest = max(i1 - i0 for i0, i1 in pieces) * band_steps(nb, cross)
+    group = min(n_sys, max(1, BAND_PIECE_TILES // longest), MAX_SYSTEMS)
+    return pieces, group, longest
+
+
+@functools.lru_cache(maxsize=64)
+def _band_plan_np(nb: int, cross: bool, i0: int, i1: int):
+    """The column reduction of row blocks [i0, i1) in slot_reduce's form:
+    (targets, offsets, entries), target 2 j for column block j (one
+    accumulator), entries[offsets[t]:offsets[t + 1]] its partial tiles
+    (i - i0) * steps + d in increasing i, the TPU grid's order. Tiles of
+    a self chunk's diagonal (d == 0) and of the inactive half of an even
+    nb's wrap band (d == nb / 2, i >= nb / 2) hold no partial."""
+    steps = band_steps(nb, cross)
+    i, d = (a.ravel() for a in np.meshgrid(
+        np.arange(i0, i1), np.arange(0 if cross else 1, steps),
+        indexing="ij"))
+    if cross:
+        j = d
+    else:
+        keep = (2 * d != nb) | (2 * i < nb)
+        i, d = i[keep], d[keep]
+        j = (i + d) % nb
+    order = np.lexsort((i, j))
+    j, entries = j[order], ((i - i0) * steps + d)[order]
+    targets, starts = np.unique(j, return_index=True)
+    return (2 * targets, np.append(starts, j.size), entries)
+
+
+@functools.lru_cache(maxsize=64)
+def _band_plan(nb: int, cross: bool, i0: int, i1: int, device: str):
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                 for a in _band_plan_np(nb, cross, i0, i1))
+
+
+def _band_sums_plain(rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
+                     split_w, mask_offdiag, cross, mma_dtype=torch.float32):
+    """Plain version of B16 on one system: the same walk (for each band
+    step d, every active row block i at once), row sums added in d order
+    per block, each off-diagonal tile's column partial stored, then each
+    column block's partials summed in increasing i (_band_plan_np) and
+    added to cols. mma_dtype=torch.float32 multiplies in fp32 (JAX's CPU
+    interpret run); torch.bfloat16 rounds w and v as the tensor cores
+    do."""
+    from mini_nbody_tpu_torch.ops.slot_pipe import _mm
+
+    fast = fast_rsqrt_cube(softening)
+    dev = pos_a.device
+    nb = pos_a.shape[0] // tile
+    steps = band_steps(nb, cross)
+    pa, pb = pos_a.view(nb, tile, 3), pos_b.view(nb, tile, 3)
+    va, vb = v_a.view(nb, tile, 8), v_b.view(nb, tile, 8)
+    row_sum = torch.zeros((nb, tile, 8), dtype=torch.float32, device=dev)
+    # The partials, and one zero tile that pads the reduction's table.
+    part = torch.zeros((nb * steps + 1, tile, 8), dtype=torch.float32,
+                       device=dev)
+    batch = max(1, plain_block_elems(dev) // (tile * tile))
+    blocks = torch.arange(nb, device=dev)
+    for d in range(steps):
+        diag = not cross and d == 0
+        i = blocks if cross or 2 * d != nb else blocks[:nb // 2]
+        j = torch.full_like(i, d) if cross else (i + d) % nb
+        for s in range(0, i.shape[0], batch):
+            bi, bj = i[s:s + batch], j[s:s + batch]
+            w = _w_parts(_w_block(pa[bi], pb[bj], softening, fast,
+                                  mask=diag or mask_offdiag), split_w)
+            row_sum[bi] = row_sum[bi] + _mm(w, vb[bj], False, mma_dtype)
+            if not diag:
+                part[bi * steps + d] = _mm(w, va[bi], True, mma_dtype)
+    rows.view(nb, tile, 8).add_(row_sum)
+    targets, offsets, entries = _band_plan_np(nb, cross, 0, nb)
+    counts = np.diff(offsets)
+    if counts.size == 0:
+        return
+    table = np.full((counts.size, counts.max()), nb * steps)
+    group = np.repeat(np.arange(counts.size), counts)
+    table[group, np.arange(entries.size) - offsets[group]] = entries
+    table = torch.from_numpy(table).to(dev)
+    col_sum = torch.zeros((counts.size, tile, 8), dtype=torch.float32,
+                          device=dev)
+    for k in range(table.shape[1]):
+        col_sum = col_sum + part[table[:, k]]
+    cv = cols.view(nb, tile, 8)
+    tj = torch.from_numpy(targets // 2).to(dev)
+    cv[tj] = cv[tj] + col_sum
+
+
+def _band_count(kind):
+    global BAND_LAUNCHES, BAND_CROSS_LAUNCHES, BAND_ENSEMBLE_LAUNCHES
+    if kind == "tri":
+        BAND_LAUNCHES += 1
+    elif kind == "cross":
+        BAND_CROSS_LAUNCHES += 1
+    else:
+        BAND_ENSEMBLE_LAUNCHES += 1
+
+
+def _band_kernel(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
+                 split_w, mask_offdiag, n_sys, c):
+    """B16 on the card, a call of _band_count's ``kind``: for each piece
+    of row blocks and group of systems one launch, then one slot_reduce
+    launch that adds the piece's column partials to cols in increasing i."""
+    from mini_nbody_tpu_torch import _build
+    from mini_nbody_tpu_torch.ops import slot_pipe
+
+    global BAND_REDUCE_LAUNCHES
+    _build.refuse_grad("band_mxu", pos_a, pos_b, v_a, v_b)
+    if tile not in slot_pipe.KERNEL_TILES:
+        raise ValueError(f"the CUDA band kernel takes tile in "
+                         f"{slot_pipe.KERNEL_TILES}, got {tile}")
+    lib = _build.load_library()
+    device = pos_a.device
+    cross = kind == "cross"
+    nb = c // tile
+    steps = band_steps(nb, cross)
+    pieces, group, longest = band_launches(nb, cross, n_sys)
+    part = torch.empty(group * longest * tile * 8, dtype=torch.float32,
+                       device=device)
+    fast = int(fast_rsqrt_cube(softening))
+    with torch.cuda.device(device):
+        stream = _build.stream_ptr(device)
+        for i0, i1 in pieces:
+            targets, offsets, entries = _band_plan(nb, cross, i0, i1,
+                                                   str(device))
+            for g0 in range(0, n_sys, group):
+                g, r0 = min(group, n_sys - g0), g0 * c
+                _build.check(lib, lib.band_mxu_launch(
+                    pos_a[r0:].data_ptr(), pos_b[r0:].data_ptr(),
+                    v_a[r0:].data_ptr(), v_b[r0:].data_ptr(),
+                    rows[r0:].data_ptr(), part.data_ptr(), nb, i0, i1 - i0,
+                    int(cross), g, c, tile, float(softening), fast,
+                    int(split_w), int(mask_offdiag), stream),
+                    "band_mxu_launch")
+                _band_count(kind)
+                if targets.shape[0] == 0:
+                    continue
+                _build.check(lib, lib.slot_reduce_launch(
+                    part.data_ptr(), tile * 8, targets.shape[0],
+                    targets.data_ptr(), offsets.data_ptr(),
+                    entries.data_ptr(), cols[r0:].data_ptr(),
+                    cols[r0:].data_ptr(), g, c * 8, (i1 - i0) * steps,
+                    stream), "slot_reduce_launch")
+                BAND_REDUCE_LAUNCHES += 1
+
+
+def _band_launch(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
+                 split_w, mask_offdiag, n_sys=1):
+    """Check the operands of a B16 call over n_sys systems of c rows each
+    (both sides c rows), then launch the kernel (CUDA tensors) or walk the
+    plain version system by system (CPU tensors)."""
+    from mini_nbody_tpu_torch import _build
+
+    total = pos_a.shape[0]
+    if n_sys < 1 or total % n_sys != 0:
+        raise ValueError(f"{total} rows do not split into {n_sys} systems")
+    c = total // n_sys
+    if c % tile != 0:
+        raise ValueError(f"a chunk has {c} rows, not a multiple of tile "
+                         f"{tile}")
+    device = pos_a.device
+    for name, t, width in (("pos_a", pos_a, 3), ("pos_b", pos_b, 3),
+                           ("v_a", v_a, 8), ("v_b", v_b, 8),
+                           ("rows", rows, 8), ("cols", cols, 8)):
+        _build.check_tensor(name, t, (total, width), torch.float32, device)
+    if not _build.on_card(device):
+        for s in range(n_sys):
+            sl = slice(s * c, (s + 1) * c)
+            _band_sums_plain(rows[sl], cols[sl], pos_a[sl], pos_b[sl],
+                             v_a[sl], v_b[sl], tile, softening, split_w,
+                             mask_offdiag, kind == "cross")
+        return
+    _band_kernel(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
+                 split_w, mask_offdiag, n_sys, c)
+
+
+def band_tri_sums_(rows, cols, pos, v, tile, softening, split_w=False,
+                   mask_offdiag=True):
+    """Self chunk pos (c, 3), v (c, 8) on the band: ADD its row sums into
+    rows (c, 8) and its reaction sums into cols (c, 8)."""
+    _band_launch("tri", rows, cols, pos, pos, v, v, tile, softening,
+                 split_w, mask_offdiag)
+
+
+def band_cross_sums_(rows_a, cols_b, pos_a, pos_b, v_a, v_b, tile,
+                     softening, split_w=False, mask=True):
+    """Chunk pair a != b (c rows each) on the (nb, nb) grid: ADD the row
+    sums of a into rows_a and the reaction sums of b into cols_b."""
+    _band_launch("cross", rows_a, cols_b, pos_a, pos_b, v_a, v_b, tile,
+                 softening, split_w, mask)
+
+
+def band_tri_sums_ensemble_(rows, cols, pos, v, tile, softening, n_sys,
+                            split_w=False, mask_offdiag=True):
+    """n_sys independent self chunks stacked in pos (B c, 3), v (B c, 8),
+    rows and cols (B c, 8), each on its own band: system i's sums are
+    bitwise band_tri_sums_ on its rows alone (the same kernel and pieces on
+    the card, the same plain walk on the CPU)."""
+    _band_launch("ensemble", rows, cols, pos, pos, v, v, tile, softening,
+                 split_w, mask_offdiag, n_sys)
+
+
+def _band_accumulate(pos, v, softening, tile, c, nc, split_w, mask_offdiag):
+    """Raw (rows (Np, 8), cols (Np, 8)) band sums: one tri call per chunk,
+    then one cross call per chunk pair a < b in row-major order (JAX
+    ``_accumulate``, hostseg.cross_pair_offsets)."""
+    rows = torch.zeros((nc * c, 8), dtype=torch.float32, device=pos.device)
+    cols = torch.zeros_like(rows)
+    chunks = [slice(a * c, (a + 1) * c) for a in range(nc)]
+    for sl in chunks:
+        band_tri_sums_(rows[sl], cols[sl], pos[sl], v[sl], tile, softening,
+                       split_w, mask_offdiag)
+    for a in range(nc):
+        for b in range(a + 1, nc):
+            sa, sb = chunks[a], chunks[b]
+            band_cross_sums_(rows[sa], cols[sb], pos[sa], pos[sb], v[sa],
+                             v[sb], tile, softening, split_w, mask_offdiag)
+    return rows, cols
+
+
+def _check_traversal(traversal: str) -> bool:
+    """Raise on an unknown traversal; whether it is the band ('auto' is
+    the slots, as JAX's resolve_traversal has it)."""
+    if traversal not in ("auto", "slots", "band"):
+        raise ValueError(f"unknown traversal {traversal!r}")
+    return traversal == "band"
+
+
 def body_force_sym_mxu(pos, mass=None, softening: float = SOFTENING,
                        tile: int | None = None, chunk: int = 131072,
                        split_w: bool = False, coincident: str = "auto",
@@ -239,16 +528,15 @@ def body_force_sym_mxu(pos, mass=None, softening: float = SOFTENING,
     split_w adds a second product pass on w's bf16 remainder. coincident:
     'auto' (duplicate scan, then the masked or maskless kernel), 'masked'
     (d2 == 0 mask in every block) or 'fast' (maskless; the caller
-    guarantees distinct positions). CUDA tensors run K2, CPU tensors its
-    plain version."""
+    guarantees distinct positions). traversal: 'auto' or 'slots' (the slot
+    list, K2) or 'band' (the band, B16, row and reaction sums added in the
+    epilogue), each with its own coincident gate. CUDA tensors run the
+    kernel, CPU tensors its plain version."""
     check_coincident(coincident)
-    if traversal == "band":
-        raise NotImplementedError(
-            "traversal='band' is not ported yet (ROADMAP B16)")
-    if traversal not in ("auto", "slots"):
-        raise ValueError(f"unknown traversal {traversal!r}")
+    band = _check_traversal(traversal)
     n = pos.shape[0]
-    coincident = resolve_auto(coincident, n)
+    coincident = resolve_auto(coincident, n,
+                              BAND_COINCIDENT_AUTO_MIN_N if band else None)
     tile, c, nc, np_ = _resolve_tiling(
         n, DEFAULT_TILE if tile is None else tile, chunk,
         kernel=pos.device.type == "cuda")
@@ -257,6 +545,10 @@ def body_force_sym_mxu(pos, mass=None, softening: float = SOFTENING,
     else:
         mask_offdiag = coincident == "masked"
     pos_p, v = _pack(pos, mass, n, np_)
+    if band:
+        rows, cols = _band_accumulate(pos_p, v, softening, tile, c, nc,
+                                      split_w, mask_offdiag)
+        return _combine(pos_p, rows + cols)[:n]
     acc = _slot_accumulate(pos_p, v, softening, tile, c, nc, split_w,
                            mask_offdiag)
     return _combine(pos_p, acc)[:n]
@@ -310,9 +602,10 @@ def body_force_sym_mxu_ensemble(pos, mass=None,
     (B, N, 3), no cross-system pairs. Each system is one chunk (c =
     round_up(N, tile), its own FAR pads) and K2's tri mode runs the same
     slot list over every system (B9a), as many systems in a launch as
-    slot_pipe.system_groups allows; system i is bitwise
-    ``body_force_sym_mxu(pos[i], mass[i], tile=t, chunk=c)`` with (t, c) =
-    ensemble_tiling(N, tile, ...).
+    slot_pipe.system_groups allows; traversal='band' runs B16's tri mode
+    over a system axis instead. System i is bitwise
+    ``body_force_sym_mxu(pos[i], mass[i], tile=t, chunk=c,
+    traversal=traversal)`` with (t, c) = ensemble_tiling(N, tile, ...).
 
     coincident='auto' scans for duplicates WITHIN each system only (the
     gate is the per-system N): two systems may hold bodies at the same
@@ -323,20 +616,22 @@ def body_force_sym_mxu_ensemble(pos, mass=None,
 
     check_coincident(coincident)
     check_ensemble(pos, mass)
-    if traversal == "band":
-        raise NotImplementedError(
-            "traversal='band' is not ported yet (ROADMAP B16)")
-    if traversal not in ("auto", "slots"):
-        raise ValueError(f"unknown traversal {traversal!r}")
+    band = _check_traversal(traversal)
     b, n = pos.shape[0], pos.shape[1]
     t, c = ensemble_tiling(n, tile, kernel=_build.on_card(pos.device))
-    coincident = resolve_auto(coincident, n)
+    coincident = resolve_auto(coincident, n,
+                              BAND_COINCIDENT_AUTO_MIN_N if band else None)
     if coincident == "auto":
         mask_offdiag = any_coincident_ensemble(pos)
     else:
         mask_offdiag = coincident == "masked"
     pos_p, v = pack_ensemble(pos, mass, c, _pack)
     acc = torch.zeros((b * c, 8), dtype=torch.float32, device=pos_p.device)
+    if band:
+        cols = torch.zeros_like(acc)
+        band_tri_sums_ensemble_(acc, cols, pos_p, v, t, softening, b,
+                                split_w, mask_offdiag)
+        return _combine(pos_p, acc + cols).view(b, c, 3)[:, :n]
     nb = c // t
     slot_pipe.tri_slot_sums_ensemble_(
         acc, pos_p, v, slot_pipe.slot_table(nb, nb > 1, False, pos_p.device),

@@ -136,11 +136,13 @@ def _make_local_force(cfg: SimConfig, mesh: Mesh):
     n_shards = mesh.axis_size(BODY_AXIS)
     grp = mesh.axis_groups[BODY_AXIS]
 
+    # traversal stays 'auto' (the slots): JAX's sharded self kernels never
+    # take cfg.traversal (:147-149, :214-219).
     def run(kernel, pos_i, pos_j, mass_j):
         return body_force(pos_i, pos_j, mass_j if use_m else None,
                           softening=soft, backend=kernel, tile_i=cfg.tile_i,
                           tile_j=cfg.tile_j, pair_dtype=pair_dtype,
-                          split_w=cfg.split_w, traversal=cfg.traversal,
+                          split_w=cfg.split_w,
                           sym_tile=cfg.sym_tile, sym_chunk=cfg.sym_chunk,
                           coincident=cfg.coincident)
 

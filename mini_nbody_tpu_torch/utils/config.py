@@ -2,10 +2,9 @@
 
 Counterpart of ``mini_nbody_tpu/utils/config.py:18-287``: the same physical
 constants and the same frozen ``SimConfig`` with the same validation, cut to
-the fields the port honours. ``traversal='band'`` is not ported yet and
-raises ``NotImplementedError`` naming the ROADMAP item. ``interpret`` is
-gone: there is no interpreter, a tensor on the CPU takes each kernel's plain
-PyTorch version and a tensor on the card takes the kernel.
+the fields the port honours. ``interpret`` is gone: there is no
+interpreter, a tensor on the CPU takes each kernel's plain PyTorch version
+and a tensor on the card takes the kernel.
 
 Backend names follow PyTorch rather than JAX: ``"torch"`` is the plain
 all-pairs op (JAX ``"jnp"``), ``"direct"`` the hand-written ordered kernel
@@ -107,7 +106,10 @@ class SimConfig:
         vjp_pos_sym_mxu): None (their defaults, 64 and 128) or one of
         SYM_BWD_TILES, the tiles the CUDA kernels are built for. JAX's
         VMEM-sized tiles (640, 768) are refused.
-      traversal: "auto" or "slots" (the band traversal is not ported).
+      traversal: "auto" or "slots" (the slot list) or "band" (the band
+        traversal, B16), as in JAX; backend "sym_mxu" honours it, "sym"
+        refuses "band" (ops/force.py), and the resident route and the
+        sharded path's self kernels run the slots whatever it says.
       fused_integrate: the fused force + Euler kernel; JAX's rule holds
         (integrator "euler", backend "direct", one card).
       resident: the whole-trajectory resident kernel (ops/resident_sym.py,
@@ -158,12 +160,9 @@ class SimConfig:
         if self.pair_dtype not in _PAIR_DTYPES:
             raise ValueError(f"pair_dtype must be one of {_PAIR_DTYPES}, "
                              f"got {self.pair_dtype!r}")
-        if self.traversal == "band":
-            raise NotImplementedError(
-                "traversal='band' is not ported yet (ROADMAP B16)")
-        if self.traversal not in ("auto", "slots"):
+        if self.traversal not in ("auto", "slots", "band"):
             raise ValueError(
-                f"traversal must be auto/slots, got {self.traversal!r}")
+                f"traversal must be auto/slots/band, got {self.traversal!r}")
         check_coincident(self.coincident)
         if self.comm not in _COMMS:
             raise ValueError(

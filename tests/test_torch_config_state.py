@@ -72,9 +72,14 @@ def test_fused_integrate_needs_one_card():
     dict(backend="sym_mxu", traversal="band"), dict(traversal="band"),
 ])
 def test_unported_options_raise(kw):
-    jconfig.SimConfig(n=64, **kw)  # valid in the JAX package
-    with pytest.raises(NotImplementedError):
-        SimConfig(n=64, **kw)
+    # traversal='band' is ported (B16, tests/test_torch_band.py): what JAX
+    # accepts, the port accepts; an unknown traversal raises in both.
+    jcfg = jconfig.SimConfig(n=64, **kw)
+    cfg = SimConfig(n=64, **kw)
+    assert (cfg.backend, cfg.traversal) == (jcfg.backend, jcfg.traversal)
+    for make in (jconfig.SimConfig, SimConfig):
+        with pytest.raises(ValueError, match="traversal"):
+            make(n=64, traversal="rows")
 
 
 @pytest.mark.parametrize("kw", [
@@ -119,12 +124,16 @@ def test_from_dict_maps_backends(jax_backend, port_backend):
 @pytest.mark.parametrize("kw", [dict(traversal="band"),
                                 dict(resident_tile=512)])
 def test_from_dict_rejects_unported(kw):
-    # pair_dtype, backend "mxu", resident and resident_tile are ported
-    # (test_torch_mxu_force.py, test_torch_resident.py); a resident tile
-    # the card kernel is not built for is refused as sym_bwd_tile's are.
-    err = ValueError if "resident_tile" in kw else NotImplementedError
-    with pytest.raises(err):
-        SimConfig.from_dict(dataclasses.asdict(jconfig.SimConfig(n=8, **kw)))
+    # pair_dtype, backend "mxu", resident, resident_tile and the band
+    # traversal are ported (test_torch_mxu_force.py, test_torch_resident.py,
+    # test_torch_band.py); a resident tile the card kernel is not built for
+    # is refused as sym_bwd_tile's are.
+    d = dataclasses.asdict(jconfig.SimConfig(n=8, **kw))
+    if "resident_tile" in kw:
+        with pytest.raises(ValueError):
+            SimConfig.from_dict(d)
+    else:
+        assert SimConfig.from_dict(d).traversal == "band"
 
 
 def test_from_dict_maps_mesh():

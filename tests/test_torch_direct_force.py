@@ -17,6 +17,7 @@ from mini_nbody_tpu.ops.reference import body_force_jnp
 from mini_nbody_tpu_torch.ops import direct_force as df
 from mini_nbody_tpu_torch.ops.force import body_force
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
+from mini_nbody_tpu_torch.ops.sym_mxu_force import body_force_sym_mxu
 
 torch.set_num_threads(1)
 
@@ -122,9 +123,10 @@ def test_dispatcher_backends_vs_jnp(backend):
 
 
 def test_dispatcher_rejects_unknown_and_unported():
-    p = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError):
-        body_force(p, p, backend="sym_mxu", traversal="band")
+    # sym_mxu's band traversal is ported (B16): the dispatcher forwards it.
+    p = torch.from_numpy(_inputs(100, 100, False, seed=4)[0])
+    assert torch.equal(body_force(p, p, backend="sym_mxu", traversal="band"),
+                       body_force_sym_mxu(p, traversal="band"))
     with pytest.raises(ValueError):
         body_force(p, p, backend="pallas")
     with pytest.raises(ValueError):

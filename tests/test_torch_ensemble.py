@@ -287,8 +287,9 @@ def test_validation():
             fn(_t(pos), _t(mass[0]))
     with pytest.raises(ValueError, match="coincident"):
         sm.body_force_sym_mxu_ensemble(_t(pos), coincident="no")
-    with pytest.raises(NotImplementedError, match="B16"):
-        sm.body_force_sym_mxu_ensemble(_t(pos), traversal="band")
+    # The band ensemble is ported (B16, tests/test_torch_band.py).
+    band = sm.body_force_sym_mxu_ensemble(_t(pos), traversal="band")
+    assert band.shape == pos.shape and torch.isfinite(band).all()
     with pytest.raises(ValueError, match="traversal"):
         sm.body_force_sym_mxu_ensemble(_t(pos), traversal="rows")
     with pytest.raises(ValueError, match="batched"):

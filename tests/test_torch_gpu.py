@@ -35,6 +35,13 @@ rtol 1e-4, atol 1e-5 of the scale in the fp32 class, 2e-2 and 2e-3 in the
 bf16 class), and simulate's resident route, forced or by default, bitwise
 the streamed loop.
 
+B16 (the band traversal) against its plain version in bf16 mode in its
+tri, cross and ensemble modes at the bf16 class per column (rtol 2e-2,
+atol 5e-3 of the column's scale), one launch and one reduce per call, each
+call twice bitwise; 'auto' and 'fast' bitwise 'masked', each band ensemble
+system bitwise its standalone call, and simulate on the band through B16
+alone.
+
 B12 (vjp_pos_pair, the 2-D grid backward) against its plain version at the
 K1 bound, with sets that share bodies, two launches per call, two calls
 bitwise equal. The sharded path on a one-rank NCCL group: every comm
@@ -1300,3 +1307,118 @@ def test_b15_many_pieces(cuda, monkeypatch, mxu):
                       mma_dtype=torch.bfloat16 if mxu else torch.float32)
     _close_change(p[0], pp[0, :n], ss[0].pos, RES_PLAIN[mxu])
     _close_change(v[0], vv[0, :n], ss[0].vel, RES_PLAIN[mxu])
+
+
+# ------------------------------------------------ band traversal (B16)
+
+def _band_sums(mode, p, v, c, tile, split_w, mask, n_sys=1, plain=False):
+    """One B16 call, or its plain version in bf16 mode, on packed bodies:
+    'tri' on rows [0, c), 'ensemble' on n_sys systems of c rows, 'cross' on
+    the chunk pair ([0, c), [c, 2c)): the rows then the cols, stacked."""
+    rows = torch.zeros((c * (2 if mode == "cross" else n_sys), 8),
+                       device=p.device)
+    cols = torch.zeros_like(rows)
+    if mode == "cross":
+        a, b = slice(0, c), slice(c, 2 * c)
+        args = (rows[a], cols[b], p[a], p[b], v[a], v[b], tile, 1e-9,
+                split_w, mask)
+        if plain:
+            sm._band_sums_plain(*args, True, torch.bfloat16)
+        else:
+            sm.band_cross_sums_(*args)
+        return torch.cat([rows[a], cols[b]])
+    if not plain and mode == "tri":
+        sm.band_tri_sums_(rows, cols, p[:c], v[:c], tile, 1e-9, split_w, mask)
+    elif not plain:
+        sm.band_tri_sums_ensemble_(rows, cols, p[:n_sys * c], v[:n_sys * c],
+                                   tile, 1e-9, n_sys, split_w, mask)
+    else:
+        for s in range(n_sys):
+            q = slice(s * c, (s + 1) * c)
+            sm._band_sums_plain(rows[q], cols[q], p[q], p[q], v[q], v[q],
+                                tile, 1e-9, split_w, mask, False,
+                                torch.bfloat16)
+    return torch.cat([rows, cols])
+
+
+def _close_band(got, want, real):
+    # chip_smoke.py's band bound: the bf16 class per column.
+    got, want = got[real].double().cpu(), want[real].double().cpu()
+    assert torch.isfinite(got).all()
+    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+    assert ((got - want).abs() <= 2e-2 * want.abs() + 5e-3 * scale).all()
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("mode,blocks", [("tri", 1), ("tri", 5), ("tri", 6),
+                                         ("cross", 4), ("ensemble", 5)])
+@pytest.mark.parametrize("mask,split_w", [(True, False), (False, False),
+                                          (True, True)])
+def test_b16_vs_bf16_plain(cuda, tile, mode, blocks, mask, split_w):
+    # One block, odd with a ragged tail, even (the half-active wrap band);
+    # a chunk pair with a ragged second chunk; 3 ragged systems; masses
+    # unless the case is the masked unsplit one. Each call launches once and
+    # stores its column partials for one reduce (none for one block).
+    c, pads = blocks * tile, 0 if blocks in (1, 6) else 37
+    n_sys = 3 if mode == "ensemble" else 1
+    chunks = 2 if mode == "cross" else n_sys
+    real = [c - (pads if mode == "ensemble" or s == chunks - 1 else 0)
+            for s in range(chunks)]
+    masses = (mask, split_w) != (True, False)
+    packs = [sm._pack(_pos(r, 10 * blocks + s, cuda),
+                      torch.rand(r, device=cuda) + 0.5 if masses else None,
+                      r, c) for s, r in enumerate(real)]
+    p, v = (torch.cat([x[k] for x in packs]) for k in (0, 1))
+    counters = ("BAND_LAUNCHES", "BAND_CROSS_LAUNCHES",
+                "BAND_ENSEMBLE_LAUNCHES", "BAND_REDUCE_LAUNCHES")
+    before = [getattr(sm, k) for k in counters]
+    args = (mode, p, v, c, tile, split_w, mask, n_sys)
+    got = _band_sums(*args)
+    launched = [getattr(sm, k) - b for k, b in zip(counters, before)]
+    kind = ("tri", "cross", "ensemble").index(mode)
+    assert launched[kind] == 1 and sum(launched[:3]) == 1
+    assert launched[3] == int(mode != "tri" or blocks > 1)
+    assert torch.equal(got, _band_sums(*args))
+    keep = torch.cat([torch.arange(c, device=cuda) < r for r in
+                      (real if mode == "cross" else real * 2)])
+    _close_band(got, _band_sums(*args, plain=True), keep)
+
+
+def test_b16_auto_fast_bitwise_masked_and_ensemble_standalone(cuda,
+                                                             monkeypatch):
+    monkeypatch.setattr(sm, "BAND_COINCIDENT_AUTO_MIN_N", 0)
+    pos = _pos(5000, 61, cuda)
+    ref = sm.body_force_sym_mxu(pos, chunk=2048, coincident="masked",
+                                traversal="band")
+    for mode in ("auto", "fast"):
+        assert torch.equal(sm.body_force_sym_mxu(
+            pos, chunk=2048, coincident=mode, traversal="band"), ref)
+    assert torch.equal(sm.body_force_sym_mxu(
+        pos, chunk=2048, traversal="band"), ref)
+    b, n = 3, 1000
+    pos = torch.stack([_pos(n, 62 + i, cuda) for i in range(b)])
+    mass = torch.rand(b, n, device=cuda) + 0.5
+    f = sm.body_force_sym_mxu_ensemble(pos, mass, traversal="band")
+    t, c = sm.ensemble_tiling(n, None, kernel=True)
+    for i in range(b):
+        assert torch.equal(f[i], sm.body_force_sym_mxu(
+            pos[i], mass[i], tile=t, chunk=c, traversal="band")), i
+    _close(f, sm.body_force_sym_mxu_ensemble(pos, mass), 2e-2, 5e-3)
+
+
+def test_simulate_band_goes_through_b16(cuda):
+    n = 4096
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = init.uniform_random(n, generator=gen, device=cuda)
+    cfg = SimConfig(n=n, steps=3, backend="sym_mxu", traversal="band",
+                    softening=1e-2, integrator="leapfrog", sym_chunk=1024,
+                    resident=False)
+    before = (sm.BAND_LAUNCHES, sm.BAND_CROSS_LAUNCHES, sp.LAUNCHES)
+    out = simulate(cfg, state)
+    torch.cuda.synchronize()
+    launched = (sm.BAND_LAUNCHES - before[0],
+                sm.BAND_CROSS_LAUNCHES - before[1], sp.LAUNCHES - before[2])
+    # 4 force passes of 4 tri and 6 cross calls, one launch each; no K2.
+    assert launched == (16, 24, 0)
+    ref = simulate(cfg.replace(traversal="slots"), state)
+    _close(out.pos, ref.pos, 1e-2, 1e-3)

@@ -257,6 +257,26 @@ def test_one_rank_is_bitwise_the_single_process_run(one_rank, comm, backend,
     assert _comm.CALLS == dict(dict.fromkeys(_comm.CALLS, 0), **want)
 
 
+@pytest.mark.parametrize("comm", ["ring", "ring_sym"])
+def test_one_rank_self_hop_ignores_traversal(one_rank, comm):
+    # JAX's sharded self kernels never take cfg.traversal
+    # (mini_nbody_tpu/parallel/sharded.py:147-149, :214-219), so they run
+    # the slots; the port's do too: traversal='band' is bitwise 'slots'.
+    n = 300
+    state = _state(n)
+    cfg = SimConfig(n=n, dt=1e-3, steps=2, softening=1e-2,
+                    integrator="leapfrog", use_masses=True,
+                    backend="sym_mxu", sym_tile=64, comm=comm,
+                    mesh_shape=(1,))
+    mesh = make_mesh((1,))
+    band = simulate_sharded(cfg.replace(traversal="band"), mesh, state)
+    slots = simulate_sharded(cfg.replace(traversal="slots"), mesh, state)
+    assert torch.equal(band.pos, slots.pos)
+    assert torch.equal(band.vel, slots.vel)
+    ref = simulate(cfg.replace(mesh_shape=None, comm="all_gather"), state)
+    assert torch.equal(slots.pos, ref.pos)
+
+
 def test_one_rank_mesh_and_carry(one_rank):
     mesh = make_mesh()
     assert (mesh.shape, mesh.coords, mesh.index, mesh.size) == ((1,), (0,),

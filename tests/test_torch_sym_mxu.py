@@ -153,8 +153,9 @@ def test_arguments_rejected_like_jax():
         sm.body_force_sym_mxu(p, coincident="sometimes")
     with pytest.raises(ValueError):
         sm.body_force_sym_mxu(p, traversal="zigzag")
-    with pytest.raises(NotImplementedError):
-        sm.body_force_sym_mxu(p, traversal="band")
+    # The band traversal is ported (B16, tests/test_torch_band.py).
+    assert torch.equal(sm.body_force_sym_mxu(p, traversal="band"),
+                       torch.zeros(8, 3))
 
 
 def test_dispatcher_sym_mxu_vs_jax():
