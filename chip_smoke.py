@@ -123,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -155,7 +156,8 @@ from mini_nbody_tpu_torch.ops import vjp_kernel as vk
 from mini_nbody_tpu_torch.ops import vjp_mxu as vm
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
 from mini_nbody_tpu_torch.sim import init_carry
-from mini_nbody_tpu_torch.utils.config import SOFTENING, SYM_BWD_TILES
+from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
+                                               fast_rsqrt_cube)
 from mini_nbody_tpu_torch.utils.harness import FLOPS_PER_INTERACTION, time_fn
 
 N_MAIN = 1 << 20
@@ -175,6 +177,12 @@ SEED = 0
 #: H100 SXM peaks (NVIDIA's published figures): fp32 outside the
 #: tensor cores, dense bf16 on the tensor cores, device memory.
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+#: The special-function unit's rsqrt rate: 16 results per clock per SM
+#: (CUDA's arithmetic-instruction throughput table for compute capability
+#: 9.0) on the H100 SXM's 132 SMs at its 1,980 MHz boost clock. The
+#: pair-once slot bodies (K2, K3 and the kernels on them: B4, B9a, B9b,
+#: B15) take one rsqrt per unordered pair.
+PEAK_RSQRT = 16 * 132 * 1.98e9
 #: fp32 operations per pair for the bounds: an ordered interaction is 20 (the
 #: repo's convention, harness.py); a pair-once evaluation computes w once
 #: (12, the rsqrt counted as 1) and sums both sides (6 each, +1 each with a
@@ -486,12 +494,13 @@ def slot_entry(name, source, replaces, launches, err, call_ms, red_ms, per,
                  launches_per_call=per, **kw)
 
 
-def bound(fp32_ops, nbytes, bf16_ops=0.0):
+def bound(fp32_ops, nbytes, bf16_ops=0.0, rsqrts=0.0):
     """The least time the card could take: the largest of the fp32
     operations over their peak rate, the tensor-core operations over
-    theirs (the two pipes run at once) and the bytes over the memory
-    rate."""
-    t_ops = max(fp32_ops / PEAK_FP32, bf16_ops / PEAK_BF16)
+    theirs, the rsqrts over the special-function unit's rate (the pipes
+    run at once) and the bytes over the memory rate."""
+    t_ops = max(fp32_ops / PEAK_FP32, bf16_ops / PEAK_BF16,
+                rsqrts / PEAK_RSQRT)
     t_bytes = nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -539,6 +548,33 @@ def build_phase():
              if "Used" in ln or "Compiling entry" in ln]
     line("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.BUILD_SECONDS, ptxas=ptxas)
+
+
+#: The main path's slot bodies (tile 128; K3 unit masses and fast rsqrt,
+#: K2 without split_w): their occupancy query and a part of the kernel's
+#: mangled name in nvcc's ptxas report.
+BODIES = {"K3": ("symmetric_force_info",
+                  "symmetric_force_kernelILi128ELi3ELb1E"),
+          "K2": ("slot_pipe_info", "slot_pipe_kernelILi128ELb0E")}
+
+
+def body_info(kernel):
+    """Registers and local bytes per thread and CTAs per SM of a main-path
+    slot body (the kernel's own occupancy query), and its spill bytes from
+    nvcc's ptxas report (None when the library was built before this
+    run)."""
+    lib = _build.load_library()
+    fn, mangled = BODIES[kernel]
+    args = ((3, sm.DEFAULT_TILE, int(fast_rsqrt_cube(SOFTENING)))
+            if kernel == "K3" else (sm.DEFAULT_TILE, 0))
+    out = (ctypes.c_int * 3)()
+    _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
+    spills = next((v for k, v in _build.ptxas_report(_build.BUILD_LOG)
+                   .items() if mangled in k), {})
+    return {"registers": out[0], "local_bytes": out[1],
+            "ctas_per_sm": out[2],
+            "spill_stores": spills.get("spill_stores"),
+            "spill_loads": spills.get("spill_loads")}
 
 
 def k1_phase(rng):
@@ -975,7 +1011,8 @@ def times_phase(state, launches, k1_err, cfg_sym, cfg_dir):
     cross_err = max(close_cols(g.T, w.T, K2_ATOL, f"K2 cross at c={c}")
                     for g, w in zip(cross_got, cross_want))
     pass_s = time_fn(make_force_fn(cfg_sym), pos, pos, reps=3)
-    line("time_sym_mxu", n=N_MAIN, chunk=c, tile=tile,
+    body = body_info("K2")
+    line("time_sym_mxu", n=N_MAIN, chunk=c, tile=tile, body=body,
          tri_call_ms=tri_s * 1e3, tri_plain_ms=tri_plain_s * 1e3,
          cross_call_ms=cross_s * 1e3, cross_plain_ms=cross_plain_s * 1e3,
          cross_call_ms_by_piece=piece_sweep(cross, p[a], p[b], v[a], v[b]),
@@ -1000,13 +1037,15 @@ def times_phase(state, launches, k1_err, cfg_sym, cfg_dir):
                    tri_s * 1e3, red["tri"], per_call(tri_slots(c, tile)),
                    tri_plain_s * 1e3,
                    bound(tri_pairs * OPS_K2_FP32, k2_bytes / 2,
-                         tri_pairs * OPS_K2_MMA), chunk=c),
+                         tri_pairs * OPS_K2_MMA, tri_pairs), chunk=c,
+                   body=body),
         slot_entry("slot_pipe cross mode (K2)", "slot_pipe.cu",
                    "slot_pipe.py:210", launches["slot_cross"], cross_err,
                    cross_s * 1e3, red["cross"], per_call(nb * nb),
                    cross_plain_s * 1e3,
                    bound(cross_pairs * OPS_K2_FP32, k2_bytes,
-                         cross_pairs * OPS_K2_MMA), chunk=c),
+                         cross_pairs * OPS_K2_MMA, cross_pairs), chunk=c,
+                   body=body),
     ]
 
 
@@ -1026,6 +1065,7 @@ def time_k3(state, launches, cfg_auto):
     (tri_plain_s, tri_err), (cross_plain_s, cross_err) = (k3["tri"],
                                                           k3["cross"])
     pass_s = time_fn(make_force_fn(cfg_auto), state.pos, state.pos, reps=3)
+    body = body_info("K3")
     line("time_sym", n=N_MAIN, chunk=c, tile=tile,
          tri_call_ms=tri_s * 1e3, tri_plain_ms=tri_plain_s * 1e3,
          cross_call_ms=cross_s * 1e3, cross_plain_ms=cross_plain_s * 1e3,
@@ -1033,7 +1073,9 @@ def time_k3(state, launches, cfg_auto):
                                               slots["cross"], True),
          pass_ms=pass_s * 1e3, pass_ginter_s=gips(N_MAIN, pass_s),
          pass_bound_ms=bound(N_MAIN * (N_MAIN - 1) / 2 * OPS_PAIR_ONCE,
-                             N_MAIN * 6 * 4.0)["bound_ms"],
+                             N_MAIN * 6 * 4.0,
+                             rsqrts=N_MAIN * (N_MAIN - 1) / 2)["bound_ms"],
+         body=body,
          plain_pass_ms_from_launches=(nc * tri_plain_s + nc * (nc - 1) // 2
                                       * cross_plain_s) * 1e3)
     tri_pairs, cross_pairs = c * (c - 1) / 2, float(c) * c
@@ -1045,13 +1087,14 @@ def time_k3(state, launches, cfg_auto):
                    "symmetric_force.py:107", launches["sym_tri"], tri_err,
                    tri_s * 1e3, red["tri"], per_call(tri_slots(c, tile)),
                    tri_plain_s * 1e3,
-                   bound(tri_pairs * OPS_PAIR_ONCE, c * 6 * 4.0), chunk=c),
+                   bound(tri_pairs * OPS_PAIR_ONCE, c * 6 * 4.0,
+                         rsqrts=tri_pairs), chunk=c, body=body),
         slot_entry("symmetric_force cross mode (K3)", "symmetric_force.cu",
                    "symmetric_force.py:155", launches["sym_cross"],
                    cross_err, cross_s * 1e3, red["cross"], per_call(nb * nb),
                    cross_plain_s * 1e3,
-                   bound(cross_pairs * OPS_PAIR_ONCE, c * 12 * 4.0),
-                   chunk=c),
+                   bound(cross_pairs * OPS_PAIR_ONCE, c * 12 * 4.0,
+                         rsqrts=cross_pairs), chunk=c, body=body),
         time_reduce(launches["slot_reduce"], c, tile),
     ]
 
@@ -1840,7 +1883,8 @@ def pair_mxu_phase(state3):
                       launches["pair_mxu"], err, ms, red, per_call(nb * nb),
                       plain_s * 1e3,
                       bound(pairs * OPS_K2_FP32, 2 * half * (3 + 8 + 8) * 4.0,
-                            pairs * OPS_K2_MMA), na=half, nb=half, tile=tile)
+                            pairs * OPS_K2_MMA, pairs), na=half, nb=half,
+                      tile=tile)
 
 
 def time_b6(state3, c3_launches, main_pass_s):
@@ -2039,7 +2083,7 @@ def ensemble_sweep_phase():
                       reduce_ms(slots, True, t, 8, c, b),
                       per_call(slots.shape[0], b), plain_s * 1e3,
                       bound(pairs * OPS_K2_FP32, b * c * (3 + 8 + 8) * 4.0,
-                            pairs * OPS_K2_MMA), b=b, n=n, tile=t)
+                            pairs * OPS_K2_MMA, pairs), b=b, n=n, tile=t)
 
 
 def ensemble_fp32_phase():
@@ -2089,7 +2133,8 @@ def ensemble_fp32_phase():
     plain_s, want = host_time(plain)
     err = close(got, want, K3_RTOL, K3_ATOL, f"B9b at B={b} N={n}")
     pairs = b * n * (n - 1) / 2
-    bnd = bound(pairs * OPS_PAIR_ONCE_MASS, b * n * (4 + 3) * 4.0)
+    bnd = bound(pairs * OPS_PAIR_ONCE_MASS, b * n * (4 + 3) * 4.0,
+                rsqrts=pairs)
     small = small_ensemble(b, ENS_SMALL_N, gen)
     line("ensemble_fp32", b=b, n=n, steps=ENS_STEPS, tile=t, chunk=c,
          seconds=seconds, launches=launches, bitwise_systems=b,
@@ -2518,8 +2563,10 @@ def resident_phase():
         ms = time_fn(config1, reps=3) * 1e3
         n = float(N_CONFIG1)
         pairs = STEPS_CONFIG1 * n * (n - 1) / 2
-        bnd = (bound(pairs * OPS_K2_FP32, n * BYTES_B15, pairs * OPS_K2_MMA)
-               if mxu else bound(pairs * OPS_B15, n * BYTES_B15))
+        bnd = (bound(pairs * OPS_K2_FP32, n * BYTES_B15, pairs * OPS_K2_MMA,
+                     pairs)
+               if mxu else bound(pairs * OPS_B15, n * BYTES_B15,
+                                 rsqrts=pairs))
         runs.update(fold_c4_finite=True, config1_launch_ms=ms,
                     config1_plain_ms=plain_s * 1e3,
                     vs_plain={k: {"max_abs_err": e, "err_of_scale": sc}

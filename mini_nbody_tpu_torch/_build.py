@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -90,6 +91,10 @@ SIGNATURES = {
     "resident_sym_launch": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _L, _I, _I, _F, _F, _I, _I, _P, _I, _I, _I, _I,
                              _P], _I),
+    # k, tile, fast, out (3 ints: registers, local bytes, CTAs per SM)
+    "symmetric_force_info": ([_I, _I, _I, _P], _I),
+    # tile, split_w, out (as above)
+    "slot_pipe_info": ([_I, _I, _P], _I),
     "nbody_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -161,6 +166,26 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel's mangled name: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's ptxas output (BUILD_LOG)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if name is not None and m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if name is not None and m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

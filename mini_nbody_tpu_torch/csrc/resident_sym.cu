@@ -132,7 +132,8 @@ __device__ __forceinline__ void integrate(const Args& a, long long i,
 }
 
 template <int T, bool kMxu, int K, bool kFast>
-__global__ void __launch_bounds__(kMxu ? slot_body::kMxuThreads : 2 * T)
+__global__ void __launch_bounds__(kMxu ? slot_body::mxu_threads<T>()
+                                       : slot_body::fp32_threads<T>())
     resident_kernel(Args a) {
   constexpr int W = kMxu ? 8 : 3;   // partial and accumulator width
   constexpr int KP = kMxu ? 3 : K;  // position row width
@@ -200,8 +201,9 @@ __global__ void __launch_bounds__(kMxu ? slot_body::kMxuThreads : 2 * T)
 template <int T, bool kMxu, int K, bool kFast>
 int launch(const Args& a, cudaStream_t stream) {
   auto kernel = resident_kernel<T, kMxu, K, kFast>;
-  constexpr int threads = kMxu ? slot_body::kMxuThreads : 2 * T;
-  constexpr size_t smem = kMxu ? slot_body::mxu_smem_bytes<T, false>()
+  constexpr int threads = kMxu ? slot_body::mxu_threads<T>()
+                               : slot_body::fp32_threads<T>();
+  constexpr size_t smem = kMxu ? slot_body::mxu_smem_bytes<T>()
                                : slot_body::fp32_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -15,11 +15,18 @@
 // block bj; a DIAG slot writes side 0 only) at `out`, for the slot-order
 // reduction (ordered_sum, in csrc/slot_reduce.cu or B15's reduce phase).
 //
+// Both bodies keep each pair's weight w in registers: no pair costs a
+// shared-memory access. Shared memory stages the two blocks once per slot
+// and combines the partial sums of the threads (fp32) or warps (bf16) that
+// share a row or a column, once per slot, in a fixed order, so every output
+// bit is the same on every run. A FOLD slot runs as two passes over the full
+// T x T tile, one per side, with w zeroed outside the side's triangle (fold
+// slots are nb / 2 of ~nb^2 / 2).
+//
 // kPads (B15 only): w is zeroed on every pair where either body's
 // system-local index is n_real or more. The streamed kernels drop the pad
 // rows after every pass; B15 integrates them, so a pad must never gain a
-// force. The streamed kernels instantiate kPads = false, which compiles to
-// the code they had.
+// force. The streamed kernels instantiate kPads = false.
 //
 // The caller keeps every thread of the CTA in the call (the bodies hold
 // __syncthreads) and syncs before it reuses the shared memory for the next
@@ -30,7 +37,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <cstdint>
 
 namespace slot_body {
 
@@ -61,63 +69,321 @@ __device__ __forceinline__ float ordered_sum(const float* __restrict__ base,
   return s;
 }
 
-// Whether pair (r, c) of a slot touches a pad: the row body is in block
-// bi, the column body in bj, except in a fold, where both are in bi below
-// the diagonal and in bj above it.
-template <int T>
-__device__ __forceinline__ bool pad_pair(bool fold, int bi, int bj, int r,
-                                         int c, int n_real) {
-  const int rb = (fold && c > r) ? bj : bi;
-  const int cb = fold ? rb : bj;
-  return rb * T + r >= n_real || cb * T + c >= n_real;
+// rsqrt of a normal float or +inf, flushing denormal inputs: with kFast
+// (fast_rsqrt_cube: softening >= 1e-12) r2^3 >= 1e-36 is never denormal, so
+// this is rsqrtf's result without its denormal rescaling.
+__device__ __forceinline__ float rsqrt_normal(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// w = rsqrt(r2^3) (kFast) or rsqrt(r2)^3.
+template <bool kFast>
+__device__ __forceinline__ float pair_weight(float r2) {
+  if (kFast) return rsqrt_normal((r2 * r2) * r2);
+  const float inv = rsqrtf(r2);
+  return (inv * inv) * inv;
+}
+
+// Whether pair (r, c) of a fold pass lies outside its side's triangle:
+// tri 1 keeps c < r (side a), tri 2 keeps c > r (side b).
+__device__ __forceinline__ bool off_triangle(int tri, int r, int c) {
+  return tri == 1 ? c >= r : c <= r;
+}
+
+// The grid width of a streamed slot kernel: as many CTAs as the card holds
+// at once (the kernel's occupancy on every SM), shared among the n_sys
+// systems on gridDim.y, at most one per slot. Each CTA walks the slots
+// blockIdx.x, blockIdx.x + gridDim.x, ... and loads a slot's blocks while
+// the one before computes (the kernel's staged registers).
+template <typename Kernel>
+cudaError_t stream_width(Kernel kernel, int threads, size_t smem,
+                         int n_slots, int n_sys, int* width) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  const long long w = static_cast<long long>(per_sm) * sms / n_sys;
+  *width = static_cast<int>(w < 1 ? 1 : (w < n_slots ? w : n_slots));
+  return err;
+}
+
+// CTAs per SM a streamed kernel of `threads` threads is compiled for, to
+// hold `warps` warps per SM: K3 16 (at most 128 registers per thread), K2
+// 12 (at most 168; its two-strip body spills at 128).
+__host__ __device__ constexpr int stream_min_ctas(int threads, int warps) {
+  return 32 * warps / threads;
+}
+
+// A slot's (kind, bi, bj) from the device slot list.
+struct Slot {
+  int kind, bi, bj;
+};
+
+__device__ __forceinline__ Slot read_slot(const int* __restrict__ slots,
+                                          int s) {
+  return {slots[3 * s], slots[3 * s + 1], slots[3 * s + 2]};
+}
+
+// The streamed kernels' slot loop: this CTA computes slots blockIdx.x,
+// blockIdx.x + gridDim.x, ... of the n_slots of `slots`. load(slot) reads
+// a slot's blocks into the stage's registers while the slot before it
+// computes (its triple was read one slot earlier still), store() stages
+// them in shared memory, and compute(slot, s) runs slot s.
+template <class Load, class Store, class Compute>
+__device__ __forceinline__ void walk_slots(const int* __restrict__ slots,
+                                           int n_slots, Load load,
+                                           Store store, Compute compute) {
+  const int stride = gridDim.x;
+  int s = blockIdx.x;
+  Slot next{}, after{};
+  if (s < n_slots) {
+    next = read_slot(slots, s);
+    load(next);
+  }
+  if (s + stride < n_slots) after = read_slot(slots, s + stride);
+  for (; s < n_slots; s += stride) {
+    store();
+    __syncthreads();
+    const Slot cur = next;
+    next = after;
+    if (s + stride < n_slots) load(next);
+    if (s + 2 * stride < n_slots) after = read_slot(slots, s + 2 * stride);
+    compute(cur, s);
+    __syncthreads();  // the slot is done with shared memory
+  }
 }
 
 // ------------------------------------------------- fp32 class (K3) ---
 //
-// One CTA of 2T threads. Per unordered pair: w = rsqrt(r2^3) (kFast) or
-// rsqrt(r2)^3, r2 = |d|^2 + softening, d = p_c - p_r; rows
-// F_r += d w (m_c), reactions F_c -= d w (m_r). Stage both blocks
-// (x, y, z[, m]), compute the T x T w tile once into shared memory (rows
-// padded to T + 1 floats, so the row pass, one thread per row, and the
-// column pass, one thread per column, read it without bank conflicts), then
-// run the row pass on threads [0, T) and the column pass on [T, 2T).
+// One CTA of (T/8)^2 threads: T = 128, 256 threads; T = 64, 64. Thread
+// (ty, tx) = (tid / G, tid % G), G = T / 8, owns the 8 x 8 pairs of rows
+// ty + G i and columns tx + G j (i, j < 8): it holds its rows' (x, y, z[,
+// m]) in registers, reads each column's once from shared memory (a
+// broadcast), and keeps 8 x 3 row sums and 8 x 3 reaction sums in
+// registers. Per pair: d = p_c - p_r, r2 = |d|^2 + softening, w = rsqrt(r2^3)
+// (kFast) or rsqrt(r2)^3; rows F_r += d w (m_c), reactions G_c += d w (m_r),
+// stored negated. The G threads that share a row are lanes of one warp
+// (lane bits [0, log2 G)); those that share a column are lanes in bits
+// [log2 G, 5) and the CTA's warps. Each warp halves its sums across its
+// lanes (lane_sums), then the row totals and the warps' column partials
+// meet in shared memory and the column partials are added in increasing
+// warp index.
 
 template <int T>
-constexpr size_t fp32_smem_bytes() {
-  return (T * (T + 1) + 8 * T) * sizeof(float);  // w tile + two 4 x T blocks
+__host__ __device__ constexpr int fp32_threads() {
+  return (T / 8) * (T / 8);
 }
 
-// f += sum over c in [c0, c1) of (Q[c] - P[r]) w(r, c) [* m_Q[c]]: the row
-// sums of body P[r] against partners Q[c]. P, Q: 4 x T (x, y, z, m).
-template <int T, bool kMass>
-__device__ __forceinline__ void fp32_row_sums(const float* Wr,
-                                              const float* P, const float* Q,
-                                              int r, int c0, int c1,
-                                              float* f) {
-  const float x = P[r], y = P[T + r], z = P[2 * T + r];
-  for (int c = c0; c < c1; ++c) {
-    float w = Wr[c];
-    if (kMass) w *= Q[3 * T + c];
-    f[0] += (Q[c] - x) * w;
-    f[1] += (Q[T + c] - y) * w;
-    f[2] += (Q[2 * T + c] - z) * w;
+template <int T>
+__host__ __device__ constexpr size_t fp32_smem_bytes() {
+  // two staged blocks (float4 per body), the row totals, the warps' column
+  // partials
+  return 2 * T * sizeof(float4) +
+         (3 * T + fp32_threads<T>() / 32 * 3 * T) * sizeof(float);
+}
+
+// Sums each of a lane's N partials (s[0 .. N), 3 components each) with the
+// partners' copies across lane bits [kBit0, kBit0 + kBits), highest bit
+// first, in a fixed order. While N > 1 a step halves: a lane keeps the
+// upper half of its entries if its bit is set, else the lower half, and
+// adds its partner's copy of that half; with one entry left the partners
+// swap and add, and only the one whose bit is clear stays the writer. On
+// return s[0 .. max(N >> kBits, 1)) hold the totals of entries off, off + 1,
+// ... of the lane's original N.
+template <int N, int kBit0, int kBits>
+__device__ __forceinline__ void lane_sums(float (&s)[8][3], int lane,
+                                          int& off, bool& writer) {
+  if constexpr (kBits > 0) {
+    constexpr int kBit = kBit0 + kBits - 1;
+    const bool up = (lane >> kBit) & 1;
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+#pragma unroll
+      for (int i = 0; i < H; ++i)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float send = up ? s[i][k] : s[i + H][k];
+          const float keep = up ? s[i + H][k] : s[i][k];
+          s[i][k] = keep + __shfl_xor_sync(0xffffffffu, send, 1 << kBit);
+        }
+      if (up) off += H;
+      lane_sums<H, kBit0, kBits - 1>(s, lane, off, writer);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        s[0][k] += __shfl_xor_sync(0xffffffffu, s[0][k], 1 << kBit);
+      if (up) writer = false;
+      lane_sums<1, kBit0, kBits - 1>(s, lane, off, writer);
+    }
   }
 }
 
-// g += sum over r in [r0, r1) of (Q[c] - P[r]) w(r, c) [* m_P[r]]: the
-// reaction sums of body Q[c] (to be subtracted) against partners P[r].
-template <int T, bool kMass>
-__device__ __forceinline__ void fp32_col_sums(const float* W, const float* P,
-                                              const float* Q, int c, int r0,
-                                              int r1, float* g) {
-  constexpr int LD = T + 1;
-  const float x = Q[c], y = Q[T + c], z = Q[2 * T + c];
-  for (int r = r0; r < r1; ++r) {
-    float w = W[r * LD + c];
-    if (kMass) w *= P[3 * T + r];
-    g[0] += (x - P[r]) * w;
-    g[1] += (y - P[T + r]) * w;
-    g[2] += (z - P[2 * T + r]) * w;
+// One pass over the T x T pairs of blocks P (rows, block index pb) and Q
+// (columns, qb): row totals to rows (T x 3, shared), the warps' column
+// partials to cols (warps x T x 3, shared), then a barrier. kCols = false
+// skips the reactions (DIAG); kTri zeroes w off the triangle `tri` (FOLD).
+template <int T, int K, bool kFast, bool kPads, bool kCols, bool kTri>
+__device__ __forceinline__ void fp32_pass(const float4* P, const float4* Q,
+                                          int pb, int qb, int tri,
+                                          float softening, int n_real,
+                                          float* rows, float* cols) {
+  constexpr int G = T / 8;
+  constexpr int kLog = T == 128 ? 4 : 3;
+  static_assert(G == 1 << kLog, "tile 64 or 128");
+  constexpr bool kMass = K == 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = lane & (G - 1), ty = threadIdx.x >> kLog;
+
+  float4 p[8];
+  unsigned rv = 0xffu, cv = 0xffu;  // kPads: real rows, real columns
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    p[i] = P[ty + G * i];
+    if (kPads && pb * T + ty + G * i >= n_real) rv &= ~(1u << i);
+    if (kPads && qb * T + tx + G * i >= n_real) cv &= ~(1u << i);
+  }
+  float f[8][3], g[8][3];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f[i][k] = g[i][k] = 0.f;
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = tx + G * j;
+    const float4 q = Q[c];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float dx = q.x - p[i].x;
+      const float dy = q.y - p[i].y;
+      const float dz = q.z - p[i].z;
+      const float r2 = dx * dx + dy * dy + (dz * dz + softening);
+      float w = pair_weight<kFast>(r2);
+      if (kTri && off_triangle(tri, ty + G * i, c)) w = 0.f;
+      if (kPads && !((rv >> i) & (cv >> j) & 1u)) w = 0.f;
+      const float wr = kMass ? w * q.w : w;
+      f[i][0] += dx * wr;
+      f[i][1] += dy * wr;
+      f[i][2] += dz * wr;
+      if (kCols) {
+        const float wc = kMass ? w * p[i].w : w;
+        g[j][0] += dx * wc;
+        g[j][1] += dy * wc;
+        g[j][2] += dz * wc;
+      }
+    }
+  }
+
+  int off = 0;
+  bool writer = true;
+  lane_sums<8, 0, kLog>(f, lane, off, writer);
+  if (writer)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rows[(ty + G * off) * 3 + k] = f[0][k];
+  if (kCols) {
+    constexpr int kLeft = 8 >> (5 - kLog);  // columns a lane keeps
+    int coff = 0;
+    bool unused = true;  // halving steps only: every lane keeps its own
+    lane_sums<8, kLog, 5 - kLog>(g, lane, coff, unused);
+    float* cw = cols + warp * T * 3;
+#pragma unroll
+    for (int j = 0; j < kLeft; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) cw[(tx + G * (coff + j)) * 3 + k] = g[j][k];
+  }
+  __syncthreads();
+}
+
+// The column total of element e of a pass: the warps' partials in
+// increasing warp index.
+template <int T, int kWarps>
+__device__ __forceinline__ float warp_total(const float* cols, int e) {
+  float s = cols[e];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) s += cols[w * T * 3 + e];
+  return s;
+}
+
+// One slot's two blocks (x, y, z[, m]) in registers: load() reads them from
+// device memory, store() writes them to the shared float4 blocks. The
+// streamed kernel loads the next slot's while the current one computes.
+template <int T, int K>
+struct Fp32Stage {
+  static constexpr int kThreads = fp32_threads<T>();
+  static constexpr int kLoads = (T * K + kThreads - 1) / kThreads;
+  float a[kLoads], b[kLoads];
+
+  __device__ __forceinline__ void load(int bi, int bj,
+                                       const float* __restrict__ pos_a,
+                                       const float* __restrict__ pos_b) {
+    const float* ga = pos_a + static_cast<size_t>(bi) * T * K;
+    const float* gb = pos_b + static_cast<size_t>(bj) * T * K;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * K) {
+        a[l] = ga[t];
+        b[l] = gb[t];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* smem) const {
+    float* sa = smem;          // block bi of side a, float4 per body
+    float* sb = smem + 4 * T;  // block bj of side b
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * K) {
+        const int r = t / K, k = t - K * (t / K);
+        sa[4 * r + k] = a[l];
+        sb[4 * r + k] = b[l];
+      }
+    }
+  }
+};
+
+// The slot's passes on its staged blocks (Fp32Stage::store, then a
+// barrier); out: its two (T, 3) partial tiles.
+template <int T, int K, bool kFast, bool kPads>
+__device__ __forceinline__ void fp32_compute(int kind, int bi, int bj,
+                                             float* out, float softening,
+                                             int n_real, float* smem) {
+  constexpr int kThreads = fp32_threads<T>();
+  constexpr int kWarps = kThreads / 32;
+  const float4* pa = reinterpret_cast<const float4*>(smem);
+  const float4* pb = pa + T;
+  float* rows = smem + 8 * T;
+  float* cols = rows + 3 * T;
+
+  if (kind == kSlotFold) {
+    // Side a's triangle (c < r), then side b's (c > r): rows - reactions.
+    fp32_pass<T, K, kFast, kPads, true, true>(pa, pa, bi, bi, 1, softening,
+                                              n_real, rows, cols);
+    for (int e = threadIdx.x; e < 3 * T; e += kThreads)
+      out[e] = rows[e] - warp_total<T, kWarps>(cols, e);
+    __syncthreads();
+    fp32_pass<T, K, kFast, kPads, true, true>(pb, pb, bj, bj, 2, softening,
+                                              n_real, rows, cols);
+    for (int e = threadIdx.x; e < 3 * T; e += kThreads)
+      out[3 * T + e] = rows[e] - warp_total<T, kWarps>(cols, e);
+  } else if (kind == kSlotDiag) {
+    fp32_pass<T, K, kFast, kPads, false, false>(pa, pb, bi, bj, 0,
+                                                softening, n_real, rows,
+                                                cols);
+    for (int e = threadIdx.x; e < 3 * T; e += kThreads) out[e] = rows[e];
+  } else {
+    fp32_pass<T, K, kFast, kPads, true, false>(pa, pb, bi, bj, 0, softening,
+                                               n_real, rows, cols);
+    for (int e = threadIdx.x; e < 3 * T; e += kThreads) {
+      out[e] = rows[e];
+      out[3 * T + e] = -warp_total<T, kWarps>(cols, e);
+    }
   }
 }
 
@@ -129,102 +395,366 @@ __device__ __forceinline__ void fp32_slot(int kind, int bi, int bj,
                                           const float* __restrict__ pos_b,
                                           float* out, float softening,
                                           int n_real, float* smem) {
-  constexpr int LD = T + 1;
-  constexpr bool kMass = K == 4;
-  float* W = smem;          // T x LD
-  float* pa = W + T * LD;   // 4 x T, block bi
-  float* pb = pa + 4 * T;   // 4 x T, block bj
-  const bool fold = kind == kSlotFold;
-
-  const float* ga = pos_a + static_cast<size_t>(bi) * T * K;
-  const float* gb = pos_b + static_cast<size_t>(bj) * T * K;
-  for (int t = threadIdx.x; t < T * K; t += 2 * T) {
-    const int r = t / K, k = t - K * (t / K);
-    pa[k * T + r] = ga[t];
-    pb[k * T + r] = gb[t];
-  }
+  Fp32Stage<T, K> stage;
+  stage.load(bi, bj, pos_a, pos_b);
+  stage.store(smem);
   __syncthreads();
-
-  // w once per (r, c). Rows are block a and columns block b, except in a
-  // fold, where both are block a below the diagonal and block b above it.
-  for (int e = threadIdx.x; e < T * T; e += 2 * T) {
-    const int r = e / T, c = e % T;
-    const float* P = (fold && c > r) ? pb : pa;
-    const float* Q = fold ? P : pb;
-    const float dx = Q[c] - P[r];
-    const float dy = Q[T + c] - P[T + r];
-    const float dz = Q[2 * T + c] - P[2 * T + r];
-    const float r2 = dx * dx + dy * dy + (dz * dz + softening);
-    float w;
-    if (kFast) {
-      w = rsqrtf((r2 * r2) * r2);
-    } else {
-      const float inv = rsqrtf(r2);
-      w = (inv * inv) * inv;
-    }
-    if (kPads && pad_pair<T>(fold, bi, bj, r, c, n_real)) w = 0.f;
-    W[r * LD + c] = w;
-  }
-  __syncthreads();
-
-  float s[3] = {0.f, 0.f, 0.f}, s2[3] = {0.f, 0.f, 0.f};
-  if (!fold) {
-    if (threadIdx.x < T) {  // row pass
-      const int r = threadIdx.x;
-      fp32_row_sums<T, kMass>(W + r * LD, pa, pb, r, 0, T, s);
-      for (int k = 0; k < 3; ++k) out[r * 3 + k] = s[k];
-    } else if (kind != kSlotDiag) {  // column pass
-      const int c = threadIdx.x - T;
-      fp32_col_sums<T, kMass>(W, pa, pb, c, 0, T, s);
-      for (int k = 0; k < 3; ++k) out[(T + c) * 3 + k] = -s[k];
-    }
-    return;
-  }
-  // FOLD: the row pass stores both sides' row sums, then the column pass
-  // adds its sums to the same tiles.
-  if (threadIdx.x < T) {
-    const int r = threadIdx.x;
-    const float* Wr = W + r * LD;
-    fp32_row_sums<T, kMass>(Wr, pa, pa, r, 0, r, s);
-    fp32_row_sums<T, kMass>(Wr, pb, pb, r, r + 1, T, s2);
-    for (int k = 0; k < 3; ++k) {
-      out[r * 3 + k] = s[k];
-      out[(T + r) * 3 + k] = s2[k];
-    }
-  } else {
-    const int c = threadIdx.x - T;
-    fp32_col_sums<T, kMass>(W, pa, pa, c, c + 1, T, s);
-    fp32_col_sums<T, kMass>(W, pb, pb, c, 0, c, s2);
-  }
-  __syncthreads();
-  if (threadIdx.x >= T) {
-    const int c = threadIdx.x - T;
-    for (int k = 0; k < 3; ++k) {
-      out[c * 3 + k] -= s[k];
-      out[(T + c) * 3 + k] -= s2[k];
-    }
-  }
+  fp32_compute<T, K, kFast, kPads>(kind, bi, bj, out, softening, n_real,
+                                   smem);
 }
 
 // ------------------------------------------------- bf16 class (K2) ---
 //
-// One CTA of kMxuThreads threads. w in fp32 once per pair (masked where
-// d2 == 0 in DIAG slots, in CROSS and FOLD slots iff mask_offdiag; the
-// fold's self diagonal always), rounded to bf16 into shared memory (rows
-// padded to T + 8), then each warp owns one 32-row output tile of one side
-// and runs m32n8k16 wmma products over the tile's T columns against the
-// (T, 8) operand v = [vhi | vlo] of the other side (rows) or of its own
-// (reactions, through col_major loads of the same tile; fold: both).
+// One CTA of T threads: T / 32 warps, warp m owning the rows [32 m, 32 m +
+// 32) of the T x T slot tile as two 16-row strips. For each 16-column step
+// a lane computes in fp32, for each strip, the 8 weights its m16n8k16 A
+// fragment holds (rows g, g + 8 and columns 2t, 2t + 1, 2t + 8, 2t + 9 of
+// the 16 x 16 sub-tile, g = lane / 4, t = lane % 4), masked where d2 == 0
+// (DIAG slots; CROSS and FOLD iff mask_offdiag; the fold's self diagonal
+// always), packs them to bf16 pairs (cvt.rn.bf16x2.f32) and runs
+//   rows:      acc[strip] (16 x 8) += W (16 x 16) @ v_Q (16 x 8),
+//   reactions: col[step]  (16 x 8) += W^T (16 x 16) @ v_P[strip] (16 x 8),
+// W^T's fragment being W's four 8 x 8 blocks through movmatrix .trans (no
+// second rsqrt, no shared-memory round trip). v = [vhi | vlo] (T, 8) is
+// the wrapper's compensated operand split, rounded to bf16 once per slot
+// while staging (vhi is exact); split_w adds the products of w's bf16
+// remainder. Each strip's row accumulator is one fresh fragment per slot
+// (and pass); a step's reaction fragment sums the warp's two strips and
+// goes to shared memory at once, and the warps' reaction partials are added
+// in increasing warp index. Two strips give each lane 16 independent pairs
+// per step.
 
-constexpr int kMxuThreads = 256;
-constexpr int kMxuWarps = kMxuThreads / 32;
+constexpr int kMxuStrips = 2;
 
-template <int T, bool kSplit>
+template <int T>
+__host__ __device__ constexpr int mxu_threads() {
+  return 32 * T / (16 * kMxuStrips);
+}
+
+template <int T>
 constexpr size_t mxu_smem_bytes() {
-  constexpr int kParts = kSplit ? 2 : 1;
-  return 2 * kParts * T * (T + 8) * sizeof(__nv_bfloat16)  // W tiles
-         + 2 * T * 8 * sizeof(__nv_bfloat16)               // v_a, v_b
-         + 6 * T * sizeof(float);                          // positions
+  // two staged blocks, v^T of both blocks in bf16 (rows padded to T + 8),
+  // a fold pass's rows, the warps' reaction partials
+  return 2 * T * sizeof(float4) + 2 * 8 * (T + 8) * sizeof(__nv_bfloat16) +
+         (1 + mxu_threads<T>() / 32) * T * 8 * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// w's bf16 remainder: w - bf16(w), rounded to bf16, for both halves.
+__device__ __forceinline__ uint32_t remainder_bf16x2(uint32_t hi, float lo_w,
+                                                     float hi_w) {
+  const float2 h =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return pack_bf16x2(lo_w - h.x, hi_w - h.y);
+}
+
+__device__ __forceinline__ uint32_t transpose_8x8(uint32_t a) {
+  uint32_t d;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(d) : "r"(a));
+  return d;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One pass over the T x T pairs of blocks P (rows, block pb, operand VP,
+// v^T in bf16) and Q (columns, qb, VQ): the row sums to rows_out (T x 8,
+// global or shared), the warps' reaction partials to cols (warps x T x 8,
+// shared) unless !kCols, then a barrier. kD2 masks d2 == 0; kTri zeroes w
+// off the triangle `tri` and the self diagonal (FOLD).
+template <int T, bool kSplit, bool kFast, bool kPads, bool kCols, bool kD2,
+          bool kTri>
+__device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
+                                         const __nv_bfloat16* VP,
+                                         const __nv_bfloat16* VQ, int pb,
+                                         int qb, int tri, float softening,
+                                         int n_real, float* rows_out,
+                                         float* cols) {
+  constexpr int LDV = T + 8;
+  constexpr int kSteps = T / 16;
+  constexpr int H = kMxuStrips;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t* vp = reinterpret_cast<const uint32_t*>(VP + g * LDV);
+  const uint32_t* vq = reinterpret_cast<const uint32_t*>(VQ + g * LDV);
+  // Per strip: the lane's two rows, and the B fragment of the strip's v_P
+  // (k = the strip's rows) for the reactions.
+  int r0[H];
+  float4 p0[H], p1[H];
+  uint32_t bp0[H], bp1[H];
+  bool real0[H], real1[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int strip = 16 * (H * warp + h);
+    r0[h] = strip + g;
+    p0[h] = P[r0[h]];
+    p1[h] = P[r0[h] + 8];
+    bp0[h] = vp[(strip + 2 * t) / 2];
+    bp1[h] = vp[(strip + 2 * t + 8) / 2];
+    real0[h] = !kPads || pb * T + r0[h] < n_real;
+    real1[h] = !kPads || pb * T + r0[h] + 8 < n_real;
+  }
+
+  float acc[H][4];
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+    acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
+  float* cw = cols + warp * T * 8;  // this warp's reaction partials
+
+  auto weight = [&](const float4& p, const float4& q, int r, int c,
+                    bool real) {
+    const float dx = q.x - p.x;
+    const float dy = q.y - p.y;
+    const float dz = q.z - p.z;
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    float w = pair_weight<kFast>(d2 + softening);
+    if (kD2 && d2 == 0.f) w = 0.f;
+    if (kTri && off_triangle(tri, r, c)) w = 0.f;
+    if (kPads && !(real && qb * T + c < n_real)) w = 0.f;
+    return w;
+  };
+
+  // Each step's columns (positions, and v_Q's B fragment) are loaded one
+  // step ahead.
+  float4 nq0 = Q[2 * t], nq1 = Q[2 * t + 1], nq2 = Q[2 * t + 8],
+         nq3 = Q[2 * t + 9];
+  uint32_t nb0 = vq[t], nb1 = vq[t + 4];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int c0 = 16 * s + 2 * t, c1 = c0 + 1, c2 = c0 + 8, c3 = c0 + 9;
+    const float4 q0 = nq0, q1 = nq1, q2 = nq2, q3 = nq3;
+    const uint32_t bq0 = nb0, bq1 = nb1;
+    if (s + 1 < kSteps) {
+      nq0 = Q[c0 + 16];
+      nq1 = Q[c1 + 16];
+      nq2 = Q[c2 + 16];
+      nq3 = Q[c3 + 16];
+      nb0 = vq[(c0 + 16) / 2];
+      nb1 = vq[(c2 + 16) / 2];
+    }
+    float col[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int ra = r0[h], rb = ra + 8;
+      const float w00 = weight(p0[h], q0, ra, c0, real0[h]);
+      const float w01 = weight(p0[h], q1, ra, c1, real0[h]);
+      const float w10 = weight(p1[h], q0, rb, c0, real1[h]);
+      const float w11 = weight(p1[h], q1, rb, c1, real1[h]);
+      const float w02 = weight(p0[h], q2, ra, c2, real0[h]);
+      const float w03 = weight(p0[h], q3, ra, c3, real0[h]);
+      const float w12 = weight(p1[h], q2, rb, c2, real1[h]);
+      const float w13 = weight(p1[h], q3, rb, c3, real1[h]);
+      // A fragment: (ra, c0..c1), (rb, c0..c1), (ra, c2..c3), (rb, c2..c3).
+      const uint32_t a[4] = {pack_bf16x2(w00, w01), pack_bf16x2(w10, w11),
+                             pack_bf16x2(w02, w03), pack_bf16x2(w12, w13)};
+      mma_bf16(acc[h], a, bq0, bq1);
+      uint32_t lo[4];
+      if (kSplit) {
+        lo[0] = remainder_bf16x2(a[0], w00, w01);
+        lo[1] = remainder_bf16x2(a[1], w10, w11);
+        lo[2] = remainder_bf16x2(a[2], w02, w03);
+        lo[3] = remainder_bf16x2(a[3], w12, w13);
+        mma_bf16(acc[h], lo, bq0, bq1);
+      }
+      if (kCols) {
+        // W^T's blocks: (0, 0) = a0^T, (1, 0) = a2^T, (0, 1) = a1^T,
+        // (1, 1) = a3^T.
+        const uint32_t at[4] = {transpose_8x8(a[0]), transpose_8x8(a[2]),
+                                transpose_8x8(a[1]), transpose_8x8(a[3])};
+        mma_bf16(col, at, bp0[h], bp1[h]);
+        if (kSplit) {
+          const uint32_t lt[4] = {transpose_8x8(lo[0]), transpose_8x8(lo[2]),
+                                  transpose_8x8(lo[1]), transpose_8x8(lo[3])};
+          mma_bf16(col, lt, bp0[h], bp1[h]);
+        }
+      }
+    }
+    if (kCols) {
+      // The step's 16 columns are this warp's alone: the partial goes to
+      // shared memory at once (C fragment: column g, then g + 8).
+      *reinterpret_cast<float2*>(cw + (16 * s + g) * 8 + 2 * t) =
+          make_float2(col[0], col[1]);
+      *reinterpret_cast<float2*>(cw + (16 * s + g + 8) * 8 + 2 * t) =
+          make_float2(col[2], col[3]);
+    }
+  }
+
+  // C fragments: (row g, columns 2t, 2t + 1), (row g + 8, the same).
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    *reinterpret_cast<float2*>(rows_out + r0[h] * 8 + 2 * t) =
+        make_float2(acc[h][0], acc[h][1]);
+    *reinterpret_cast<float2*>(rows_out + (r0[h] + 8) * 8 + 2 * t) =
+        make_float2(acc[h][2], acc[h][3]);
+  }
+  __syncthreads();
+}
+
+// The reaction total of float4 e of a pass's (T, 8) tile: the warps'
+// partials in increasing warp index.
+template <int T>
+__device__ __forceinline__ float4 warp_total4(const float* cols, int e) {
+  const float4* c = reinterpret_cast<const float4*>(cols);
+  float4 s = c[e];
+#pragma unroll
+  for (int w = 1; w < mxu_threads<T>() / 32; ++w) {
+    const float4 v = c[w * 2 * T + e];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  return s;
+}
+
+template <int T, bool kSplit, bool kFast, bool kPads>
+__device__ __forceinline__ void mxu_slot_body(
+    int kind, int bi, int bj, const float4* pa, const float4* pb,
+    const __nv_bfloat16* va, const __nv_bfloat16* vb, float* out,
+    float softening, int mask_offdiag, int n_real, float* rows,
+    float* cols) {
+  // A (T, 8) tile is 2T float4s.
+  constexpr int kThreads = mxu_threads<T>();
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const float4* rows4 = reinterpret_cast<const float4*>(rows);
+  if (kind == kSlotFold) {
+    // Side a's triangle (c < r), then side b's (c > r): rows + reactions.
+#define NBODY_FOLD_PASS(D2, P, V, B, TRI, SIDE)                               \
+  mxu_pass<T, kSplit, kFast, kPads, true, D2, true>(                          \
+      P, P, V, V, B, B, TRI, softening, n_real, rows, cols);                  \
+  for (int e = threadIdx.x; e < 2 * T; e += kThreads) {                       \
+    const float4 c = warp_total4<T>(cols, e), r = rows4[e];                   \
+    out4[SIDE * 2 * T + e] =                                                  \
+        make_float4(r.x + c.x, r.y + c.y, r.z + c.z, r.w + c.w);              \
+  }                                                                           \
+  __syncthreads();
+    if (mask_offdiag) {
+      NBODY_FOLD_PASS(true, pa, va, bi, 1, 0)
+      NBODY_FOLD_PASS(true, pb, vb, bj, 2, 1)
+    } else {
+      NBODY_FOLD_PASS(false, pa, va, bi, 1, 0)
+      NBODY_FOLD_PASS(false, pb, vb, bj, 2, 1)
+    }
+#undef NBODY_FOLD_PASS
+  } else if (kind == kSlotDiag) {
+    mxu_pass<T, kSplit, kFast, kPads, false, true, false>(
+        pa, pb, va, vb, bi, bj, 0, softening, n_real, out, cols);
+  } else {
+    if (mask_offdiag)
+      mxu_pass<T, kSplit, kFast, kPads, true, true, false>(
+          pa, pb, va, vb, bi, bj, 0, softening, n_real, out, cols);
+    else
+      mxu_pass<T, kSplit, kFast, kPads, true, false, false>(
+          pa, pb, va, vb, bi, bj, 0, softening, n_real, out, cols);
+    for (int e = threadIdx.x; e < 2 * T; e += kThreads)
+      out4[2 * T + e] = warp_total4<T>(cols, e);
+  }
+}
+
+// One slot's two blocks in registers: positions (x, y, z) and the operand
+// v (8 floats per body, as float4s). load() reads them from device memory,
+// store() writes the positions to the shared float4 blocks and v^T rounded
+// to bf16 (rows padded to T + 8). The streamed kernel loads the next slot's
+// while the current one computes.
+template <int T>
+struct MxuStage {
+  static constexpr int kThreads = mxu_threads<T>();
+  static constexpr int kLoads = (3 * T + kThreads - 1) / kThreads;
+  static constexpr int kV4 = 2 * T / kThreads;  // float4s of v per thread
+  static_assert(kV4 * kThreads == 2 * T, "whole float4s of v per thread");
+  float a[kLoads], b[kLoads];
+  float4 va[kV4], vb[kV4];
+
+  __device__ __forceinline__ void load(int bi, int bj,
+                                       const float* __restrict__ pos_a,
+                                       const float* __restrict__ pos_b,
+                                       const float* __restrict__ v_a,
+                                       const float* __restrict__ v_b) {
+    const float* ga = pos_a + static_cast<size_t>(bi) * T * 3;
+    const float* gb = pos_b + static_cast<size_t>(bj) * T * 3;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < 3 * T) {
+        a[l] = ga[t];
+        b[l] = gb[t];
+      }
+    }
+    const float4* gva =
+        reinterpret_cast<const float4*>(v_a + static_cast<size_t>(bi) * T * 8);
+    const float4* gvb =
+        reinterpret_cast<const float4*>(v_b + static_cast<size_t>(bj) * T * 8);
+#pragma unroll
+    for (int l = 0; l < kV4; ++l) {
+      va[l] = gva[threadIdx.x + l * kThreads];
+      vb[l] = gvb[threadIdx.x + l * kThreads];
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned char* smem) const {
+    constexpr int LDV = T + 8;
+    float* sa = reinterpret_cast<float*>(smem);  // float4 per body
+    float* sb = sa + 4 * T;
+    __nv_bfloat16* ta = reinterpret_cast<__nv_bfloat16*>(sb + 4 * T);
+    __nv_bfloat16* tb = ta + 8 * LDV;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < 3 * T) {
+        const int r = t / 3, k = t - 3 * (t / 3);
+        sa[4 * r + k] = a[l];
+        sb[4 * r + k] = b[l];
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kV4; ++l) {
+      // Float4 f of a block's (T, 8) v is body f / 2, columns 4 (f % 2) ..
+      const int f = threadIdx.x + l * kThreads;
+      const int r = f >> 1, k = 4 * (f & 1);
+      ta[(k + 0) * LDV + r] = __float2bfloat16_rn(va[l].x);
+      ta[(k + 1) * LDV + r] = __float2bfloat16_rn(va[l].y);
+      ta[(k + 2) * LDV + r] = __float2bfloat16_rn(va[l].z);
+      ta[(k + 3) * LDV + r] = __float2bfloat16_rn(va[l].w);
+      tb[(k + 0) * LDV + r] = __float2bfloat16_rn(vb[l].x);
+      tb[(k + 1) * LDV + r] = __float2bfloat16_rn(vb[l].y);
+      tb[(k + 2) * LDV + r] = __float2bfloat16_rn(vb[l].z);
+      tb[(k + 3) * LDV + r] = __float2bfloat16_rn(vb[l].w);
+    }
+  }
+};
+
+// The slot's passes on its staged blocks (MxuStage::store, then a barrier);
+// out: its two (T, 8) partial tiles.
+template <int T, bool kSplit, bool kPads>
+__device__ __forceinline__ void mxu_compute(int kind, int bi, int bj,
+                                            float* out, float softening,
+                                            int fast, int mask_offdiag,
+                                            int n_real, unsigned char* smem) {
+  constexpr int LDV = T + 8;
+  const float4* pa = reinterpret_cast<const float4*>(smem);
+  const float4* pb = pa + T;
+  const __nv_bfloat16* va = reinterpret_cast<const __nv_bfloat16*>(pb + T);
+  const __nv_bfloat16* vb = va + 8 * LDV;
+  float* rows = reinterpret_cast<float*>(smem + 2 * T * sizeof(float4) +
+                                         2 * 8 * LDV * sizeof(__nv_bfloat16));
+  float* cols = rows + T * 8;  // warps x T x 8
+  if (fast)
+    mxu_slot_body<T, kSplit, true, kPads>(kind, bi, bj, pa, pb, va, vb, out,
+                                          softening, mask_offdiag, n_real,
+                                          rows, cols);
+  else
+    mxu_slot_body<T, kSplit, false, kPads>(kind, bi, bj, pa, pb, va, vb, out,
+                                           softening, mask_offdiag, n_real,
+                                           rows, cols);
 }
 
 // pos_a / pos_b (rows, 3) and v_a / v_b (rows, 8) of the slot's system;
@@ -238,121 +768,12 @@ __device__ __forceinline__ void mxu_slot(int kind, int bi, int bj,
                                          float* out, float softening,
                                          int fast, int mask_offdiag,
                                          int n_real, unsigned char* smem) {
-  using namespace nvcuda;
-  constexpr int LD = T + 8;
-  constexpr int kParts = kSplit ? 2 : 1;
-  constexpr int kTile = T * LD;
-  constexpr int kMTiles = T / 32;
-  static_assert(2 * kMTiles <= kMxuWarps, "one warp per 32-row output tile");
-
-  __nv_bfloat16* W = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Va = W + 2 * kParts * kTile;
-  __nv_bfloat16* Vb = Va + T * 8;
-  float* xa = reinterpret_cast<float*>(Vb + T * 8);
-  float* ya = xa + T;
-  float* za = ya + T;
-  float* xb = za + T;
-  float* yb = xb + T;
-  float* zb = yb + T;
-
-  const bool fold = kind == kSlotFold;
-  const bool mask = kind == kSlotDiag || mask_offdiag;
-
-  const float* pa = pos_a + static_cast<size_t>(bi) * T * 3;
-  const float* pb = pos_b + static_cast<size_t>(bj) * T * 3;
-  for (int t = threadIdx.x; t < T * 3; t += kMxuThreads) {
-    const int r = t / 3, k = t - 3 * (t / 3);
-    xa[k * T + r] = pa[t];
-    xb[k * T + r] = pb[t];
-  }
-  const float* va = v_a + static_cast<size_t>(bi) * T * 8;
-  const float* vb = v_b + static_cast<size_t>(bj) * T * 8;
-  for (int t = threadIdx.x; t < T * 8; t += kMxuThreads) {
-    Va[t] = __float2bfloat16_rn(va[t]);
-    Vb[t] = __float2bfloat16_rn(vb[t]);
-  }
+  MxuStage<T> stage;
+  stage.load(bi, bj, pos_a, pos_b, v_a, v_b);
+  stage.store(smem);
   __syncthreads();
-
-  // Pair weights. Tile 0 holds W (DIAG, CROSS) or W_lo (FOLD); tile 1 holds
-  // W_hi (FOLD only).
-  for (int e = threadIdx.x; e < T * T; e += kMxuThreads) {
-    const int r = e / T, c = e % T;
-    const bool upper = fold && c > r;
-    float dx, dy, dz;
-    if (!fold) {
-      dx = xb[c] - xa[r];
-      dy = yb[c] - ya[r];
-      dz = zb[c] - za[r];
-    } else if (upper) {
-      dx = xb[c] - xb[r];
-      dy = yb[c] - yb[r];
-      dz = zb[c] - zb[r];
-    } else {
-      dx = xa[c] - xa[r];
-      dy = ya[c] - ya[r];
-      dz = za[c] - za[r];
-    }
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    const float r2 = d2 + softening;
-    float w;
-    if (fast) {
-      w = rsqrtf((r2 * r2) * r2);
-    } else {
-      const float inv = rsqrtf(r2);
-      w = (inv * inv) * inv;
-    }
-    if ((fold && r == c) || (mask && d2 == 0.f)) w = 0.f;
-    if (kPads && pad_pair<T>(fold, bi, bj, r, c, n_real)) w = 0.f;
-    const __nv_bfloat16 hi = __float2bfloat16_rn(w);
-    __nv_bfloat16* dst = W + (upper ? kParts * kTile : 0) + r * LD + c;
-    dst[0] = hi;
-    if (kSplit) dst[kTile] = __float2bfloat16_rn(w - __bfloat162float(hi));
-    if (fold) {
-      __nv_bfloat16* other = W + (upper ? 0 : kParts * kTile) + r * LD + c;
-      other[0] = __float2bfloat16_rn(0.f);
-      if (kSplit) other[kTile] = __float2bfloat16_rn(0.f);
-    }
-  }
-  __syncthreads();
-
-  // Warp -> (side, 32-row output tile). Side 0's partial belongs to block bi
-  // of side a, side 1's to block bj of side b.
-  const int warp = threadIdx.x / 32;
-  const int side = warp / kMTiles, m = warp % kMTiles;
-  if (side > 1 || (kind == kSlotDiag && side == 1)) return;
-  const bool rows = fold || side == 0;  // W @ v
-  const bool cols = fold || side == 1;  // W^T @ v
-  const __nv_bfloat16* Wt = W + (fold && side == 1 ? kParts * kTile : 0);
-  // FOLD: each side multiplies its own block's v; DIAG/CROSS: rows take
-  // v_b (the column bodies), reactions v_a (the row bodies).
-  const __nv_bfloat16* V = ((side == 0) == fold) ? Va : Vb;
-
-  wmma::fragment<wmma::accumulator, 32, 8, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int p = 0; p < kParts; ++p) {
-    const __nv_bfloat16* Wp = Wt + p * kTile;
-#pragma unroll 2
-    for (int k = 0; k < T / 16; ++k) {
-      wmma::fragment<wmma::matrix_b, 32, 8, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(b, V + k * 16 * 8, 8);
-      if (rows) {
-        wmma::fragment<wmma::matrix_a, 32, 8, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, Wp + m * 32 * LD + k * 16, LD);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      if (cols) {
-        wmma::fragment<wmma::matrix_a, 32, 8, 16, __nv_bfloat16,
-                       wmma::col_major> at;
-        wmma::load_matrix_sync(at, Wp + k * 16 * LD + m * 32, LD);
-        wmma::mma_sync(acc, at, b, acc);
-      }
-    }
-  }
-  wmma::store_matrix_sync(out + (side * T + m * 32) * 8, acc, 8,
-                          wmma::mem_row_major);
+  mxu_compute<T, kSplit, kPads>(kind, bi, bj, out, softening, fast,
+                                mask_offdiag, n_real, smem);
 }
 
 }  // namespace slot_body

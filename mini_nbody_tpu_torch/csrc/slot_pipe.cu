@@ -15,39 +15,45 @@
 // accumulator). Side a is indexed by the slot's bi and side b by its bj
 // alone, so the two sides may hold different numbers of blocks.
 //
-// One CTA of 256 threads per slot (kind, bi, bj), read from a device
-// int32 (S, 3) slot list. Rows index block bi of chunk a, columns block bj
-// of chunk b:
+// A CTA of T threads computes one slot (kind, bi, bj) of a device int32
+// (S, 3) slot list at a time. Rows index block bi of chunk a, columns block
+// bj of chunk b:
 //   DIAG  (bi == bj): w masked where d2 == 0 (self pairs) -> acc_a[bi] +=
 //         W @ v_b[bj] (rows cover both pair orders).
 //   CROSS: w masked where d2 == 0 iff mask_offdiag -> acc_a[bi] += W @
 //         v_b[bj], acc_b[bj] += W^T @ v_a[bi].
 //   FOLD  (bj == bi + 1, tri mode): entry (r, c) is pair (a_r, a_c) where
-//         c < r (tile 0, W_lo) and (b_r, b_c) where c > r (tile 1, W_hi);
+//         c < r (W_lo) and (b_r, b_c) where c > r (W_hi);
 //         c == r is always masked, d2 == 0 iff mask_offdiag (the geometry of
 //         slot_pipe.py:125-157) -> acc_a[bi] += W_lo @ v_a + W_lo^T @ v_a,
 //         acc_b[bj] += W_hi @ v_b + W_hi^T @ v_b.
 // v = [vhi | vlo] (T, 8) is the compensated operand split built by the
 // wrapper; the kernel rounds it to bf16 as the MXU does (vhi is exact).
 //
-// What bounds it on an H100: the fp32 w pipeline (~10 fp32 instructions and
-// one rsqrt on the special-function unit per pair), then shared-memory
-// traffic: the bf16 W tile is written once and read twice by the wmma loads
-// (rows, and reactions through a col_major load of the same tile, so W^T
-// costs no second rsqrt). The products are tiny (N = 8) and the tensor cores
-// idle most of the time.
+// What bounds it on an H100: the fp32 w pipeline, ~12 fp32 instructions
+// and one rsqrt on the special-function unit per pair (16 results per clock
+// per SM: ~131 ms of rsqrt per N = 2^20 pass). The tensor-core products are
+// tiny (N = 8): ~6% of that.
 //
 // Design (the slot body is slot_body::mxu_slot in csrc/slot_body.cuh, which
-// B15 shares): W for the whole T x T slot tile is computed by all 256
-// threads into
-// shared memory (bf16, rows padded to T + 8 to spread banks), then each warp
-// owns one 32-row output tile of one side and runs m32n8k16 wmma products
-// over the tile's K = T columns. The Pallas grid's sequential carry of the
-// (8, C) accumulator becomes a partial per slot: each warp stores its 32 x 8
-// result straight from the fragment into the slot's scratch tile (side 0:
-// block bi, side 1: block bj), and csrc/slot_reduce.cu adds each block's
-// partials in slot order, so every output bit is the same on every run.
-// split_w adds the second product pass on the bf16 remainder of w.
+// B15 shares): one CTA of T threads, T / 32 warps, warp m owning the rows
+// [32 m, 32 m + 32) as two 16-row strips. For each 16-column step each lane
+// computes in fp32 the 8 weights its mma.sync m16n8k16 A fragment holds in
+// each strip, packs them to bf16 pairs and runs the row product W @ v_b at
+// once; the same registers, transposed 8 x 8 block by 8 x 8 block with
+// movmatrix, are W^T's A fragment for the reaction product W^T @ v_a. No w
+// touches shared memory. The Pallas grid's sequential carry of the (8, C)
+// accumulator becomes a partial per slot: each strip's row product is one
+// fresh accumulator per slot, stored straight from the fragment to the
+// slot's scratch tile (side 0: block bi); the warps' reaction partials
+// meet in shared memory and are
+// added in increasing warp index into side 1's tile (block bj); and
+// csrc/slot_reduce.cu adds each block's partials in slot order, so every
+// output bit is the same on every run. split_w adds the products of w's
+// bf16 remainder. A FOLD slot runs two passes over the full tile, one per
+// side with w zeroed off its triangle. The grid holds as many CTAs as the
+// card runs at once (slot_body::stream_width); each walks its slots and
+// loads the next slot's blocks into registers while it computes one.
 //
 // Systems: blockIdx.y is the system of an ensemble launch (B9a, the tri mode
 // of mini_nbody_tpu/ops/slot_pipe.py:305 `_tri_slot_ensemble_kernel` with a
@@ -72,10 +78,13 @@
 
 namespace {
 
-// The slot body is slot_body::mxu_slot, which B15 shares.
+// Each CTA walks its slots (slot_body::walk_slots) on the slot body's bf16
+// stage and compute, which B15 shares.
 template <int T, bool kSplit>
-__global__ void __launch_bounds__(slot_body::kMxuThreads)
-    slot_pipe_kernel(const int* __restrict__ slots,
+__global__ void __launch_bounds__(
+    slot_body::mxu_threads<T>(),
+    slot_body::stream_min_ctas(slot_body::mxu_threads<T>(), 12))
+    slot_pipe_kernel(const int* __restrict__ slots, int n_slots,
                      const float* __restrict__ pos_a,
                      const float* __restrict__ pos_b,
                      const float* __restrict__ v_a,
@@ -83,15 +92,24 @@ __global__ void __launch_bounds__(slot_body::kMxuThreads)
                      long long sys_rows, float softening, int fast,
                      int mask_offdiag) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int kind = slots[3 * blockIdx.x];
-  const int bi = slots[3 * blockIdx.x + 1];
-  const int bj = slots[3 * blockIdx.x + 2];
   const long long sys = blockIdx.y;
-  float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * 8;
-  slot_body::mxu_slot<T, kSplit, false>(
-      kind, bi, bj, pos_a + sys * sys_rows * 3, pos_b + sys * sys_rows * 3,
-      v_a + sys * sys_rows * 8, v_b + sys * sys_rows * 8, out, softening,
-      fast, mask_offdiag, 0, smem);
+  pos_a += sys * sys_rows * 3;
+  pos_b += sys * sys_rows * 3;
+  v_a += sys * sys_rows * 8;
+  v_b += sys * sys_rows * 8;
+  slot_body::MxuStage<T> stage;
+  slot_body::walk_slots(
+      slots, n_slots,
+      [&](const slot_body::Slot& sl) {
+        stage.load(sl.bi, sl.bj, pos_a, pos_b, v_a, v_b);
+      },
+      [&] { stage.store(smem); },
+      [&](const slot_body::Slot& sl, int s) {
+        float* out = part + (sys * n_slots + s) * 2 * T * 8;
+        slot_body::mxu_compute<T, kSplit, false>(sl.kind, sl.bi, sl.bj, out,
+                                                 softening, fast,
+                                                 mask_offdiag, 0, smem);
+      });
 }
 
 template <int T, bool kSplit>
@@ -99,16 +117,41 @@ int launch(const int* slots, int n_slots, int n_sys, long long sys_rows,
            const float* pos_a, const float* pos_b, const float* v_a,
            const float* v_b, float* part, float softening, int fast,
            int mask_offdiag, cudaStream_t stream) {
-  constexpr size_t smem = slot_body::mxu_smem_bytes<T, kSplit>();
+  auto kernel = slot_pipe_kernel<T, kSplit>;
+  constexpr int threads = slot_body::mxu_threads<T>();
+  constexpr size_t smem = slot_body::mxu_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      slot_pipe_kernel<T, kSplit>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  slot_pipe_kernel<T, kSplit>
-      <<<dim3(n_slots, n_sys), slot_body::kMxuThreads, smem, stream>>>(
-          slots, pos_a, pos_b, v_a, v_b, part, sys_rows, softening, fast,
-          mask_offdiag);
+  int width = 0;
+  err = slot_body::stream_width(kernel, threads, smem, n_slots, n_sys,
+                                &width);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(width, n_sys), threads, smem, stream>>>(
+      slots, n_slots, pos_a, pos_b, v_a, v_b, part, sys_rows, softening,
+      fast, mask_offdiag);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread, local memory bytes per thread (spills) and CTAs per
+// SM of one instantiation, at its launch's shared memory.
+template <int T, bool kSplit>
+int info(int* out) {
+  auto kernel = slot_pipe_kernel<T, kSplit>;
+  constexpr size_t smem = slot_body::mxu_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], kernel, slot_body::mxu_threads<T>(), smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -138,5 +181,14 @@ extern "C" int slot_pipe_launch(const int* slots, int n_slots, int n_sys,
   if (tile == 128 && !split_w) return NBODY_SLOT_LAUNCH(128, false);
   if (tile == 128 && split_w) return NBODY_SLOT_LAUNCH(128, true);
 #undef NBODY_SLOT_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out[3]: registers per thread, local bytes per thread and CTAs per SM of
+// the kernel slot_pipe_launch runs for (tile, split_w).
+extern "C" int slot_pipe_info(int tile, int split_w, int* out) {
+  if (tile == 64) return split_w ? info<64, true>(out) : info<64, false>(out);
+  if (tile == 128)
+    return split_w ? info<128, true>(out) : info<128, false>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

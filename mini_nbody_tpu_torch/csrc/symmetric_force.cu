@@ -12,9 +12,9 @@
 // accumulator).
 //
 // Geometry: the slot + fold geometry of K2 (csrc/slot_pipe.cu,
-// ops/slot_pipe.py tri_slot_list), not the TPU band. One CTA of 2T threads
-// per slot (kind, bi, bj) from a device int32 (S, 3) list; rows are block bi
-// of chunk a, columns block bj of chunk b:
+// ops/slot_pipe.py tri_slot_list), not the TPU band. A CTA of (T/8)^2
+// threads computes one slot (kind, bi, bj) of a device int32 (S, 3) list at
+// a time; rows are block bi of chunk a, columns block bj of chunk b:
 //   DIAG  (bi == bj): row sums only; the T x T diagonal block's rows
 //         already cover both orders of each pair (adding its column sums
 //         would count every pair twice). d = 0 on the diagonal gives 0.
@@ -22,35 +22,39 @@
 //   FOLD  (bj == bi + 1, tri mode): entry (r, c) is pair (a_r, a_c) for
 //         c < r and (b_r, b_c) for c > r; each side's rows and reactions go
 //         to its own block. Fold slots are nb/2 of ~nb^2/2, so their
-//         divergent split loops cost nothing measurable.
+//         two full-tile passes cost nothing measurable.
 // The wrapper keeps the chunk loop (at N = 2^20 and chunk 131072: 8 tri + 28
 // cross launches per pass) rather than one slot table over all N, which at
 // T = 128 would hold ~33.6 M slots (~400 MB of int32 triples).
 //
-// What bounds it on an H100: fp32 arithmetic. Per unordered pair: ~11 flops
-// and one rsqrt on the special-function unit for w, then 6 flops (7 with a
-// mass) for each side's sum with d recomputed from the staged positions, as
-// JAX's mass mode recomputes it (symmetric_force.py:77-92). Shared memory
-// carries one 4-byte store and two 4-byte loads per pair.
+// What bounds it on an H100: fp32 arithmetic. Per unordered pair: 3 subtracts
+// for d, 4 operations for r2, 2 multiplies and one rsqrt on the
+// special-function unit for w, 3 fused multiply-adds for each side's sum
+// (and one multiply each by the partner's mass): ~15-17 fp32 instructions
+// at 128 lanes per clock per SM, against one rsqrt at 16 (PERF.md §6).
 //
-// Design (simple first; the slot body is slot_body::fp32_slot in
-// csrc/slot_body.cuh, which B15 shares): stage block bi and block bj (x, y,
-// z[, m]) in shared
-// memory, compute the T x T w tile once into shared memory (rows padded to
-// T + 1 floats, so both the row pass, one thread per row, and the column
-// pass, one thread per column, read it without bank conflicts), then run the
-// row pass on threads [0, T) and the column pass on threads [T, 2T) at the
-// same time. At T = 128 the tile and the positions take 70,144 bytes, above
-// the 48 KB default, so the launch raises the dynamic shared-memory limit
-// first and returns cudaGetLastError(); a refused launch never runs.
+// Design (the slot body is slot_body::fp32_slot in csrc/slot_body.cuh, which
+// B15 shares): stage block bi and block bj (x, y, z[, m]) in shared memory
+// as one float4 per body, then each of the CTA's (T/8)^2 threads computes an
+// 8 x 8 register micro-tile of pairs (rows ty + G i, columns tx + G j, G =
+// T / 8): its rows stay in registers, each column is one broadcast load per
+// 8 pairs, and w, d and both sides' sums never leave registers. After the
+// walk the row sums of the G lanes that share a row, and the column sums of
+// the lanes and warps that share a column, are added in a fixed order: a
+// halving exchange of shuffles inside each warp, then the warps' column
+// partials through shared memory in increasing warp index. At T = 128 the
+// CTA takes 256 threads and 17,920 bytes of shared memory. The grid holds
+// as many CTAs as the card runs at once (slot_body::stream_width); each
+// walks its slots and loads the next slot's blocks into registers while it
+// computes one.
 //
 // Cross-block sums: the TPU carries the whole-chunk reaction buffer across
 // its sequential grid; CTAs here run in no order, so each CTA stores its two
 // T x 3 partials (side 0: block bi, side 1: block bj) to the slot's scratch
 // tiles and csrc/slot_reduce.cu adds each block's partials in slot order:
-// every output bit is the same on every run. A FOLD slot's row and column
-// sums meet in one tile per side: the row pass stores, and after a barrier
-// the column pass adds its (negated) sums to the same elements.
+// every output bit is the same on every run. A FOLD slot runs two passes
+// over the full tile, one per side with w zeroed off its triangle, and
+// stores rows - reactions for each side.
 //
 // Systems: blockIdx.y is the system of an ensemble launch (B9b, the tri mode
 // of mini_nbody_tpu/ops/symmetric_force.py:488 `_build_tri_ensemble` with a
@@ -75,38 +79,73 @@
 namespace {
 
 // pos_a / pos_b: (c, K) rows (x, y, z[, m]); part: 2 (T, 3) tiles per slot
-// and system. The slot body is slot_body::fp32_slot, which B15 shares.
+// and system. Each CTA walks its slots (slot_body::walk_slots) on the slot
+// body's fp32 stage and compute, which B15 shares.
 template <int T, int K, bool kFast>
-__global__ void __launch_bounds__(2 * T)
-    symmetric_force_kernel(const int* __restrict__ slots,
+__global__ void __launch_bounds__(
+    slot_body::fp32_threads<T>(),
+    slot_body::stream_min_ctas(slot_body::fp32_threads<T>(), 16))
+    symmetric_force_kernel(const int* __restrict__ slots, int n_slots,
                            const float* __restrict__ pos_a,
                            const float* __restrict__ pos_b, float* part,
                            long long sys_rows, float softening) {
-  extern __shared__ float smem[];
-  const int kind = slots[3 * blockIdx.x];
-  const int bi = slots[3 * blockIdx.x + 1];
-  const int bj = slots[3 * blockIdx.x + 2];
+  extern __shared__ __align__(16) float smem[];
   const long long sys = blockIdx.y;
-  // Side 0's tile (block bi), then side 1's (block bj).
-  float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * 3;
-  slot_body::fp32_slot<T, K, kFast, false>(
-      kind, bi, bj, pos_a + sys * sys_rows * K, pos_b + sys * sys_rows * K,
-      out, softening, 0, smem);
+  pos_a += sys * sys_rows * K;
+  pos_b += sys * sys_rows * K;
+  slot_body::Fp32Stage<T, K> stage;
+  slot_body::walk_slots(
+      slots, n_slots,
+      [&](const slot_body::Slot& sl) {
+        stage.load(sl.bi, sl.bj, pos_a, pos_b);
+      },
+      [&] { stage.store(smem); },
+      [&](const slot_body::Slot& sl, int s) {
+        // Side 0's tile (block bi), then side 1's (block bj).
+        float* out = part + (sys * n_slots + s) * 2 * T * 3;
+        slot_body::fp32_compute<T, K, kFast, false>(sl.kind, sl.bi, sl.bj,
+                                                    out, softening, 0, smem);
+      });
 }
 
 template <int T, int K, bool kFast>
 int launch(const int* slots, int n_slots, int n_sys, long long sys_rows,
            const float* pos_a, const float* pos_b, float* part,
            float softening, cudaStream_t stream) {
+  auto kernel = symmetric_force_kernel<T, K, kFast>;
+  constexpr int threads = slot_body::fp32_threads<T>();
   constexpr size_t smem = slot_body::fp32_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      symmetric_force_kernel<T, K, kFast>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  symmetric_force_kernel<T, K, kFast>
-      <<<dim3(n_slots, n_sys), 2 * T, smem, stream>>>(
-          slots, pos_a, pos_b, part, sys_rows, softening);
+  int width = 0;
+  err = slot_body::stream_width(kernel, threads, smem, n_slots, n_sys,
+                                &width);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(width, n_sys), threads, smem, stream>>>(
+      slots, n_slots, pos_a, pos_b, part, sys_rows, softening);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread, local memory bytes per thread (spills) and CTAs per
+// SM of one instantiation, at its launch's shared memory.
+template <int T, int K, bool kFast>
+int info(int* out) {
+  auto kernel = symmetric_force_kernel<T, K, kFast>;
+  constexpr size_t smem = slot_body::fp32_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], kernel, slot_body::fp32_threads<T>(), smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 template <int T>
@@ -148,5 +187,19 @@ extern "C" int symmetric_force_launch(const int* slots, int n_slots,
   if (tile == 128)
     return dispatch<128>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
                          part, k, softening, fast, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out[3]: registers per thread, local bytes per thread and CTAs per SM of
+// the kernel symmetric_force_launch runs for (k, tile, fast).
+extern "C" int symmetric_force_info(int k, int tile, int fast, int* out) {
+#define NBODY_SYM_INFO(T)                                   \
+  if (k == 3 && fast) return info<T, 3, true>(out);         \
+  if (k == 3) return info<T, 3, false>(out);                \
+  if (k == 4 && fast) return info<T, 4, true>(out);         \
+  if (k == 4) return info<T, 4, false>(out);
+  if (tile == 64) { NBODY_SYM_INFO(64) }
+  if (tile == 128) { NBODY_SYM_INFO(128) }
+#undef NBODY_SYM_INFO
   return static_cast<int>(cudaErrorInvalidValue);
 }

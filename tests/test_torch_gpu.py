@@ -49,6 +49,12 @@ bitwise the single-card run on its shard's kernel, and the grid's gradient
 through B12 within the fp32 class of the single-card B10 gradient (rtol
 1e-3, atol 1e-4 of its scale).
 
+K3's and K2's register bodies one slot at a time: a DIAG, a CROSS and a
+FOLD slot at tiles 64 and 128, with a ragged tail whose pads start inside
+a micro-tile or fragment and coincident off-diagonal pairs, each partial
+tile against the plain version's under the K3 bound and K2's per-column
+bound, the rest of the accumulators exactly zero.
+
 The pair-once slot kernels K2, K3, B11 and B13 sum in a fixed order: two
 runs are bitwise equal, 'auto' and 'fast' are bitwise 'masked', a
 checkpointed rollout gradient is bitwise the unchecked one, and every system
@@ -262,6 +268,101 @@ def test_k3_single_body_and_zero_masses_exactly_zero(cuda):
     inert = sf.body_force_symmetric(pos, torch.zeros(3000, device=cuda),
                                     chunk=1024)
     assert torch.equal(inert, torch.zeros_like(inert))
+
+
+# One slot of each kind over four blocks: (kind, bi, bj), each touching the
+# last block, which holds the ragged tail (3 T + 37 real bodies: the pads
+# start inside a register micro-tile of K3 and a 16-row fragment of K2).
+ONE_SLOT = {"diag": (sp.SLOT_DIAG, 3, 3), "cross": (sp.SLOT_CROSS, 1, 3),
+            "fold": (sp.SLOT_FOLD, 2, 3)}
+
+
+def _one_slot_case(tile, seed, device, masses):
+    """Positions of 3 tile + 37 bodies with coincident off-diagonal pairs in
+    each slot of ONE_SLOT (two distinct bodies at one point), and masses."""
+    n = 3 * tile + 37
+    pos = _pos(n, seed, device)
+    t = tile
+    pos[3 * t + 5] = pos[t + 5]        # cross (1, 3): rows vs columns
+    pos[3 * t + 9] = pos[3 * t + 2]    # diag (3, 3)
+    pos[2 * t + 9] = pos[2 * t + 3]    # fold, side a's triangle
+    pos[3 * t + 7] = pos[3 * t + 1]    # fold, side b's triangle
+    m = torch.rand(n, device=device) + 0.5 if masses else None
+    return n, pos, m
+
+
+def _side_tiles(kind, bi, bj, tile, acc_a, acc_b, real):
+    """The slot's two partial tiles as they land in the accumulators (a
+    DIAG slot has side 0 only), real rows only, and the rest of both
+    accumulators, which one slot leaves at zero."""
+    sides = [acc_a[bi * tile:(bi + 1) * tile]]
+    if kind != sp.SLOT_DIAG:
+        sides.append(acc_b[bj * tile:(bj + 1) * tile])
+    rest = [acc_a[:bi * tile], acc_b[(bj + 1) * tile:]]
+    if kind == sp.SLOT_CROSS:
+        rest += [acc_a[(bi + 1) * tile:], acc_b[:bj * tile]]
+    else:
+        rest.append(acc_a[(bi + 1) * tile:bj * tile])
+    keep = [min(tile, max(0, real - b * tile)) for b in (bi, bj)]
+    return [s[:k] for s, k in zip(sides, keep)], rest
+
+
+@pytest.mark.parametrize("which", sorted(ONE_SLOT))
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("softening", [1e-2, 1e-13])
+def test_k3_one_slot_vs_plain(cuda, which, tile, masses, softening):
+    # softening 1e-13 takes rsqrt(r2)^3, 1e-2 rsqrt(r2^3); coincident pairs
+    # have d = 0 and add exactly zero either way.
+    kind, bi, bj = ONE_SLOT[which]
+    n, pos, m = _one_slot_case(tile, 70, cuda, masses)
+    p = sf._pack(pos, m, n, 4 * tile)
+    cross = kind == sp.SLOT_CROSS
+    slots = torch.tensor([[kind, bi, bj]], dtype=torch.int32, device=cuda)
+    got = [torch.zeros((4 * tile, 3), device=cuda) for _ in range(1 + cross)]
+    want = [torch.zeros_like(got[0]) for _ in range(1 + cross)]
+    sf.symmetric_sums_(got[0], got[-1], p, p, slots, tile, softening)
+    sf.symmetric_sums_plain(want[0], want[-1], p, p, slots, tile, softening)
+    tiles, rest = _side_tiles(kind, bi, bj, tile, got[0], got[-1], n)
+    want_tiles, _ = _side_tiles(kind, bi, bj, tile, want[0], want[-1], n)
+    for g, w in zip(tiles, want_tiles):
+        _close(g, w, 1e-3, 1e-4)
+    for r in rest:
+        assert torch.equal(r, torch.zeros_like(r))
+
+
+@pytest.mark.parametrize("which", sorted(ONE_SLOT))
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("split_w", [False, True])
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("softening", [1e-2, 1e-13])
+def test_k2_one_slot_vs_bf16_plain(cuda, which, tile, masses, split_w, mask,
+                                   softening):
+    # Each partial tile against the bf16-mode plain version's, per column
+    # scale; unmasked coincident pairs get w = softening^-1.5 in both.
+    kind, bi, bj = ONE_SLOT[which]
+    n, pos, m = _one_slot_case(tile, 71, cuda, masses)
+    p, v = sm._pack(pos, m, n, 4 * tile)
+    slots = torch.tensor([[kind, bi, bj]], dtype=torch.int32, device=cuda)
+    got = [torch.zeros((4 * tile, 8), device=cuda) for _ in range(2)]
+    want = [torch.zeros_like(got[0]) for _ in range(2)]
+    if kind == sp.SLOT_CROSS:
+        sp.cross_slot_sums_(*got, p, p, v, v, slots, tile, softening,
+                            split_w, mask)
+    else:
+        got[1] = got[0]
+        want[1] = want[0]
+        sp.tri_slot_sums_(got[0], p, v, slots, tile, softening, split_w,
+                          mask)
+    sp._slot_sums_plain(*want, p, p, v, v, slots, tile, softening, split_w,
+                        mask, mma_dtype=torch.bfloat16)
+    tiles, rest = _side_tiles(kind, bi, bj, tile, *got, n)
+    want_tiles, _ = _side_tiles(kind, bi, bj, tile, *want, n)
+    for g, w in zip(tiles, want_tiles):
+        _close_cols(g, w)
+    for r in rest:
+        assert torch.equal(r, torch.zeros_like(r))
 
 
 @pytest.mark.parametrize("n,softening", [(4096, 1e-2), (3001, 1e-9),
