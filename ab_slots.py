@@ -1,5 +1,6 @@
-"""Times the pair-once slot kernels K3 and K2 of two trees of this repo on
-one card, in turns, on the same inputs.
+"""Times the register-body kernels K3, K2, B6 and B16 of two trees of this
+repo on one card, in turns, on the same inputs, and prints digests of their
+outputs.
 
     python3 ab_slots.py --other DIR [--turns other,this,this,other]
 
@@ -18,11 +19,23 @@ prints one JSON line:
   (K2);
 - B15 on config 1 (N = 4096, 10 Euler steps, dt 0.01) in both classes, ms
   per launch;
-- nvcc's ptxas report for the slot kernels (registers, spill bytes), and
+- B6 (``mxu``, pair_dtype "bfloat16"): one launch at config 3's N = 262,144
+  (plummer, masses, softening 1e-2) on the route 'auto' takes there (the
+  overlap run after the duplicate scan), and a whole N = 2^20 pass;
+- B16 (``traversal='band'``): one tri and one cross launch at chunk 131,072,
+  tile 128, unit masses, maskless and masked (no slot_reduce), the tri
+  launch over the first 1, 2, ... SMs' worth of row blocks (what a partial
+  last wave of CTAs costs), and a whole N = 2^20 band pass;
+- SHA-256 digests (first 16 hex digits) of each kernel's output bytes: K3's
+  and K2's sums of the timed calls, B15's final state in both classes, B6's
+  raw sums and forces at 262,144 in both classes, B16's rows and columns of
+  one tri and one cross call; equal digests mean equal bits;
+- nvcc's ptxas report for those kernels (registers, spill bytes), and
   CTAs per SM: from the kernel's own occupancy query where the tree has one
-  (``symmetric_force_info`` / ``slot_pipe_info``), else computed from the
-  registers, threads and shared memory of the body (H100: 65,536 registers,
-  2048 threads, 32 CTAs and 233,472 bytes of shared memory per SM).
+  (``symmetric_force_info``, ``slot_pipe_info``, ``mxu_force_info``,
+  ``band_mxu_info``), else computed from the registers, threads and shared
+  memory of the body (H100: 65,536 registers, 2048 threads, 32 CTAs and
+  233,472 bytes of shared memory per SM).
 The parent prints the same lines, so the two trees are compared within one
 call on one card. The card's name and power limit are printed first.
 """
@@ -38,17 +51,43 @@ import time
 
 N, CHUNK, TILE, SEED = 1 << 20, 131072, 128, 0
 N_CONFIG1, STEPS_CONFIG1, DT_CONFIG1 = 4096, 10, 0.01
+N_CONFIG3, SOFT_CONFIG3 = 262144, 1e-2
 REPS = 5
-#: Threads and dynamic shared memory per CTA of the tile-128 slot bodies
-#: before the register designs (a T x T w tile in shared memory: K3 2T
-#: threads, (T (T + 1) + 8 T) floats; K2 256 threads, the bf16 W tile of T
-#: (T + 8), v_a, v_b and the positions), for trees without an occupancy
-#: query.
-SHARED_W_BODIES = {"K3": (256, 70144), "K2": (256, 76800)}
-#: The main path's instantiations: K3 at tile 128, unit masses, fast rsqrt;
-#: K2 at tile 128 without split_w (a part of each mangled name).
-SLOT_KERNELS = {"K3": "symmetric_force_kernelILi128ELi3ELb1E",
-                "K2": "slot_pipe_kernelILi128ELb0E"}
+#: Threads and dynamic shared memory per CTA of the tile-128 bodies before
+#: the register designs, for trees without an occupancy query: K3 2T
+#: threads and a T x T w tile, (T (T + 1) + 8 T) floats; K2 256 threads, the
+#: bf16 W tile of T (T + 8), v_a, v_b and the positions; B6 256 threads, its
+#: bf16 W tile, v, a fragment scratch and the positions (48,640 bytes); B16
+#: 256 threads, its bf16 W tile, v_i, v_j and the positions (41,984 bytes).
+SHARED_W_BODIES = {"K3": (256, 70144), "K2": (256, 76800),
+                   "B6": (256, 48640), "B16": (256, 41984)}
+#: The timed instantiations: K3 at tile 128, unit masses, fast rsqrt; K2 and
+#: B16 at tile 128 without split_w (B16 with fast rsqrt); B6's bf16 class
+#: with masses. Parts of the mangled names, this tree's and the parent's.
+SLOT_KERNELS = {"K3": ("symmetric_force_kernelILi128ELi3ELb1E",),
+                "K2": ("slot_pipe_kernelILi128ELb0E",),
+                "B6": ("mxu_bf16_kernelILb1E",
+                       "mxu_force_kernelILb1ELb1E"),
+                "B16": ("band_mxu_kernelILi128ELb0ELb1E",
+                        "band_mxu_kernelILi128ELb0E")}
+
+
+def find_kernel(report, names):
+    """The ptxas report entry of the first of ``names`` (parts of mangled
+    names, in order of preference) that some kernel of ``report`` contains,
+    or {}. This tree's name comes first: the parent's B16 name is a prefix
+    of every instantiation of this tree's."""
+    return next((v for m in names for k, v in report.items() if m in k), {})
+
+
+def digest(*tensors):
+    """First 16 hex digits of the SHA-256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def ctas_per_sm(regs, threads, smem):
@@ -68,6 +107,7 @@ def worker(tree):
     import torch
 
     from mini_nbody_tpu_torch import SimConfig, _build, init
+    from mini_nbody_tpu_torch.ops import mxu_force as mf
     from mini_nbody_tpu_torch.ops import resident_sym as rs
     from mini_nbody_tpu_torch.ops import slot_pipe as sp
     from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
@@ -125,7 +165,8 @@ def worker(tree):
                   for g, w in zip(got, want))
         rec["kernels"][f"K3 {mode}"] = {"ms_per_launch": ms,
                                         "launches_per_call": per,
-                                        "err_of_scale": err}
+                                        "err_of_scale": err,
+                                        "digest": digest(*got)}
 
     # K2 (unit masses, maskless, no split).
     p, v = sm._pack(state.pos, None, N, np_)
@@ -158,19 +199,76 @@ def worker(tree):
         rec["kernels"][f"K2 {mode}"] = {"ms_per_launch": ms[0],
                                         "ms_per_launch_masked": ms[1],
                                         "launches_per_call": per,
-                                        "err_of_scale": err}
+                                        "err_of_scale": err,
+                                        "digest": digest(*got)}
 
-    for backend in ("auto", "sym_mxu"):
-        f = make_force_fn(SimConfig(n=N, backend=backend, sym_chunk=CHUNK))
-        rec[f"pass_ms_{backend}"] = time_fn(f, state.pos, state.pos,
-                                            reps=3) * 1e3
+    # B16 (unit masses, no split): one launch over every row block, no
+    # slot_reduce; the digest of one call through the public entry. The tri
+    # launch also over the first k SMs' worth of row blocks, k = 1, 2, ...:
+    # what a partial last wave of CTAs costs.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for mode in slots:
+        cross = mode == "cross"
+        b, vb = ((p[c:2 * c], v[c:2 * c]) if cross else (p[:c], v[:c]))
+        _, _, longest = sm.band_launches(nb, cross)
+        part = torch.empty(longest * tile * 8, device=dev)
+        rows = torch.zeros((c, 8), device=dev)
+
+        def band(mask, n_rows=nb, b=b, vb=vb, cross=cross, part=part,
+                 rows=rows):
+            _build.check(lib, lib.band_mxu_launch(
+                p.data_ptr(), b.data_ptr(), v.data_ptr(), vb.data_ptr(),
+                rows.data_ptr(), part.data_ptr(), nb, 0, n_rows, int(cross),
+                1, c, tile, soft, fast, 0, mask, stream), "band_mxu_launch")
+
+        ms = {mask: time_fn(band, mask, reps=REPS) * 1e3 for mask in (0, 1)}
+        if not cross:
+            rec["b16_tri_ms_by_row_blocks"] = {
+                n: time_fn(band, 0, n, reps=REPS) * 1e3
+                for n in [*range(sms, nb, sms), nb]}
+        rows = torch.zeros((c, 8), device=dev)
+        cols = torch.zeros((c, 8), device=dev)
+        if cross:
+            sm.band_cross_sums_(rows, cols, p[:c], b, v[:c], vb, tile, soft)
+        else:
+            sm.band_tri_sums_(rows, cols, p[:c], v[:c], tile, soft)
+        rec["kernels"][f"B16 {mode}"] = {"ms_per_launch": ms[0],
+                                         "ms_per_launch_masked": ms[1],
+                                         "digest": digest(rows, cols)}
+
+    for name, cfg in (
+            ("auto", SimConfig(n=N, backend="auto", sym_chunk=CHUNK)),
+            ("sym_mxu", SimConfig(n=N, backend="sym_mxu", sym_chunk=CHUNK)),
+            ("mxu_bf16", SimConfig(n=N, backend="mxu",
+                                   pair_dtype="bfloat16")),
+            ("band", SimConfig(n=N, backend="sym_mxu", traversal="band",
+                               sym_chunk=CHUNK))):
+        f = make_force_fn(cfg)
+        rec[f"pass_ms_{name}"] = time_fn(f, state.pos, state.pos,
+                                         reps=3) * 1e3
     s1 = init.uniform_random(N_CONFIG1, generator=gen, device=dev)
     for mxu in (False, True):
-        rec[f"b15_config1_ms_{'bf16' if mxu else 'fp32'}"] = time_fn(
-            lambda: rs.simulate_resident_sym(s1.pos, s1.vel, None,
-                                             steps=STEPS_CONFIG1,
-                                             dt=DT_CONFIG1, mxu=mxu),
-            reps=REPS) * 1e3
+        run = (lambda mxu=mxu: rs.simulate_resident_sym(
+            s1.pos, s1.vel, None, steps=STEPS_CONFIG1, dt=DT_CONFIG1,
+            mxu=mxu))
+        cls = "bf16" if mxu else "fp32"
+        rec[f"b15_config1_ms_{cls}"] = time_fn(run, reps=REPS) * 1e3
+        rec[f"b15_config1_digest_{cls}"] = digest(*run())
+
+    # B6 at config 3's N on the route 'auto' takes (the overlap run when
+    # the scan finds no duplicate), bf16 class timed, both classes digested.
+    s3 = init.plummer(N_CONFIG3, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 2), device=dev)
+    overlap = mf.square_overlap_only(s3.pos, "auto")
+    b6 = {"n": N_CONFIG3, "overlap": overlap}
+    b6["ms_per_launch"] = time_fn(
+        mf.hybrid_forces, s3.pos, s3.pos, s3.mass, SOFT_CONFIG3, 512, 2048,
+        overlap, reps=REPS) * 1e3
+    for dtype in ("bfloat16", "float32"):
+        b6[f"digest_{dtype}"] = digest(*mf.hybrid_forces(
+            s3.pos, s3.pos, s3.mass, SOFT_CONFIG3, overlap_only=overlap,
+            pair_dtype=dtype, with_sums=True))
+    rec["kernels"]["B6"] = b6
 
     # nvcc's report of the slot kernels, parsed by this tree's _build.
     rec["ptxas_log"] = "\n".join(
@@ -178,7 +276,9 @@ def worker(tree):
         if "Compiling entry" in ln or "spill" in ln or "Used" in ln)
     occ = {}
     for name, fn, args in (("K3", "symmetric_force_info", (3, tile, fast)),
-                           ("K2", "slot_pipe_info", (tile, 0))):
+                           ("K2", "slot_pipe_info", (tile, 0)),
+                           ("B6", "mxu_force_info", (1, 1)),
+                           ("B16", "band_mxu_info", (tile, 0, fast))):
         if hasattr(lib, fn):
             out = (ctypes.c_int * 3)()
             _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)),
@@ -221,10 +321,10 @@ def main():
         rec = json.loads(r.stdout.strip().splitlines()[-1])
         report = _build.ptxas_report(rec.pop("ptxas_log"))
         rec["ptxas"] = {k: v for k, v in report.items()
-                        if any(m in k for m in SLOT_KERNELS.values())}
+                        if any(m in k for ms in SLOT_KERNELS.values()
+                               for m in ms)}
         for name, mangled in SLOT_KERNELS.items():
-            regs = next((v["registers"] for k, v in report.items()
-                         if mangled in k), None)
+            regs = find_kernel(report, mangled).get("registers")
             if name not in rec["occupancy"] and regs is not None:
                 rec["occupancy"][name] = {
                     "registers": regs, "from": "computed",

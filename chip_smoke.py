@@ -550,23 +550,31 @@ def build_phase():
          nvcc_seconds=_build.BUILD_SECONDS, ptxas=ptxas)
 
 
-#: The main path's slot bodies (tile 128; K3 unit masses and fast rsqrt,
-#: K2 without split_w): their occupancy query and a part of the kernel's
-#: mangled name in nvcc's ptxas report.
-BODIES = {"K3": ("symmetric_force_info",
-                  "symmetric_force_kernelILi128ELi3ELb1E"),
-          "K2": ("slot_pipe_info", "slot_pipe_kernelILi128ELb0E")}
+#: The register bodies as their timed paths run them (tile 128; K3 unit
+#: masses and fast rsqrt, K2 and B16 without split_w, B6's bf16 class with
+#: masses as config3_mxu_drift runs it): their occupancy query, its
+#: arguments and a part of the kernel's mangled name in nvcc's ptxas
+#: report.
+BODIES = {
+    "K3": ("symmetric_force_info",
+           (3, sm.DEFAULT_TILE, int(fast_rsqrt_cube(SOFTENING))),
+           "symmetric_force_kernelILi128ELi3ELb1E"),
+    "K2": ("slot_pipe_info", (sm.DEFAULT_TILE, 0),
+           "slot_pipe_kernelILi128ELb0E"),
+    "B6": ("mxu_force_info", (1, 1), "mxu_bf16_kernelILb1E"),
+    "B16": ("band_mxu_info",
+            (sm.DEFAULT_TILE, 0, int(fast_rsqrt_cube(SOFTENING))),
+            "band_mxu_kernelILi128ELb0ELb1E"),
+}
 
 
 def body_info(kernel):
-    """Registers and local bytes per thread and CTAs per SM of a main-path
-    slot body (the kernel's own occupancy query), and its spill bytes from
+    """Registers and local bytes per thread and CTAs per SM of a register
+    body (the kernel's own occupancy query), and its spill bytes from
     nvcc's ptxas report (None when the library was built before this
     run)."""
     lib = _build.load_library()
-    fn, mangled = BODIES[kernel]
-    args = ((3, sm.DEFAULT_TILE, int(fast_rsqrt_cube(SOFTENING)))
-            if kernel == "K3" else (sm.DEFAULT_TILE, 0))
+    fn, args, mangled = BODIES[kernel]
     out = (ctypes.c_int * 3)()
     _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
     spills = next((v for k, v in _build.ptxas_report(_build.BUILD_LOG)
@@ -1153,10 +1161,12 @@ def time_k4(state3, state_main, launches):
     nm = float(N_MAIN)
     line("time_pe", n=N_CONFIG3, kernel_ms=k4_s * 1e3, plain_ms=plain_s * 1e3,
          n_main=N_MAIN, kernel_main_ms=main_s * 1e3,
-         bound_main_ms=bound(nm * (nm - 1) * OPS_PE, nm * 20.0)["bound_ms"])
+         bound_main_ms=bound(nm * (nm - 1) * OPS_PE, nm * 20.0,
+                             rsqrts=nm * (nm - 1))["bound_ms"])
     return [entry("pe_kernel (K4)", "pe_kernel.cu", "pe_kernel.py:31",
                   launches["pe"], err, k4_s * 1e3, plain_s * 1e3,
-                  bound(n * (n - 1) * OPS_PE, n * 20.0), n=N_CONFIG3)]
+                  bound(n * (n - 1) * OPS_PE, n * 20.0,
+                        rsqrts=n * (n - 1)), n=N_CONFIG3)]
 
 
 def time_k5(state2, launches):
@@ -1776,7 +1786,8 @@ def mxu_main_phase(state, check):
          coincident_route=route, euler_1_step_s=step_s, launches=launches,
          pass_ms=pass_s * 1e3, pass_ginter_s=gips(N_MAIN, pass_s),
          pass_bound_ms=bound(n * (n - 1) * OPS_B6_FP32, n * 24.0,
-                             n * (n - 1) * OPS_B6_MMA)["bound_ms"],
+                             n * (n - 1) * OPS_B6_MMA,
+                             n * (n - 1))["bound_ms"],
          mxu_vs_fp64=rel_err_stats(f, oracle))
     return pass_s
 
@@ -1903,17 +1914,20 @@ def time_b6(state3, c3_launches, main_pass_s):
                               "bfloat16", torch.bfloat16)
     err = close_cols(got, want, K2_ATOL, f"B6 at N={N_CONFIG3}")
     n, nm = float(N_CONFIG3), float(N_MAIN)
+    body = body_info("B6")
     line("time_mxu", n=N_CONFIG3, kernel_ms=ms, plain_ms=plain_s * 1e3,
          raw_sums_max_abs_err=err, n_main=N_MAIN,
-         main_pass_ms=main_pass_s * 1e3)
+         main_pass_ms=main_pass_s * 1e3, body=body)
     return entry("mxu_force hybrid (B6)", "mxu_force.cu", "mxu_force.py:98",
                  c3_launches["mxu"], err, ms, plain_s * 1e3,
                  bound(n * (n - 1) * OPS_B6_MASS, n * 28.0,
-                       n * (n - 1) * OPS_B6_MMA), n=N_CONFIG3, masses=True,
-                 pair_dtype="bfloat16", main_n=N_MAIN,
+                       n * (n - 1) * OPS_B6_MMA, n * (n - 1)), n=N_CONFIG3,
+                 masses=True, pair_dtype="bfloat16", main_n=N_MAIN,
                  main_ms=main_pass_s * 1e3,
                  main_bound_ms=bound(nm * (nm - 1) * OPS_B6_FP32, nm * 24.0,
-                                     nm * (nm - 1) * OPS_B6_MMA)["bound_ms"])
+                                     nm * (nm - 1) * OPS_B6_MMA,
+                                     nm * (nm - 1))["bound_ms"],
+                 body=body)
 
 
 def _outputs(x):
@@ -3035,12 +3049,12 @@ def band_partial_tiles(nb, cross):
 
 def band_bound(c, tile, cross, n_sys=1):
     """B16's bound per call, counted as K2's: 12 fp32 and 32 bf16
-    operations per unordered pair; bytes: pos and v in, rows and cols out,
-    and the column partials written and read once."""
+    operations and one rsqrt per unordered pair; bytes: pos and v in, rows
+    and cols out, and the column partials written and read once."""
     pairs = n_sys * (float(c) * c if cross else c * (c - 1) / 2)
     io = n_sys * c * (3 + 8 + 8 + 8) * 4.0 * (2 if cross else 1)
     part = n_sys * band_partial_tiles(c // tile, cross) * tile * 8 * 4.0 * 2
-    return bound(pairs * OPS_K2_FP32, io + part, pairs * OPS_K2_MMA)
+    return bound(pairs * OPS_K2_FP32, io + part, pairs * OPS_K2_MMA, pairs)
 
 
 def band_sums(mode, p, v, c, tile, soft, split_w=False, mask=True, n_sys=1,
@@ -3349,11 +3363,12 @@ def time_band(state, launches, cfg_band):
         rec[mode] = (call_s * 1e3, plain_s * 1e3, err, med,
                      band_reduce_ms(c, tile, mode == "cross"))
     pass_s = time_fn(make_force_fn(cfg_band), state.pos, state.pos, reps=2)
+    body = body_info("B16")
     line("time_band", n=N_MAIN, chunk=c, tile=tile,
          calls={m: {"call_ms": r[0], "plain_ms": r[1], "max_abs_err": r[2],
                     "median_err_of_col_scale": r[3], "slot_reduce_ms": r[4]}
                 for m, r in rec.items()},
-         pass_ms=pass_s * 1e3, pass_ginter_s=gips(N_MAIN, pass_s))
+         pass_ms=pass_s * 1e3, pass_ginter_s=gips(N_MAIN, pass_s), body=body)
     out = []
     for mode, line_no in (("tri", 226), ("cross", 267)):
         call_ms, plain_ms, err, _, red = rec[mode]
@@ -3363,7 +3378,7 @@ def time_band(state, launches, cfg_band):
             f"sym_mxu_force.py:{line_no}", launches[f"band_{mode}"], err,
             call_ms, red, band_calls(c, tile, cross), plain_ms,
             band_bound(c, tile, cross), chunk=c,
-            pass_ms_n_2_20=pass_s * 1e3))
+            pass_ms_n_2_20=pass_s * 1e3, body=body))
     return out
 
 

@@ -95,6 +95,10 @@ SIGNATURES = {
     "symmetric_force_info": ([_I, _I, _I, _P], _I),
     # tile, split_w, out (as above)
     "slot_pipe_info": ([_I, _I, _P], _I),
+    # bf16, masses, out (as above)
+    "mxu_force_info": ([_I, _I, _P], _I),
+    # tile, split_w, fast, out (as above)
+    "band_mxu_info": ([_I, _I, _I, _P], _I),
     "nbody_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -422,7 +422,9 @@ __device__ __forceinline__ void fp32_slot(int kind, int bi, int bj,
 // (and pass); a step's reaction fragment sums the warp's two strips and
 // goes to shared memory at once, and the warps' reaction partials are added
 // in increasing warp index. Two strips give each lane 16 independent pairs
-// per step.
+// per step. The step loop (mxu_steps) and the one-block stage (MxuBlock)
+// also carry B6 (csrc/mxu_force.cu, rows only, its own w) and B16
+// (csrc/band_mxu.cu, the band walk).
 
 constexpr int kMxuStrips = 2;
 
@@ -466,63 +468,32 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One pass over the T x T pairs of blocks P (rows, block pb, operand VP,
-// v^T in bf16) and Q (columns, qb, VQ): the row sums to rows_out (T x 8,
-// global or shared), the warps' reaction partials to cols (warps x T x 8,
-// shared) unless !kCols, then a barrier. kD2 masks d2 == 0; kTri zeroes w
-// off the triangle `tri` and the self diagonal (FOLD).
-template <int T, bool kSplit, bool kFast, bool kPads, bool kCols, bool kD2,
-          bool kTri>
-__device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
-                                         const __nv_bfloat16* VP,
-                                         const __nv_bfloat16* VQ, int pb,
-                                         int qb, int tri, float softening,
-                                         int n_real, float* rows_out,
-                                         float* cols) {
-  constexpr int LDV = T + 8;
+// A lane's rows of a bf16 pass, per strip h (rows r0[h] = 16 (H warp + h)
+// + g and r0[h] + 8 of the tile): the two rows' positions (float4), whether
+// each is a real body (kPads), and the B fragment of the strip's v (k = the
+// strip's rows) for the reactions.
+struct MxuRows {
+  int r0[kMxuStrips];
+  float4 p0[kMxuStrips], p1[kMxuStrips];
+  uint32_t bp0[kMxuStrips], bp1[kMxuStrips];
+  bool real0[kMxuStrips], real1[kMxuStrips];
+};
+
+// The T / 16 column steps of a pass over the columns Q (float4 per body) and
+// vq (row g of v_Q^T in bf16, as bf16 pairs): for each strip the row
+// product W @ v_Q into acc[h] (added to, in the tensor cores' own fp32
+// adds), and with kCols each step's reaction fragment W^T @ v_P to cw
+// (this warp's T x 8 partials). weight(p, q, r, c, real) is the w of pair
+// (row r at p, column c at q).
+template <int T, bool kSplit, bool kCols, class Weight>
+__device__ __forceinline__ void mxu_steps(const MxuRows& rw, const float4* Q,
+                                          const uint32_t* vq,
+                                          float (&acc)[kMxuStrips][4],
+                                          float* cw, Weight weight) {
   constexpr int kSteps = T / 16;
   constexpr int H = kMxuStrips;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const uint32_t* vp = reinterpret_cast<const uint32_t*>(VP + g * LDV);
-  const uint32_t* vq = reinterpret_cast<const uint32_t*>(VQ + g * LDV);
-  // Per strip: the lane's two rows, and the B fragment of the strip's v_P
-  // (k = the strip's rows) for the reactions.
-  int r0[H];
-  float4 p0[H], p1[H];
-  uint32_t bp0[H], bp1[H];
-  bool real0[H], real1[H];
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const int strip = 16 * (H * warp + h);
-    r0[h] = strip + g;
-    p0[h] = P[r0[h]];
-    p1[h] = P[r0[h] + 8];
-    bp0[h] = vp[(strip + 2 * t) / 2];
-    bp1[h] = vp[(strip + 2 * t + 8) / 2];
-    real0[h] = !kPads || pb * T + r0[h] < n_real;
-    real1[h] = !kPads || pb * T + r0[h] + 8 < n_real;
-  }
-
-  float acc[H][4];
-#pragma unroll
-  for (int h = 0; h < H; ++h)
-    acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
-  float* cw = cols + warp * T * 8;  // this warp's reaction partials
-
-  auto weight = [&](const float4& p, const float4& q, int r, int c,
-                    bool real) {
-    const float dx = q.x - p.x;
-    const float dy = q.y - p.y;
-    const float dz = q.z - p.z;
-    const float d2 = dx * dx + dy * dy + dz * dz;
-    float w = pair_weight<kFast>(d2 + softening);
-    if (kD2 && d2 == 0.f) w = 0.f;
-    if (kTri && off_triangle(tri, r, c)) w = 0.f;
-    if (kPads && !(real && qb * T + c < n_real)) w = 0.f;
-    return w;
-  };
-
   // Each step's columns (positions, and v_Q's B fragment) are loaded one
   // step ahead.
   float4 nq0 = Q[2 * t], nq1 = Q[2 * t + 1], nq2 = Q[2 * t + 8],
@@ -544,15 +515,15 @@ __device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
     float col[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < H; ++h) {
-      const int ra = r0[h], rb = ra + 8;
-      const float w00 = weight(p0[h], q0, ra, c0, real0[h]);
-      const float w01 = weight(p0[h], q1, ra, c1, real0[h]);
-      const float w10 = weight(p1[h], q0, rb, c0, real1[h]);
-      const float w11 = weight(p1[h], q1, rb, c1, real1[h]);
-      const float w02 = weight(p0[h], q2, ra, c2, real0[h]);
-      const float w03 = weight(p0[h], q3, ra, c3, real0[h]);
-      const float w12 = weight(p1[h], q2, rb, c2, real1[h]);
-      const float w13 = weight(p1[h], q3, rb, c3, real1[h]);
+      const int ra = rw.r0[h], rb = ra + 8;
+      const float w00 = weight(rw.p0[h], q0, ra, c0, rw.real0[h]);
+      const float w01 = weight(rw.p0[h], q1, ra, c1, rw.real0[h]);
+      const float w10 = weight(rw.p1[h], q0, rb, c0, rw.real1[h]);
+      const float w11 = weight(rw.p1[h], q1, rb, c1, rw.real1[h]);
+      const float w02 = weight(rw.p0[h], q2, ra, c2, rw.real0[h]);
+      const float w03 = weight(rw.p0[h], q3, ra, c3, rw.real0[h]);
+      const float w12 = weight(rw.p1[h], q2, rb, c2, rw.real1[h]);
+      const float w13 = weight(rw.p1[h], q3, rb, c3, rw.real1[h]);
       // A fragment: (ra, c0..c1), (rb, c0..c1), (ra, c2..c3), (rb, c2..c3).
       const uint32_t a[4] = {pack_bf16x2(w00, w01), pack_bf16x2(w10, w11),
                              pack_bf16x2(w02, w03), pack_bf16x2(w12, w13)};
@@ -570,11 +541,11 @@ __device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
         // (1, 1) = a3^T.
         const uint32_t at[4] = {transpose_8x8(a[0]), transpose_8x8(a[2]),
                                 transpose_8x8(a[1]), transpose_8x8(a[3])};
-        mma_bf16(col, at, bp0[h], bp1[h]);
+        mma_bf16(col, at, rw.bp0[h], rw.bp1[h]);
         if (kSplit) {
           const uint32_t lt[4] = {transpose_8x8(lo[0]), transpose_8x8(lo[2]),
                                   transpose_8x8(lo[1]), transpose_8x8(lo[3])};
-          mma_bf16(col, lt, bp0[h], bp1[h]);
+          mma_bf16(col, lt, rw.bp0[h], rw.bp1[h]);
         }
       }
     }
@@ -587,13 +558,65 @@ __device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
           make_float2(col[2], col[3]);
     }
   }
+}
+
+// One pass over the T x T pairs of blocks P (rows, block pb, operand VP,
+// v^T in bf16) and Q (columns, qb, VQ): the row sums to rows_out (T x 8,
+// global or shared), the warps' reaction partials to cols (warps x T x 8,
+// shared) unless !kCols, then a barrier. kD2 masks d2 == 0; kTri zeroes w
+// off the triangle `tri` and the self diagonal (FOLD).
+template <int T, bool kSplit, bool kFast, bool kPads, bool kCols, bool kD2,
+          bool kTri>
+__device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
+                                         const __nv_bfloat16* VP,
+                                         const __nv_bfloat16* VQ, int pb,
+                                         int qb, int tri, float softening,
+                                         int n_real, float* rows_out,
+                                         float* cols) {
+  constexpr int LDV = T + 8;
+  constexpr int H = kMxuStrips;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t* vp = reinterpret_cast<const uint32_t*>(VP + g * LDV);
+  const uint32_t* vq = reinterpret_cast<const uint32_t*>(VQ + g * LDV);
+  MxuRows rw;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int strip = 16 * (H * warp + h);
+    rw.r0[h] = strip + g;
+    rw.p0[h] = P[rw.r0[h]];
+    rw.p1[h] = P[rw.r0[h] + 8];
+    rw.bp0[h] = vp[(strip + 2 * t) / 2];
+    rw.bp1[h] = vp[(strip + 2 * t + 8) / 2];
+    rw.real0[h] = !kPads || pb * T + rw.r0[h] < n_real;
+    rw.real1[h] = !kPads || pb * T + rw.r0[h] + 8 < n_real;
+  }
+
+  float acc[H][4];
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+    acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
+
+  auto weight = [&](const float4& p, const float4& q, int r, int c,
+                    bool real) {
+    const float dx = q.x - p.x;
+    const float dy = q.y - p.y;
+    const float dz = q.z - p.z;
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    float w = pair_weight<kFast>(d2 + softening);
+    if (kD2 && d2 == 0.f) w = 0.f;
+    if (kTri && off_triangle(tri, r, c)) w = 0.f;
+    if (kPads && !(real && qb * T + c < n_real)) w = 0.f;
+    return w;
+  };
+  mxu_steps<T, kSplit, kCols>(rw, Q, vq, acc, cols + warp * T * 8, weight);
 
   // C fragments: (row g, columns 2t, 2t + 1), (row g + 8, the same).
 #pragma unroll
   for (int h = 0; h < H; ++h) {
-    *reinterpret_cast<float2*>(rows_out + r0[h] * 8 + 2 * t) =
+    *reinterpret_cast<float2*>(rows_out + rw.r0[h] * 8 + 2 * t) =
         make_float2(acc[h][0], acc[h][1]);
-    *reinterpret_cast<float2*>(rows_out + (r0[h] + 8) * 8 + 2 * t) =
+    *reinterpret_cast<float2*>(rows_out + (rw.r0[h] + 8) * 8 + 2 * t) =
         make_float2(acc[h][2], acc[h][3]);
   }
   __syncthreads();
@@ -660,59 +683,40 @@ __device__ __forceinline__ void mxu_slot_body(
   }
 }
 
-// One slot's two blocks in registers: positions (x, y, z) and the operand
-// v (8 floats per body, as float4s). load() reads them from device memory,
-// store() writes the positions to the shared float4 blocks and v^T rounded
-// to bf16 (rows padded to T + 8). The streamed kernel loads the next slot's
-// while the current one computes.
+// One block's positions (x, y, z) and operand v (8 floats per body, as
+// float4s) in registers: load() reads them from device memory, store()
+// writes the positions to a shared float4 block and v^T rounded to bf16
+// (rows padded to T + 8).
 template <int T>
-struct MxuStage {
+struct MxuBlock {
   static constexpr int kThreads = mxu_threads<T>();
   static constexpr int kLoads = (3 * T + kThreads - 1) / kThreads;
   static constexpr int kV4 = 2 * T / kThreads;  // float4s of v per thread
   static_assert(kV4 * kThreads == 2 * T, "whole float4s of v per thread");
-  float a[kLoads], b[kLoads];
-  float4 va[kV4], vb[kV4];
+  float p[kLoads];
+  float4 v[kV4];
 
-  __device__ __forceinline__ void load(int bi, int bj,
-                                       const float* __restrict__ pos_a,
-                                       const float* __restrict__ pos_b,
-                                       const float* __restrict__ v_a,
-                                       const float* __restrict__ v_b) {
-    const float* ga = pos_a + static_cast<size_t>(bi) * T * 3;
-    const float* gb = pos_b + static_cast<size_t>(bj) * T * 3;
+  // pos: the block's (T, 3) positions, vg: its (T, 8) operand.
+  __device__ __forceinline__ void load(const float* __restrict__ pos,
+                                       const float* __restrict__ vg) {
 #pragma unroll
     for (int l = 0; l < kLoads; ++l) {
       const int t = threadIdx.x + l * kThreads;
-      if (t < 3 * T) {
-        a[l] = ga[t];
-        b[l] = gb[t];
-      }
+      if (t < 3 * T) p[l] = pos[t];
     }
-    const float4* gva =
-        reinterpret_cast<const float4*>(v_a + static_cast<size_t>(bi) * T * 8);
-    const float4* gvb =
-        reinterpret_cast<const float4*>(v_b + static_cast<size_t>(bj) * T * 8);
+    const float4* gv = reinterpret_cast<const float4*>(vg);
 #pragma unroll
-    for (int l = 0; l < kV4; ++l) {
-      va[l] = gva[threadIdx.x + l * kThreads];
-      vb[l] = gvb[threadIdx.x + l * kThreads];
-    }
+    for (int l = 0; l < kV4; ++l) v[l] = gv[threadIdx.x + l * kThreads];
   }
 
-  __device__ __forceinline__ void store(unsigned char* smem) const {
+  __device__ __forceinline__ void store(float* q, __nv_bfloat16* vt) const {
     constexpr int LDV = T + 8;
-    float* sa = reinterpret_cast<float*>(smem);  // float4 per body
-    float* sb = sa + 4 * T;
-    __nv_bfloat16* ta = reinterpret_cast<__nv_bfloat16*>(sb + 4 * T);
-    __nv_bfloat16* tb = ta + 8 * LDV;
 #pragma unroll
     for (int l = 0; l < kLoads; ++l) {
       const int t = threadIdx.x + l * kThreads;
       if (t < 3 * T) {
         const int r = t / 3, k = t - 3 * (t / 3);
-        sa[4 * r + k] = a[l];
-        sb[4 * r + k] = b[l];
+        q[4 * r + k] = p[l];
       }
     }
 #pragma unroll
@@ -720,15 +724,39 @@ struct MxuStage {
       // Float4 f of a block's (T, 8) v is body f / 2, columns 4 (f % 2) ..
       const int f = threadIdx.x + l * kThreads;
       const int r = f >> 1, k = 4 * (f & 1);
-      ta[(k + 0) * LDV + r] = __float2bfloat16_rn(va[l].x);
-      ta[(k + 1) * LDV + r] = __float2bfloat16_rn(va[l].y);
-      ta[(k + 2) * LDV + r] = __float2bfloat16_rn(va[l].z);
-      ta[(k + 3) * LDV + r] = __float2bfloat16_rn(va[l].w);
-      tb[(k + 0) * LDV + r] = __float2bfloat16_rn(vb[l].x);
-      tb[(k + 1) * LDV + r] = __float2bfloat16_rn(vb[l].y);
-      tb[(k + 2) * LDV + r] = __float2bfloat16_rn(vb[l].z);
-      tb[(k + 3) * LDV + r] = __float2bfloat16_rn(vb[l].w);
+      vt[(k + 0) * LDV + r] = __float2bfloat16_rn(v[l].x);
+      vt[(k + 1) * LDV + r] = __float2bfloat16_rn(v[l].y);
+      vt[(k + 2) * LDV + r] = __float2bfloat16_rn(v[l].z);
+      vt[(k + 3) * LDV + r] = __float2bfloat16_rn(v[l].w);
     }
+  }
+};
+
+// One slot's two blocks in registers. store() writes block a's positions
+// and v^T, then block b's, to the shared layout mxu_compute reads. The
+// streamed kernel loads the next slot's while the current one computes.
+template <int T>
+struct MxuStage {
+  MxuBlock<T> a, b;
+
+  __device__ __forceinline__ void load(int bi, int bj,
+                                       const float* __restrict__ pos_a,
+                                       const float* __restrict__ pos_b,
+                                       const float* __restrict__ v_a,
+                                       const float* __restrict__ v_b) {
+    a.load(pos_a + static_cast<size_t>(bi) * T * 3,
+           v_a + static_cast<size_t>(bi) * T * 8);
+    b.load(pos_b + static_cast<size_t>(bj) * T * 3,
+           v_b + static_cast<size_t>(bj) * T * 8);
+  }
+
+  __device__ __forceinline__ void store(unsigned char* smem) const {
+    constexpr int LDV = T + 8;
+    float* sa = reinterpret_cast<float*>(smem);  // float4 per body
+    float* sb = sa + 4 * T;
+    __nv_bfloat16* ta = reinterpret_cast<__nv_bfloat16*>(sb + 4 * T);
+    a.store(sa, ta);
+    b.store(sb, ta + 8 * LDV);
   }
 };
 

@@ -1,12 +1,14 @@
 """The kernel build's report helpers on the CPU: nvcc's ptxas report parsed
 per kernel (registers and spill bytes, as chip_smoke.py prints them beside
 the slot bodies' times), and ab_slots.py's CTAs-per-SM count for trees
-without an occupancy query."""
+without an occupancy query, its choice of a kernel's report entry between
+two trees' names, and its output digests."""
 
 import os
 import sys
 
 import pytest
+import torch
 
 from mini_nbody_tpu_torch import _build
 
@@ -49,3 +51,41 @@ def test_ptxas_report_per_kernel():
 ])
 def test_ctas_per_sm(regs, threads, smem, ctas):
     assert ab_slots.ctas_per_sm(regs, threads, smem) == ctas
+
+
+B16_OLD = ("_ZN12_GLOBAL__N_115band_mxu_kernelILi128ELb0EEEvPKfS2_S2_S2_PfS3_"
+           "iiixfii")
+
+
+def _entry(name, regs):
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\nptxas info    : Used {regs} registers\n")
+
+
+#: A tree of this redesign: B16 without fast rsqrt (168 registers) listed
+#: before B16 with it (158); the parent: its one B16 (32).
+NEW_LOG = (_entry(B16_OLD.replace("ELb0EE", "ELb0ELb0EE"), 168)
+           + _entry(B16_OLD.replace("ELb0EE", "ELb0ELb1EE"), 158))
+OLD_LOG = _entry(B16_OLD, 32)
+
+
+@pytest.mark.parametrize("log,names,regs", [
+    (NEW_LOG, ab_slots.SLOT_KERNELS["B16"], 158),
+    (OLD_LOG, ab_slots.SLOT_KERNELS["B16"], 32),
+    # The parent's name alone matches this tree's first B16, the wrong one.
+    (NEW_LOG, ab_slots.SLOT_KERNELS["B16"][1:], 168),
+    (LOG, ab_slots.SLOT_KERNELS["K2"], 119),
+    (LOG, ("no_such_kernel",), None),
+])
+def test_find_kernel_prefers_this_trees_name(log, names, regs):
+    got = ab_slots.find_kernel(_build.ptxas_report(log), names)
+    assert got.get("registers") == regs
+
+
+def test_digest_is_of_the_bits():
+    a = torch.tensor([[0.0, 1.0], [2.0, 3.0]])
+    assert ab_slots.digest(a) == ab_slots.digest(a.clone())
+    assert ab_slots.digest(a.T) == ab_slots.digest(a.T.contiguous())
+    assert ab_slots.digest(a) != ab_slots.digest(-a)  # 0.0 and -0.0 differ
+    assert ab_slots.digest(a, a) != ab_slots.digest(a)
+    assert len(ab_slots.digest(a)) == 16

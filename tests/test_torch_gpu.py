@@ -812,6 +812,65 @@ def test_b6_long_rows_vs_fp64_oracle(cuda):
     _close(got, want, 2e-2, 5e-3)
 
 
+#: Receiver and source counts around B6's 16-row strips and 128-body tiles.
+B6_RAGGED = (1, 15, 17, 129, 3001)
+
+
+@pytest.mark.parametrize("ni", B6_RAGGED)
+@pytest.mark.parametrize("nj", B6_RAGGED)
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("softening", [1e-2, 0.0])
+def test_b6_ragged_vs_bf16_plain(cuda, ni, nj, masses, softening):
+    # Masked on separate receivers; on the square ones also the masked and
+    # the overlap run with pos_i the sources. The forces are the sums'
+    # epilogue bit for bit (both round each step).
+    pj = _pos(nj, 70 + nj, cuda)
+    m = torch.rand(nj, device=cuda) + 0.5 if masses else None
+    runs = [(_pos(ni, 80 + ni, cuda), False)]
+    if ni == nj:
+        runs += [(pj, False), (pj, True)]
+    for pi, overlap in runs:
+        before = mf.LAUNCHES
+        f, s = mf.hybrid_forces(pi, pj, m, softening, overlap_only=overlap,
+                                with_sums=True)
+        assert mf.LAUNCHES == before + 1
+        want = mf.hybrid_sums_plain(pi, pj, m, softening, mf.KERNEL_TILE,
+                                    mf.KERNEL_TILE, overlap,
+                                    mma_dtype=torch.bfloat16)
+        _close_cols(s, want)
+        assert torch.equal(f, mf._epilogue(pi, s))
+
+
+def _occupancy(fn, *args):
+    """(registers, local bytes, CTAs per SM) from a kernel's occupancy
+    query."""
+    import ctypes
+
+    from mini_nbody_tpu_torch import _build
+
+    lib = _build.load_library()
+    out = (ctypes.c_int * 3)()
+    _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("masses", [0, 1])
+def test_b6_registers_without_spills(cuda, masses):
+    # The bf16 class's cap: 96 registers, so 5 CTAs of 4 warps per SM.
+    regs, local, ctas = _occupancy("mxu_force_info", 1, masses)
+    assert regs <= 96 and local == 0 and ctas >= 5
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("split_w", [0, 1])
+@pytest.mark.parametrize("fast", [0, 1])
+def test_b16_registers_without_spills(cuda, tile, split_w, fast):
+    # 128 registers and 16 warps per SM; with split_w K2's cap, 168 and 12.
+    regs, local, ctas = _occupancy("band_mxu_info", tile, split_w, fast)
+    cap, warps = (168, 12) if split_w else (128, 16)
+    assert regs <= cap and local == 0 and ctas * tile // 32 >= warps
+
+
 @pytest.mark.parametrize("tile", [64, 128])
 @pytest.mark.parametrize("masses", [False, True])
 @pytest.mark.parametrize("mask", [False, True])
