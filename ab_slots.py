@@ -1,41 +1,57 @@
-"""Times the register-body kernels K3, K2, B6 and B16 of two trees of this
-repo on one card, in turns, on the same inputs, and prints digests of their
-outputs.
+"""Times the register-body kernels K3, K2, B6, B16, B14 and B10 of two trees
+of this repo on one card, in turns, on the same inputs, and prints digests of
+their outputs.
 
     python3 ab_slots.py --other DIR [--turns other,this,this,other]
+                        [--only slots,band,passes,b15,b6,vjp,rollout]
 
 DIR is another checkout of the repo (for example the parent commit unpacked
 with ``git archive``, in a directory that .gitignore lists). Each turn runs
 one worker process with that tree's ``mini_nbody_tpu_torch`` first on
 ``sys.path``; the worker builds the tree's kernels from its own sources and
-prints one JSON line:
-- per kernel (K3 and K2, tri and cross mode, N = 2^20's chunk 131,072 at tile
-  128, unit masses; K2 maskless, and masked as 'auto' runs it): the kernel
-  launches of one call alone (no slot_reduce), their ms per launch, and the
-  error of the (maskless) call's sums
-  against the tree's plain version (K3 per element at the K1 bound's scale,
-  K2 per column scale against the bf16-mode plain sums);
-- the ms of a whole N = 2^20 force pass on ``auto`` (K3) and ``sym_mxu``
-  (K2);
-- B15 on config 1 (N = 4096, 10 Euler steps, dt 0.01) in both classes, ms
-  per launch;
-- B6 (``mxu``, pair_dtype "bfloat16"): one launch at config 3's N = 262,144
-  (plummer, masses, softening 1e-2) on the route 'auto' takes there (the
-  overlap run after the duplicate scan), and a whole N = 2^20 pass;
-- B16 (``traversal='band'``): one tri and one cross launch at chunk 131,072,
-  tile 128, unit masses, maskless and masked (no slot_reduce), the tri
-  launch over the first 1, 2, ... SMs' worth of row blocks (what a partial
-  last wave of CTAs costs), and a whole N = 2^20 band pass;
+prints one JSON line. Its sections (``--only`` runs some of them):
+- slots: per kernel (K3 and K2, tri and cross mode, N = 2^20's chunk
+  131,072 at tile 128, unit masses; K2 maskless, and masked as 'auto' runs
+  it): the kernel launches of one call alone (no slot_reduce), their ms per
+  launch, and the error of the (maskless) call's sums against the tree's
+  plain version (K3 per element at the K1 bound's scale, K2 per column scale
+  against the bf16-mode plain sums);
+- band: B16 (``traversal='band'``), one tri and one cross launch at chunk
+  131,072, tile 128, unit masses, maskless and masked (no slot_reduce), the
+  tri launch over the first 1, 2, ... SMs' worth of row blocks (what a
+  partial last wave of CTAs costs);
+- passes: the ms of a whole N = 2^20 force pass on ``auto`` (K3),
+  ``sym_mxu`` (K2), ``mxu`` with pair_dtype "bfloat16" (B6) and the band
+  (B16);
+- b15: B15 on config 1 (N = 4096, 10 Euler steps, dt 0.01) in both classes,
+  ms per launch;
+- b6: B6's bf16 class, one launch at config 3's N = 262,144 (plummer,
+  masses, softening 1e-2) on the route 'auto' takes there (the overlap run
+  after the duplicate scan);
+- vjp: on the same plummer bodies with a normal cotangent, B14 (one square
+  launch, tile 128, with masses under 'fast' and 'masked', with unit masses
+  under 'fast'), B10 (one square
+  launch, masses, 'fast', at block 512 and 256) and B12 (both sides of
+  ``vjp_pos_pair`` over the whole 262,144^2 square, block 512);
+- rollout: one warm 10-step "sqrt" rollout gradient at N = 262,144 (config
+  3's physics: leapfrog, dt 1e-3) on ``auto`` (K3 + B10, loss on the final
+  positions) and on ``sym_mxu`` (K2 + B14, loss on the final velocities),
+  after a warm-up run;
 - SHA-256 digests (first 16 hex digits) of each kernel's output bytes: K3's
   and K2's sums of the timed calls, B15's final state in both classes, B6's
   raw sums and forces at 262,144 in both classes, B16's rows and columns of
-  one tri and one cross call; equal digests mean equal bits;
+  one tri and one cross call, B14's rows, B10's and B12's outputs; equal
+  digests mean equal bits;
 - nvcc's ptxas report for those kernels (registers, spill bytes), and
   CTAs per SM: from the kernel's own occupancy query where the tree has one
   (``symmetric_force_info``, ``slot_pipe_info``, ``mxu_force_info``,
-  ``band_mxu_info``), else computed from the registers, threads and shared
-  memory of the body (H100: 65,536 registers, 2048 threads, 32 CTAs and
-  233,472 bytes of shared memory per SM).
+  ``band_mxu_info``, ``vjp_rect_mxu_info``, ``vjp_ordered_info``), else
+  computed from the registers, threads and shared memory of the body (H100:
+  65,536 registers, 2048 threads, 32 CTAs and 233,472 bytes of shared
+  memory per SM);
+- the SASS of B10 and B14 (``cuobjdump -sass`` of the tree's library): for
+  each loop holding a rsqrt (``MUFU.RSQ``), its instructions and rsqrts, so
+  instructions per pair of the innermost pair loop.
 The parent prints the same lines, so the two trees are compared within one
 call on one card. The card's name and power limit are printed first.
 """
@@ -45,6 +61,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -52,24 +70,34 @@ import time
 N, CHUNK, TILE, SEED = 1 << 20, 131072, 128, 0
 N_CONFIG1, STEPS_CONFIG1, DT_CONFIG1 = 4096, 10, 0.01
 N_CONFIG3, SOFT_CONFIG3 = 262144, 1e-2
+ROLLOUT_STEPS, ROLLOUT_DT = 10, 1e-3
 REPS = 5
-#: Threads and dynamic shared memory per CTA of the tile-128 bodies before
-#: the register designs, for trees without an occupancy query: K3 2T
-#: threads and a T x T w tile, (T (T + 1) + 8 T) floats; K2 256 threads, the
-#: bf16 W tile of T (T + 8), v_a, v_b and the positions; B6 256 threads, its
-#: bf16 W tile, v, a fragment scratch and the positions (48,640 bytes); B16
-#: 256 threads, its bf16 W tile, v_i, v_j and the positions (41,984 bytes).
+SECTIONS = ("slots", "band", "passes", "b15", "b6", "vjp", "rollout")
+#: Threads and dynamic shared memory per CTA of the bodies before their
+#: register designs, for trees without an occupancy query: K3 2T threads and
+#: a T x T w tile, (T (T + 1) + 8 T) floats; K2 256 threads, the bf16 W tile
+#: of T (T + 8), v_a, v_b and the positions; B6 256 threads, its bf16 W
+#: tile, v, a fragment scratch and the positions (48,640 bytes); B16 256
+#: threads, its bf16 W tile, v_i, v_j and the positions (41,984 bytes); B14
+#: 256 threads, its bf16 W and C tiles, Qg, Qp, the warps' products and the
+#: k and j blocks (89,088 bytes at tile 128); B10 one thread per receiver at
+#: block 512, two float4s per staged source (16,384 bytes).
 SHARED_W_BODIES = {"K3": (256, 70144), "K2": (256, 76800),
-                   "B6": (256, 48640), "B16": (256, 41984)}
+                   "B6": (256, 48640), "B16": (256, 41984),
+                   "B14": (256, 89088), "B10": (512, 16384)}
 #: The timed instantiations: K3 at tile 128, unit masses, fast rsqrt; K2 and
 #: B16 at tile 128 without split_w (B16 with fast rsqrt); B6's bf16 class
-#: with masses. Parts of the mangled names, this tree's and the parent's.
+#: with masses; B14 at tile 128 and B10 at block 512, with masses. Parts of
+#: the mangled names, this tree's and the parent's.
 SLOT_KERNELS = {"K3": ("symmetric_force_kernelILi128ELi3ELb1E",),
                 "K2": ("slot_pipe_kernelILi128ELb0E",),
                 "B6": ("mxu_bf16_kernelILb1E",
                        "mxu_force_kernelILb1ELb1E"),
                 "B16": ("band_mxu_kernelILi128ELb0ELb1E",
-                        "band_mxu_kernelILi128ELb0E")}
+                        "band_mxu_kernelILi128ELb0E"),
+                "B14": ("vjp_rect_mxu_kernelILi128ELi4E",),
+                "B10": ("vjp_ordered_kernelILi4ELb1E",
+                        "vjp_ordered_kernelILb1ELi0E")}
 
 
 def find_kernel(report, names):
@@ -100,19 +128,73 @@ def ctas_per_sm(regs, threads, smem):
     return min(by_regs, by_smem, 2048 // threads, 32)
 
 
-def worker(tree):
+def sass_loops(sass):
+    """[(instructions, rsqrts)] of each loop of one function's SASS
+    (``cuobjdump -sass`` text) that holds a ``MUFU.RSQ``: a loop runs from a
+    backward branch's target to the branch."""
+    addr, ops, labels, branches = [], [], {}, []
+    pending = []
+    for ln in sass.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+        if not m:
+            continue
+        a, op = int(m.group(1), 16), m.group(2)
+        for lab in pending:
+            labels[lab] = a
+        pending = []
+        addr.append(a)
+        ops.append(op)
+        b = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", op)
+        if b:
+            branches.append((a, b.group(1) or int(b.group(2), 16)))
+    loops = []
+    for a, target in branches:
+        t = labels.get(target) if isinstance(target, str) else target
+        if t is None or t > a:
+            continue
+        body = [op for x, op in zip(addr, ops) if t <= x <= a]
+        rsq = sum("MUFU.RSQ" in op for op in body)
+        if rsq:
+            loops.append((len(body), rsq))
+    return loops
+
+
+def kernel_sass(lib_path, names):
+    """{mangled name: [(instructions, rsqrts) per loop]} of the kernels of
+    the library whose mangled names contain one of ``names``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=600).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split(None, 1)[0]
+        if any(n in name for n in names):
+            out[name] = sass_loops(part)
+    return out
+
+
+def worker(tree, only):
     sys.path.insert(0, os.path.abspath(tree))
     import ctypes
 
     import torch
 
-    from mini_nbody_tpu_torch import SimConfig, _build, init
+    from mini_nbody_tpu_torch import BodyState, SimConfig, _build, init
     from mini_nbody_tpu_torch.ops import mxu_force as mf
     from mini_nbody_tpu_torch.ops import resident_sym as rs
     from mini_nbody_tpu_torch.ops import slot_pipe as sp
     from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
     from mini_nbody_tpu_torch.ops import symmetric_force as sf
+    from mini_nbody_tpu_torch.ops import vjp_kernel as vk
+    from mini_nbody_tpu_torch.ops import vjp_mxu as vm
     from mini_nbody_tpu_torch.ops.force import make_force_fn
+    from mini_nbody_tpu_torch.sim import init_carry, make_rollout_fn
     from mini_nbody_tpu_torch.utils.config import SOFTENING, fast_rsqrt_cube
     from mini_nbody_tpu_torch.utils.harness import time_fn
 
@@ -132,7 +214,7 @@ def worker(tree):
              "cross": sp.slot_table(nb, False, True, dev)}
     piece = sp.PIECE_SLOTS
     rec = {"tree": tree, "build_s": build_s, "n": N, "chunk": c,
-           "tile": tile, "kernels": {}}
+           "tile": tile, "sections": list(only), "kernels": {}}
 
     def launches_only(launch, table, width):
         """One call's kernel launches, one per piece, into one scratch."""
@@ -148,7 +230,7 @@ def worker(tree):
 
     # K3 (unit masses).
     p = sf._pack(state.pos, None, N, np_)
-    for mode, table in slots.items():
+    for mode, table in slots.items() if "slots" in only else ():
         b = p[c:2 * c] if mode == "cross" else p[:c]
         run, per = launches_only(
             lambda t, n, part, b=b: lib.symmetric_force_launch(
@@ -170,7 +252,7 @@ def worker(tree):
 
     # K2 (unit masses, maskless, no split).
     p, v = sm._pack(state.pos, None, N, np_)
-    for mode, table in slots.items():
+    for mode, table in slots.items() if "slots" in only else ():
         b, vb = ((p[c:2 * c], v[c:2 * c]) if mode == "cross"
                  else (p[:c], v[:c]))
         ms = {}
@@ -207,7 +289,7 @@ def worker(tree):
     # launch also over the first k SMs' worth of row blocks, k = 1, 2, ...:
     # what a partial last wave of CTAs costs.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for mode in slots:
+    for mode in slots if "band" in only else ():
         cross = mode == "cross"
         b, vb = ((p[c:2 * c], v[c:2 * c]) if cross else (p[:c], v[:c]))
         _, _, longest = sm.band_launches(nb, cross)
@@ -236,7 +318,7 @@ def worker(tree):
                                          "ms_per_launch_masked": ms[1],
                                          "digest": digest(rows, cols)}
 
-    for name, cfg in (
+    for name, cfg in () if "passes" not in only else (
             ("auto", SimConfig(n=N, backend="auto", sym_chunk=CHUNK)),
             ("sym_mxu", SimConfig(n=N, backend="sym_mxu", sym_chunk=CHUNK)),
             ("mxu_bf16", SimConfig(n=N, backend="mxu",
@@ -247,7 +329,7 @@ def worker(tree):
         rec[f"pass_ms_{name}"] = time_fn(f, state.pos, state.pos,
                                          reps=3) * 1e3
     s1 = init.uniform_random(N_CONFIG1, generator=gen, device=dev)
-    for mxu in (False, True):
+    for mxu in (False, True) if "b15" in only else ():
         run = (lambda mxu=mxu: rs.simulate_resident_sym(
             s1.pos, s1.vel, None, steps=STEPS_CONFIG1, dt=DT_CONFIG1,
             mxu=mxu))
@@ -259,16 +341,64 @@ def worker(tree):
     # the scan finds no duplicate), bf16 class timed, both classes digested.
     s3 = init.plummer(N_CONFIG3, generator=torch.Generator(
         device=dev).manual_seed(SEED + 2), device=dev)
-    overlap = mf.square_overlap_only(s3.pos, "auto")
-    b6 = {"n": N_CONFIG3, "overlap": overlap}
-    b6["ms_per_launch"] = time_fn(
-        mf.hybrid_forces, s3.pos, s3.pos, s3.mass, SOFT_CONFIG3, 512, 2048,
-        overlap, reps=REPS) * 1e3
-    for dtype in ("bfloat16", "float32"):
-        b6[f"digest_{dtype}"] = digest(*mf.hybrid_forces(
-            s3.pos, s3.pos, s3.mass, SOFT_CONFIG3, overlap_only=overlap,
-            pair_dtype=dtype, with_sums=True))
-    rec["kernels"]["B6"] = b6
+    if "b6" in only:
+        overlap = mf.square_overlap_only(s3.pos, "auto")
+        b6 = {"n": N_CONFIG3, "overlap": overlap}
+        b6["ms_per_launch"] = time_fn(
+            mf.hybrid_forces, s3.pos, s3.pos, s3.mass, SOFT_CONFIG3, 512,
+            2048, overlap, reps=REPS) * 1e3
+        for dtype in ("bfloat16", "float32"):
+            b6[f"digest_{dtype}"] = digest(*mf.hybrid_forces(
+                s3.pos, s3.pos, s3.mass, SOFT_CONFIG3, overlap_only=overlap,
+                pair_dtype=dtype, with_sums=True))
+        rec["kernels"]["B6"] = b6
+
+    # B14, B10 and B12 on config 3's bodies with a normal cotangent.
+    g3 = torch.randn((N_CONFIG3, 3), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 3), device=dev)
+    pm = (s3.pos, g3, s3.pos, g3, s3.mass, s3.mass, SOFT_CONFIG3)
+    for mode, masses in (("fast", True), ("masked", True), ("fast", False)) \
+            if "vjp" in only else ():
+        args = (*(pm if masses else (*pm[:4], None, None, pm[6])), 128, mode)
+        key = f"B14 {mode}" + ("" if masses else " unit masses")
+        rec["kernels"][key] = {
+            "n": N_CONFIG3, "tile": 128,
+            "ms_per_launch": time_fn(vm.vjp_rect_mxu_rows, *args,
+                                     reps=REPS) * 1e3,
+            "digest": digest(vm.vjp_rect_mxu_rows(*args))}
+    for block in (512, 256) if "vjp" in only else ():
+        args = (s3.pos, g3, s3.mass, SOFT_CONFIG3, block, "fast")
+        rec["kernels"][f"B10 block {block}"] = {
+            "n": N_CONFIG3, "block": block,
+            "ms_per_launch": time_fn(vk.vjp_pos_direct, *args,
+                                     reps=REPS) * 1e3,
+            "digest": digest(vk.vjp_pos_direct(*args))}
+    if "vjp" in only:
+        args = (s3.pos, g3, s3.pos, s3.mass, s3.mass, SOFT_CONFIG3, 512)
+        rec["kernels"]["B12"] = {
+            "n": N_CONFIG3, "block": 512,
+            "ms_per_call": time_fn(vk.vjp_pos_pair, *args, reps=3) * 1e3,
+            "digest": digest(*vk.vjp_pos_pair(*args))}
+
+    # The rollout gradient at config 3's N, warm (time_fn's warm-up run).
+    for backend, on in (("auto", "pos"), ("sym_mxu", "vel")) \
+            if "rollout" in only else ():
+        cfg = SimConfig(n=N_CONFIG3, dt=ROLLOUT_DT, softening=SOFT_CONFIG3,
+                        integrator="leapfrog", use_masses=True,
+                        backend=backend)
+        state0, acc0 = init_carry(cfg, s3)
+        rollout = make_rollout_fn(cfg, ROLLOUT_STEPS, "sqrt")
+
+        def grad(rollout=rollout, on=on, state0=state0, acc0=acc0):
+            pos = state0.pos.clone().requires_grad_(True)
+            out, _ = rollout((BodyState(pos=pos, vel=state0.vel,
+                                         mass=state0.mass), acc0))
+            (((out.pos if on == "pos" else out.vel) ** 2).sum()).backward()
+            return pos.grad
+
+        rec[f"rollout_grad_s_{backend}"] = time_fn(grad, reps=2)
+        rec[f"rollout_grad_digest_{backend}"] = digest(grad())
+        rec[f"rollout_grad_loss_on_{backend}"] = on
 
     # nvcc's report of the slot kernels, parsed by this tree's _build.
     rec["ptxas_log"] = "\n".join(
@@ -278,14 +408,20 @@ def worker(tree):
     for name, fn, args in (("K3", "symmetric_force_info", (3, tile, fast)),
                            ("K2", "slot_pipe_info", (tile, 0)),
                            ("B6", "mxu_force_info", (1, 1)),
-                           ("B16", "band_mxu_info", (tile, 0, fast))):
+                           ("B16", "band_mxu_info", (tile, 0, fast)),
+                           ("B14", "vjp_rect_mxu_info", (128, 1)),
+                           ("B10", "vjp_ordered_info", (0, 512, 1))):
         if hasattr(lib, fn):
-            out = (ctypes.c_int * 3)()
+            out = (ctypes.c_int * 4)()  # B14's and B10's add threads
             _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)),
                          fn)
             occ[name] = {"registers": out[0], "local_bytes": out[1],
                          "ctas_per_sm": out[2], "from": fn}
+            if name in ("B14", "B10"):
+                occ[name]["threads"] = out[3]
     rec["occupancy"] = occ
+    rec["sass_loops"] = kernel_sass(lib._name, [
+        m for k in ("B14", "B10") for m in SLOT_KERNELS[k]])
     rec["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(rec), flush=True)
 
@@ -294,10 +430,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="the other tree's root")
     ap.add_argument("--turns", default="other,this,this,other")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="the worker's sections to run, comma-separated")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = args.only.split(",")
+    if not set(only) <= set(SECTIONS):
+        sys.exit(f"--only takes sections of {SECTIONS}")
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, only)
         return
     import torch
 
@@ -309,11 +450,14 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"nvidia_smi": smi}), flush=True)
+    if args.other is None:
+        sys.exit("ab_slots.py needs --other DIR")
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"this": here, "other": os.path.abspath(args.other)}
     for turn in args.turns.split(","):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--worker", trees[turn]], cwd=trees[turn],
+                            "--worker", trees[turn], "--only", args.only],
+                           cwd=trees[turn],
                            capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout, r.stderr[-4000:], file=sys.stderr)

@@ -35,11 +35,13 @@ each with every launch count set to 0 just before it and read just after:
 - ``pair_mxu``: ``body_force_pair_mxu`` (B4, K2's cross mode over a
   rectangle) on the two halves of config 3's state, against the B6
   rectangles and the float64 oracle;
-- ``determinism``: K2, K3, B11, B13 and B16 twice at N = 262,144 (two
-  chunks: tri and cross launches), bitwise equal; ``sym_mxu`` with 'auto'
-  and 'fast' bitwise 'masked' at N = 65,536 on the slots and on the band;
-  a 10-step rollout gradient with remat "sqrt" bitwise the one with
-  "none", on ``auto`` and ``sym_mxu``;
+- ``determinism``: K2, K3, B11, B13, B16, B10 and B14 twice at N =
+  262,144 (two chunks: tri and cross launches; B10 and B14 one square
+  launch each), bitwise equal; ``sym_mxu`` with 'auto' and 'fast' bitwise
+  'masked' at N = 65,536 on the slots and on the band, B10's and B14's
+  'fast' bitwise their 'masked' at 262,144; a 10-step rollout gradient
+  with remat "sqrt" bitwise the one with "none", on ``auto`` and
+  ``sym_mxu``, at N = 65,536 and at 262,144 (backward B10 and B14);
 - ``ensemble_sweep``: examples/parameter_sweep.py at its defaults, B = 32
   plummer spheres of N = 1024 with velocity scales 0.2 .. 1.6, 200 leapfrog
   steps of ``simulate_ensemble`` on ``sym_mxu`` (B9a): per-system energy
@@ -111,7 +113,9 @@ split_w; each call twice, bitwise) and on one whole tri call at c =
 (``vjp_pos_pair``, the grid backward) against its plain version on the
 tiles of 2 x 2 and 4 x 2 grids at N = 262,144, a ragged pair and the whole
 262,144 x 262,144 pair matrix the sharded grid gradient gives it. Then it
-times each kernel beside its plain version and its bound. Every
+times each kernel beside its plain version and its bound; the records of
+the register bodies and of B10, B12 and B14 carry their registers, local
+bytes and CTAs per SM from the kernels' occupancy queries. Every
 phase prints one JSON line; the line before the last is the card's name
 and power limit from nvidia-smi, preceded by one JSON line of per-kernel
 results, and the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -565,6 +569,16 @@ BODIES = {
     "B16": ("band_mxu_info",
             (sm.DEFAULT_TILE, 0, int(fast_rsqrt_cube(SOFTENING))),
             "band_mxu_kernelILi128ELb0ELb1E"),
+    # The VJPs as the gradients at config 3's N run them, with masses: B14
+    # at the rectangular tile, B10 and B12's two sides at SimConfig.tile_i.
+    "B14": ("vjp_rect_mxu_info", (vm.RECT_TILE, 1),
+            "vjp_rect_mxu_kernelILi128ELi4E"),
+    "B10": ("vjp_ordered_info", (0, SimConfig(n=N_CONFIG3).tile_i, 1),
+            "vjp_ordered_kernelILi4ELb1E"),
+    "B12 a_bar": ("vjp_ordered_info", (1, SimConfig(n=N_CONFIG3).tile_i, 1),
+                  "vjp_side_kernelILb1ELi1E"),
+    "B12 b_bar": ("vjp_ordered_info", (2, SimConfig(n=N_CONFIG3).tile_i, 1),
+                  "vjp_side_kernelILb1ELi2E"),
 }
 
 
@@ -575,7 +589,7 @@ def body_info(kernel):
     run)."""
     lib = _build.load_library()
     fn, args, mangled = BODIES[kernel]
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()  # B10's, B12's and B14's add threads
     _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
     spills = next((v for k, v in _build.ptxas_report(_build.BUILD_LOG)
                    .items() if mangled in k), {})
@@ -1506,7 +1520,7 @@ def grad_config3_phase(rng):
                    "vjp_kernel.py:106", launches["vjp_ordered"], err,
                    b10_s * 1e3, plain_s * 1e3,
                    bound(n * (n - 1) * OPS_B10, n * 40.0), n=N_CONFIG3,
-                   block=cfg.tile_i)
+                   block=cfg.tile_i, body=body_info("B10"))
     return state, runs["vel"][2], record
 
 
@@ -1635,7 +1649,7 @@ def grad_sym_mxu_phase(rng, sym, config3):
                 "vjp_mxu rectangular (B14)", "vjp_mxu.cu", "vjp_mxu.py:179",
                 launches["vjp_rect_mxu"], err, ms, plain_s * 1e3,
                 bound(pairs * OPS_B14_FP32, n * 40.0, pairs * OPS_B14_MMA),
-                n=n, tile=vm.RECT_TILE))
+                n=n, tile=vm.RECT_TILE, body=body_info("B14")))
         out[n]["kernel_ms"], out[n]["raw_sums_max_abs_err"] = ms, err
     line("grad_sym_mxu", steps=GRAD_STEPS, remat="sqrt", runs=out)
     return records
@@ -1935,16 +1949,21 @@ def _outputs(x):
 
 
 def determinism_phase(rng):
-    """C2: K2, K3, B11, B13 and B16 each run twice at N_DETERMINISM (two
-    chunks, so tri and cross launches) and must agree bit for bit; sym_mxu's
-    'auto' and 'fast' must be bitwise 'masked' at N_GRAD_SYM on the slots
-    and on the band; and a GRAD_STEPS
-    rollout gradient with remat "sqrt" bitwise the one with "none", on
-    'auto' (K3, B11) and 'sym_mxu' (K2, B13) at N_GRAD_SYM."""
+    """C2: K2, K3, B11, B13, B16, B10 and B14 each run twice at
+    N_DETERMINISM (two chunks, so tri and cross launches; B10 and B14 one
+    square launch each, as autodiff makes them beyond _SYM_BWD_MAX, B10 at
+    grad_config3's block, SimConfig.tile_i) and must
+    agree bit for bit; sym_mxu's 'auto' and 'fast' must be bitwise 'masked'
+    at N_GRAD_SYM on the slots and on the band, and B10's and B14's 'fast'
+    bitwise their 'masked' at N_DETERMINISM on the same duplicate-free
+    bodies; and a GRAD_STEPS rollout gradient with remat "sqrt" bitwise the
+    one with "none", on 'auto' (K3, B11) and 'sym_mxu' (K2, B13) at
+    N_GRAD_SYM, and at config 3's N (B10 and B14)."""
     n = N_DETERMINISM
     pos = to_dev(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
     m = to_dev(rng.uniform(0.5, 2.0, n).astype(np.float32))
     g = normal(rng, n)
+    block = SimConfig(n=N_CONFIG3).tile_i  # B10's on grad_config3
     runs = {
         "K2": lambda: sm.body_force_sym_mxu(pos, m, chunk=CHUNK,
                                             coincident="fast"),
@@ -1956,6 +1975,10 @@ def determinism_phase(rng):
         "B16": lambda: sm.body_force_sym_mxu(pos, m, chunk=CHUNK,
                                              coincident="fast",
                                              traversal="band"),
+        "B10": lambda: vk.vjp_pos_direct(pos, g, m, 1e-2, block=block,
+                                         coincident="fast"),
+        "B14": lambda: vm.vjp_rect_mxu(pos, g, pos, g, m, m, 1e-2,
+                                       coincident="fast"),
     }
     reset_counts()
     for name, run in runs.items():
@@ -1974,7 +1997,21 @@ def determinism_phase(rng):
             n, tile, 2)
     want["band_tri"], want["band_cross"] = band_pass_launches(
         n, sm.DEFAULT_TILE, 2)
+    want["vjp_ordered"] = want["vjp_rect_mxu"] = 2
     expect_counts(launches, "determinism", **want)
+    # B10 and B14 drop the d2 == 0 select off their own tiles under 'fast':
+    # on bodies with no d2 == 0 pair there, the bits of 'masked'.
+    if vk.any_coincident(pos):
+        fail("determinism: the uniform bodies hold a duplicate")
+    fast_masked = []
+    for name, masked in (
+            ("B10", lambda: vk.vjp_pos_direct(pos, g, m, 1e-2, block=block,
+                                              coincident="masked")),
+            ("B14", lambda: vm.vjp_rect_mxu(pos, g, pos, g, m, m, 1e-2,
+                                            coincident="masked"))):
+        if not torch.equal(runs[name](), masked()):
+            fail(f"determinism: {name} 'fast' is not bitwise 'masked'")
+        fast_masked.append(name)
     # 'auto' with K2's gate at 0: the duplicate scan runs, finds nothing in
     # the uniform bodies and routes to the maskless kernel.
     p2 = pos[:N_GRAD_SYM].contiguous()
@@ -1990,23 +2027,26 @@ def determinism_phase(rng):
                         p2, coincident=mode, traversal=traversal), ref):
                     fail(f"determinism: sym_mxu {mode} on the {traversal} "
                          "is not bitwise masked")
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
-    state = init.plummer(N_GRAD_SYM, generator=gen, device=DEV)
     remat = {}
-    for backend in ("auto", "sym_mxu"):
-        cfg = grad_cfg(N_GRAD_SYM, backend=backend)
-        carry0 = init_carry(cfg, state)
-        _, none = rollout_grad(cfg, carry0, "vel", "none")
-        _, sqrt = rollout_grad(cfg, carry0, "vel", "sqrt")
-        if not torch.equal(none, sqrt):
-            fail(f"determinism: {backend} sqrt gradient is not bitwise the "
-                 f"unchecked one, max {(none - sqrt).abs().max().item():.4g}")
-        remat[backend] = True
+    for rn in (N_GRAD_SYM, N_CONFIG3):
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+        state = init.plummer(rn, generator=gen, device=DEV)
+        for backend in ("auto", "sym_mxu"):
+            cfg = grad_cfg(rn, backend=backend)
+            carry0 = init_carry(cfg, state)
+            _, none = rollout_grad(cfg, carry0, "vel", "none")
+            _, sqrt = rollout_grad(cfg, carry0, "vel", "sqrt")
+            if not torch.equal(none, sqrt):
+                fail(f"determinism: {backend} sqrt gradient at n={rn} is not "
+                     "bitwise the unchecked one, max "
+                     f"{(none - sqrt).abs().max().item():.4g}")
+            remat[f"{backend} n={rn}"] = True
     line("determinism", n=n, chunk=CHUNK, two_runs_bitwise=list(runs),
          launches=launches,
          sym_mxu_auto_fast_bitwise_masked=["slots", "band"],
          sym_mxu_auto_route=route, n_auto=N_GRAD_SYM,
-         remat_sqrt_bitwise_none=remat, remat_n=N_GRAD_SYM)
+         fast_bitwise_masked=fast_masked,
+         remat_sqrt_bitwise_none=remat, remat_n=[N_GRAD_SYM, N_CONFIG3])
 
 
 def half_mass_radius(pos, mass):
@@ -2861,7 +2901,9 @@ def b12_phase(rng):
          share=bnd["bound_ms"] / ms)
     return err, entry("vjp_pos_pair (B12)", "vjp_kernel.cu",
                       "vjp_kernel.py:831", 0, max(whole), ms, plain_s * 1e3,
-                      bnd, n=N_CONFIG3, block=block, launches_per_call=2)
+                      bnd, n=N_CONFIG3, block=block, launches_per_call=2,
+                      body={side: body_info(f"B12 {side}")
+                            for side in ("a_bar", "b_bar")})
 
 
 @contextlib.contextmanager

@@ -78,10 +78,10 @@ SIGNATURES = {
     # masses, ko, tile, softening, mask_offdiag, stream
     "vjp_mxu_launch": ([_P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _F, _I, _P], _I),
-    # pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows, masses, tile, softening,
+    # pos_k, g_k, nk, pos_j, g_j, nj, rows, masses, tile, softening,
     # overlap_only, stream
-    "vjp_rect_mxu_launch": ([_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _I,
-                             _P], _I),
+    "vjp_rect_mxu_launch": ([_P, _P, _I, _P, _P, _I, _P, _I, _I, _F, _I, _P],
+                            _I),
     # pos_i, ni, pos_j, mass_j (or NULL), nj, out, sums (or NULL), softening,
     # overlap_only, bf16, stream
     "mxu_force_launch": ([_P, _I, _P, _P, _I, _P, _P, _F, _I, _I, _P], _I),
@@ -99,6 +99,10 @@ SIGNATURES = {
     "mxu_force_info": ([_I, _I, _P], _I),
     # tile, split_w, fast, out (as above)
     "band_mxu_info": ([_I, _I, _I, _P], _I),
+    # tile, masses, out (4 ints: as above, then threads per CTA)
+    "vjp_rect_mxu_info": ([_I, _I, _P], _I),
+    # side (0: B10, 1 / 2: B12's sides), block, masses, out (4 ints)
+    "vjp_ordered_info": ([_I, _I, _I, _P], _I),
     "nbody_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -12,18 +12,34 @@
 // the self pair's eps^-1.5 weight swamps the fp32 sums otherwise.
 //
 // B10 replaces mini_nbody_tpu/ops/vjp_kernel.py:106 `_vjp_kernel` (reached
-// through `vjp_pos_rect`, :635, and `vjp_pos_pallas`, :737). K1's shape
-// (csrc/direct_force.cu): each block of `block` threads keeps its receivers
-// (p, m, g) in registers and stages the sources through shared memory in
-// tiles of `block` (x, y, z, m) and (gx, gy, gz) float4s; the Pallas grid's
-// sequential j axis is the loop over tiles, and the receiver and source
-// terms sum in registers. overlap_only (square calls under coincident
-// routing, :130-147) drops the d2 == 0 select in tiles whose j range does
-// not intersect the block's k range (k tile and j tile have one size, so
-// they intersect only when they are the same tile). The ragged j edge is
-// (FAR, m = 0, g = 0) in shared memory: against FAR w and u underflow to 0
-// and every term is 0, in both mass modes. Receivers past nk compute and are
-// not written.
+// through `vjp_pos_rect`, :635, and `vjp_pos_pallas`, :737). It is bound by
+// its issue rate, so its design cuts instructions per pair:
+//   - the mass terms fused as the unit-mass formula is:
+//       pos_bar_k = 3 sum_j u (m_j dot_k - m_k dot_j) d + m_k sum_j w g_j
+//                   - g_k sum_j m_j w,
+//     dot_k = g_k.d, dot_j = g_j.d; the 3 and m_k are applied once in the
+//     epilogue, so a pair costs three d FMAs, three w g_j FMAs and one
+//     m_j w FMA into its receiver's sums (~27 instructions a pair in all,
+//     by the count of the source, against ~40 with the halves apart);
+//   - register micro-tiles: R receivers per thread (R = 4 where the block
+//     keeps whole warps of block / 4 threads, else 2, else 1), so each
+//     broadcast load of a source's two float4s serves R pairs and the R
+//     chains are independent work for the scheduler;
+//   - two loop bodies chosen per tile at compile time: overlap_only (square
+//     calls under coincident routing, :130-147) runs the tiles whose j
+//     range does not meet the block's k range (k tile and j tile have one
+//     size, `block`, so they meet only when they are the same tile) without
+//     the compare and select of d2 == 0.
+// The sources are staged through shared memory in tiles of `block` (x, y,
+// z, m) and (gx, gy, gz) float4s; the Pallas grid's sequential j axis is
+// the loop over tiles. Each tile's sums are kept apart from the totals and
+// added to them after the tile, so B10's bits depend on `block`, not on R:
+// every receiver adds its pairs in the same order at any R. The ragged j
+// edge is (FAR, m = 0, g = 0) in shared memory: against FAR w and u
+// underflow to 0 and every term is 0, in both mass modes. Receivers past nk
+// compute and are not written. rsqrt is rsqrt.approx.ftz (slot_body.cuh
+// rsqrt_normal): for any softening >= 2^-126 it is rsqrtf's result, and on a
+// denormal r2 w and u overflow to inf either way.
 //
 // B11 replaces vjp_kernel.py:273 `_sym_vjp_tri_kernel` (`vjp_pos_sym`,
 // :406). Per unordered pair (a, b), d = p_b - p_a, its term
@@ -66,20 +82,22 @@
 //   t(a, b) = 3 u m_b (g_a.d) d - w m_b g_a,
 //   a_bar[a] = sum_b t(a, b),   b_bar[b] = -sum_a t(a, b).
 // The TPU kernel carries b_bar as a whole-B buffer across its sequential
-// grid; blocks here run in no order and nothing carries over, so B12 is B10's
-// ordered kernel with a compile-time side (kSide): a_bar is B10's receiver
-// half over (a <- b) with g_k = g_a, and b_bar is B10's source half over
-// (b <- a) with g_j = g_a, m_k[sum_j w g_j - 3 u (g_j.d) d] = -sum_a t(a, b)
-// (the sign of d flips, (g.d) d does not). Each launch drops the other half's
-// terms and loads: the receiver side stages no g_j, the source side no m_j,
-// and the unit-mass source side needs no mass at all. No atomics, no scratch:
-// every output bit is the same on every run. B12 always masks d2 == 0 (a body
-// present in both sets meets itself), with no coincident routing. Its w and u
-// are computed once per side, twice per pair; JAX's single pass counts 26
+// grid; blocks here run in no order and nothing carries over, so B12 is the
+// ordered VJP with a compile-time side (kSide), one thread per receiver
+// (B10's shape before its micro-tiles): a_bar is the receiver half over
+// (a <- b) with g_k = g_a, and b_bar is the source half over (b <- a) with
+// g_j = g_a, m_k[sum_j w g_j - 3 u (g_j.d) d] = -sum_a t(a, b) (the sign of
+// d flips, (g.d) d does not). Each launch drops the other half's terms and
+// loads: the receiver side stages no g_j, the source side no m_j, and the
+// unit-mass source side needs no mass at all. No atomics, no scratch: every
+// output bit is the same on every run. B12 always masks d2 == 0 (a body
+// present in both sets meets itself), with no coincident routing. Its w and
+// u are computed once per side, twice per pair; JAX's single pass counts 26
 // fp32 operations per pair (vjp_kernel.py:944), the two sides here ~22 each.
 //
 // What bounds them on an H100: fp32 arithmetic. B10: ~35 fp32 operations and
-// one rsqrt per ordered pair (JAX's count, vjp_kernel.py:656). B11: ~26 for
+// one rsqrt per ordered pair (JAX's count, vjp_kernel.py:656), and in fact
+// its issue rate (~27 instructions a pair). B11: ~26 for
 // w, u, c once per pair and ~12 for each side's sum (+5 with the mass
 // cotangent); shared memory carries two 4-byte stores and four 4-byte loads
 // per pair. At T = 128 B11 needs 139,264 bytes of shared memory per CTA
@@ -90,6 +108,8 @@
 // mul/add pairs into FMAs, which the plain PyTorch version does not do.
 
 #include <cuda_runtime.h>
+
+#include "slot_body.cuh"
 
 namespace {
 
@@ -108,21 +128,169 @@ __device__ __forceinline__ void weights(float d2, float softening, bool mask,
 
 // ---------------------------------------------------------------- B10 ---
 
-// kSide of vjp_ordered_kernel: both halves (B10), the receiver half only
-// (B12's a_bar) or the source half only (B12's b_bar).
-constexpr int kBoth = 0, kReceiver = 1, kSource = 2;
+// A receiver of B10 in registers: position, cotangent and mass.
+struct Receiver {
+  float x, y, z, gx, gy, gz, m;
+};
 
+// A receiver's sums: t = sum u (m_j dot_k - m_k dot_j) d, s = sum w g_j,
+// sw = sum m_j w.
+struct Sums {
+  float t0, t1, t2, s0, s1, s2, sw;
+};
+
+__device__ __forceinline__ void add_sums(Sums& a, const Sums& b) {
+  a.t0 += b.t0;
+  a.t1 += b.t1;
+  a.t2 += b.t2;
+  a.s0 += b.s0;
+  a.s1 += b.s1;
+  a.s2 += b.s2;
+  a.sw += b.sw;
+}
+
+// One j tile of n staged sources into each of the R receivers' fresh
+// partials. kD2: the tile may hold a d2 == 0 pair, masked. r2 is formed by
+// one FMA chain in both bodies (the masked one computes d2 for its select
+// on the side), so w and u are the same bits with and without the mask.
+template <int R, bool kMass, bool kD2>
+__device__ __forceinline__ void ordered_tile(const float4* sp,
+                                             const float4* sg, int n,
+                                             const Receiver (&rk)[R],
+                                             Sums (&p)[R], float softening) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) p[r] = Sums{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+  for (int c = 0; c < n; ++c) {
+    const float4 q = sp[c], h = sg[c];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const Receiver& k = rk[r];
+      const float dx = q.x - k.x, dy = q.y - k.y, dz = q.z - k.z;
+      const float inv = slot_body::rsqrt_normal(
+          fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, softening))));
+      const float inv2 = inv * inv;
+      float w = inv2 * inv;
+      float u = w * inv2;
+      if (kD2 && dx * dx + dy * dy + dz * dz == 0.f) w = u = 0.f;
+      const float dot_k = k.gx * dx + k.gy * dy + k.gz * dz;
+      const float dot_j = h.x * dx + h.y * dy + h.z * dz;
+      const float coeff =
+          u * (kMass ? q.w * dot_k - k.m * dot_j : dot_k - dot_j);
+      Sums& a = p[r];
+      a.t0 += coeff * dx;
+      a.t1 += coeff * dy;
+      a.t2 += coeff * dz;
+      a.s0 += w * h.x;
+      a.s1 += w * h.y;
+      a.s2 += w * h.z;
+      a.sw += kMass ? q.w * w : w;
+    }
+  }
+}
+
+// Receivers per thread of a B10 block of `block` receivers: 4 where the
+// block keeps whole warps, else 2, else 1 (PERF.md: R = 4 with the
+// source loop unrolled twice was the fastest of R in {2, 4} and unroll in
+// {1, 2, 4} at block 512).
+__host__ __device__ constexpr int ordered_r(int block) {
+  return block % 128 == 0 ? 4 : (block % 64 == 0 ? 2 : 1);
+}
+
+// B10: block / R threads per block of `block` receivers, thread i owning
+// receivers k0 + i + (block / R) r, r < R; the sources come through shared
+// memory in tiles of `block` (the j tile is the k tile's size, so the two
+// ranges meet only in the CTA's own tile). At most 128 registers where R > 1
+// (R = 4: up to 256 threads, two CTAs of them per SM at least).
+template <int R, bool kMass>
+__global__ void __launch_bounds__(1024 / R, R == 4 ? 2 : 1)
+    vjp_ordered_kernel(const float* __restrict__ pos_k,
+                       const float* __restrict__ g_k,
+                       const float* __restrict__ mass_k, int nk,
+                       const float* __restrict__ pos_j,
+                       const float* __restrict__ g_j,
+                       const float* __restrict__ mass_j, int nj,
+                       float* __restrict__ out, float softening,
+                       int overlap_only) {
+  extern __shared__ float4 smem4[];
+  const int threads = blockDim.x, block = R * threads;
+  float4* sp = smem4;          // (x, y, z, m) of the j tile
+  float4* sg = smem4 + block;  // (gx, gy, gz, 0)
+  const int k0 = blockIdx.x * block;
+  Receiver rk[R];
+  Sums tot[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = k0 + threadIdx.x + r * threads;
+    Receiver& k = rk[r];
+    k = Receiver{kFar, kFar, kFar, 0.f, 0.f, 0.f, 1.f};
+    if (i < nk) {
+      k.x = pos_k[3 * i];
+      k.y = pos_k[3 * i + 1];
+      k.z = pos_k[3 * i + 2];
+      k.gx = g_k[3 * i];
+      k.gy = g_k[3 * i + 1];
+      k.gz = g_k[3 * i + 2];
+      if (kMass) k.m = mass_k[i];
+    }
+    tot[r] = Sums{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  }
+  for (int base = 0; base < nj; base += block) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int c = threadIdx.x; c < block; c += threads) {
+      const int j = base + c;
+      float4 p = make_float4(kFar, kFar, kFar, 0.f);
+      float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < nj) {
+        p = make_float4(pos_j[3 * j], pos_j[3 * j + 1], pos_j[3 * j + 2],
+                        kMass ? mass_j[j] : 1.f);
+        h = make_float4(g_j[3 * j], g_j[3 * j + 1], g_j[3 * j + 2], 0.f);
+      }
+      sp[c] = p;
+      sg[c] = h;
+    }
+    __syncthreads();
+    // Each tile's partials are added to the totals after the tile: one
+    // running fp32 sum over all N partners drifts from the exact sum by
+    // several 1e-4 of the output's scale at N = 262,144.
+    Sums part[R];
+    if (!overlap_only || base == k0)
+      ordered_tile<R, kMass, true>(sp, sg, block, rk, part, softening);
+    else
+      ordered_tile<R, kMass, false>(sp, sg, block, rk, part, softening);
+#pragma unroll
+    for (int r = 0; r < R; ++r) add_sums(tot[r], part[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = k0 + threadIdx.x + r * threads;
+    if (i >= nk) continue;
+    const Receiver& k = rk[r];
+    const Sums& a = tot[r];
+    out[3 * i] = (3.f * a.t0 - k.gx * a.sw) + k.m * a.s0;
+    out[3 * i + 1] = (3.f * a.t1 - k.gy * a.sw) + k.m * a.s1;
+    out[3 * i + 2] = (3.f * a.t2 - k.gz * a.sw) + k.m * a.s2;
+  }
+}
+
+// ---------------------------------------------------------------- B12 ---
+
+// kSide of vjp_side_kernel: the receiver half (a_bar) or the source half
+// (b_bar) of the ordered VJP.
+constexpr int kReceiver = 1, kSource = 2;
+
+// One side of the ordered VJP per thread and receiver k: B10's shape before
+// its register micro-tiles, kept as it was so that B12's bits stay.
 template <bool kMass, int kSide>
-__global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
-                                   const float* __restrict__ g_k,
-                                   const float* __restrict__ mass_k, int nk,
-                                   const float* __restrict__ pos_j,
-                                   const float* __restrict__ g_j,
-                                   const float* __restrict__ mass_j, int nj,
-                                   float* __restrict__ out, float softening,
-                                   int overlap_only) {
-  constexpr bool kRecv = kSide != kSource;  // the receiver half: g_k, m_j
-  constexpr bool kSrc = kSide != kReceiver;  // the source half: g_j, m_k
+__global__ void vjp_side_kernel(const float* __restrict__ pos_k,
+                                const float* __restrict__ g_k,
+                                const float* __restrict__ mass_k, int nk,
+                                const float* __restrict__ pos_j,
+                                const float* __restrict__ g_j,
+                                const float* __restrict__ mass_j, int nj,
+                                float* __restrict__ out, float softening) {
+  constexpr bool kRecv = kSide == kReceiver;  // the receiver half: g_k, m_j
+  constexpr bool kSrc = kSide == kSource;     // the source half: g_j, m_k
   extern __shared__ float4 smem4[];
   float4* sp = smem4;               // (x, y, z, m) of the j tile
   float4* sg = smem4 + blockDim.x;  // (gx, gy, gz, 0)
@@ -140,11 +308,8 @@ __global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
     }
     mk = kMass && kSrc ? mass_k[i] : 1.f;
   }
-  // unit masses: t (3), sum w; masses: r (3), sum m w, s (3). One side:
-  // t and sum (m) w (receiver), s (source). Each j tile is summed into its
-  // own partials (pt*, ps*), which are then added to the row's totals: one
-  // running fp32 sum over all N partners drifts from the exact sum by
-  // several 1e-4 of the output's scale at N = 262,144.
+  // receiver: t (3), sum (m) w; source: s (3). Each j tile is summed into
+  // its own partials (pt*, ps*), which are then added to the row's totals.
   float t0 = 0.f, t1 = 0.f, t2 = 0.f, sw = 0.f;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
   for (int base = 0; base < nj; base += blockDim.x) {
@@ -161,7 +326,6 @@ __global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
     sp[threadIdx.x] = p;
     if (kSrc) sg[threadIdx.x] = h;
     __syncthreads();
-    const bool mask = !overlap_only || base == k0;
     float pt0 = 0.f, pt1 = 0.f, pt2 = 0.f, ptw = 0.f;
     float ps0 = 0.f, ps1 = 0.f, ps2 = 0.f;
 #pragma unroll 4
@@ -169,32 +333,21 @@ __global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
       const float4 q = sp[c];
       const float dx = q.x - x, dy = q.y - y, dz = q.z - z;
       float w, u;
-      weights(dx * dx + dy * dy + dz * dz, softening, mask, &w, &u);
-      if (kSide == kBoth && !kMass) {  // both halves fused at unit mass
-        const float4 gj = sg[c];
+      weights(dx * dx + dy * dy + dz * dz, softening, true, &w, &u);
+      if (kRecv) {
         const float dot_k = gx * dx + gy * dy + gz * dz;
-        const float dot_j = gj.x * dx + gj.y * dy + gj.z * dz;
-        const float coeff = 3.f * (u * (dot_k - dot_j));
-        pt0 += coeff * dx + w * gj.x;
-        pt1 += coeff * dy + w * gj.y;
-        pt2 += coeff * dz + w * gj.z;
-        ptw += w;
-      } else {
-        if (kRecv) {
-          const float dot_k = gx * dx + gy * dy + gz * dz;
-          const float a = kMass ? 3.f * (u * q.w * dot_k) : 3.f * (u * dot_k);
-          pt0 += a * dx;
-          pt1 += a * dy;
-          pt2 += a * dz;
-          ptw += kMass ? w * q.w : w;
-        }
-        if (kSrc) {
-          const float4 gj = sg[c];
-          const float b = 3.f * (u * (gj.x * dx + gj.y * dy + gj.z * dz));
-          ps0 += w * gj.x - b * dx;
-          ps1 += w * gj.y - b * dy;
-          ps2 += w * gj.z - b * dz;
-        }
+        const float a = kMass ? 3.f * (u * q.w * dot_k) : 3.f * (u * dot_k);
+        pt0 += a * dx;
+        pt1 += a * dy;
+        pt2 += a * dz;
+        ptw += kMass ? w * q.w : w;
+      }
+      if (kSrc) {
+        const float4 gj = sg[c];
+        const float b = 3.f * (u * (gj.x * dx + gj.y * dy + gj.z * dz));
+        ps0 += w * gj.x - b * dx;
+        ps1 += w * gj.y - b * dy;
+        ps2 += w * gj.z - b * dz;
       }
     }
     t0 += pt0;
@@ -218,24 +371,32 @@ __global__ void vjp_ordered_kernel(const float* __restrict__ pos_k,
   }
 }
 
-template <int kSide>
-int launch_ordered(bool masses, const float* pos_k, const float* g_k,
-                   const float* mass_k, int nk, const float* pos_j,
-                   const float* g_j, const float* mass_j, int nj, float* out,
-                   float softening, int overlap_only, int block,
-                   cudaStream_t s) {
-  if (nk == 0) return 0;
-  const int grid = (nk + block - 1) / block;
-  const size_t smem = 2 * block * sizeof(float4);
-  if (masses)
-    vjp_ordered_kernel<true, kSide><<<grid, block, smem, s>>>(
-        pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
-        overlap_only);
-  else
-    vjp_ordered_kernel<false, kSide><<<grid, block, smem, s>>>(
-        pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
-        overlap_only);
-  return static_cast<int>(cudaGetLastError());
+using OrderedKernel = void (*)(const float*, const float*, const float*, int,
+                               const float*, const float*, const float*, int,
+                               float*, float, int);
+using SideKernel = void (*)(const float*, const float*, const float*, int,
+                            const float*, const float*, const float*, int,
+                            float*, float);
+
+// B10's kernel for (block, masses) and its threads per block, or nullptr.
+OrderedKernel pick_ordered(int block, bool masses, int* threads) {
+  if (block <= 0 || block > 1024 || block % 32 != 0) return nullptr;
+  const int r = ordered_r(block);
+  *threads = block / r;
+  if (r == 4) return masses ? vjp_ordered_kernel<4, true>
+                            : vjp_ordered_kernel<4, false>;
+  if (r == 2) return masses ? vjp_ordered_kernel<2, true>
+                            : vjp_ordered_kernel<2, false>;
+  return masses ? vjp_ordered_kernel<1, true> : vjp_ordered_kernel<1, false>;
+}
+
+// B12's kernel for (side, masses), or nullptr.
+SideKernel pick_side(int side, bool masses) {
+  if (side == kReceiver) return masses ? vjp_side_kernel<true, kReceiver>
+                                       : vjp_side_kernel<false, kReceiver>;
+  if (side == kSource) return masses ? vjp_side_kernel<true, kSource>
+                                     : vjp_side_kernel<false, kSource>;
+  return nullptr;
 }
 
 // ---------------------------------------------------------------- B11 ---
@@ -507,45 +668,73 @@ int dispatch_sym(const int* slots, int n_slots, int n_sys, long long sys_rows,
 // B10. pos_k, g_k (nk, 3), mass_k (nk,) or NULL; pos_j, g_j (nj, 3), mass_j
 // (nj,) or NULL (masses both or neither); out (nk, 3): fp32, contiguous, on
 // the current device. overlap_only: mask d2 == 0 only in the tile whose j
-// range is the block's k range (square calls). block: threads per block and
-// j-tile size, a multiple of 32 up to 1024. Returns cudaGetLastError().
+// range is the block's k range (square calls). block: receivers per block
+// and j-tile size, a multiple of 32 up to 1024. Returns cudaGetLastError().
 extern "C" int vjp_ordered_launch(const float* pos_k, const float* g_k,
                                   const float* mass_k, int nk,
                                   const float* pos_j, const float* g_j,
                                   const float* mass_j, int nj, float* out,
                                   float softening, int overlap_only,
                                   int block, void* stream) {
-  if (block <= 0 || block > 1024 || block % 32 != 0 ||
-      (mass_k == nullptr) != (mass_j == nullptr))
+  int threads = 0;
+  const OrderedKernel kernel =
+      pick_ordered(block, mass_k != nullptr, &threads);
+  if (kernel == nullptr || (mass_k == nullptr) != (mass_j == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_ordered<kBoth>(mass_k != nullptr, pos_k, g_k, mass_k, nk,
-                               pos_j, g_j, mass_j, nj, out, softening,
-                               overlap_only, block,
-                               static_cast<cudaStream_t>(stream));
+  if (nk == 0) return 0;
+  kernel<<<(nk + block - 1) / block, threads, 2 * block * sizeof(float4),
+           static_cast<cudaStream_t>(stream)>>>(
+      pos_k, g_k, mass_k, nk, pos_j, g_j, mass_j, nj, out, softening,
+      overlap_only);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B12, one side per call; every tile masks d2 == 0. side 1 (a_bar): pos_a,
 // g_a (na, 3) receivers, pos_b (nb, 3) sources, mass_b (nb,) or NULL, out
 // (na, 3). side 2 (b_bar): pos_b (nb, 3) receivers with mass_b or NULL,
 // pos_a, g_a (na, 3) sources, out (nb, 3). fp32, contiguous, on the current
-// device; block as B10's. Returns cudaGetLastError().
+// device; block: threads per block and j-tile size, a multiple of 32 up to
+// 1024. Returns cudaGetLastError().
 extern "C" int vjp_pair_launch(int side, const float* pos_a, const float* g_a,
                                int na, const float* pos_b,
                                const float* mass_b, int nb, float* out,
                                float softening, int block, void* stream) {
-  if (block <= 0 || block > 1024 || block % 32 != 0)
+  const SideKernel kernel = pick_side(side, mass_b != nullptr);
+  if (kernel == nullptr || block <= 0 || block > 1024 || block % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool masses = mass_b != nullptr;
-  if (side == kReceiver)
-    return launch_ordered<kReceiver>(masses, pos_a, g_a, nullptr, na, pos_b,
-                                     nullptr, mass_b, nb, out, softening, 0,
-                                     block, s);
-  if (side == kSource)
-    return launch_ordered<kSource>(masses, pos_b, nullptr, mass_b, nb, pos_a,
-                                   g_a, nullptr, na, out, softening, 0, block,
-                                   s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool recv = side == kReceiver;
+  const int nk = recv ? na : nb;
+  if (nk == 0) return 0;
+  kernel<<<(nk + block - 1) / block, block, 2 * block * sizeof(float4),
+           static_cast<cudaStream_t>(stream)>>>(
+      recv ? pos_a : pos_b, recv ? g_a : nullptr, recv ? nullptr : mass_b,
+      nk, recv ? pos_b : pos_a, recv ? nullptr : g_a,
+      recv ? mass_b : nullptr, recv ? nb : na, out, softening);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: registers per thread, local bytes per thread, CTAs per SM and
+// threads per CTA of the ordered kernel at `block` with or without masses:
+// side 0 is B10's (block / ordered_r(block) threads), side 1 and 2 B12's
+// a_bar and b_bar sides.
+extern "C" int vjp_ordered_info(int side, int block, int masses, int* out) {
+  int threads = block;
+  const void* kernel = nullptr;
+  if (side == 0)
+    kernel = reinterpret_cast<const void*>(
+        pick_ordered(block, masses, &threads));
+  else if (block > 0 && block <= 1024 && block % 32 == 0)
+    kernel = reinterpret_cast<const void*>(pick_side(side, masses));
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], kernel, threads, 2 * block * sizeof(float4));
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[3] = threads;
+  return static_cast<int>(err);
 }
 
 // B11 and B9c. slots (n_slots, 3) int32 (kind, bi, bj); pos_a / pos_b

@@ -49,23 +49,43 @@
 // kernel with one system, so each system's sums are bitwise its standalone
 // call's. gridDim.y is at most 65,535.
 //
-// B14: one CTA of 256 threads per k tile of T receivers, looping over the j
-// tiles: stage the j tile, compute its w and c tiles, and let warp
-// (product, m) run its 32 x 8 product of [W @ Qg | C @ Qp] over the tile
-// into a fresh fragment, then add that partial into running sums held in
-// registers with round-to-nearest fp32 adds, as B6 does
-// (csrc/mxu_force.cu). The tensor cores' fp32 accumulation does not round
-// to nearest: one fragment carried across all j tiles drifted, and its error
-// against the fp32 gradient grew with N. No reaction side, no atomics: each
-// CTA writes its own rows, so B14 is deterministic. overlap_only (square calls under
-// coincident routing, vjp_mxu.py:207-221) drops the d2 == 0 select in the
-// tiles whose j range is not the CTA's k range.
+// B14: the row half of K2's step loop with a second product, as B6's bf16
+// class (csrc/mxu_force.cu). One CTA of 2T threads per k tile of T
+// receivers (T = 64 or 128): each warp owns one 16-row strip, each lane
+// rows g and g + 8 of its strip in registers, (x, y, z, m) and (gx, gy,
+// gz). Per j tile of T bodies, staged once in shared memory ((x, y, z, m)
+// and (gx, gy, gz) as float4s; the operands' transposes in bf16 in the B
+// fragment's layout; two buffers, the next tile's bodies loaded into
+// registers while the current one computes, one barrier per tile), each
+// lane computes for each 16-column step the 8 (w, c) of its mma.sync
+// m16n8k16 A fragments in fp32, packs them to bf16 pairs and runs W @ Qg
+// and C @ Qp at once: no w or c touches shared memory. Each tile's products
+// start from fresh fragments and are added into fp32 running sums in
+// registers with round-to-nearest adds, as B6 does: the tensor cores' fp32
+// accumulation does not round to nearest, and one fragment carried across
+// all j tiles drifted, its error against the fp32 gradient growing with N.
+// A row's sums add the same products in the same order as the shared-tile
+// kernel before this design (its wmma k steps are these m16n8k16 steps):
+// at N = 262,144 with masses its rows were that kernel's bits
+// (ab_slots.py, PERF.md). The epilogue
+// folds hi + lo per row through shared memory. No reaction side, no
+// atomics: each CTA writes its own rows, so B14 is deterministic.
+// overlap_only (square calls under coincident routing, vjp_mxu.py:207-221)
+// runs the tiles whose j range is not the CTA's k range through a body
+// without the d2 == 0 select (chosen per tile at compile time), so 'fast'
+// is bitwise 'masked' wherever no d2 == 0 pair is dropped. The operands
+// [split([g | m]) | split([p | 1])] are formed from the staged body as the
+// wrapper's _split8 forms them (hi = bf16(v), lo = bf16(v - hi), v - hi
+// exact in fp32), so they are the plain version's bits. w's rsqrt is
+// rsqrt.approx.ftz (slot_body.cuh rsqrt_normal): for any softening >=
+// 2^-126 it is rsqrtf's result, and on a denormal r2 w and u overflow to
+// inf either way.
 //
 // Numerics against the plain version: the fp32 pipeline of w and c is
 // written with round-to-nearest intrinsics in the plain version's order of
 // operations (no FMA contraction), so the kernel's fp32 w and c are the
-// plain version's wherever rsqrtf is torch.rsqrt's, and both round them to
-// the same bf16; what remains is the order of the fp32 sums.
+// plain version's wherever the rsqrt is torch.rsqrt's, and both round them
+// to the same bf16; what remains is the order of the fp32 sums.
 //
 // Pads: the wrappers pad B13's positions with FAR (zero mass in mass mode)
 // and zero cotangents, and B14 fills its ragged edges with the same in
@@ -74,17 +94,20 @@
 // only in pad rows.
 //
 // What bounds them on an H100: the fp32 pipeline of w and c (~30 fp32
-// operations and one rsqrt per pair, JAX's count, vjp_mxu.py:367), then
-// shared memory: each bf16 tile element is written once and read by two
-// wmma loads (B13: rows and reactions). The products are 32 x 8 x T
-// (N = 8) and keep the tensor cores mostly idle. B13 takes 64,000 bytes of
-// shared memory per CTA at T = 64 and 177,152 at T = 128; B14 89,088 at
-// T = 128. The launches raise the dynamic limit first and return
-// cudaGetLastError().
+// operations and one rsqrt per pair, JAX's count, vjp_mxu.py:367). B13 then
+// pays shared memory: each bf16 tile element is written once and read by
+// two wmma loads (rows and reactions); its products are 32 x 8 x T (N = 8)
+// and keep the tensor cores mostly idle. B13 takes 64,000 bytes of shared
+// memory per CTA at T = 64 and 177,152 at T = 128 (its launch raises the
+// dynamic limit first); B14 25,088 bytes of static shared memory at T =
+// 128, and its issue rate: ~30 instructions per pair by the count of its
+// source. The launches return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "slot_body.cuh"
 
 namespace {
 
@@ -138,8 +161,8 @@ __device__ __forceinline__ void wc(const float* P, const float* Q, int r,
   cc = __fmul_rn(3.f, __fmul_rn(u, diff));
 }
 
-// Stage T bodies starting at row `row0` of pos (n, K), g (n, 3) and, when q
-// is given, the operands q (n, 16) -> Qg, Qp (T x 8 bf16). Rows past n are
+// Stage T bodies starting at row `row0` of pos (n, K), g (n, 3) and the
+// operands q (n, 16) -> Qg, Qp (T x 8 bf16). Rows past n are
 // FAR with zero mass, cotangent and operands.
 template <int T, int K>
 __device__ __forceinline__ void stage(const float* __restrict__ pos,
@@ -157,7 +180,6 @@ __device__ __forceinline__ void stage(const float* __restrict__ pos,
     const int r = t / 3, k = t % 3, row = row0 + r;
     S[(4 + k) * T + r] = row < n ? g[static_cast<size_t>(row) * 3 + k] : 0.f;
   }
-  if (q == nullptr) return;
   for (int t = threadIdx.x; t < T * 16; t += kThreads) {
     const int r = t / 16, k = t % 16, row = row0 + r;
     const float v = row < n ? q[static_cast<size_t>(row) * 16 + k] : 0.f;
@@ -388,107 +410,262 @@ int dispatch_mxu(const int* slots, int n_slots, int n_sys, long long sys_rows,
 
 // ---------------------------------------------------------------- B14 ---
 
+// One 16-row strip per warp (2T threads per CTA of T receivers), compiled
+// for 24 warps per SM with masses (at most 85 registers) and 16 with unit
+// masses, which spilled at 24 (80 registers). PERF.md: two strips per
+// warp, as B6, ran slower at 8, 12 and 16 warps per SM, and one strip at 16
+// or 32 warps no faster than at 24.
+
+// Warps per SM B14 is compiled for, with masses (K = 4) or unit masses.
+template <int K>
+__host__ __device__ constexpr int rect_warps() {
+  return K == 4 ? 24 : 16;
+}
+
 template <int T>
-constexpr size_t rect_smem_bytes() {
-  return 2 * T * (T + 8) * sizeof(__nv_bfloat16)  // W, C
-         + 2 * T * 8 * sizeof(__nv_bfloat16)      // Qg, Qp of the j tile
-         + kWarps * 32 * 8 * sizeof(float)        // per-warp products
-         + 2 * kRows * T * sizeof(float);         // k and j blocks
+__host__ __device__ constexpr int rect_threads() {
+  return 2 * T;  // T of them stage the j tile
+}
+
+// One staged j tile: (x, y, z, m) and (gx, gy, gz, 0) per body, and the
+// B operands' transposes in bf16 (rows padded to T + 8): rows 0-7 are
+// Qg^T = [hi | lo] of [g | m], rows 8-15 Qp^T = [hi | lo] of [p | 1].
+template <int T>
+struct RectTile {
+  static constexpr int LDV = T + 8;
+  float4 p[T];
+  float4 g[T];
+  __nv_bfloat16 vt[16 * LDV];
+};
+
+// A lane's receivers: rows r0 = 16 warp + g and r0 + 8 of the CTA's tile,
+// (x, y, z, m) and (gx, gy, gz).
+struct RectRows {
+  int r0;
+  float4 p0, p1;
+  float3 g0, g1;
+};
+
+// fp32 w and c of receiver (p, gp) against source (q, gq), every product and
+// sum rounded on its own in the plain version's order (vjp_mxu.py _wc); kD2
+// zeroes w and u where d2 == 0.
+template <bool kMass, bool kD2>
+__device__ __forceinline__ void rect_wc(const float4& p, const float3& gp,
+                                        const float4& q, const float4& gq,
+                                        float softening, float& w,
+                                        float& cc) {
+  const float dx = __fsub_rn(q.x, p.x);
+  const float dy = __fsub_rn(q.y, p.y);
+  const float dz = __fsub_rn(q.z, p.z);
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                             __fmul_rn(dz, dz));
+  const float inv = slot_body::rsqrt_normal(__fadd_rn(d2, softening));
+  const float inv2 = __fmul_rn(inv, inv);
+  w = __fmul_rn(inv2, inv);
+  float u = __fmul_rn(w, inv2);
+  if (kD2 && d2 == 0.f) w = u = 0.f;
+  const float dot_a = __fadd_rn(
+      __fadd_rn(__fmul_rn(gp.x, dx), __fmul_rn(gp.y, dy)),
+      __fmul_rn(gp.z, dz));
+  const float dot_b = __fadd_rn(
+      __fadd_rn(__fmul_rn(gq.x, dx), __fmul_rn(gq.y, dy)),
+      __fmul_rn(gq.z, dz));
+  const float diff = kMass ? __fsub_rn(__fmul_rn(q.w, dot_a),
+                                       __fmul_rn(p.w, dot_b))
+                           : __fsub_rn(dot_a, dot_b);
+  cc = __fmul_rn(3.f, __fmul_rn(u, diff));
+}
+
+// One j tile's products, from fresh fragments: ag = W @ Qg and ap = C @ Qp
+// over the tile's T / 16 column steps. Per step a lane computes the 8 (w, c)
+// of its m16n8k16 A fragments, packs them to bf16 pairs and runs both
+// products at once.
+template <int T, bool kMass, bool kD2>
+__device__ __forceinline__ void rect_tile(const RectRows& rw,
+                                          const RectTile<T>& jt,
+                                          float softening,
+                                          float (&ag)[4], float (&ap)[4]) {
+  constexpr int LDV = RectTile<T>::LDV;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t* vg = reinterpret_cast<const uint32_t*>(jt.vt + g * LDV);
+  const uint32_t* vp =
+      reinterpret_cast<const uint32_t*>(jt.vt + (8 + g) * LDV);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) ag[q] = ap[q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < T / 16; ++s) {
+    // The lane's columns: c0, c0 + 1 (A registers 0, 1), c0 + 8, c0 + 9
+    // (registers 2, 3).
+    const int c0 = 16 * s + 2 * t;
+    const int cs[4] = {c0, c0 + 1, c0 + 8, c0 + 9};
+    float4 q[4], gq[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      q[k] = jt.p[cs[k]];
+      gq[k] = jt.g[cs[k]];
+    }
+    const uint32_t bg0 = vg[c0 / 2], bg1 = vg[(c0 + 8) / 2];
+    const uint32_t bp0 = vp[c0 / 2], bp1 = vp[(c0 + 8) / 2];
+    float w[2][4], c[2][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      rect_wc<kMass, kD2>(rw.p0, rw.g0, q[k], gq[k], softening, w[0][k],
+                          c[0][k]);
+      rect_wc<kMass, kD2>(rw.p1, rw.g1, q[k], gq[k], softening, w[1][k],
+                          c[1][k]);
+    }
+    // A fragment: (r0, c0..c0+1), (r0 + 8, c0..c0+1), (r0, c0+8..c0+9),
+    // (r0 + 8, c0+8..c0+9).
+    const uint32_t aw[4] = {slot_body::pack_bf16x2(w[0][0], w[0][1]),
+                            slot_body::pack_bf16x2(w[1][0], w[1][1]),
+                            slot_body::pack_bf16x2(w[0][2], w[0][3]),
+                            slot_body::pack_bf16x2(w[1][2], w[1][3])};
+    const uint32_t ac[4] = {slot_body::pack_bf16x2(c[0][0], c[0][1]),
+                            slot_body::pack_bf16x2(c[1][0], c[1][1]),
+                            slot_body::pack_bf16x2(c[0][2], c[0][3]),
+                            slot_body::pack_bf16x2(c[1][2], c[1][3])};
+    slot_body::mma_bf16(ag, aw, bg0, bg1);
+    slot_body::mma_bf16(ap, ac, bp0, bp1);
+  }
+}
+
+// Receiver `row` (FAR with zero mass and cotangent past nk).
+template <int K>
+__device__ __forceinline__ void rect_receiver(const float* __restrict__ pos,
+                                              const float* __restrict__ g,
+                                              int row, int nk, float4& p,
+                                              float3& gp) {
+  p = make_float4(kFar, kFar, kFar, 0.f);
+  gp = make_float3(0.f, 0.f, 0.f);
+  if (row >= nk) return;
+  const float* pr = pos + static_cast<size_t>(row) * K;
+  p = make_float4(pr[0], pr[1], pr[2], K == 4 ? pr[3] : 1.f);
+  const float* gr = g + static_cast<size_t>(row) * 3;
+  gp = make_float3(gr[0], gr[1], gr[2]);
 }
 
 template <int T, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(
+    rect_threads<T>(),
+    slot_body::stream_min_ctas(rect_threads<T>(), rect_warps<K>()))
     vjp_rect_mxu_kernel(const float* __restrict__ pos_k,
                         const float* __restrict__ g_k, int nk,
                         const float* __restrict__ pos_j,
-                        const float* __restrict__ g_j,
-                        const float* __restrict__ q_j, int nj,
+                        const float* __restrict__ g_j, int nj,
                         float* __restrict__ rows, float softening,
                         int overlap_only) {
-  constexpr int LD = T + 8;
-  constexpr int kTile = T * LD;
-  constexpr int kMTiles = T / 32;
+  constexpr int LDV = RectTile<T>::LDV;
   constexpr bool kMass = K == 4;
-  static_assert(2 * kMTiles <= kWarps, "one warp per output fragment");
+  __shared__ RectTile<T> tiles[2];
+  __shared__ __align__(16) float S[T * 16];
+  const int kt = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Wt = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ct = Wt + kTile;
-  __nv_bfloat16* Qg = Ct + kTile;
-  __nv_bfloat16* Qp = Qg + T * 8;
-  float* scratch = reinterpret_cast<float*>(Qp + T * 8);
-  float* SK = scratch + kWarps * 32 * 8;
-  float* SJ = SK + kRows * T;
+  // The lane's receivers and their running sums (hi and lo columns).
+  RectRows rw;
+  float sg[4], sp[4];
+  rw.r0 = 16 * warp + g;
+  rect_receiver<K>(pos_k, g_k, kt * T + rw.r0, nk, rw.p0, rw.g0);
+  rect_receiver<K>(pos_k, g_k, kt * T + rw.r0 + 8, nk, rw.p1, rw.g1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) sg[q] = sp[q] = 0.f;
 
-  const int kt = blockIdx.x;
-  stage<T, K>(pos_k, g_k, nullptr, kt * T, nk, SK, nullptr, nullptr);
-
-  // Warp -> (product, 32-row tile): product 0 is W @ Qg, 1 is C @ Qp.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int prod = warp / kMTiles, m = warp % kMTiles;
-  const bool active = prod < 2;
-  const __nv_bfloat16* A = prod == 0 ? Wt : Ct;
-  const __nv_bfloat16* Bop = prod == 0 ? Qg : Qp;
-  Frag f, tile_part;
-  wmma::fill_fragment(f, 0.f);
+  // Source jt * T + tid in registers: loaded one tile ahead, then staged.
+  float x, y, z, m, hx, hy, hz;
+  bool real;
+  auto load = [&](int jt) {
+    const int row = jt * T + tid;
+    real = row < nj;
+    x = y = z = kFar;
+    m = hx = hy = hz = 0.f;
+    if (!real) return;
+    const float* pr = pos_j + static_cast<size_t>(row) * K;
+    x = pr[0];
+    y = pr[1];
+    z = pr[2];
+    m = K == 4 ? pr[3] : 1.f;
+    const float* gr = g_j + static_cast<size_t>(row) * 3;
+    hx = gr[0];
+    hy = gr[1];
+    hz = gr[2];
+  };
+  // The operands [g | m] and [p | 1] split into bf16 hi and lo halves, as
+  // the wrapper's _split8 (hi = bf16(v), lo = bf16(v - hi)); zero for pads.
+  auto stage = [&](RectTile<T>& b) {
+    b.p[tid] = make_float4(x, y, z, m);
+    b.g[tid] = make_float4(hx, hy, hz, 0.f);
+    const float v[8] = {hx, hy, hz, m, x, y, z, 1.f};
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = (k / 4) * 8 + k % 4;  // Qg^T rows 0-3, Qp^T rows 8-11
+      const __nv_bfloat16 hi = __float2bfloat16_rn(v[k]);
+      const __nv_bfloat16 lo =
+          __float2bfloat16_rn(__fsub_rn(v[k], __bfloat162float(hi)));
+      b.vt[r * LDV + tid] = real ? hi : zero;
+      b.vt[(r + 4) * LDV + tid] = real ? lo : zero;
+    }
+  };
 
   const int n_jt = (nj + T - 1) / T;
+  const bool stager = tid < T;
+  if (stager) load(0);
   for (int jt = 0; jt < n_jt; ++jt) {
-    __syncthreads();  // the previous tile's products are done
-    stage<T, K>(pos_j, g_j, q_j, jt * T, nj, SJ, Qg, Qp);
+    // Buffer jt & 1 was last read two tiles ago, before the last barrier.
+    RectTile<T>& b = tiles[jt & 1];
+    if (stager) stage(b);
     __syncthreads();
-    const bool mask = !overlap_only || jt == kt;
-    for (int e = threadIdx.x; e < T * T; e += kThreads) {
-      const int r = e / T, c = e % T;
-      float w, cc, dot_a, dot_b;
-      wc<T, kMass>(SK, SJ, r, c, softening, mask, w, cc, dot_a, dot_b);
-      Wt[r * LD + c] = __float2bfloat16_rn(w);
-      Ct[r * LD + c] = __float2bfloat16_rn(cc);
-    }
-    __syncthreads();
-    if (active) {
-      wmma::fill_fragment(tile_part, 0.f);
-#pragma unroll 2
-      for (int k = 0; k < T / 16; ++k) {
-        FragB b;
-        wmma::load_matrix_sync(b, Bop + k * 16 * 8, 8);
-        FragA a;
-        wmma::load_matrix_sync(a, A + m * 32 * LD + k * 16, LD);
-        wmma::mma_sync(tile_part, a, b, tile_part);
-      }
+    if (stager && jt + 1 < n_jt) load(jt + 1);
+    float ag[4], ap[4];
+    if (!overlap_only || jt == kt)
+      rect_tile<T, kMass, true>(rw, b, softening, ag, ap);
+    else
+      rect_tile<T, kMass, false>(rw, b, softening, ag, ap);
 #pragma unroll
-      for (int q = 0; q < tile_part.num_elements; ++q)
-        f.x[q] = __fadd_rn(f.x[q], tile_part.x[q]);
+    for (int q = 0; q < 4; ++q) {
+      sg[q] = __fadd_rn(sg[q], ag[q]);
+      sp[q] = __fadd_rn(sp[q], ap[q]);
     }
   }
-  if (!active) return;
-  float* s = scratch + warp * 32 * 8;
-  wmma::store_matrix_sync(s, f, 8, wmma::mem_row_major);
-  __syncwarp();
-  const int row = kt * T + m * 32 + lane;
-  if (row < nk) {
-    float v[4];
-    fold_row(s, lane, v);
+
+  // Epilogue, one thread per receiver: fold hi + lo of both products. C
+  // fragments: (row r0, columns 2t, 2t + 1), (row r0 + 8, the same); S holds
+  // a row's [S_g | S_p] hi and lo columns (16 floats).
+  float* a = S + rw.r0 * 16 + 2 * t;
+  float* b = a + 8 * 16;
+  *reinterpret_cast<float2*>(a) = make_float2(sg[0], sg[1]);
+  *reinterpret_cast<float2*>(b) = make_float2(sg[2], sg[3]);
+  *reinterpret_cast<float2*>(a + 8) = make_float2(sp[0], sp[1]);
+  *reinterpret_cast<float2*>(b + 8) = make_float2(sp[2], sp[3]);
+  __syncthreads();
+  const int row = kt * T + tid;
+  if (tid >= T || row >= nk) return;
+  const float* s = S + tid * 16;
+  float* o = rows + static_cast<size_t>(row) * 8;
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      rows[static_cast<size_t>(row) * 8 + prod * 4 + q] = v[q];
+  for (int q = 0; q < 4; ++q) {
+    o[q] = __fadd_rn(s[q], s[q + 4]);
+    o[4 + q] = __fadd_rn(s[8 + q], s[12 + q]);
   }
 }
 
-template <int T, int K>
-int launch_rect(const float* pos_k, const float* g_k, int nk,
-                const float* pos_j, const float* g_j, const float* q_j,
-                int nj, float* rows, float softening, int overlap_only,
-                cudaStream_t stream) {
-  constexpr size_t smem = rect_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      vjp_rect_mxu_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (nk + T - 1) / T;
-  vjp_rect_mxu_kernel<T, K><<<grid, kThreads, smem, stream>>>(
-      pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows, softening, overlap_only);
-  return static_cast<int>(cudaGetLastError());
+using RectKernel = void (*)(const float*, const float*, int, const float*,
+                            const float*, int, float*, float, int);
+
+// B14's kernel for (tile, masses) and its threads per CTA, or nullptr.
+RectKernel pick_rect(int tile, int masses, int* threads) {
+  if (tile == 64) {
+    *threads = rect_threads<64>();
+    return masses ? vjp_rect_mxu_kernel<64, 4> : vjp_rect_mxu_kernel<64, 3>;
+  }
+  if (tile == 128) {
+    *threads = rect_threads<128>();
+    return masses ? vjp_rect_mxu_kernel<128, 4>
+                  : vjp_rect_mxu_kernel<128, 3>;
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -524,30 +701,41 @@ extern "C" int vjp_mxu_launch(const int* slots, int n_slots, int n_sys,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// B14. pos_k (nk, 3|4), g_k (nk, 3); pos_j (nj, 3|4), g_j (nj, 3), q_j
-// (nj, 16) operands as B13's; rows (nk, 8) raw [S_g | S_p] out; masses: the
-// positions carry m as a 4th column; fp32, contiguous, on the current
-// device. overlap_only: mask d2 == 0 only in the j tile that is the CTA's k
-// tile (square calls). tile: 64 or 128. Returns cudaGetLastError().
+// B14. pos_k (nk, 3|4), g_k (nk, 3); pos_j (nj, 3|4), g_j (nj, 3); rows
+// (nk, 8) raw [S_g | S_p] out; masses: the positions carry m as a 4th
+// column; fp32, contiguous, on the current device. The kernel forms the
+// operands [split([g | m]) | split([p | 1])] of each staged j body itself.
+// overlap_only: mask d2 == 0 only in the j tile that is the CTA's k tile
+// (square calls). tile: 64 or 128. Returns cudaGetLastError().
 extern "C" int vjp_rect_mxu_launch(const float* pos_k, const float* g_k,
                                    int nk, const float* pos_j,
-                                   const float* g_j, const float* q_j, int nj,
-                                   float* rows, int masses, int tile,
-                                   float softening, int overlap_only,
-                                   void* stream) {
+                                   const float* g_j, int nj, float* rows,
+                                   int masses, int tile, float softening,
+                                   int overlap_only, void* stream) {
   if (nk == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 64 && !masses)
-    return launch_rect<64, 3>(pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows,
-                              softening, overlap_only, s);
-  if (tile == 64 && masses)
-    return launch_rect<64, 4>(pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows,
-                              softening, overlap_only, s);
-  if (tile == 128 && !masses)
-    return launch_rect<128, 3>(pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows,
-                               softening, overlap_only, s);
-  if (tile == 128 && masses)
-    return launch_rect<128, 4>(pos_k, g_k, nk, pos_j, g_j, q_j, nj, rows,
-                               softening, overlap_only, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  int threads = 0;
+  const RectKernel kernel = pick_rect(tile, masses, &threads);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<(nk + tile - 1) / tile, threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(pos_k, g_k, nk, pos_j, g_j,
+                                                nj, rows, softening,
+                                                overlap_only);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: registers per thread, local bytes per thread, CTAs per SM and
+// threads per CTA (two a receiver) of B14's kernel for (tile, masses).
+extern "C" int vjp_rect_mxu_info(int tile, int masses, int* out) {
+  int threads = 0;
+  const RectKernel kernel = pick_rect(tile, masses, &threads);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      threads, 0);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[3] = threads;
+  return static_cast<int>(err);
 }

@@ -17,7 +17,9 @@ softening 1e-9 the self pair's eps^-1.5 weight would swamp the fp32 sums
 
 - ``vjp_pos_direct`` (JAX ``vjp_pos_pallas``; the port names that backend
   ``direct``) and ``vjp_pos_rect`` launch B10, the ordered kernel of
-  ``csrc/vjp_kernel.cu``; CPU tensors take ``vjp_ordered_plain``.
+  ``csrc/vjp_kernel.cu`` (register micro-tiles of up to 4 receivers a
+  thread, the mass terms fused per pair; its bits depend on ``block``
+  alone); CPU tensors take ``vjp_ordered_plain``.
 - ``vjp_pos_sym`` launches B11 (same source) on K3's slot + fold geometry
   and chunk loop (``ops/symmetric_force.py``): each unordered pair's w and
   u once, and its term t = w (m_a g_b - m_b g_a) + c d, c = 3 u (m_b (g_a.d)
@@ -45,8 +47,10 @@ packing, FAR tails with zero mass in both mass modes, and zero cotangents
 
 ``vjp_pos_pair`` (JAX ``:776-949``) launches B12, the 2-D grid's backward
 (``parallel/sharded.py``): the VJP of the ordered pairs a <- b with a's
-cotangents only, as two one-sided launches of B10's kernel, the receiver
-half for a_bar and the source half for b_bar, every tile masked. CPU
+cotangents only, as two one-sided launches of the ordered kernel's
+one-side loop (one thread per receiver, B10's shape before its register
+micro-tiles), the receiver half for a_bar and the source half for b_bar,
+every tile masked. CPU
 tensors take ``vjp_pos_pair_plain``, JAX's ``_onesided_grad_block`` in row
 blocks.
 """
@@ -158,6 +162,14 @@ def vjp_ordered_plain(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
     if not out:
         return pos_k.new_zeros((0, 3))
     return torch.cat(out)
+
+
+def ordered_receivers(block: int) -> int:
+    """Receivers per thread of B10 at ``block`` (csrc/vjp_kernel.cu
+    ``ordered_r``): 4 where block / 4 threads keep whole warps, else 2, else
+    1. Thread i of a CTA owns receivers i + (block / R) r, r < R, so a CTA
+    runs block / R threads, the count ``vjp_ordered_info`` reports."""
+    return 4 if block % 128 == 0 else 2 if block % 64 == 0 else 1
 
 
 def _ordered(pos_k, g_k, pos_j, g_j, mass_k, mass_j, softening, block,

@@ -29,7 +29,9 @@ in fp32.
   fold geometry and the chunk loop of K3, summing deterministically
   (``slot_pipe.run_slot_pieces``); CPU tensors take ``vjp_mxu_sums_plain``.
 - ``vjp_rect_mxu`` launches B14 (same source), B13's row half on a full
-  rectangular grid; CPU tensors take ``vjp_rect_mxu_plain``.
+  rectangular grid, with w and c packed straight into ``mma.sync``
+  fragments (the kernel forms the split operands of each staged body
+  itself); CPU tensors take ``vjp_rect_mxu_plain``.
 
 The plain versions compute w and c in fp32 in the kernels' order of
 operations; ``mma_dtype=torch.float32`` multiplies in fp32 (JAX's CPU
@@ -75,6 +77,15 @@ from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
 #: NVIDIA H100 80GB HBM3 at 700 W), with a quarter of the slots.
 DEFAULT_TILE = 128
 RECT_TILE = 128
+
+
+def rect_threads(tile: int) -> int:
+    """Threads per CTA of B14 at ``tile`` (csrc/vjp_mxu.cu ``rect_threads``,
+    the count ``vjp_rect_mxu_info`` reports): one warp per 16-row strip of
+    the tile's receivers, warp w's lane l owning rows 16 w + l / 4 and that
+    + 8 of every m16n8k16 step."""
+    return 2 * tile
+
 
 #: Kernel launches on CUDA tensors, counted at each launch: made by
 #: vjp_mxu_sums_ (B13, one per piece of the slot list,
@@ -461,16 +472,14 @@ def vjp_rect_mxu_rows(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
     masses = mass_k is not None
     pk = torch.cat([pos_k, mass_k[:, None]], 1) if masses else pos_k
     pj = torch.cat([pos_j, mass_j[:, None]], 1) if masses else pos_j
-    qj = _operands(pj, g_j)
     global RECT_LAUNCHES
     lib = _build.load_library()
     rows = torch.empty((nk, 8), dtype=f32, device=device)
     with torch.cuda.device(device):
         code = lib.vjp_rect_mxu_launch(
             pk.data_ptr(), g_k.data_ptr(), nk, pj.data_ptr(),
-            g_j.data_ptr(), qj.data_ptr(), nj,
-            rows.data_ptr(), int(masses), tile, float(softening),
-            int(overlap_only), _build.stream_ptr(device))
+            g_j.data_ptr(), nj, rows.data_ptr(), int(masses), tile,
+            float(softening), int(overlap_only), _build.stream_ptr(device))
     _build.check(lib, code, "vjp_rect_mxu_launch")
     RECT_LAUNCHES += 1
     return rows

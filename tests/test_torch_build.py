@@ -1,10 +1,12 @@
 """The kernel build's report helpers on the CPU: nvcc's ptxas report parsed
 per kernel (registers and spill bytes, as chip_smoke.py prints them beside
-the slot bodies' times), and ab_slots.py's CTAs-per-SM count for trees
-without an occupancy query, its choice of a kernel's report entry between
-two trees' names, and its output digests."""
+the slot bodies' times), the ctypes signatures against the C entry points of
+csrc/*.cu, and ab_slots.py's CTAs-per-SM count for trees without an
+occupancy query, its choice of a kernel's report entry between two trees'
+names, its output digests and its count of a SASS loop's instructions."""
 
 import os
+import re
 import sys
 
 import pytest
@@ -48,6 +50,8 @@ def test_ptxas_report_per_kernel():
     (168, 128, 28928, 3),   # K2's register body (two strips a warp)
     (80, 256, 45312, 3),
     (32, 64, 1024, 32),     # the CTA limit
+    (78, 256, 89088, 2),    # B14's shared W and C tiles at tile 128
+    (40, 512, 16384, 3),    # B10 one thread per receiver at block 512
 ])
 def test_ctas_per_sm(regs, threads, smem, ctas):
     assert ab_slots.ctas_per_sm(regs, threads, smem) == ctas
@@ -69,7 +73,20 @@ NEW_LOG = (_entry(B16_OLD.replace("ELb0EE", "ELb0ELb0EE"), 168)
 OLD_LOG = _entry(B16_OLD, 32)
 
 
+B10_OLD = ("_ZN12_GLOBAL__N_118vjp_ordered_kernelILb1ELi0EEEvPKfS2_S2_iS2_S2_"
+           "S2_iPffi")
+B10_NEW = ("_ZN12_GLOBAL__N_118vjp_ordered_kernelILi4ELb1EEEvPKfS2_S2_iS2_S2_"
+           "S2_iPffi")
+B14 = ("_ZN12_GLOBAL__N_119vjp_rect_mxu_kernelILi128ELi4EEEvPKfS2_iS2_S2_"
+       "iPffi")
+
+
 @pytest.mark.parametrize("log,names,regs", [
+    (_entry(B10_OLD, 40), ab_slots.SLOT_KERNELS["B10"], 40),
+    (_entry(B10_NEW.replace("Li4E", "Li2E"), 93) + _entry(B10_NEW, 128),
+     ab_slots.SLOT_KERNELS["B10"], 128),
+    (_entry(B14.replace("Li4EE", "Li3EE"), 80) + _entry(B14, 78),
+     ab_slots.SLOT_KERNELS["B14"], 78),
     (NEW_LOG, ab_slots.SLOT_KERNELS["B16"], 158),
     (OLD_LOG, ab_slots.SLOT_KERNELS["B16"], 32),
     # The parent's name alone matches this tree's first B16, the wrong one.
@@ -89,3 +106,44 @@ def test_digest_is_of_the_bits():
     assert ab_slots.digest(a) != ab_slots.digest(-a)  # 0.0 and -0.0 differ
     assert ab_slots.digest(a, a) != ab_slots.digest(a)
     assert len(ab_slots.digest(a)) == 16
+
+
+#: A SASS listing in cuobjdump's form: a loop of 6 instructions with 2
+#: rsqrts (a backward branch to its label), inside it a predicated branch
+#: forward, then a loop by address with 1 rsqrt, and a loop with none.
+SASS = """
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   FADD R2, R3, R4 ;
+        /*0020*/                   MUFU.RSQ R5, R2 ;
+        /*0030*/               @P0 BRA `(.L_x_2) ;
+        /*0040*/                   MUFU.RSQ R6, R2 ;
+.L_x_2:
+        /*0050*/                   FFMA R7, R5, R6, R7 ;
+        /*0060*/               @P1 BRA `(.L_x_1) ;
+        /*0070*/                   MUFU.RSQ R8, R7 ;
+        /*0080*/                   BRA 0x70 ;
+        /*0090*/                   IADD3 R9, R9, 0x1, RZ ;
+        /*00a0*/               @P2 BRA `(.L_x_3) ;
+.L_x_3:
+        /*00b0*/                   BRA 0x90 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_sass_loops_count_each_rsqrt_loop():
+    assert ab_slots.sass_loops(SASS) == [(6, 2), (2, 1)]
+    assert ab_slots.sass_loops("") == []
+
+
+def test_signatures_match_the_c_entry_points():
+    # Every C entry of csrc/*.cu has a ctypes signature with its number of
+    # arguments, and every signature names an entry.
+    entries = {}
+    for src in _build.CSRC.glob("*.cu"):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern "C"[^(]*?(\w+)\(([^)]*)\)', text):
+            entries[m.group(1)] = len(m.group(2).split(","))
+    assert set(entries) == set(_build.SIGNATURES)
+    for name, (argtypes, _) in _build.SIGNATURES.items():
+        assert len(argtypes) == entries[name], name

@@ -59,7 +59,12 @@ The pair-once slot kernels K2, K3, B11 and B13 sum in a fixed order: two
 runs are bitwise equal, 'auto' and 'fast' are bitwise 'masked', a
 checkpointed rollout gradient is bitwise the unchecked one, and every system
 of an ensemble (B9a on K2, B9b on K3) is bitwise its standalone call. B14
-against its bf16-mode plain version with 131,072 sources per row."""
+against its bf16-mode plain version with 131,072 sources per row.
+
+The ordered VJPs' register designs: B14 at tiles 64 and 128 and B10 at
+blocks 32 to 1024, ragged, twice bitwise and 'fast' bitwise 'masked' on
+duplicate-free bodies, against their plain versions at the bounds above;
+their registers, spills and CTAs per SM from their occupancy queries."""
 
 import numpy as np
 import pytest
@@ -645,6 +650,47 @@ def test_b14_vs_bf16_plain(cuda, tile, masses, square):
     _close(full, vk.vjp_pos_sym(pos, g, m, 1e-9), 2e-2, 5e-3)
 
 
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("n", [1, 17, 3001, 8193])
+def test_b14_reruns_bitwise(cuda, tile, masses, square, n):
+    # B14's register design (one 16-row strip per warp, w and c packed
+    # straight into mma.sync fragments, a fresh fragment per j tile): two
+    # runs give the same bits, square calls under 'fast' those of 'masked'
+    # (no two distinct bodies coincide), and the rows stay in the bf16
+    # class of the plain sums per column. n = 1 and 17 leave one ragged
+    # tile; 3001 and 8193 a ragged last k and j tile.
+    pos, g, m = _vjp_case(n, 48, masses, cuda)
+    k = n if square else max(1, n // 3)
+    pk_, gk_ = pos[:k].contiguous(), g[:k].contiguous()
+    mk = None if m is None else m[:k].contiguous()
+    args = (pk_, gk_, pos, g, mk, m, 1e-2, tile)
+    got = vm.vjp_rect_mxu_rows(*args, "fast" if square else None)
+    assert torch.equal(got, vm.vjp_rect_mxu_rows(
+        *args, "fast" if square else None))
+    if square:
+        assert torch.equal(got, vm.vjp_rect_mxu_rows(*args, "masked"))
+    _close_cols(got, vm.vjp_rect_mxu_plain(pk_, gk_, pos, g, mk, m, 1e-2,
+                                           mma_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("block", [32, 64, 512, 1024])
+@pytest.mark.parametrize("masses", [False, True])
+def test_b10_micro_tiles_rerun_bitwise(cuda, block, masses):
+    # B10's register micro-tiles (4 receivers a thread at 512 and 1024, 2 at
+    # 64, 1 at 32): 3001 receivers leave a ragged last block and micro-tile.
+    # Two runs give the same bits, 'fast' those of 'masked', and the rows
+    # stay at the K1 bound of the plain version.
+    pos, g, m = _vjp_case(3001, 49, masses, cuda)
+    got = vk.vjp_pos_direct(pos, g, m, 1e-2, block=block, coincident="fast")
+    assert torch.equal(got, vk.vjp_pos_direct(pos, g, m, 1e-2, block=block,
+                                              coincident="fast"))
+    assert torch.equal(got, vk.vjp_pos_direct(pos, g, m, 1e-2, block=block,
+                                              coincident="masked"))
+    _close(got, vk.vjp_ordered_plain(pos, g, pos, g, m, m, 1e-2), 1e-3, 1e-4)
+
+
 def test_kernels_refuse_inputs_that_require_grad(cuda):
     pos = _pos(256, 26, cuda).requires_grad_(True)
     with pytest.raises(RuntimeError, match="make_differentiable_force"):
@@ -841,17 +887,17 @@ def test_b6_ragged_vs_bf16_plain(cuda, ni, nj, masses, softening):
         assert torch.equal(f, mf._epilogue(pi, s))
 
 
-def _occupancy(fn, *args):
+def _occupancy(fn, *args, threads=False):
     """(registers, local bytes, CTAs per SM) from a kernel's occupancy
-    query."""
+    query; with threads, B10's, B12's or B14's threads per CTA as well."""
     import ctypes
 
     from mini_nbody_tpu_torch import _build
 
     lib = _build.load_library()
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
-    return tuple(out)
+    return tuple(out) if threads else tuple(out)[:3]
 
 
 @pytest.mark.parametrize("masses", [0, 1])
@@ -869,6 +915,42 @@ def test_b16_registers_without_spills(cuda, tile, split_w, fast):
     regs, local, ctas = _occupancy("band_mxu_info", tile, split_w, fast)
     cap, warps = (168, 12) if split_w else (128, 16)
     assert regs <= cap and local == 0 and ctas * tile // 32 >= warps
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses", [0, 1])
+def test_b14_registers_without_spills(cuda, tile, masses):
+    # One strip per warp; 24 warps per SM with masses (at most 85
+    # registers), 16 with unit masses (at most 128).
+    regs, local, ctas = _occupancy("vjp_rect_mxu_info", tile, masses)
+    cap, warps = (85, 24) if masses else (128, 16)
+    assert regs <= cap and local == 0 and ctas * 2 * tile // 32 >= warps
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses", [0, 1])
+def test_b14_threads_are_the_design(cuda, tile, masses):
+    # tests/test_torch_vjp_design.py models B14 at vm.rect_threads(tile).
+    *_, threads = _occupancy("vjp_rect_mxu_info", tile, masses, threads=True)
+    assert threads == vm.rect_threads(tile)
+
+
+@pytest.mark.parametrize("block", [32, 64, 96, 128, 256, 512, 1024])
+@pytest.mark.parametrize("masses", [0, 1])
+def test_b10_threads_are_the_design(cuda, block, masses):
+    # tests/test_torch_vjp_design.py models B10 at
+    # vk.ordered_receivers(block) receivers a thread.
+    *_, threads = _occupancy("vjp_ordered_info", 0, block, masses,
+                             threads=True)
+    assert threads == block // vk.ordered_receivers(block)
+
+
+@pytest.mark.parametrize("block", [32, 64, 256, 512, 1024])
+@pytest.mark.parametrize("masses", [0, 1])
+def test_b10_registers_without_spills(cuda, block, masses):
+    # At most 128 registers (4 receivers a thread), so 16 warps per SM.
+    regs, local, ctas = _occupancy("vjp_ordered_info", 0, block, masses)
+    assert regs <= 128 and local == 0 and ctas >= 1
 
 
 @pytest.mark.parametrize("tile", [64, 128])
