@@ -1,9 +1,10 @@
-"""Times the register-body kernels K3, K2, B6, B16, B14 and B10 of two trees
-of this repo on one card, in turns, on the same inputs, and prints digests of
-their outputs.
+"""Times the register-body kernels K3, K2, B6, B16, B14, B10, B11 and B13 of
+two trees of this repo on one card, in turns, on the same inputs, and prints
+digests of their outputs.
 
     python3 ab_slots.py --other DIR [--turns other,this,this,other]
-                        [--only slots,band,passes,b15,b6,vjp,rollout]
+                        [--only slots,band,passes,b15,b6,vjp,rollout,
+                                pvjp,bwdmax]
 
 DIR is another checkout of the repo (for example the parent commit unpacked
 with ``git archive``, in a directory that .gitignore lists). Each turn runs
@@ -37,21 +38,38 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   3's physics: leapfrog, dt 1e-3) on ``auto`` (K3 + B10, loss on the final
   positions) and on ``sym_mxu`` (K2 + B14, loss on the final velocities),
   after a warm-up run;
+- pvjp: the pair-once VJPs B11 and B13 on plummer bodies of N = 65,536
+  with masses and a normal cotangent: one launch over the first piece of
+  the tri slot list (PIECE_SLOTS slots, no slot_reduce) at tiles 64 and
+  128, masked and maskless, with and without the mass cotangent; whole
+  ``vjp_pos_sym`` / ``vjp_pos_sym_mxu`` calls at both tiles, 'fast' and
+  'masked'; and the 16 x 65,536 ensemble backwards B9c and B9d
+  (``vjp_pos_sym_ensemble`` / ``vjp_pos_sym_mxu_ensemble``) at both tiles;
+- bwdmax: whole VJP calls with masses at N = 65,536, 131,072 and 262,144
+  (plummer, 'fast'): B11 (``vjp_pos_sym``, chunked at 131,072) against B10
+  (``vjp_pos_direct``, block 512) and B13 (``vjp_pos_sym_mxu``) against
+  B14 (``vjp_rect_mxu``), the routing ``autodiff._SYM_BWD_MAX`` sets;
 - SHA-256 digests (first 16 hex digits) of each kernel's output bytes: K3's
   and K2's sums of the timed calls, B15's final state in both classes, B6's
   raw sums and forces at 262,144 in both classes, B16's rows and columns of
-  one tri and one cross call, B14's rows, B10's and B12's outputs; equal
-  digests mean equal bits;
+  one tri and one cross call, B14's rows, B10's and B12's outputs, B11's
+  and B13's partial tiles, calls and ensemble backwards; equal digests mean
+  equal bits;
 - nvcc's ptxas report for those kernels (registers, spill bytes), and
   CTAs per SM: from the kernel's own occupancy query where the tree has one
   (``symmetric_force_info``, ``slot_pipe_info``, ``mxu_force_info``,
-  ``band_mxu_info``, ``vjp_rect_mxu_info``, ``vjp_ordered_info``), else
+  ``band_mxu_info``, ``vjp_rect_mxu_info``, ``vjp_ordered_info``,
+  ``vjp_sym_info``, ``vjp_mxu_info``), else
   computed from the registers, threads and shared memory of the body (H100:
   65,536 registers, 2048 threads, 32 CTAs and 233,472 bytes of shared
   memory per SM);
-- the SASS of B10 and B14 (``cuobjdump -sass`` of the tree's library): for
-  each loop holding a rsqrt (``MUFU.RSQ``), its instructions and rsqrts, so
-  instructions per pair of the innermost pair loop.
+- the SASS of B10, B14, B11 and B13 (``cuobjdump -sass`` of the tree's
+  library): for each loop holding a rsqrt (``MUFU.RSQ``), its instructions
+  and rsqrts, so instructions per pair of the innermost pair loop; and for
+  each straight run of code (no label, no branch) holding 8 rsqrts or more,
+  its instructions from the first rsqrt to the last and its rsqrts, so
+  instructions per pair of a pass unrolled over its pairs (B11's micro-tile,
+  B13's steps).
 The parent prints the same lines, so the two trees are compared within one
 call on one card. The card's name and power limit are printed first.
 """
@@ -72,7 +90,11 @@ N_CONFIG1, STEPS_CONFIG1, DT_CONFIG1 = 4096, 10, 0.01
 N_CONFIG3, SOFT_CONFIG3 = 262144, 1e-2
 ROLLOUT_STEPS, ROLLOUT_DT = 10, 1e-3
 REPS = 5
-SECTIONS = ("slots", "band", "passes", "b15", "b6", "vjp", "rollout")
+SECTIONS = ("slots", "band", "passes", "b15", "b6", "vjp", "rollout", "pvjp",
+            "bwdmax")
+#: pvjp: N of the launches and calls, the ensemble (B, N); bwdmax: the Ns.
+N_PVJP, ENS_PVJP = 65536, (16, 65536)
+BWDMAX_NS = (65536, 131072, 262144)
 #: Threads and dynamic shared memory per CTA of the bodies before their
 #: register designs, for trees without an occupancy query: K3 2T threads and
 #: a T x T w tile, (T (T + 1) + 8 T) floats; K2 256 threads, the bf16 W tile
@@ -81,14 +103,20 @@ SECTIONS = ("slots", "band", "passes", "b15", "b6", "vjp", "rollout")
 #: threads, its bf16 W tile, v_i, v_j and the positions (41,984 bytes); B14
 #: 256 threads, its bf16 W and C tiles, Qg, Qp, the warps' products and the
 #: k and j blocks (89,088 bytes at tile 128); B10 one thread per receiver at
-#: block 512, two float4s per staged source (16,384 bytes).
+#: block 512, two float4s per staged source (16,384 bytes); B11 2T threads,
+#: its fp32 W and C tiles (rows padded to T + 1) and the blocks (36,864
+#: bytes at tile 64); B13 256 threads, its bf16 W and C tiles for both fold
+#: sides, Qg, Qp, the warps' products, the blocks and the mass partials
+#: (177,152 bytes at tile 128).
 SHARED_W_BODIES = {"K3": (256, 70144), "K2": (256, 76800),
                    "B6": (256, 48640), "B16": (256, 41984),
-                   "B14": (256, 89088), "B10": (512, 16384)}
+                   "B14": (256, 89088), "B10": (512, 16384),
+                   "B11": (128, 36864), "B13": (256, 177152)}
 #: The timed instantiations: K3 at tile 128, unit masses, fast rsqrt; K2 and
 #: B16 at tile 128 without split_w (B16 with fast rsqrt); B6's bf16 class
 #: with masses; B14 at tile 128 and B10 at block 512, with masses. Parts of
-#: the mangled names, this tree's and the parent's.
+#: the mangled names, this tree's and the parent's; B11 at tile 64 and B13
+#: at tile 128 with masses, no mass cotangent (the parent's default tiles).
 SLOT_KERNELS = {"K3": ("symmetric_force_kernelILi128ELi3ELb1E",),
                 "K2": ("slot_pipe_kernelILi128ELb0E",),
                 "B6": ("mxu_bf16_kernelILb1E",
@@ -97,7 +125,9 @@ SLOT_KERNELS = {"K3": ("symmetric_force_kernelILi128ELi3ELb1E",),
                         "band_mxu_kernelILi128ELb0E"),
                 "B14": ("vjp_rect_mxu_kernelILi128ELi4E",),
                 "B10": ("vjp_ordered_kernelILi4ELb1E",
-                        "vjp_ordered_kernelILb1ELi0E")}
+                        "vjp_ordered_kernelILb1ELi0E"),
+                "B11": ("vjp_sym_kernelILi64ELi4ELi3E",),
+                "B13": ("vjp_mxu_kernelILi128ELi4ELi8E",)}
 
 
 def find_kernel(report, names):
@@ -163,6 +193,34 @@ def sass_loops(sass):
     return loops
 
 
+def sass_runs(sass, least=8):
+    """[(instructions, rsqrts)] of each straight run of one function's SASS
+    (no label inside, no branch or barrier) that holds at least ``least``
+    rsqrts: the instructions from its first ``MUFU.RSQ`` to its last, and
+    the rsqrts, so (instructions - 1) / (rsqrts - 1) per pair where a pass
+    is unrolled over its pairs."""
+    runs, ops = [], []
+
+    def close():
+        idx = [i for i, op in enumerate(ops) if "MUFU.RSQ" in op]
+        if len(idx) >= least:
+            runs.append((idx[-1] - idx[0] + 1, len(idx)))
+        ops.clear()
+
+    for ln in sass.splitlines():
+        if re.match(r"\s*\.L_x_\d+:", ln):
+            close()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", ln)
+        if not m:
+            continue
+        ops.append(m.group(1))
+        if re.search(r"\b(BRA|EXIT|RET|BAR)\b", m.group(1)):
+            close()
+    close()
+    return runs
+
+
 def kernel_sass(lib_path, names):
     """{mangled name: [(instructions, rsqrts) per loop]} of the kernels of
     the library whose mangled names contain one of ``names``."""
@@ -175,7 +233,7 @@ def kernel_sass(lib_path, names):
     for part in re.split(r"\n\s*Function : ", text)[1:]:
         name = part.split(None, 1)[0]
         if any(n in name for n in names):
-            out[name] = sass_loops(part)
+            out[name] = {"loops": sass_loops(part), "runs": sass_runs(part)}
     return out
 
 
@@ -400,6 +458,96 @@ def worker(tree, only):
         rec[f"rollout_grad_digest_{backend}"] = digest(grad())
         rec[f"rollout_grad_loss_on_{backend}"] = on
 
+    # B11 and B13 (pvjp) and the routing of _SYM_BWD_MAX (bwdmax) on
+    # plummer bodies with masses and a normal cotangent.
+    def plummer_case(n, seed):
+        st = init.plummer(n, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+        g = torch.randn((n, 3), generator=torch.Generator(
+            device=dev).manual_seed(seed + 1), device=dev)
+        return st, g
+
+    if "pvjp" in only:
+        sv, gv = plummer_case(N_PVJP, SEED + 4)
+        for name, mod, kos in (("B11", vk, (3, 4)), ("B13", vm, (8, 9))):
+            for tile in (64, 128):
+                if name == "B13":
+                    (_, c, _, np_), (pp, gg, qq) = vm.sums_inputs(
+                        sv.pos, gv, sv.mass, tile, CHUNK)
+                else:
+                    _, c, _, np_ = sm._resolve_tiling(N_PVJP, tile, CHUNK,
+                                                      kernel=True)
+                    pp = sf._pack(sv.pos, sv.mass, N_PVJP, np_)
+                    gg = vk._pad_rows(gv, np_)
+                table = sp.slot_table(c // tile, True, False, dev)
+                n = min(piece, table.shape[0])
+                for ko in kos:
+                    part = torch.empty(n * 2 * tile * ko, device=dev)
+                    for mask in (0, 1):
+                        def launch(name=name, tile=tile, ko=ko, mask=mask,
+                                   part=part, pp=pp, gg=gg, table=table,
+                                   n=n):
+                            if name == "B13":
+                                code = lib.vjp_mxu_launch(
+                                    table.data_ptr(), n, 1, 0, pp.data_ptr(),
+                                    pp.data_ptr(), gg.data_ptr(),
+                                    gg.data_ptr(), qq.data_ptr(),
+                                    qq.data_ptr(), part.data_ptr(), 1, ko,
+                                    tile, SOFT_CONFIG3, mask, stream)
+                            else:
+                                code = lib.vjp_sym_launch(
+                                    table.data_ptr(), n, 1, 0, pp.data_ptr(),
+                                    pp.data_ptr(), gg.data_ptr(),
+                                    gg.data_ptr(), part.data_ptr(), 4, ko,
+                                    tile, SOFT_CONFIG3, mask, stream)
+                            _build.check(lib, code, name)
+
+                        ms = time_fn(launch, reps=REPS) * 1e3
+                        launch()
+                        kind = "masked" if mask else "maskless"
+                        rec["kernels"][
+                            f"{name} launch tile {tile} ko {ko} {kind}"] = {
+                                "n": N_PVJP, "slots": n, "ms_per_launch": ms,
+                                "digest": digest(part)}
+                fn = vm.vjp_pos_sym_mxu if name == "B13" else vk.vjp_pos_sym
+                for mode in ("fast", "masked"):
+                    args = (sv.pos, gv, sv.mass, SOFT_CONFIG3, tile, CHUNK,
+                            False, mode)
+                    rec["kernels"][f"{name} call tile {tile} {mode}"] = {
+                        "n": N_PVJP,
+                        "ms_per_call": time_fn(fn, *args, reps=3) * 1e3,
+                        "digest": digest(fn(*args))}
+        b, n = ENS_PVJP
+        gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+        systems = [init.plummer(n, generator=gen, device=dev)
+                   for _ in range(b)]
+        pos_e = torch.stack([x.pos for x in systems])
+        mass_e = torch.stack([x.mass for x in systems])
+        g_e = torch.randn((b, n, 3), generator=gen, device=dev)
+        for name, fn in (("B9c", vk.vjp_pos_sym_ensemble),
+                         ("B9d", vm.vjp_pos_sym_mxu_ensemble)):
+            for tile in (64, 128):
+                args = (pos_e, g_e, mass_e, SOFT_CONFIG3, tile)
+                rec["kernels"][f"{name} backward tile {tile}"] = {
+                    "b": b, "n": n,
+                    "ms_per_call": time_fn(fn, *args, reps=3) * 1e3,
+                    "digest": digest(fn(*args))}
+    for n in BWDMAX_NS if "bwdmax" in only else ():
+        sv, gv = plummer_case(n, SEED + 8)
+        for name, fn, args in (
+                ("B11", vk.vjp_pos_sym, (sv.pos, gv, sv.mass, SOFT_CONFIG3,
+                                         None, CHUNK, False, "fast")),
+                ("B10", vk.vjp_pos_direct, (sv.pos, gv, sv.mass,
+                                            SOFT_CONFIG3, 512, "fast")),
+                ("B13", vm.vjp_pos_sym_mxu, (sv.pos, gv, sv.mass,
+                                             SOFT_CONFIG3, None, CHUNK,
+                                             False, "fast")),
+                ("B14", vm.vjp_rect_mxu, (sv.pos, gv, sv.pos, gv, sv.mass,
+                                          sv.mass, SOFT_CONFIG3,
+                                          vm.RECT_TILE, "fast"))):
+            rec.setdefault("bwdmax_ms", {}).setdefault(name, {})[n] = \
+                time_fn(fn, *args, reps=3) * 1e3
+
     # nvcc's report of the slot kernels, parsed by this tree's _build.
     rec["ptxas_log"] = "\n".join(
         ln for ln in _build.BUILD_LOG.splitlines()
@@ -410,18 +558,20 @@ def worker(tree, only):
                            ("B6", "mxu_force_info", (1, 1)),
                            ("B16", "band_mxu_info", (tile, 0, fast)),
                            ("B14", "vjp_rect_mxu_info", (128, 1)),
-                           ("B10", "vjp_ordered_info", (0, 512, 1))):
+                           ("B10", "vjp_ordered_info", (0, 512, 1)),
+                           ("B11", "vjp_sym_info", (64, 1, 3)),
+                           ("B13", "vjp_mxu_info", (128, 1, 8))):
         if hasattr(lib, fn):
-            out = (ctypes.c_int * 4)()  # B14's and B10's add threads
+            out = (ctypes.c_int * 4)()  # the VJPs' add threads
             _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)),
                          fn)
             occ[name] = {"registers": out[0], "local_bytes": out[1],
                          "ctas_per_sm": out[2], "from": fn}
-            if name in ("B14", "B10"):
+            if name in ("B14", "B10", "B11", "B13"):
                 occ[name]["threads"] = out[3]
     rec["occupancy"] = occ
     rec["sass_loops"] = kernel_sass(lib._name, [
-        m for k in ("B14", "B10") for m in SLOT_KERNELS[k]])
+        m for k in ("B14", "B10", "B11", "B13") for m in SLOT_KERNELS[k]])
     rec["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(rec), flush=True)
 

@@ -114,13 +114,13 @@ split_w; each call twice, bitwise) and on one whole tri call at c =
 tiles of 2 x 2 and 4 x 2 grids at N = 262,144, a ragged pair and the whole
 262,144 x 262,144 pair matrix the sharded grid gradient gives it. Then it
 times each kernel beside its plain version and its bound; the records of
-the register bodies and of B10, B12 and B14 carry their registers, local
-bytes and CTAs per SM from the kernels' occupancy queries. Every
-phase prints one JSON line; the line before the last is the card's name
-and power limit from nvidia-smi, preceded by one JSON line of per-kernel
-results, and the last line is ``{"ok": true, "device": {...}}``. Any failure
-raises: the traceback is printed, the exit code is non-zero and the ok line
-is never printed. Needs one CUDA card; imports nothing of JAX.
+the register bodies and of B10, B11, B12, B13, B14, B9c and B9d carry
+their registers, local bytes and CTAs per SM from the kernels' occupancy
+queries. Every phase prints one JSON line; the line before the last is the
+card's name and power limit from nvidia-smi, preceded by one JSON line of
+per-kernel results, and the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises: the traceback is printed, the exit code is non-zero and
+the ok line is never printed. Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -579,6 +579,12 @@ BODIES = {
                   "vjp_side_kernelILb1ELi1E"),
     "B12 b_bar": ("vjp_ordered_info", (2, SimConfig(n=N_CONFIG3).tile_i, 1),
                   "vjp_side_kernelILb1ELi2E"),
+    # The pair-once VJPs with masses, without the mass cotangent, at their
+    # modules' tiles (--bwd-tile sets both): B11 and B9c, B13 and B9d.
+    "B11": lambda: ("vjp_sym_info", (vk.DEFAULT_TILE, 1, 3),
+                    f"vjp_sym_kernelILi{vk.DEFAULT_TILE}ELi4ELi3E"),
+    "B13": lambda: ("vjp_mxu_info", (vm.DEFAULT_TILE, 1, 8),
+                    f"vjp_mxu_kernelILi{vm.DEFAULT_TILE}ELi4ELi8E"),
 }
 
 
@@ -588,8 +594,9 @@ def body_info(kernel):
     nvcc's ptxas report (None when the library was built before this
     run)."""
     lib = _build.load_library()
-    fn, args, mangled = BODIES[kernel]
-    out = (ctypes.c_int * 4)()  # B10's, B12's and B14's add threads
+    body = BODIES[kernel]
+    fn, args, mangled = body() if callable(body) else body
+    out = (ctypes.c_int * 4)()  # the VJPs' add threads
     _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
     spills = next((v for k, v in _build.ptxas_report(_build.BUILD_LOG)
                    .items() if mangled in k), {})
@@ -1588,7 +1595,7 @@ def grad_sym_phase(rng):
                         launches["vjp_sym_tri"] + launches["vjp_sym_cross"],
                         err, b11_s * 1e3, red, b11_tri, plain_s * 1e3,
                         bound(n * (n - 1) / 2 * OPS_B11, n * 40.0),
-                        n=N_GRAD_SYM, tile=tile)
+                        n=N_GRAD_SYM, tile=tile, body=body_info("B11"))
     return state, grad, record
 
 
@@ -1634,7 +1641,7 @@ def grad_sym_mxu_phase(rng, sym, config3):
                 launches["vjp_mxu_tri"] + launches["vjp_mxu_cross"], err, ms,
                 red, per, plain_s * 1e3,
                 bound(pairs * OPS_B13_FP32, n * 40.0, pairs * OPS_B13_MMA),
-                n=n, tile=tile))
+                n=n, tile=tile, body=body_info("B13")))
         else:  # B14 called square, as autodiff calls it
             args = (state.pos, g, state.pos, g, state.mass, state.mass,
                     cfg.softening)
@@ -2460,7 +2467,7 @@ def grad_ensemble_phase():
             name, "vjp_mxu.cu" if mxu else "vjp_kernel.cu",
             "vjp_mxu.py:430" if mxu else "vjp_kernel.py:483",
             launches[counter], err, call_ms, red, per, plain_s * 1e3, bnd,
-            b=b, n=n, tile=t))
+            b=b, n=n, tile=t, body=body_info("B13" if mxu else "B11")))
     line("grad_ensemble", b=b, n=n, loss="sum(sin(F))", runs=out)
     return records
 

@@ -103,6 +103,10 @@ SIGNATURES = {
     "vjp_rect_mxu_info": ([_I, _I, _P], _I),
     # side (0: B10, 1 / 2: B12's sides), block, masses, out (4 ints)
     "vjp_ordered_info": ([_I, _I, _I, _P], _I),
+    # tile, masses, ko, out (4 ints: registers, local bytes, CTAs per SM,
+    # threads per CTA): B11's kernel, then B13's
+    "vjp_sym_info": ([_I, _I, _I, _P], _I),
+    "vjp_mxu_info": ([_I, _I, _I, _P], _I),
     "nbody_error_string": ([_I], ctypes.c_char_p),
 }
 

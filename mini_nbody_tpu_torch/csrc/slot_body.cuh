@@ -187,16 +187,17 @@ __host__ __device__ constexpr size_t fp32_smem_bytes() {
          (3 * T + fp32_threads<T>() / 32 * 3 * T) * sizeof(float);
 }
 
-// Sums each of a lane's N partials (s[0 .. N), 3 components each) with the
+// Sums each of a lane's N partials (s[0 .. N), K components each) with the
 // partners' copies across lane bits [kBit0, kBit0 + kBits), highest bit
 // first, in a fixed order. While N > 1 a step halves: a lane keeps the
 // upper half of its entries if its bit is set, else the lower half, and
 // adds its partner's copy of that half; with one entry left the partners
 // swap and add, and only the one whose bit is clear stays the writer. On
 // return s[0 .. max(N >> kBits, 1)) hold the totals of entries off, off + 1,
-// ... of the lane's original N.
-template <int N, int kBit0, int kBits>
-__device__ __forceinline__ void lane_sums(float (&s)[8][3], int lane,
+// ... of the lane's original N. K3 sums 8 entries of 3 (rows and
+// reactions), B11 (csrc/vjp_kernel.cu) 4 entries of 3 or 4.
+template <int N, int kBit0, int kBits, int M, int K>
+__device__ __forceinline__ void lane_sums(float (&s)[M][K], int lane,
                                           int& off, bool& writer) {
   if constexpr (kBits > 0) {
     constexpr int kBit = kBit0 + kBits - 1;
@@ -206,7 +207,7 @@ __device__ __forceinline__ void lane_sums(float (&s)[8][3], int lane,
 #pragma unroll
       for (int i = 0; i < H; ++i)
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
+        for (int k = 0; k < K; ++k) {
           const float send = up ? s[i][k] : s[i + H][k];
           const float keep = up ? s[i + H][k] : s[i][k];
           s[i][k] = keep + __shfl_xor_sync(0xffffffffu, send, 1 << kBit);
@@ -215,7 +216,7 @@ __device__ __forceinline__ void lane_sums(float (&s)[8][3], int lane,
       lane_sums<H, kBit0, kBits - 1>(s, lane, off, writer);
     } else {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+      for (int k = 0; k < K; ++k)
         s[0][k] += __shfl_xor_sync(0xffffffffu, s[0][k], 1 << kBit);
       if (up) writer = false;
       lane_sums<1, kBit0, kBits - 1>(s, lane, off, writer);

@@ -46,25 +46,39 @@
 //   t = w (m_a g_b - m_b g_a) + c d,  c = 3 u (m_b (g_a.d) - m_a (g_b.d))
 // goes to a's row with + and to b's reaction with -; with the mass
 // cotangent, -w (g_b.d) goes to a and +w (g_a.d) to b (that term is NOT
-// antisymmetric). One CTA of 2T threads per slot (kind, bi, bj), as K3
-// (csrc/symmetric_force.cu): the block pair is staged in shared memory, the
-// T x T tiles of w and c are computed once (rows padded to T + 1 floats),
-// then threads [0, T) take the row sums and threads [T, 2T) the reaction
-// sums at the same time, recomputing d from the staged positions.
-//   DIAG  (bi == bj): the ordered formula over the block, row sums only
-//         (the rows cover both orders), always masked; with the mass
-//         cotangent, -sum_c w (g_c.d) per row (the sum JAX takes as column
-//         sums of the same block, :299-308).
+// antisymmetric). The slot + fold geometry is K3's
+// (csrc/symmetric_force.cu), one slot (kind, bi, bj) at a time:
+//   DIAG  (bi == bj): the block's ordered pairs, row sums only (the rows
+//         cover both orders), always masked.
 //   CROSS: rows to block bi (side a), reactions to block bj (side b).
 //   FOLD  (bj == bi + 1): entry (r, c) is pair (a_r, a_c) for c < r and
-//         (b_r, b_c) for c > r; the diagonal is skipped.
-// CROSS and FOLD pairs are masked where d2 == 0 iff mask_offdiag. Each CTA
-// stores its two T x (3|4) partials (side 0: block bi, side 1: block bj; in
-// a FOLD the column pass adds into the row pass's tiles after a barrier),
-// and csrc/slot_reduce.cu adds each block's partials in slot order, so every
+//         (b_r, b_c) for c > r: two passes over the full tile, one per
+//         side, w and u zeroed off the side's triangle and on the diagonal.
+// CROSS and FOLD pairs are masked where d2 == 0 iff mask_offdiag. The
+// maskless body is a compile-time instantiation whose w and u are the
+// masked body's bits (r2 is one FMA chain in both), so 'fast' is bitwise
+// 'masked' wherever no d2 == 0 pair is dropped.
+//
+// Design: K3's register micro-tiles (slot_body.cuh fp32_pass), in place of
+// a design that stored each pair's w and c in shared fp32 tiles and
+// recomputed d once more for the row side and once for the column side
+// (~18 shared loads a pair, half the threads idle on DIAG slots). A CTA of
+// (T / 4) (T / 8) threads walks its slots persistently
+// (slot_body::stream_width and walk_slots: the next slot's blocks are read
+// into registers while the current one computes). Each thread owns 4 rows
+// x 8 columns of the tile: its rows' (x, y, z, m) and (gx, gy, gz) in
+// registers, each column's read once from shared memory as a broadcast; d,
+// w, u and c once per pair in registers, t added to the row's sums and to
+// the column's. The columns run in two halves of 4, so their sums take 16
+// registers, not 32, for no more shuffles. The lanes that share a row or a
+// column halve their sums with shuffles (slot_body::lane_sums) and the
+// warps' column partials meet in shared memory, added in increasing warp
+// index; no pair costs a shared-memory access. Each CTA stores its two T x
+// (3|4) partials (side 0: block bi, side 1: block bj) and
+// csrc/slot_reduce.cu adds each block's partials in slot order, so every
 // output bit is the same on every run. The TPU's single-launch bound (the
-// (3|4, N) VMEM reaction buffer, _SYM_BWD_MAX = 131072) does not apply: the
-// wrapper keeps K3's chunk loop.
+// (3|4, N) VMEM reaction buffer, _SYM_BWD_MAX = 131072) does not apply:
+// the wrapper keeps K3's chunk loop.
 //
 // B9c: blockIdx.y is the system of an ensemble launch, which replaces
 // vjp_kernel.py:483 `_vjp_sym_ensemble_impl` (`pallas_call` :527, B11's
@@ -97,12 +111,14 @@
 //
 // What bounds them on an H100: fp32 arithmetic. B10: ~35 fp32 operations and
 // one rsqrt per ordered pair (JAX's count, vjp_kernel.py:656), and in fact
-// its issue rate (~27 instructions a pair). B11: ~26 for
-// w, u, c once per pair and ~12 for each side's sum (+5 with the mass
-// cotangent); shared memory carries two 4-byte stores and four 4-byte loads
-// per pair. At T = 128 B11 needs 139,264 bytes of shared memory per CTA
-// (one CTA per SM), at T = 64 36,864; the launch raises the dynamic limit
-// first and returns cudaGetLastError().
+// its issue rate (~27 instructions a pair). B11: JAX counts 44 per
+// unordered pair; its issue rate bounds it too, at 36-43 instructions a pair
+// by the count of its SASS (ab_slots.py), with 128 registers a thread and 16
+// warps per SM (4 CTAs of 128 threads at T = 64, one of 512 at T = 128). Its
+// dynamic shared memory is the staged blocks, the row totals and the warps'
+// column partials: 7,936 bytes at T = 64 (9,216 with the mass cotangent) and
+// 34,304 at T = 128 (43,008); the launch raises the dynamic limit first and
+// returns cudaGetLastError().
 //
 // Built without --use_fast_math (see direct_force.cu); nvcc contracts the
 // mul/add pairs into FMAs, which the plain PyTorch version does not do.
@@ -401,266 +417,297 @@ SideKernel pick_side(int side, bool masses) {
 
 // ---------------------------------------------------------------- B11 ---
 
-// Staged block: x, y, z, m (4 x T) then gx, gy, gz (3 x T).
+// Each thread owns kSymR x kSymC pairs of the T x T slot tile: rows ty + Gr
+// i (i < kSymR, Gr = T / kSymR) and columns tx + Gc j (j < kSymC, Gc = T /
+// kSymC). A body takes 7 floats, so 4 rows (28 registers), their sums and 8
+// columns' sums fit 128 registers; K3's 8 x 8 would not.
+constexpr int kSymR = 4, kSymC = 8;
+// Warps per SM B11 is compiled for (at most 128 registers a thread).
+constexpr int kSymWarps = 16;
+
 template <int T>
-struct Blk {
-  const float* p;  // p[k * T + r], k = 0..3
-  const float* g;  // g[k * T + r], k = 0..2
+__host__ __device__ constexpr int sym_threads() {
+  return (T / kSymR) * (T / kSymC);
+}
+
+template <int T, int KO>
+constexpr size_t sym_smem_bytes() {
+  // two staged blocks ((x, y, z, m) and (gx, gy, gz, 0) float4s per body),
+  // a pass's row totals and the warps' column partials, KO floats a body
+  return 4 * T * sizeof(float4) +
+         (1 + sym_threads<T>() / 32) * T * KO * sizeof(float);
+}
+
+// One block's positions (K floats a body) and cotangents (3) in registers:
+// load() reads them from device memory, store() writes them to shared
+// float4s, (x, y, z, m) at sp and (gx, gy, gz, -) at sg (the unit-mass
+// kernel reads no m).
+template <int T, int K>
+struct SymBlock {
+  static constexpr int kThreads = sym_threads<T>();
+  static constexpr int kP = (T * K + kThreads - 1) / kThreads;
+  static constexpr int kG = (T * 3 + kThreads - 1) / kThreads;
+  float p[kP], g[kG];
+
+  __device__ __forceinline__ void load(const float* __restrict__ pos,
+                                       const float* __restrict__ gr) {
+#pragma unroll
+    for (int l = 0; l < kP; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * K) p[l] = pos[t];
+    }
+#pragma unroll
+    for (int l = 0; l < kG; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * 3) g[l] = gr[t];
+    }
+  }
+
+  __device__ __forceinline__ void store(float* sp, float* sg) const {
+#pragma unroll
+    for (int l = 0; l < kP; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * K) sp[4 * (t / K) + t % K] = p[l];
+    }
+#pragma unroll
+    for (int l = 0; l < kG; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * 3) sg[4 * (t / 3) + t % 3] = g[l];
+    }
+  }
 };
 
-// dst = v (add: dst += v), the position columns times sign; the mass
-// cotangent column (ko == 4) is not negated.
-__device__ __forceinline__ void put_row(float* dst, const float* v, int ko,
-                                        float sign, bool add) {
-  for (int k = 0; k < ko; ++k) {
-    const float x = k < 3 ? sign * v[k] : v[k];
-    dst[k] = add ? dst[k] + x : x;
-  }
-}
+// One pass of B11 over the T x T pairs of block P (rows: positions P,
+// cotangents PG) against block Q (columns): each thread's pairs in
+// registers, w, u and c once per pair, its term t added to the row's sums
+// and (kCols) to the column's; with KO = 4 the mass cotangent, -w (g_Q.d)
+// to the row and +w (g_P.d) to the column, as a 4th sum. Then the lanes
+// that share a row (lane bits [0, log2 Gc)) halve their sums (lane_sums)
+// and one writes the row's total to rows (T x KO); the lanes that share a
+// column (bits [log2 Gc, 5)) halve theirs and each warp stores its column
+// partials to cols (warps x T x KO); a barrier. kD2 zeroes w and u where
+// d2 == 0, kTri off the fold pass's triangle `tri`. r2 is one FMA chain in
+// both bodies, so a pair's w and u are the same bits with and without kD2.
+template <int T, int K, int KO, bool kCols, bool kTri, bool kD2>
+__device__ __forceinline__ void sym_pass(const float4* P, const float4* PG,
+                                         const float4* Q, const float4* QG,
+                                         int tri, float softening,
+                                         float* rows, float* cols) {
+  constexpr int R = kSymR, C = kSymC;
+  constexpr int Gr = T / R, Gc = T / C;
+  constexpr int kLogC = T == 128 ? 4 : 3;
+  static_assert(Gc == 1 << kLogC, "tile 64 or 128");
+  constexpr bool kMass = K == 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = lane & (Gc - 1), ty = threadIdx.x >> kLogC;
 
-// The ordered row of receiver r of block P over every c of block Q (DIAG).
-template <int T, bool kMass, bool kMassGrad>
-__device__ void ordered_row(Blk<T> P, Blk<T> Q, int r, float softening,
-                            float* f) {
-  const float x = P.p[r], y = P.p[T + r], z = P.p[2 * T + r];
-  const float mk = P.p[3 * T + r];
-  const float gx = P.g[r], gy = P.g[T + r], gz = P.g[2 * T + r];
-  float t0 = 0.f, t1 = 0.f, t2 = 0.f, sw = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  float mrow = 0.f;
-  for (int c = 0; c < T; ++c) {
-    const float dx = Q.p[c] - x, dy = Q.p[T + c] - y, dz = Q.p[2 * T + c] - z;
-    const float hx = Q.g[c], hy = Q.g[T + c], hz = Q.g[2 * T + c];
-    float w, u;
-    weights(dx * dx + dy * dy + dz * dz, softening, true, &w, &u);
-    const float dot_k = gx * dx + gy * dy + gz * dz;
-    const float dot_j = hx * dx + hy * dy + hz * dz;
-    if (kMass) {
-      const float mj = Q.p[3 * T + c];
-      const float a = 3.f * (u * mj * dot_k);
-      const float b = 3.f * (u * dot_j);
-      t0 += a * dx;
-      t1 += a * dy;
-      t2 += a * dz;
-      sw += w * mj;
-      s0 += w * hx - b * dx;
-      s1 += w * hy - b * dy;
-      s2 += w * hz - b * dz;
-    } else {
-      const float coeff = 3.f * (u * (dot_k - dot_j));
-      t0 += coeff * dx + w * hx;
-      t1 += coeff * dy + w * hy;
-      t2 += coeff * dz + w * hz;
-      sw += w;
+  float4 p[R];
+  float3 h[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    p[i] = P[ty + Gr * i];
+    const float4 hg = PG[ty + Gr * i];
+    h[i] = make_float3(hg.x, hg.y, hg.z);
+  }
+  float f[R][KO];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < KO; ++k) f[i][k] = 0.f;
+
+  // The columns in two halves of kSymC / 2: a half's column sums are
+  // combined and stored before the next half starts, which halves their
+  // registers and costs no more shuffles.
+  constexpr int H = C / 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float s[H][KO];
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int k = 0; k < KO; ++k) s[j][k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const int c = tx + Gc * (H * half + j);
+      const float4 q = Q[c], hq = QG[c];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float dx = q.x - p[i].x, dy = q.y - p[i].y, dz = q.z - p[i].z;
+        const float inv = slot_body::rsqrt_normal(
+            fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, softening))));
+        const float inv2 = inv * inv;
+        float w = inv2 * inv, u = w * inv2;
+        if (kD2 && dx * dx + dy * dy + dz * dz == 0.f) w = u = 0.f;
+        if (kTri && slot_body::off_triangle(tri, ty + Gr * i, c))
+          w = u = 0.f;
+        const float dot_a = h[i].x * dx + h[i].y * dy + h[i].z * dz;
+        const float dot_b = hq.x * dx + hq.y * dy + hq.z * dz;
+        const float cc = 3.f * (u * (kMass ? q.w * dot_a - p[i].w * dot_b
+                                           : dot_a - dot_b));
+        float t[3];
+        if (kMass) {
+          const float wa = w * p[i].w, wb = w * q.w;
+          t[0] = cc * dx + (wa * hq.x - wb * h[i].x);
+          t[1] = cc * dy + (wa * hq.y - wb * h[i].y);
+          t[2] = cc * dz + (wa * hq.z - wb * h[i].z);
+        } else {
+          t[0] = cc * dx + w * (hq.x - h[i].x);
+          t[1] = cc * dy + w * (hq.y - h[i].y);
+          t[2] = cc * dz + w * (hq.z - h[i].z);
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          f[i][k] += t[k];
+          if (kCols) s[j][k] += t[k];
+        }
+        if (KO == 4) {
+          f[i][3] -= w * dot_b;
+          if (kCols) s[j][3] += w * dot_a;
+        }
+      }
     }
-    if (kMassGrad) mrow -= w * dot_j;
-  }
-  f[0] = (t0 - gx * sw) + mk * s0;
-  f[1] = (t1 - gy * sw) + mk * s1;
-  f[2] = (t2 - gz * sw) + mk * s2;
-  f[3] = mrow;
-}
-
-// f += sum over c in [c0, c1) of t(r, c) (and -w (g_c.d)): row r of block P
-// against partners c of block Q.
-template <int T, bool kMass, bool kMassGrad>
-__device__ __forceinline__ void row_sums(const float* Wr, const float* Cr,
-                                         Blk<T> P, Blk<T> Q, int r, int c0,
-                                         int c1, float* f) {
-  const float x = P.p[r], y = P.p[T + r], z = P.p[2 * T + r];
-  const float ma = P.p[3 * T + r];
-  const float gx = P.g[r], gy = P.g[T + r], gz = P.g[2 * T + r];
-  for (int c = c0; c < c1; ++c) {
-    const float w = Wr[c], cc = Cr[c];
-    const float dx = Q.p[c] - x, dy = Q.p[T + c] - y, dz = Q.p[2 * T + c] - z;
-    const float hx = Q.g[c], hy = Q.g[T + c], hz = Q.g[2 * T + c];
-    if (kMass) {
-      const float mb = Q.p[3 * T + c];
-      f[0] += cc * dx + w * (ma * hx - mb * gx);
-      f[1] += cc * dy + w * (ma * hy - mb * gy);
-      f[2] += cc * dz + w * (ma * hz - mb * gz);
-    } else {
-      f[0] += cc * dx + w * (hx - gx);
-      f[1] += cc * dy + w * (hy - gy);
-      f[2] += cc * dz + w * (hz - gz);
+    if (kCols) {
+      constexpr int kLeft = H >> (5 - kLogC);  // columns a lane keeps
+      int coff = 0;
+      bool unused = true;  // halving steps only: every lane keeps its own
+      slot_body::lane_sums<H, kLogC, 5 - kLogC>(s, lane, coff, unused);
+      float* cw = cols + warp * T * KO;
+#pragma unroll
+      for (int j = 0; j < kLeft; ++j)
+#pragma unroll
+        for (int k = 0; k < KO; ++k)
+          cw[(tx + Gc * (H * half + coff + j)) * KO + k] = s[j][k];
     }
-    if (kMassGrad) f[3] -= w * (hx * dx + hy * dy + hz * dz);
   }
+
+  int off = 0;
+  bool writer = true;
+  slot_body::lane_sums<R, 0, kLogC>(f, lane, off, writer);
+  if (writer)
+#pragma unroll
+    for (int k = 0; k < KO; ++k) rows[(ty + Gr * off) * KO + k] = f[0][k];
+  __syncthreads();
 }
 
-// f += sum over r in [r0, r1) of t(r, c) (and +w (g_r.d)): the reaction of
-// column c of block Q against partners r of block P (subtract f[0..2]).
-template <int T, bool kMass, bool kMassGrad>
-__device__ __forceinline__ void col_sums(const float* W, const float* C,
-                                         Blk<T> P, Blk<T> Q, int c, int r0,
-                                         int r1, float* f) {
-  constexpr int LD = T + 1;
-  const float x = Q.p[c], y = Q.p[T + c], z = Q.p[2 * T + c];
-  const float mb = Q.p[3 * T + c];
-  const float hx = Q.g[c], hy = Q.g[T + c], hz = Q.g[2 * T + c];
-  for (int r = r0; r < r1; ++r) {
-    const float w = W[r * LD + c], cc = C[r * LD + c];
-    const float dx = x - P.p[r], dy = y - P.p[T + r], dz = z - P.p[2 * T + r];
-    const float gx = P.g[r], gy = P.g[T + r], gz = P.g[2 * T + r];
-    if (kMass) {
-      const float ma = P.p[3 * T + r];
-      f[0] += cc * dx + w * (ma * hx - mb * gx);
-      f[1] += cc * dy + w * (ma * hy - mb * gy);
-      f[2] += cc * dz + w * (ma * hz - mb * gz);
-    } else {
-      f[0] += cc * dx + w * (hx - gx);
-      f[1] += cc * dy + w * (hy - gy);
-      f[2] += cc * dz + w * (hz - gz);
+// The slot's passes on its staged blocks; out: its two (T, KO) partial
+// tiles. A reaction's position columns are the negated column sums, its
+// mass cotangent the column sum itself; the warps' column partials are
+// added in increasing warp index.
+template <int T, int K, int KO>
+__device__ __forceinline__ void sym_compute(int kind, int mask_offdiag,
+                                            float* out, float softening,
+                                            float* smem) {
+  constexpr int kThreads = sym_threads<T>(), kWarps = kThreads / 32;
+  const float4* pa = reinterpret_cast<const float4*>(smem);
+  const float4* ga = pa + T;
+  const float4* pb = pa + 2 * T;
+  const float4* gb = pa + 3 * T;
+  float* rows = smem + 16 * T;
+  float* cols = rows + T * KO;
+  // The reaction of element e (body e / KO, column e % KO).
+  auto reaction = [&](int e) {
+    float s = cols[e];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += cols[w * T * KO + e];
+    return e % KO < 3 ? -s : s;
+  };
+  if (kind == kSlotFold) {
+    // Side a's triangle (c < r), then side b's (c > r): rows + reactions.
+    if (mask_offdiag)
+      sym_pass<T, K, KO, true, true, true>(pa, ga, pa, ga, 1, softening,
+                                           rows, cols);
+    else
+      sym_pass<T, K, KO, true, true, false>(pa, ga, pa, ga, 1, softening,
+                                            rows, cols);
+    for (int e = threadIdx.x; e < T * KO; e += kThreads)
+      out[e] = rows[e] + reaction(e);
+    __syncthreads();
+    if (mask_offdiag)
+      sym_pass<T, K, KO, true, true, true>(pb, gb, pb, gb, 2, softening,
+                                           rows, cols);
+    else
+      sym_pass<T, K, KO, true, true, false>(pb, gb, pb, gb, 2, softening,
+                                            rows, cols);
+    for (int e = threadIdx.x; e < T * KO; e += kThreads)
+      out[T * KO + e] = rows[e] + reaction(e);
+  } else if (kind == kSlotDiag) {
+    // The block's ordered pairs, rows only (they cover both orders).
+    sym_pass<T, K, KO, false, false, true>(pa, ga, pb, gb, 0, softening,
+                                           rows, cols);
+    for (int e = threadIdx.x; e < T * KO; e += kThreads) out[e] = rows[e];
+  } else {
+    if (mask_offdiag)
+      sym_pass<T, K, KO, true, false, true>(pa, ga, pb, gb, 0, softening,
+                                            rows, cols);
+    else
+      sym_pass<T, K, KO, true, false, false>(pa, ga, pb, gb, 0, softening,
+                                             rows, cols);
+    for (int e = threadIdx.x; e < T * KO; e += kThreads) {
+      out[e] = rows[e];
+      out[T * KO + e] = reaction(e);
     }
-    if (kMassGrad) f[3] += w * (gx * dx + gy * dy + gz * dz);
   }
-}
-
-template <int T>
-constexpr size_t sym_smem_bytes() {
-  return (2 * T * (T + 1) + 14 * T) * sizeof(float);  // w, c tiles + blocks
 }
 
 // pos_a / pos_b: (c, K) rows (x, y, z[, m]); g_a / g_b: (c, 3); part: 2
-// (T, KO) tiles per slot, KO = 4 with the mass cotangent.
+// (T, KO) tiles per slot and system, KO = 4 with the mass cotangent. Each
+// CTA walks its slots (slot_body::walk_slots), loading the next slot's
+// blocks into registers while it computes one.
 template <int T, int K, int KO>
-__global__ void __launch_bounds__(2 * T)
-    vjp_sym_kernel(const int* __restrict__ slots,
+__global__ void __launch_bounds__(
+    sym_threads<T>(), slot_body::stream_min_ctas(sym_threads<T>(), kSymWarps))
+    vjp_sym_kernel(const int* __restrict__ slots, int n_slots,
                    const float* __restrict__ pos_a,
                    const float* __restrict__ pos_b,
                    const float* __restrict__ g_a,
                    const float* __restrict__ g_b, float* part,
                    long long sys_rows, float softening, int mask_offdiag) {
-  constexpr int LD = T + 1;
-  constexpr bool kMass = K == 4;
-  constexpr bool kMassGrad = KO == 4;
-  extern __shared__ float smem[];
-  float* W = smem;        // T x LD
-  float* C = W + T * LD;  // T x LD
-  float* sa = C + T * LD;  // block bi: 4 x T positions, 3 x T cotangents
-  float* sb = sa + 7 * T;  // block bj
-  const Blk<T> A{sa, sa + 4 * T}, B{sb, sb + 4 * T};
-
-  const int kind = slots[3 * blockIdx.x];
-  const int bi = slots[3 * blockIdx.x + 1];
-  const int bj = slots[3 * blockIdx.x + 2];
-  const bool fold = kind == kSlotFold;
+  extern __shared__ __align__(16) float smem[];
   const long long sys = blockIdx.y;
   pos_a += sys * sys_rows * K;
   pos_b += sys * sys_rows * K;
   g_a += sys * sys_rows * 3;
   g_b += sys * sys_rows * 3;
-  // Side 0's tile (block bi), then side 1's (block bj).
-  float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * KO;
-
-  const float* pa = pos_a + static_cast<size_t>(bi) * T * K;
-  const float* pb = pos_b + static_cast<size_t>(bj) * T * K;
-  for (int t = threadIdx.x; t < T * 4; t += 2 * T) {
-    const int r = t / 4, k = t - 4 * (t / 4);
-    sa[k * T + r] = k < K ? pa[r * K + k] : 1.f;  // unit masses: m = 1
-    sb[k * T + r] = k < K ? pb[r * K + k] : 1.f;
-  }
-  const float* ha = g_a + static_cast<size_t>(bi) * T * 3;
-  const float* hb = g_b + static_cast<size_t>(bj) * T * 3;
-  for (int t = threadIdx.x; t < T * 3; t += 2 * T) {
-    const int r = t / 3, k = t - 3 * (t / 3);
-    sa[(4 + k) * T + r] = ha[t];
-    sb[(4 + k) * T + r] = hb[t];
-  }
-  __syncthreads();
-
-  float f[4] = {0.f, 0.f, 0.f, 0.f}, f2[4] = {0.f, 0.f, 0.f, 0.f};
-  if (kind == kSlotDiag) {
-    if (threadIdx.x < T) {
-      const int r = threadIdx.x;
-      ordered_row<T, kMass, kMassGrad>(A, B, r, softening, f);
-      put_row(out + r * KO, f, KO, 1.f, false);
-    }
-    return;
-  }
-
-  // w and c once per (r, c). Rows are block a and columns block b, except
-  // in a fold, where both are block a below the diagonal and b above it.
-  for (int e = threadIdx.x; e < T * T; e += 2 * T) {
-    const int r = e / T, c = e % T;
-    const Blk<T> P = (fold && c > r) ? B : A;
-    const Blk<T> Q = fold ? P : B;
-    const float dx = Q.p[c] - P.p[r];
-    const float dy = Q.p[T + c] - P.p[T + r];
-    const float dz = Q.p[2 * T + c] - P.p[2 * T + r];
-    float w, u;
-    weights(dx * dx + dy * dy + dz * dz, softening, mask_offdiag, &w, &u);
-    if (fold && c == r) w = u = 0.f;
-    const float dot_a = P.g[r] * dx + P.g[T + r] * dy + P.g[2 * T + r] * dz;
-    const float dot_b = Q.g[c] * dx + Q.g[T + c] * dy + Q.g[2 * T + c] * dz;
-    const float cc =
-        kMass ? 3.f * (u * (Q.p[3 * T + c] * dot_a - P.p[3 * T + r] * dot_b))
-              : 3.f * (u * (dot_a - dot_b));
-    W[r * LD + c] = w;
-    C[r * LD + c] = cc;
-  }
-  __syncthreads();
-
-  if (threadIdx.x < T) {  // row pass
-    const int r = threadIdx.x;
-    const float* Wr = W + r * LD;
-    const float* Cr = C + r * LD;
-    if (!fold) {
-      row_sums<T, kMass, kMassGrad>(Wr, Cr, A, B, r, 0, T, f);
-    } else {
-      row_sums<T, kMass, kMassGrad>(Wr, Cr, A, A, r, 0, r, f);
-      row_sums<T, kMass, kMassGrad>(Wr, Cr, B, B, r, r + 1, T, f2);
-      put_row(out + (T + r) * KO, f2, KO, 1.f, false);
-    }
-    put_row(out + r * KO, f, KO, 1.f, false);
-  } else {  // reaction pass
-    const int c = threadIdx.x - T;
-    if (!fold) {
-      col_sums<T, kMass, kMassGrad>(W, C, A, B, c, 0, T, f);
-      put_row(out + (T + c) * KO, f, KO, -1.f, false);
-    } else {
-      col_sums<T, kMass, kMassGrad>(W, C, A, A, c, c + 1, T, f);
-      col_sums<T, kMass, kMassGrad>(W, C, B, B, c, 0, c, f2);
-    }
-  }
-  if (!fold) return;
-  // FOLD: the reaction pass adds into the tiles the row pass stored.
-  __syncthreads();
-  if (threadIdx.x >= T) {
-    const int c = threadIdx.x - T;
-    put_row(out + c * KO, f, KO, -1.f, true);
-    put_row(out + (T + c) * KO, f2, KO, -1.f, true);
-  }
+  SymBlock<T, K> a, b;
+  slot_body::walk_slots(
+      slots, n_slots,
+      [&](const slot_body::Slot& sl) {
+        a.load(pos_a + static_cast<size_t>(sl.bi) * T * K,
+               g_a + static_cast<size_t>(sl.bi) * T * 3);
+        b.load(pos_b + static_cast<size_t>(sl.bj) * T * K,
+               g_b + static_cast<size_t>(sl.bj) * T * 3);
+      },
+      [&] {
+        a.store(smem, smem + 4 * T);
+        b.store(smem + 8 * T, smem + 12 * T);
+      },
+      [&](const slot_body::Slot& sl, int s) {
+        // Side 0's tile (block bi), then side 1's (block bj).
+        float* out = part + (sys * n_slots + s) * 2 * T * KO;
+        sym_compute<T, K, KO>(sl.kind, mask_offdiag, out, softening, smem);
+      });
 }
 
-template <int T, int K, int KO>
-int launch_sym(const int* slots, int n_slots, int n_sys, long long sys_rows,
-               const float* pos_a, const float* pos_b, const float* g_a,
-               const float* g_b, float* part, float softening,
-               int mask_offdiag, cudaStream_t stream) {
-  constexpr size_t smem = sym_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      vjp_sym_kernel<T, K, KO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  vjp_sym_kernel<T, K, KO><<<dim3(n_slots, n_sys), 2 * T, smem, stream>>>(
-      slots, pos_a, pos_b, g_a, g_b, part, sys_rows, softening,
-      mask_offdiag);
-  return static_cast<int>(cudaGetLastError());
-}
+using SymKernel = void (*)(const int*, int, const float*, const float*,
+                           const float*, const float*, float*, long long,
+                           float, int);
 
-template <int T>
-int dispatch_sym(const int* slots, int n_slots, int n_sys, long long sys_rows,
-                 const float* pos_a, const float* pos_b, const float* g_a,
-                 const float* g_b, float* part, int k, int ko,
-                 float softening, int mask_offdiag, cudaStream_t s) {
-#define NBODY_VJP_SYM_LAUNCH(K, KO)                                      \
-  launch_sym<T, K, KO>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b, g_a, \
-                       g_b, part, softening, mask_offdiag, s)
-  if (k == 3 && ko == 3) return NBODY_VJP_SYM_LAUNCH(3, 3);
-  if (k == 4 && ko == 3) return NBODY_VJP_SYM_LAUNCH(4, 3);
-  if (k == 4 && ko == 4) return NBODY_VJP_SYM_LAUNCH(4, 4);
-#undef NBODY_VJP_SYM_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+// B11's kernel for (tile, k, ko), its threads per CTA and dynamic shared
+// memory, or nullptr.
+SymKernel pick_sym(int tile, int k, int ko, int* threads, size_t* smem) {
+#define NBODY_PICK_SYM(T)                                              \
+  if (tile == T) {                                                     \
+    *threads = sym_threads<T>();                                       \
+    *smem = ko == 4 ? sym_smem_bytes<T, 4>() : sym_smem_bytes<T, 3>(); \
+    if (k == 3 && ko == 3) return vjp_sym_kernel<T, 3, 3>;             \
+    if (k == 4 && ko == 3) return vjp_sym_kernel<T, 4, 3>;             \
+    if (k == 4 && ko == 4) return vjp_sym_kernel<T, 4, 4>;             \
+    return nullptr;                                                    \
+  }
+  NBODY_PICK_SYM(64)
+  NBODY_PICK_SYM(128)
+#undef NBODY_PICK_SYM
+  return nullptr;
 }
 
 }  // namespace
@@ -751,16 +798,47 @@ extern "C" int vjp_sym_launch(const int* slots, int n_slots, int n_sys,
                               const float* g_b, float* part, int k, int ko,
                               int tile, float softening, int mask_offdiag,
                               void* stream) {
+  int threads = 0;
+  size_t smem = 0;
+  const SymKernel kernel = pick_sym(tile, k, ko, &threads, &smem);
+  if (kernel == nullptr || n_sys > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_slots == 0 || n_sys == 0) return 0;
-  if (n_sys > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 64)
-    return dispatch_sym<64>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
-                            g_a, g_b, part, k, ko, softening, mask_offdiag,
-                            s);
-  if (tile == 128)
-    return dispatch_sym<128>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
-                             g_a, g_b, part, k, ko, softening, mask_offdiag,
-                             s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int width = 0;
+  err = slot_body::stream_width(kernel, threads, smem, n_slots, n_sys,
+                                &width);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(width, n_sys), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      slots, n_slots, pos_a, pos_b, g_a, g_b, part, sys_rows, softening,
+      mask_offdiag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: registers per thread, local bytes per thread, CTAs per SM and
+// threads per CTA of B11's kernel for (tile, masses, ko), at its launch's
+// shared memory.
+extern "C" int vjp_sym_info(int tile, int masses, int ko, int* out) {
+  int threads = 0;
+  size_t smem = 0;
+  const SymKernel kernel =
+      pick_sym(tile, masses ? 4 : 3, ko, &threads, &smem);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[3] = threads;
+  return static_cast<int>(err);
 }

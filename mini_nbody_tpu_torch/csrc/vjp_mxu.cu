@@ -16,30 +16,47 @@
 // (`vjp_pos_sym_mxu`, :342); B14 replaces :179 `_bwd_rect_kernel`
 // (`vjp_rect_mxu`, :657), which autodiff calls square beyond the symmetric
 // bound. Both keep JAX's numerics: w and c in fp32 (_wc_block, :74-109),
-// rounded to bf16 in shared memory, operands split into compensated hi/lo
-// bf16 halves by the wrapper (_split8, :224-228), fp32 accumulation; JAX
-// folds hi + lo per block (:117-121), and so do these kernels before they
-// store their partials (B13) or rows (B14).
+// rounded to bf16 for the tensor cores, operands split into compensated
+// hi/lo bf16 halves (_split8, :224-228), fp32 accumulation; JAX folds hi +
+// lo per block (:117-121), and so do these kernels before they store their
+// partials (B13) or rows (B14).
 //
-// B13: one CTA of 256 threads per slot (kind, bi, bj), as K2
-// (csrc/slot_pipe.cu). All threads compute the T x T tiles of w and c
-// (bf16, rows padded to T + 8); then each warp owns one 32-row output tile
-// of one side and runs two m32n8k16 wmma products over the tile's T
-// columns, [W @ Qg | C @ Qp] for rows and, through col_major loads of the
-// same tiles, [W^T @ Qg | C^T @ Qp] for reactions.
+// B13: K2's step loop (csrc/slot_body.cuh mxu_steps) with two products and
+// a transposed side, in place of a design that stored the T x T tiles of w
+// and c as bf16 in shared memory and read them back through wmma loads
+// (177,152 bytes of shared memory at T = 128: one CTA of 8 warps per SM,
+// its fp32 and tensor-core phases never overlapping). One slot (kind, bi,
+// bj) of K2's slot + fold geometry at a time:
 //   DIAG  (bi == bj): always masked where d2 == 0, row sums only (the rows
 //         cover both orders).
 //   CROSS: rows to block bi (side a) with block bj's operands, reactions
 //         to block bj (side b) with block bi's.
-//   FOLD  (bj == bi + 1): entry (r, c) is pair (a_r, a_c) for c < r (tiles
-//         0) and (b_r, b_c) for c > r (tiles 1); the diagonal is always
-//         masked; each block adds its tile's rows and reactions.
-// CROSS and FOLD are masked where d2 == 0 iff mask_offdiag. Each CTA stores
-// its two T x (8|9) partials (side 0: block bi, side 1: block bj), and
-// csrc/slot_reduce.cu adds each block's partials in slot order; the mass
-// column is summed inside the CTA in a fixed order too (see the kernel), so
-// every output bit is the same on every run. The TPU's single-launch bound
-// does not apply: the wrapper keeps K3's chunk loop.
+//   FOLD  (bj == bi + 1): entry (r, c) is pair (a_r, a_c) for c < r and
+//         (b_r, b_c) for c > r: two passes over the full tile, one per side
+//         with w and c zeroed off its triangle and on the diagonal, each
+//         side's rows and reactions against its own block's operands.
+// CROSS and FOLD are masked where d2 == 0 iff mask_offdiag; the maskless
+// body is a compile-time instantiation whose w and c are the masked body's
+// bits. A CTA of T / 32 warps, two 16-row strips a warp (T / 16 warps of
+// one strip with the mass cotangent), walks its slots persistently
+// (slot_body::stream_width and walk_slots). For each 16-column step a lane
+// computes in fp32, for each strip, the 8 (w, c) of its mma.sync m16n8k16
+// A fragments, packs them with cvt.rn.bf16x2 and runs W @ Qg and C @ Qp
+// for the rows; movmatrix .trans turns the same registers into W^T's and
+// C^T's fragments for the reactions, W^T @ Qg and C^T @ Qp against the
+// rows' operands. No w or c touches shared memory. The
+// operands (the wrapper's [hi | lo] splits of [g | m] and [p | 1]) are
+// staged once per slot in bf16 in the B fragment's layout. Each strip's row
+// products are one fresh fragment per slot and pass; each step's reaction
+// products (both strips) go to shared memory per warp, and the warps'
+// partials are added in increasing warp index; hi + lo is folded once,
+// into the slot's (T, 8|9) partial tile. The mass cotangent is summed in
+// fp32 on the CUDA cores in one fixed order (quad shuffles, then the warps
+// in increasing index). Each CTA stores its two T x (8|9) partials (side 0:
+// block bi, side 1: block bj), and csrc/slot_reduce.cu adds each block's
+// partials in slot order, so every output bit is the same on every run.
+// The TPU's single-launch bound does not apply: the wrapper keeps K3's
+// chunk loop.
 //
 // B9d: blockIdx.y is the system of an ensemble launch, which replaces
 // vjp_mxu.py:430 `_vjp_ensemble_impl` (`pallas_call` :485, B13's kernel
@@ -94,121 +111,480 @@
 // only in pad rows.
 //
 // What bounds them on an H100: the fp32 pipeline of w and c (~30 fp32
-// operations and one rsqrt per pair, JAX's count, vjp_mxu.py:367). B13 then
-// pays shared memory: each bf16 tile element is written once and read by
-// two wmma loads (rows and reactions); its products are 32 x 8 x T (N = 8)
-// and keep the tensor cores mostly idle. B13 takes 64,000 bytes of shared
-// memory per CTA at T = 64 and 177,152 at T = 128 (its launch raises the
-// dynamic limit first); B14 25,088 bytes of static shared memory at T =
-// 128, and its issue rate: ~30 instructions per pair by the count of its
-// source. The launches return cudaGetLastError().
+// operations and one rsqrt per pair, JAX's count, vjp_mxu.py:367), and in
+// fact their issue rate: ~28 instructions a pair for w and c alone in the
+// plain version's rounding (no FMA). B13 adds the packs, movmatrix, four
+// MMAs a step and its column loads, which two strips a warp share: 33-37
+// instructions a pair over its step loop by the count of its SASS
+// (ab_slots.py). It runs
+// T threads at T = 64 and 128 with at most 168 registers, 12 warps per SM;
+// its dynamic shared memory (the staged blocks, the operands' transposes,
+// a pass's row products and the warps' reaction products) is 20,992 bytes
+// at T = 64 and 57,856 at T = 128, with the mass cotangent 30,464 and
+// 95,232 (one strip a warp, 16 warps per SM). B14 takes 25,088 bytes of
+// static shared memory at T = 128, ~33 instructions per pair by the count
+// of its SASS (ab_slots.py). The launches return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "slot_body.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr float kFar = 1.0e18f;
 constexpr int kSlotDiag = 0;
 constexpr int kSlotFold = 2;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
-using Frag = wmma::fragment<wmma::accumulator, 32, 8, 16, float>;
-using FragB = wmma::fragment<wmma::matrix_b, 32, 8, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragA = wmma::fragment<wmma::matrix_a, 32, 8, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 32, 8, 16, __nv_bfloat16,
-                              wmma::col_major>;
-
-// A staged block of T bodies, fp32: x, y, z, m, gx, gy, gz (7 x T).
-constexpr int kRows = 7;
-
-// fp32 w and c of rows P[r] against columns Q[c], every product and sum
-// rounded on its own in the plain version's order; dot_a = g_P.d,
-// dot_b = g_Q.d. mask zeroes w and u where d2 == 0.
-template <int T, bool kMass>
-__device__ __forceinline__ void wc(const float* P, const float* Q, int r,
-                                   int c, float softening, bool mask,
-                                   float& w, float& cc, float& dot_a,
-                                   float& dot_b) {
-  const float dx = __fsub_rn(Q[c], P[r]);
-  const float dy = __fsub_rn(Q[T + c], P[T + r]);
-  const float dz = __fsub_rn(Q[2 * T + c], P[2 * T + r]);
+// fp32 w and c of the pair (p, gp) -> (q, gq), every product and sum
+// rounded on its own in the plain version's order (vjp_mxu.py _wc), and the
+// dot products of the mass cotangent, dot_a = gp.d and dot_b = gq.d. w and
+// u are zeroed where d2 == 0 (kD2) and where !keep (a fold pass's other
+// triangle), before c is formed.
+template <bool kMass, bool kD2>
+__device__ __forceinline__ void pair_wc(const float4& p, const float3& gp,
+                                        const float4& q, const float4& gq,
+                                        float softening, bool keep, float& w,
+                                        float& cc, float& dot_a,
+                                        float& dot_b) {
+  const float dx = __fsub_rn(q.x, p.x);
+  const float dy = __fsub_rn(q.y, p.y);
+  const float dz = __fsub_rn(q.z, p.z);
   const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                              __fmul_rn(dz, dz));
-  const float inv = rsqrtf(__fadd_rn(d2, softening));
+  const float inv = slot_body::rsqrt_normal(__fadd_rn(d2, softening));
   const float inv2 = __fmul_rn(inv, inv);
   w = __fmul_rn(inv2, inv);
   float u = __fmul_rn(w, inv2);
-  if (mask && d2 == 0.f) w = u = 0.f;
-  dot_a = __fadd_rn(__fadd_rn(__fmul_rn(P[4 * T + r], dx),
-                              __fmul_rn(P[5 * T + r], dy)),
-                    __fmul_rn(P[6 * T + r], dz));
-  dot_b = __fadd_rn(__fadd_rn(__fmul_rn(Q[4 * T + c], dx),
-                              __fmul_rn(Q[5 * T + c], dy)),
-                    __fmul_rn(Q[6 * T + c], dz));
-  const float diff =
-      kMass ? __fsub_rn(__fmul_rn(Q[3 * T + c], dot_a),
-                        __fmul_rn(P[3 * T + r], dot_b))
-            : __fsub_rn(dot_a, dot_b);
+  if ((kD2 && d2 == 0.f) || !keep) w = u = 0.f;
+  dot_a = __fadd_rn(__fadd_rn(__fmul_rn(gp.x, dx), __fmul_rn(gp.y, dy)),
+                    __fmul_rn(gp.z, dz));
+  dot_b = __fadd_rn(__fadd_rn(__fmul_rn(gq.x, dx), __fmul_rn(gq.y, dy)),
+                    __fmul_rn(gq.z, dz));
+  const float diff = kMass ? __fsub_rn(__fmul_rn(q.w, dot_a),
+                                       __fmul_rn(p.w, dot_b))
+                           : __fsub_rn(dot_a, dot_b);
   cc = __fmul_rn(3.f, __fmul_rn(u, diff));
-}
-
-// Stage T bodies starting at row `row0` of pos (n, K), g (n, 3) and the
-// operands q (n, 16) -> Qg, Qp (T x 8 bf16). Rows past n are
-// FAR with zero mass, cotangent and operands.
-template <int T, int K>
-__device__ __forceinline__ void stage(const float* __restrict__ pos,
-                                      const float* __restrict__ g,
-                                      const float* __restrict__ q, int row0,
-                                      int n, float* S, __nv_bfloat16* Qg,
-                                      __nv_bfloat16* Qp) {
-  for (int t = threadIdx.x; t < T * 4; t += kThreads) {
-    const int r = t / 4, k = t % 4, row = row0 + r;
-    float v = (k == 3) ? 0.f : kFar;
-    if (row < n) v = k < K ? pos[static_cast<size_t>(row) * K + k] : 1.f;
-    S[k * T + r] = v;
-  }
-  for (int t = threadIdx.x; t < T * 3; t += kThreads) {
-    const int r = t / 3, k = t % 3, row = row0 + r;
-    S[(4 + k) * T + r] = row < n ? g[static_cast<size_t>(row) * 3 + k] : 0.f;
-  }
-  for (int t = threadIdx.x; t < T * 16; t += kThreads) {
-    const int r = t / 16, k = t % 16, row = row0 + r;
-    const float v = row < n ? q[static_cast<size_t>(row) * 16 + k] : 0.f;
-    (k < 8 ? Qg : Qp)[r * 8 + (k % 8)] = __float2bfloat16_rn(v);
-  }
-}
-
-// Fold a warp's [hi | lo] products (32 x 8 each, row-major in `s`) and add
-// or store row `lane` as 4 columns at dst.
-__device__ __forceinline__ void fold_row(const float* s, int lane,
-                                         float* out) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) out[q] = s[lane * 8 + q] + s[lane * 8 + q + 4];
 }
 
 // ---------------------------------------------------------------- B13 ---
 
-template <int T>
-constexpr size_t mxu_smem_bytes() {
-  return 4 * T * (T + 8) * sizeof(__nv_bfloat16)  // W, C (x2 for a fold)
-         + 4 * T * 8 * sizeof(__nv_bfloat16)     // Qg, Qp of both blocks
-         + kWarps * 2 * 32 * 8 * sizeof(float)    // per-warp products
-         + 2 * kRows * T * sizeof(float)          // blocks
-         + 2 * (T / 32 + kThreads / T) * T * sizeof(float);  // mass parts
+// 16-row strips of the T x T slot tile per warp, and the warps per SM the
+// kernel is compiled for, chosen by measurement (ab_slots.py, PERF.md):
+// two strips at 12 warps (at most 168 registers a thread), which share
+// each step's column loads; with the mass cotangent (KO = 9) one strip at
+// 16 warps (128 registers), where two strips spilled.
+template <int KO>
+__host__ __device__ constexpr int sym_mxu_strips() {
+  return KO == 9 ? 1 : 2;
 }
 
+template <int KO>
+__host__ __device__ constexpr int sym_mxu_warps() {
+  return KO == 9 ? 16 : 12;
+}
+
+template <int T, int KO>
+__host__ __device__ constexpr int sym_mxu_threads() {
+  return 32 * T / (16 * sym_mxu_strips<KO>());
+}
+
+// A product partial row: [W @ Qg | C @ Qp] with Qg = [hi | lo] of [g | m]
+// and Qp = [hi | lo] of [p | 1], 16 floats. Operand column k of body c sits
+// at word c * 16 + (k ^ 8 ((c >> 1) & 1)): the C fragments' float2 stores of
+// a warp hit no bank twice, and each quad (hi or lo of one product) stays a
+// float4.
+__device__ __forceinline__ int part_word(int c, int k) {
+  return c * 16 + (k ^ (((c >> 1) & 1) << 3));
+}
+
+template <int T, int KO>
+constexpr size_t sym_mxu_smem_bytes() {
+  constexpr int kWarps = sym_mxu_threads<T, KO>() / 32;
+  // two staged blocks ((x, y, z, m) and (gx, gy, gz, 0) float4s per body),
+  // their operands' transposes in bf16 (16 rows padded to T + 8), a pass's
+  // row products and the warps' reaction products (16 floats a body), and
+  // with the mass cotangent its row sums and the warps' column sums
+  return 4 * T * sizeof(float4) +
+         2 * 16 * (T + 8) * sizeof(__nv_bfloat16) +
+         (1 + kWarps) * T * (16 + (KO == 9 ? 1 : 0)) * sizeof(float);
+}
+
+// One block of a slot: load() records where its positions (K floats a
+// body), cotangents (3) and operands (16) are; store() reads them and
+// writes the positions and cotangents to shared float4s, (x, y, z, m) at
+// sp and (gx, gy, gz, -) at sg (the unit-mass kernel reads no m), and the
+// operands' transposes rounded to bf16 at vt (row k = operand column k,
+// padded to T + 8): rows 0-7 Qg^T, 8-15 Qp^T. The next slot's blocks are
+// not read ahead into registers: with two strips a warp that spilled.
+template <int T, int K, int kThreads>
+struct SymMxuBlock {
+  static constexpr int kP = (T * K + kThreads - 1) / kThreads;
+  static constexpr int kG = (T * 3 + kThreads - 1) / kThreads;
+  static constexpr int kQ = 4 * T / kThreads;  // float4s of q per thread
+  static_assert(kQ * kThreads == 4 * T, "whole float4s of q per thread");
+  const float* pos;
+  const float* gr;
+  const float4* q;
+
+  __device__ __forceinline__ void load(const float* __restrict__ pos_,
+                                       const float* __restrict__ gr_,
+                                       const float* __restrict__ q_) {
+    pos = pos_;
+    gr = gr_;
+    q = reinterpret_cast<const float4*>(q_);
+  }
+
+  __device__ __forceinline__ void store(float* sp, float* sg,
+                                        __nv_bfloat16* vt) const {
+    constexpr int LDV = T + 8;
+    float p[kP], g[kG];
+    float4 v[kQ];
+#pragma unroll
+    for (int l = 0; l < kP; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * K) p[l] = pos[t];
+    }
+#pragma unroll
+    for (int l = 0; l < kG; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * 3) g[l] = gr[t];
+    }
+#pragma unroll
+    for (int l = 0; l < kQ; ++l) v[l] = q[threadIdx.x + l * kThreads];
+#pragma unroll
+    for (int l = 0; l < kP; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * K) sp[4 * (t / K) + t % K] = p[l];
+    }
+#pragma unroll
+    for (int l = 0; l < kG; ++l) {
+      const int t = threadIdx.x + l * kThreads;
+      if (t < T * 3) sg[4 * (t / 3) + t % 3] = g[l];
+    }
+#pragma unroll
+    for (int l = 0; l < kQ; ++l) {
+      // Float4 f of a block's (T, 16) q is body f / 4, columns 4 (f % 4) ..
+      const int f = threadIdx.x + l * kThreads;
+      const int r = f >> 2, k = 4 * (f & 3);
+      vt[(k + 0) * LDV + r] = __float2bfloat16_rn(v[l].x);
+      vt[(k + 1) * LDV + r] = __float2bfloat16_rn(v[l].y);
+      vt[(k + 2) * LDV + r] = __float2bfloat16_rn(v[l].z);
+      vt[(k + 3) * LDV + r] = __float2bfloat16_rn(v[l].w);
+    }
+  }
+};
+
+// The shared memory of a B13 CTA.
+template <int T, int KO>
+struct SymMxuSmem {
+  static constexpr int kWarps = sym_mxu_threads<T, KO>() / 32;
+  static constexpr int LDV = T + 8;
+  float4* p[2];  // (x, y, z, m) of block bi (side a) and block bj (side b)
+  float4* g[2];  // (gx, gy, gz, -)
+  __nv_bfloat16* vt[2];
+  float* rows;   // T x 16 row products of a pass
+  float* cols;   // warps x T x 16 reaction products
+  float* mrow;   // T mass-cotangent row sums (KO == 9)
+  float* mcol;   // warps x T column sums (KO == 9)
+
+  __device__ __forceinline__ explicit SymMxuSmem(unsigned char* base) {
+    float4* f4 = reinterpret_cast<float4*>(base);
+    p[0] = f4;
+    g[0] = f4 + T;
+    p[1] = f4 + 2 * T;
+    g[1] = f4 + 3 * T;
+    vt[0] = reinterpret_cast<__nv_bfloat16*>(f4 + 4 * T);
+    vt[1] = vt[0] + 16 * LDV;
+    rows = reinterpret_cast<float*>(vt[1] + 16 * LDV);
+    cols = rows + T * 16;
+    mrow = cols + kWarps * T * 16;
+    mcol = mrow + T;
+  }
+};
+
+// One pass of B13 over the T x T pairs of block P (rows: positions P,
+// cotangents PG, operands VP) against block Q (columns). Warp m owns the
+// strips of rows [16 (S m + h), 16 (S m + h) + 16), h < S =
+// sym_mxu_strips<KO>();
+// for each 16-column step a lane computes in fp32, for each strip, the 8
+// (w, c) of its m16n8k16 A fragments (rows g and g + 8 of the strip,
+// columns 2t, 2t + 1, 2t + 8, 2t + 9 of the step), packs them to bf16 pairs
+// and runs
+//   rows:      ag[h] += W @ Qg_Q,    ap[h] += C @ Qp_Q,
+//   reactions: W^T @ Qg_P,  C^T @ Qp_P   (kCols; a fresh fragment per step,
+//              summing the warp's strips),
+// W^T's and C^T's fragments being W's and C's 8 x 8 blocks through
+// movmatrix .trans. Each strip's row products are one fresh fragment per
+// pass and go to rows; each step's reaction products are this warp's alone
+// and go to cols at once. With KO = 9 the mass cotangent, -w (g_Q.d) to
+// the row and +w (g_P.d) to the column, is summed in fp32 on the CUDA
+// cores: a row's in the lane's registers over the pass, then across its
+// quad; a step's columns across the lanes that share them (lane bits 2-4)
+// into this warp's mcol. Then a barrier.
+template <int T, int KO, bool kMass, bool kCols, bool kD2, bool kTri>
+__device__ __forceinline__ void sym_mxu_pass(
+    const float4* P, const float4* PG, const __nv_bfloat16* VP,
+    const float4* Q, const float4* QG, const __nv_bfloat16* VQ, int tri,
+    float softening, const SymMxuSmem<T, KO>& sm) {
+  constexpr int LDV = T + 8;
+  constexpr int S = sym_mxu_strips<KO>();
+  constexpr bool kMassGrad = KO == 9;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // Operand column g of the strips' rows and of the step's columns, as B
+  // fragments (k = bodies): Qg^T row g and Qp^T row g.
+  const uint32_t* vpg = reinterpret_cast<const uint32_t*>(VP + g * LDV);
+  const uint32_t* vpp = reinterpret_cast<const uint32_t*>(VP + (8 + g) * LDV);
+  const uint32_t* vqg = reinterpret_cast<const uint32_t*>(VQ + g * LDV);
+  const uint32_t* vqp = reinterpret_cast<const uint32_t*>(VQ + (8 + g) * LDV);
+  int r0[S];
+  float4 p0[S], p1[S];
+  float3 g0[S], g1[S];
+  uint32_t rg0[S], rg1[S], rp0[S], rp1[S];
+  float ag[S][4], ap[S][4], mr0[S], mr1[S];
+#pragma unroll
+  for (int h = 0; h < S; ++h) {
+    const int strip = 16 * (S * warp + h);
+    r0[h] = strip + g;
+    p0[h] = P[r0[h]];
+    p1[h] = P[r0[h] + 8];
+    const float4 h0 = PG[r0[h]], h1 = PG[r0[h] + 8];
+    g0[h] = make_float3(h0.x, h0.y, h0.z);
+    g1[h] = make_float3(h1.x, h1.y, h1.z);
+    rg0[h] = vpg[(strip + 2 * t) / 2];
+    rg1[h] = vpg[(strip + 2 * t + 8) / 2];
+    rp0[h] = vpp[(strip + 2 * t) / 2];
+    rp1[h] = vpp[(strip + 2 * t + 8) / 2];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ag[h][k] = ap[h][k] = 0.f;
+    mr0[h] = mr1[h] = 0.f;
+  }
+  float* cw = sm.cols + warp * T * 16;
+  float* mw = sm.mcol + warp * T;
+
+  // The step loop is not unrolled: unrolled, it spilled at two strips (168
+  // registers) and at one (128).
+#pragma unroll 1
+  for (int s = 0; s < T / 16; ++s) {
+    // The lane's columns: c0, c0 + 1 (A registers 0, 1), c0 + 8, c0 + 9
+    // (registers 2, 3).
+    const int c0 = 16 * s + 2 * t;
+    const int cs[4] = {c0, c0 + 1, c0 + 8, c0 + 9};
+    float cg[4] = {0.f, 0.f, 0.f, 0.f}, cp[4] = {0.f, 0.f, 0.f, 0.f};
+    float mc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < S; ++h) {
+      const int r1 = r0[h] + 8;
+      float w[2][4], c[2][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 q = Q[cs[k]], hq = QG[cs[k]];
+        float da0, db0, da1, db1;
+        pair_wc<kMass, kD2>(
+            p0[h], g0[h], q, hq, softening,
+            !kTri || !slot_body::off_triangle(tri, r0[h], cs[k]), w[0][k],
+            c[0][k], da0, db0);
+        pair_wc<kMass, kD2>(
+            p1[h], g1[h], q, hq, softening,
+            !kTri || !slot_body::off_triangle(tri, r1, cs[k]), w[1][k],
+            c[1][k], da1, db1);
+        if (kMassGrad) {
+          mr0[h] -= w[0][k] * db0;
+          mr1[h] -= w[1][k] * db1;
+          mc[k] += w[0][k] * da0 + w[1][k] * da1;
+        }
+      }
+      // A fragment: (r0, c0..c0+1), (r1, c0..c0+1), (r0, c0+8..c0+9),
+      // (r1, c0+8..c0+9).
+      const uint32_t aw[4] = {slot_body::pack_bf16x2(w[0][0], w[0][1]),
+                              slot_body::pack_bf16x2(w[1][0], w[1][1]),
+                              slot_body::pack_bf16x2(w[0][2], w[0][3]),
+                              slot_body::pack_bf16x2(w[1][2], w[1][3])};
+      const uint32_t ac[4] = {slot_body::pack_bf16x2(c[0][0], c[0][1]),
+                              slot_body::pack_bf16x2(c[1][0], c[1][1]),
+                              slot_body::pack_bf16x2(c[0][2], c[0][3]),
+                              slot_body::pack_bf16x2(c[1][2], c[1][3])};
+      slot_body::mma_bf16(ag[h], aw, vqg[c0 / 2], vqg[(c0 + 8) / 2]);
+      slot_body::mma_bf16(ap[h], ac, vqp[c0 / 2], vqp[(c0 + 8) / 2]);
+      if (kCols) {
+        // W^T's blocks: (0, 0) = a0^T, (1, 0) = a2^T, (0, 1) = a1^T,
+        // (1, 1) = a3^T; the same for C^T.
+        const uint32_t awt[4] = {
+            slot_body::transpose_8x8(aw[0]), slot_body::transpose_8x8(aw[2]),
+            slot_body::transpose_8x8(aw[1]), slot_body::transpose_8x8(aw[3])};
+        const uint32_t act[4] = {
+            slot_body::transpose_8x8(ac[0]), slot_body::transpose_8x8(ac[2]),
+            slot_body::transpose_8x8(ac[1]), slot_body::transpose_8x8(ac[3])};
+        slot_body::mma_bf16(cg, awt, rg0[h], rg1[h]);
+        slot_body::mma_bf16(cp, act, rp0[h], rp1[h]);
+      }
+    }
+    if (kCols) {
+      // C fragments: column 16 s + g, then 16 s + g + 8; operand columns
+      // 2t, 2t + 1 of each product.
+      const int ca = 16 * s + g, cb = ca + 8;
+      *reinterpret_cast<float2*>(cw + part_word(ca, 2 * t)) =
+          make_float2(cg[0], cg[1]);
+      *reinterpret_cast<float2*>(cw + part_word(cb, 2 * t)) =
+          make_float2(cg[2], cg[3]);
+      *reinterpret_cast<float2*>(cw + part_word(ca, 8 + 2 * t)) =
+          make_float2(cp[0], cp[1]);
+      *reinterpret_cast<float2*>(cw + part_word(cb, 8 + 2 * t)) =
+          make_float2(cp[2], cp[3]);
+      if (kMassGrad) {
+        // The step's 16 column sums over the 8 lanes that share each
+        // (lane bits 4, 3, 2): halve twice, then add; the lanes with bit 2
+        // clear write column c0 + (bit 3) + 8 (bit 4).
+        const bool up4 = lane & 16, up3 = lane & 8;
+        float a0 = up4 ? mc[2] : mc[0], a1 = up4 ? mc[3] : mc[1];
+        a0 += __shfl_xor_sync(0xffffffffu, up4 ? mc[0] : mc[2], 16);
+        a1 += __shfl_xor_sync(0xffffffffu, up4 ? mc[1] : mc[3], 16);
+        float b = up3 ? a1 : a0;
+        b += __shfl_xor_sync(0xffffffffu, up3 ? a0 : a1, 8);
+        b += __shfl_xor_sync(0xffffffffu, b, 4);
+        if (!(lane & 4)) mw[c0 + (up3 ? 1 : 0) + (up4 ? 8 : 0)] = b;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < S; ++h) {
+    // C fragments: (row r0, operand columns 2t, 2t + 1), (row r0 + 8, the
+    // same).
+    const int r1 = r0[h] + 8;
+    *reinterpret_cast<float2*>(sm.rows + part_word(r0[h], 2 * t)) =
+        make_float2(ag[h][0], ag[h][1]);
+    *reinterpret_cast<float2*>(sm.rows + part_word(r1, 2 * t)) =
+        make_float2(ag[h][2], ag[h][3]);
+    *reinterpret_cast<float2*>(sm.rows + part_word(r0[h], 8 + 2 * t)) =
+        make_float2(ap[h][0], ap[h][1]);
+    *reinterpret_cast<float2*>(sm.rows + part_word(r1, 8 + 2 * t)) =
+        make_float2(ap[h][2], ap[h][3]);
+    if (kMassGrad) {
+      // A row's sum over its quad (lane bits 0, 1).
+      float m0 = mr0[h], m1 = mr1[h];
+      m0 += __shfl_xor_sync(0xffffffffu, m0, 1);
+      m1 += __shfl_xor_sync(0xffffffffu, m1, 1);
+      m0 += __shfl_xor_sync(0xffffffffu, m0, 2);
+      m1 += __shfl_xor_sync(0xffffffffu, m1, 2);
+      if (t == 0) {
+        sm.mrow[r0[h]] = m0;
+        sm.mrow[r1] = m1;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// One side's (T, KO) partial tile at dst from a pass: its row products
+// (kRows), the warps' reaction products added in increasing warp index
+// (kCols), or their sum; each product's hi and lo columns folded once, here.
+// Item (body c, half h) is columns 4h .. 4h + 3 ([S_g] or [S_p]) and, with
+// KO = 9 and h = 0, the mass cotangent.
+template <int T, int KO, bool kRows, bool kCols>
+__device__ __forceinline__ void sym_mxu_side(float* dst,
+                                             const SymMxuSmem<T, KO>& sm) {
+  constexpr int kWarps = SymMxuSmem<T, KO>::kWarps;
+  auto quad = [](const float* base, int word) {
+    return *reinterpret_cast<const float4*>(base + word);
+  };
+  auto add = [](float4 a, const float4& b) {
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+    return a;
+  };
+  for (int it = threadIdx.x; it < 2 * T; it += sym_mxu_threads<T, KO>()) {
+    const int c = it >> 1, h = it & 1;
+    const int hi = part_word(c, 8 * h), lo = part_word(c, 8 * h + 4);
+    float4 v;
+    if (kRows) v = add(quad(sm.rows, hi), quad(sm.rows, lo));
+    if (kCols) {
+      float4 shi = quad(sm.cols, hi), slo = quad(sm.cols, lo);
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        shi = add(shi, quad(sm.cols + w * T * 16, hi));
+        slo = add(slo, quad(sm.cols + w * T * 16, lo));
+      }
+      const float4 r = add(shi, slo);
+      v = kRows ? add(v, r) : r;
+    }
+    float* o = dst + c * KO + 4 * h;
+    if (KO == 8) {
+      *reinterpret_cast<float4*>(o) = v;
+    } else {
+      o[0] = v.x;
+      o[1] = v.y;
+      o[2] = v.z;
+      o[3] = v.w;
+      if (h == 0) {
+        float m = 0.f;
+        if (kCols) {
+          m = sm.mcol[c];
+#pragma unroll
+          for (int w = 1; w < kWarps; ++w) m += sm.mcol[w * T + c];
+        }
+        dst[c * KO + 8] = kRows ? (kCols ? sm.mrow[c] + m : sm.mrow[c]) : m;
+      }
+    }
+  }
+}
+
+// The slot's passes on its staged blocks (SymMxuBlock::store, then a
+// barrier); out: its two (T, KO) partial tiles.
 template <int T, int K, int KO>
-__global__ void __launch_bounds__(kThreads)
-    vjp_mxu_kernel(const int* __restrict__ slots,
+__device__ __forceinline__ void sym_mxu_compute(int kind, int mask_offdiag,
+                                                float* out, float softening,
+                                                const SymMxuSmem<T, KO>& sm) {
+  constexpr bool kMass = K == 4;
+  if (kind == kSlotFold) {
+    // Side a's triangle (c < r), then side b's (c > r): rows + reactions,
+    // each side its own block's operands.
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      if (mask_offdiag)
+        sym_mxu_pass<T, KO, kMass, true, true, true>(
+            sm.p[side], sm.g[side], sm.vt[side], sm.p[side], sm.g[side],
+            sm.vt[side], 1 + side, softening, sm);
+      else
+        sym_mxu_pass<T, KO, kMass, true, false, true>(
+            sm.p[side], sm.g[side], sm.vt[side], sm.p[side], sm.g[side],
+            sm.vt[side], 1 + side, softening, sm);
+      sym_mxu_side<T, KO, true, true>(out + side * T * KO, sm);
+      __syncthreads();
+    }
+  } else if (kind == kSlotDiag) {
+    // The block's ordered pairs, rows only (they cover both orders).
+    sym_mxu_pass<T, KO, kMass, false, true, false>(
+        sm.p[0], sm.g[0], sm.vt[0], sm.p[1], sm.g[1], sm.vt[1], 0, softening,
+        sm);
+    sym_mxu_side<T, KO, true, false>(out, sm);
+  } else {
+    // Rows to block bi with block bj's operands, reactions to block bj
+    // with block bi's.
+    if (mask_offdiag)
+      sym_mxu_pass<T, KO, kMass, true, true, false>(
+          sm.p[0], sm.g[0], sm.vt[0], sm.p[1], sm.g[1], sm.vt[1], 0,
+          softening, sm);
+    else
+      sym_mxu_pass<T, KO, kMass, true, false, false>(
+          sm.p[0], sm.g[0], sm.vt[0], sm.p[1], sm.g[1], sm.vt[1], 0,
+          softening, sm);
+    sym_mxu_side<T, KO, true, false>(out, sm);
+    sym_mxu_side<T, KO, false, true>(out + T * KO, sm);
+  }
+}
+
+// pos_a / pos_b (c, K), g_a / g_b (c, 3), q_a / q_b (c, 16); part: 2 (T,
+// KO) tiles per slot and system. Each CTA walks its slots
+// (slot_body::walk_slots).
+template <int T, int K, int KO>
+__global__ void __launch_bounds__(
+    sym_mxu_threads<T, KO>(),
+    slot_body::stream_min_ctas(sym_mxu_threads<T, KO>(),
+                               sym_mxu_warps<KO>()))
+    vjp_mxu_kernel(const int* __restrict__ slots, int n_slots,
                    const float* __restrict__ pos_a,
                    const float* __restrict__ pos_b,
                    const float* __restrict__ g_a,
@@ -216,40 +592,8 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ q_a,
                    const float* __restrict__ q_b, float* part,
                    long long sys_rows, float softening, int mask_offdiag) {
-  constexpr int LD = T + 8;
-  constexpr int kTile = T * LD;
-  constexpr int kMTiles = T / 32;
-  constexpr int kRowParts = T / 32;      // warp chunks per row
-  constexpr int kColParts = kThreads / T;  // threads per column
-  constexpr bool kMass = K == 4;
-  constexpr bool kMassGrad = KO == 9;
-  static_assert(2 * kMTiles <= kWarps, "one warp per 32-row output tile");
-  static_assert(kThreads % T == 0 && 2 * T <= kThreads,
-                "a thread keeps one column; 2T threads fold the mass sums");
-
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
-  // tiles + (2 s + 0) kTile: W (s = 0) or the fold's W_hi (s = 1);
-  // tiles + (2 s + 1) kTile: C likewise.
-  __nv_bfloat16* QgA = tiles + 4 * kTile;
-  __nv_bfloat16* QpA = QgA + T * 8;
-  __nv_bfloat16* QgB = QpA + T * 8;
-  __nv_bfloat16* QpB = QgB + T * 8;
-  float* scratch = reinterpret_cast<float*>(QpB + T * 8);
-  float* SA = scratch + kWarps * 2 * 32 * 8;
-  float* SB = SA + kRows * T;
-  // Parts of the mass cotangent sums of block bi (A) and block bj (B): per
-  // (row, warp chunk) and per (column thread, column).
-  float* rowA = SB + kRows * T;
-  float* rowB = rowA + kRowParts * T;
-  float* colA = rowB + kRowParts * T;
-  float* colB = colA + kColParts * T;
-
-  const int kind = slots[3 * blockIdx.x];
-  const int bi = slots[3 * blockIdx.x + 1];
-  const int bj = slots[3 * blockIdx.x + 2];
-  const bool fold = kind == kSlotFold;
-  const bool mask = kind == kSlotDiag || mask_offdiag;
+  const SymMxuSmem<T, KO> sm(smem);
   const long long sys = blockIdx.y;
   pos_a += sys * sys_rows * K;
   pos_b += sys * sys_rows * K;
@@ -257,155 +601,50 @@ __global__ void __launch_bounds__(kThreads)
   g_b += sys * sys_rows * 3;
   q_a += sys * sys_rows * 16;
   q_b += sys * sys_rows * 16;
-  // Side 0's tile (block bi), then side 1's (block bj).
-  float* out = part + (sys * gridDim.x + blockIdx.x) * 2 * T * KO;
-
-  stage<T, K>(pos_a, g_a, q_a, bi * T, (bi + 1) * T, SA, QgA, QpA);
-  stage<T, K>(pos_b, g_b, q_b, bj * T, (bj + 1) * T, SB, QgB, QpB);
-  __syncthreads();
-
-  // The mass cotangent of a pair, -w (g_b.d) to its row and w (g_a.d) to its
-  // column, is summed in a fixed order: a row's terms by warp shuffles within
-  // each 32-column chunk, then the chunks in order; a column's terms in
-  // registers by the one thread that visits it in each row it owns (the
-  // stride kThreads is a multiple of T), then those threads in order.
-  float col_a = 0.f, col_b = 0.f;
-  for (int e = threadIdx.x; e < T * T; e += kThreads) {
-    const int r = e / T, c = e % T;
-    const bool upper = fold && c > r;
-    const float* P = upper ? SB : SA;
-    const float* Q = fold ? P : SB;
-    float w, cc, dot_a, dot_b;
-    wc<T, kMass>(P, Q, r, c, softening, mask, w, cc, dot_a, dot_b);
-    if (fold && r == c) w = cc = 0.f;
-    const int s = upper ? 1 : 0;
-    tiles[(2 * s) * kTile + r * LD + c] = __float2bfloat16_rn(w);
-    tiles[(2 * s + 1) * kTile + r * LD + c] = __float2bfloat16_rn(cc);
-    if (fold) {
-      tiles[(2 - 2 * s) * kTile + r * LD + c] = __float2bfloat16_rn(0.f);
-      tiles[(3 - 2 * s) * kTile + r * LD + c] = __float2bfloat16_rn(0.f);
-    }
-    if (kMassGrad) {
-      // A warp's 32 entries share row r (T is a multiple of 32).
-      const float m_r = -__fmul_rn(w, dot_b);
-      float lo = upper ? 0.f : m_r, hi = upper ? m_r : 0.f;
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) {
-        lo += __shfl_xor_sync(0xffffffffu, lo, off);
-        hi += __shfl_xor_sync(0xffffffffu, hi, off);
-      }
-      if (threadIdx.x % 32 == 0) {
-        rowA[r * kRowParts + c / 32] = lo;
-        rowB[r * kRowParts + c / 32] = hi;
-      }
-      if (kind != kSlotDiag) {
-        const float m_c = __fmul_rn(w, dot_a);
-        if (fold && !upper)
-          col_a += m_c;
-        else
-          col_b += m_c;
-      }
-    }
-  }
-  if (kMassGrad) {
-    colA[threadIdx.x] = col_a;  // thread t keeps column t % T
-    colB[threadIdx.x] = col_b;
-  }
-  __syncthreads();
-
-  if (kMassGrad && threadIdx.x < 2 * T) {
-    const int t = threadIdx.x % T;
-    const bool b = threadIdx.x >= T;
-    const float* rp = b ? rowB : rowA;
-    const float* cp = b ? colB : colA;
-    float m = 0.f;
-    for (int q = 0; q < kRowParts; ++q) m += rp[t * kRowParts + q];
-    for (int q = 0; q < kColParts; ++q) m += cp[q * T + t];
-    if (!b || kind != kSlotDiag) out[(b ? T + t : t) * KO + 8] = m;
-  }
-
-  // Warp -> (side, 32-row output tile). Side 0's partial belongs to block bi
-  // of side a, side 1's to block bj of side b.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int side = warp / kMTiles, m = warp % kMTiles;
-  if (side > 1 || (kind == kSlotDiag && side == 1)) return;
-  const bool rows = fold || side == 0;  // [W | C] @ operands
-  const bool cols = fold || side == 1;  // [W | C]^T @ operands
-  const __nv_bfloat16* Wt = tiles + (fold && side == 1 ? 2 * kTile : 0);
-  const __nv_bfloat16* Ct = Wt + kTile;
-  // FOLD: each side multiplies its own block's operands; DIAG / CROSS:
-  // rows take block bj's (the column bodies), reactions block bi's.
-  const bool own_a = (side == 0) == fold;
-  const __nv_bfloat16* Qg = own_a ? QgA : QgB;
-  const __nv_bfloat16* Qp = own_a ? QpA : QpB;
-
-  Frag fg, fp;
-  wmma::fill_fragment(fg, 0.f);
-  wmma::fill_fragment(fp, 0.f);
-#pragma unroll 2
-  for (int k = 0; k < T / 16; ++k) {
-    FragB bg, bp;
-    wmma::load_matrix_sync(bg, Qg + k * 16 * 8, 8);
-    wmma::load_matrix_sync(bp, Qp + k * 16 * 8, 8);
-    if (rows) {
-      FragA a;
-      wmma::load_matrix_sync(a, Wt + m * 32 * LD + k * 16, LD);
-      wmma::mma_sync(fg, a, bg, fg);
-      wmma::load_matrix_sync(a, Ct + m * 32 * LD + k * 16, LD);
-      wmma::mma_sync(fp, a, bp, fp);
-    }
-    if (cols) {
-      FragAt at;
-      wmma::load_matrix_sync(at, Wt + k * 16 * LD + m * 32, LD);
-      wmma::mma_sync(fg, at, bg, fg);
-      wmma::load_matrix_sync(at, Ct + k * 16 * LD + m * 32, LD);
-      wmma::mma_sync(fp, at, bp, fp);
-    }
-  }
-  float* sg = scratch + warp * 2 * 32 * 8;
-  float* sp = sg + 32 * 8;
-  wmma::store_matrix_sync(sg, fg, 8, wmma::mem_row_major);
-  wmma::store_matrix_sync(sp, fp, 8, wmma::mem_row_major);
-  __syncwarp();
-  float v[8];
-  fold_row(sg, lane, v);
-  fold_row(sp, lane, v + 4);
-  float* dst = out + (side * T + m * 32 + lane) * KO;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) dst[q] = v[q];
+  SymMxuBlock<T, K, sym_mxu_threads<T, KO>()> a, b;
+  slot_body::walk_slots(
+      slots, n_slots,
+      [&](const slot_body::Slot& sl) {
+        const size_t i = sl.bi, j = sl.bj;
+        a.load(pos_a + i * T * K, g_a + i * T * 3, q_a + i * T * 16);
+        b.load(pos_b + j * T * K, g_b + j * T * 3, q_b + j * T * 16);
+      },
+      [&] {
+        a.store(reinterpret_cast<float*>(sm.p[0]),
+                reinterpret_cast<float*>(sm.g[0]), sm.vt[0]);
+        b.store(reinterpret_cast<float*>(sm.p[1]),
+                reinterpret_cast<float*>(sm.g[1]), sm.vt[1]);
+      },
+      [&](const slot_body::Slot& sl, int s) {
+        // Side 0's tile (block bi), then side 1's (block bj).
+        float* out = part + (sys * n_slots + s) * 2 * T * KO;
+        sym_mxu_compute<T, K, KO>(sl.kind, mask_offdiag, out, softening, sm);
+      });
 }
 
-template <int T, int K, int KO>
-int launch_mxu(const int* slots, int n_slots, int n_sys, long long sys_rows,
-               const float* pos_a, const float* pos_b, const float* g_a,
-               const float* g_b, const float* q_a, const float* q_b,
-               float* part, float softening, int mask_offdiag,
-               cudaStream_t stream) {
-  constexpr size_t smem = mxu_smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      vjp_mxu_kernel<T, K, KO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  vjp_mxu_kernel<T, K, KO><<<dim3(n_slots, n_sys), kThreads, smem, stream>>>(
-      slots, pos_a, pos_b, g_a, g_b, q_a, q_b, part, sys_rows, softening,
-      mask_offdiag);
-  return static_cast<int>(cudaGetLastError());
-}
+using SymMxuKernel = void (*)(const int*, int, const float*, const float*,
+                              const float*, const float*, const float*,
+                              const float*, float*, long long, float, int);
 
-template <int T>
-int dispatch_mxu(const int* slots, int n_slots, int n_sys, long long sys_rows,
-                 const float* pos_a, const float* pos_b, const float* g_a,
-                 const float* g_b, const float* q_a, const float* q_b,
-                 float* part, int masses, int ko, float softening,
-                 int mask_offdiag, cudaStream_t s) {
-#define NBODY_VJP_MXU_LAUNCH(K, KO)                                        \
-  launch_mxu<T, K, KO>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b, g_a, \
-                       g_b, q_a, q_b, part, softening, mask_offdiag, s)
-  if (!masses && ko == 8) return NBODY_VJP_MXU_LAUNCH(3, 8);
-  if (masses && ko == 8) return NBODY_VJP_MXU_LAUNCH(4, 8);
-  if (masses && ko == 9) return NBODY_VJP_MXU_LAUNCH(4, 9);
-#undef NBODY_VJP_MXU_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+// B13's kernel for (tile, masses, ko), its threads per CTA and dynamic
+// shared memory, or nullptr.
+SymMxuKernel pick_sym_mxu(int tile, int masses, int ko, int* threads,
+                          size_t* smem) {
+#define NBODY_PICK_SYM_MXU(T)                                      \
+  if (tile == T) {                                                 \
+    *threads = ko == 9 ? sym_mxu_threads<T, 9>()                   \
+                       : sym_mxu_threads<T, 8>();                  \
+    *smem = ko == 9 ? sym_mxu_smem_bytes<T, 9>()                   \
+                    : sym_mxu_smem_bytes<T, 8>();                  \
+    if (!masses && ko == 8) return vjp_mxu_kernel<T, 3, 8>;        \
+    if (masses && ko == 8) return vjp_mxu_kernel<T, 4, 8>;         \
+    if (masses && ko == 9) return vjp_mxu_kernel<T, 4, 9>;         \
+    return nullptr;                                                \
+  }
+  NBODY_PICK_SYM_MXU(64)
+  NBODY_PICK_SYM_MXU(128)
+#undef NBODY_PICK_SYM_MXU
+  return nullptr;
 }
 
 // ---------------------------------------------------------------- B14 ---
@@ -454,26 +693,8 @@ __device__ __forceinline__ void rect_wc(const float4& p, const float3& gp,
                                         const float4& q, const float4& gq,
                                         float softening, float& w,
                                         float& cc) {
-  const float dx = __fsub_rn(q.x, p.x);
-  const float dy = __fsub_rn(q.y, p.y);
-  const float dz = __fsub_rn(q.z, p.z);
-  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                             __fmul_rn(dz, dz));
-  const float inv = slot_body::rsqrt_normal(__fadd_rn(d2, softening));
-  const float inv2 = __fmul_rn(inv, inv);
-  w = __fmul_rn(inv2, inv);
-  float u = __fmul_rn(w, inv2);
-  if (kD2 && d2 == 0.f) w = u = 0.f;
-  const float dot_a = __fadd_rn(
-      __fadd_rn(__fmul_rn(gp.x, dx), __fmul_rn(gp.y, dy)),
-      __fmul_rn(gp.z, dz));
-  const float dot_b = __fadd_rn(
-      __fadd_rn(__fmul_rn(gq.x, dx), __fmul_rn(gq.y, dy)),
-      __fmul_rn(gq.z, dz));
-  const float diff = kMass ? __fsub_rn(__fmul_rn(q.w, dot_a),
-                                       __fmul_rn(p.w, dot_b))
-                           : __fsub_rn(dot_a, dot_b);
-  cc = __fmul_rn(3.f, __fmul_rn(u, diff));
+  float dot_a, dot_b;
+  pair_wc<kMass, kD2>(p, gp, q, gq, softening, true, w, cc, dot_a, dot_b);
 }
 
 // One j tile's products, from fresh fragments: ag = W @ Qg and ap = C @ Qp
@@ -687,18 +908,48 @@ extern "C" int vjp_mxu_launch(const int* slots, int n_slots, int n_sys,
                               const float* q_b, float* part, int masses,
                               int ko, int tile, float softening,
                               int mask_offdiag, void* stream) {
+  int threads = 0;
+  size_t smem = 0;
+  const SymMxuKernel kernel = pick_sym_mxu(tile, masses, ko, &threads, &smem);
+  if (kernel == nullptr || n_sys > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_slots == 0 || n_sys == 0) return 0;
-  if (n_sys > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile == 64)
-    return dispatch_mxu<64>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
-                            g_a, g_b, q_a, q_b, part, masses, ko, softening,
-                            mask_offdiag, s);
-  if (tile == 128)
-    return dispatch_mxu<128>(slots, n_slots, n_sys, sys_rows, pos_a, pos_b,
-                             g_a, g_b, q_a, q_b, part, masses, ko, softening,
-                             mask_offdiag, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int width = 0;
+  err = slot_body::stream_width(kernel, threads, smem, n_slots, n_sys,
+                                &width);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(width, n_sys), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      slots, n_slots, pos_a, pos_b, g_a, g_b, q_a, q_b, part, sys_rows,
+      softening, mask_offdiag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: registers per thread, local bytes per thread, CTAs per SM and
+// threads per CTA of B13's kernel for (tile, masses, ko), at its launch's
+// shared memory.
+extern "C" int vjp_mxu_info(int tile, int masses, int ko, int* out) {
+  int threads = 0;
+  size_t smem = 0;
+  const SymMxuKernel kernel = pick_sym_mxu(tile, masses, ko, &threads, &smem);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[3] = threads;
+  return static_cast<int>(err);
 }
 
 // B14. pos_k (nk, 3|4), g_k (nk, 3); pos_j (nj, 3|4), g_j (nj, 3); rows

@@ -73,11 +73,13 @@ from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
                                                check_coincident,
                                                plain_block_elems)
 
-#: Tile of the pair-once backward when the caller names none: its two
-#: fp32 tiles (w and c) take 33 KB of shared memory at 64 and 132 KB at
-#: 128. One call at N = 65,536 took 9.68 ms at 64 and 11.41 ms at 128
-#: (chip_smoke.py --bwd-tile 64|128, NVIDIA H100 80GB HBM3 at 700 W).
-DEFAULT_TILE = 64
+#: Tile of the pair-once backward when the caller names none. On the
+#: register micro-tiles one call at N = 65,536 with masses took 4.22-4.28
+#: ms at 128 and 4.94-5.06 ms at 64, and the 16 x 65,536 ensemble backward
+#: (B9c) 71.4 ms against 84.1-84.2 (ab_slots.py --only pvjp, NVIDIA H100
+#: 80GB HBM3 at 700 W); the shared-tile kernel before them took 9.68 ms at
+#: 64 and 11.41 at 128.
+DEFAULT_TILE = 128
 
 #: Kernel launches on CUDA tensors, counted at each launch: made by
 #: vjp_pos_direct / vjp_pos_rect (B10, one per call), by vjp_sym_sums_

@@ -71,10 +71,12 @@ from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
                                                plain_block_elems)
 
 #: Tile of the pair-once backward when the caller names none, and of the
-#: rectangular one. B13's four bf16 tiles take 37 KB of shared memory at
-#: 64 and 139 KB at 128, yet 128 is the faster: one call at N = 65,536
-#: took 13.86 ms against 39.59 ms at 64 (chip_smoke.py --bwd-tile 128|64,
-#: NVIDIA H100 80GB HBM3 at 700 W), with a quarter of the slots.
+#: rectangular one. With w and c in mma.sync fragments one call at N =
+#: 65,536 with masses took 3.95-4.21 ms at 128 and 5.27 ms at 64, and the
+#: 16 x 65,536 ensemble backward (B9d) 63.8 ms against 83.2-83.3
+#: (ab_slots.py --only pvjp, NVIDIA H100 80GB HBM3 at 700 W); the
+#: shared-tile kernel before them (64,000 bytes of shared memory at 64,
+#: 177,152 at 128) took 13.86 ms at 128 and 39.59 at 64.
 DEFAULT_TILE = 128
 RECT_TILE = 128
 

@@ -64,7 +64,17 @@ against its bf16-mode plain version with 131,072 sources per row.
 The ordered VJPs' register designs: B14 at tiles 64 and 128 and B10 at
 blocks 32 to 1024, ragged, twice bitwise and 'fast' bitwise 'masked' on
 duplicate-free bodies, against their plain versions at the bounds above;
-their registers, spills and CTAs per SM from their occupancy queries."""
+their registers, spills and CTAs per SM from their occupancy queries.
+
+The pair-once VJPs' persistent register bodies, B11 (fp32 micro-tiles) and
+B13 (w and c in mma.sync fragments), at every instantiation (tile 64 and
+128; unit masses, masses, the mass cotangent): a whole chunked call at a
+ragged N whose CTAs each walk several slots against the plain version,
+masked and maskless; one DIAG, CROSS or FOLD slot alone with coincident
+pairs, the rest of the accumulators exactly zero; two runs bitwise and
+'fast' bitwise 'masked'; 7 ensemble systems in one launch (7 divides no
+persistent width) each bitwise its standalone call; and no spills at the
+warps per SM each is compiled for, from vjp_sym_info and vjp_mxu_info."""
 
 import numpy as np
 import pytest
@@ -1664,3 +1674,173 @@ def test_simulate_band_goes_through_b16(cuda):
     assert launched == (16, 24, 0)
     ref = simulate(cfg.replace(traversal="slots"), state)
     _close(out.pos, ref.pos, 1e-2, 1e-3)
+
+
+# ------------------- B11 and B13 on persistent register bodies (B9c, B9d)
+
+#: Every instantiation of the pair-once VJPs: (masses, mass_grad), each in
+#: the fp32 class (B11: ko 3, 3, 4) and the bf16 class (B13: ko 8, 8, 9).
+PAIR_ONCE_KINDS = [(False, False), (True, False), (True, True)]
+
+
+def _pair_once_sums(mxu, pos, g, m, tile, chunk, mass_grad, mask, plain):
+    """The raw sums of a whole chunked pair-once backward (every self chunk
+    and chunk pair, as vjp_pos_sym / vjp_pos_sym_mxu walk them): from the
+    kernel, or from its plain version (B13's in bf16 mode)."""
+    n = pos.shape[0]
+    if mxu:
+        (tile, c, nc, np_), bodies = vm.sums_inputs(pos, g, m, tile, chunk)
+        ko = 9 if mass_grad else 8
+    else:
+        tile, c, nc, np_ = sm._resolve_tiling(n, tile, chunk, kernel=True)
+        bodies = (sf._pack(pos, m, n, np_), vk._pad_rows(g, np_))
+        ko = 4 if mass_grad else 3
+    acc = torch.zeros((np_, ko), device=pos.device)
+
+    def run(acc_a, acc_b, a, b, slots):
+        if mxu and plain:
+            vm.vjp_mxu_sums_plain(acc_a, acc_b, a[0], b[0], a[1], b[1], a[2],
+                                  b[2], slots, tile, 1e-2, mask,
+                                  mma_dtype=torch.bfloat16)
+        elif mxu:
+            vm.vjp_mxu_sums_(acc_a, acc_b, a[0], b[0], a[1], b[1], a[2],
+                             b[2], slots, tile, 1e-2, mask)
+        elif plain:
+            vk.vjp_sym_sums_plain(acc_a, acc_b, a[0], b[0], a[1], b[1],
+                                  slots, tile, 1e-2, mask)
+        else:
+            vk.vjp_sym_sums_(acc_a, acc_b, a[0], b[0], a[1], b[1], slots,
+                             tile, 1e-2, mask)
+
+    vk.chunk_loop(run, acc, bodies, tile, c, nc)
+    return acc[:n]
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses,mass_grad", PAIR_ONCE_KINDS)
+@pytest.mark.parametrize("mask", [False, True])
+def test_pair_once_vjp_walk_vs_plain(cuda, mxu, tile, masses, mass_grad,
+                                     mask):
+    # N = 8191 (ragged) in chunks of 4096: tri and cross launches whose
+    # persistent CTAs each walk several slots.
+    pos, g, m = _vjp_case(8191, 75, masses, cuda)
+    got, want = (_pair_once_sums(mxu, pos, g, m, tile, 4096, mass_grad,
+                                 mask, plain) for plain in (False, True))
+    if mxu:
+        _close_cols(got, want)
+    else:
+        _close(got, want, 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("which", sorted(ONE_SLOT))
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses,mass_grad", PAIR_ONCE_KINDS)
+@pytest.mark.parametrize("mask", [False, True])
+def test_pair_once_vjp_one_slot_vs_plain(cuda, which, mxu, tile, masses,
+                                         mass_grad, mask):
+    # One DIAG, CROSS or FOLD slot alone, with a ragged tail and coincident
+    # off-diagonal pairs: each partial tile against the plain version's
+    # (B13's per column against the bf16-mode one), the rest exactly zero.
+    kind, bi, bj = ONE_SLOT[which]
+    n, pos, m = _one_slot_case(tile, 72, cuda, masses)
+    g = _pos(n, 73, cuda)
+    np_ = 4 * tile
+    slots = torch.tensor([[kind, bi, bj]], dtype=torch.int32, device=cuda)
+    cross = kind == sp.SLOT_CROSS
+    if mxu:
+        _, (p, gp, q) = vm.sums_inputs(pos, g, m, tile, chunk=np_)
+        ko = 9 if mass_grad else 8
+    else:
+        p, gp = sf._pack(pos, m, n, np_), vk._pad_rows(g, np_)
+        ko = 4 if mass_grad else 3
+    got = [torch.zeros((np_, ko), device=cuda) for _ in range(1 + cross)]
+    want = [torch.zeros_like(got[0]) for _ in range(1 + cross)]
+    if mxu:
+        vm.vjp_mxu_sums_(got[0], got[-1], p, p, gp, gp, q, q, slots, tile,
+                         1e-2, mask)
+        vm.vjp_mxu_sums_plain(want[0], want[-1], p, p, gp, gp, q, q, slots,
+                              tile, 1e-2, mask, mma_dtype=torch.bfloat16)
+    else:
+        vk.vjp_sym_sums_(got[0], got[-1], p, p, gp, gp, slots, tile, 1e-2,
+                         mask)
+        vk.vjp_sym_sums_plain(want[0], want[-1], p, p, gp, gp, slots, tile,
+                              1e-2, mask)
+    tiles, rest = _side_tiles(kind, bi, bj, tile, got[0], got[-1], n)
+    want_tiles, _ = _side_tiles(kind, bi, bj, tile, want[0], want[-1], n)
+    for a, b in zip(tiles, want_tiles):
+        if mxu:
+            _close_cols(a, b)
+        else:
+            _close(a, b, 1e-3, 1e-4)
+    for r in rest:
+        assert torch.equal(r, torch.zeros_like(r))
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("masses,mass_grad", PAIR_ONCE_KINDS)
+def test_pair_once_vjp_reruns_and_fast_bitwise(cuda, mxu, tile, masses,
+                                               mass_grad):
+    # Two runs bitwise equal, and 'fast' (the maskless body off the
+    # diagonal slots) bitwise 'masked' on duplicate-free bodies.
+    pos, g, m = _vjp_case(8191, 76, masses, cuda)
+    assert not sm.any_coincident(pos)
+    fn = vm.vjp_pos_sym_mxu if mxu else vk.vjp_pos_sym
+
+    def run(mode):
+        out = fn(pos, g, m, 1e-2, tile=tile, chunk=4096, mass_grad=mass_grad,
+                 coincident=mode)
+        return out if mass_grad else (out,)
+
+    first = run("masked")
+    for other in (run("masked"), run("fast")):
+        for a, b in zip(first, other):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_ensemble_vjp_uneven_width_bitwise_vs_standalone(cuda, mxu, tile):
+    # 7 systems of 2000: the persistent width is shared among 7 systems
+    # (7 divides no width of the card), each system's CTAs walk several
+    # slots, all in one launch; every system, its mass cotangent too,
+    # bitwise its standalone call.
+    b, n = 7, 2000
+    _, st = _ensemble(n, b, True, cuda, seed=77)
+    g = torch.sin(5.0 * st.pos)
+    ens, one, counter = _ens_vjp(mxu)
+    before = getattr(*counter)
+    got = ens(st.pos, g, st.mass, tile=tile, mass_grad=True)
+    assert getattr(*counter) == before + 1
+    for i in range(b):
+        ref = one(st.pos[i], g[i].contiguous(), st.mass[i], tile=tile,
+                  mass_grad=True)
+        for a, r in zip(got, ref):
+            assert torch.equal(a[i], r), i
+
+
+#: (occupancy query, masses, ko) of every pair-once VJP instantiation.
+PAIR_ONCE_INFO = [("vjp_sym_info", 0, 3), ("vjp_sym_info", 1, 3),
+                  ("vjp_sym_info", 1, 4), ("vjp_mxu_info", 0, 8),
+                  ("vjp_mxu_info", 1, 8), ("vjp_mxu_info", 1, 9)]
+
+
+@pytest.mark.parametrize("fn,masses,ko", PAIR_ONCE_INFO)
+@pytest.mark.parametrize("tile", [64, 128])
+def test_pair_once_vjp_registers_without_spills(cuda, fn, masses, ko, tile):
+    # B11: (T / 4) (T / 8) threads (4 x 8 pairs each) at 16 warps per SM
+    # (at most 128 registers). B13: two 16-row strips a warp (T threads) at
+    # 12 warps per SM (168 registers); with the mass cotangent one strip
+    # (2T threads) at 16 warps (128).
+    regs, local, ctas, threads = _occupancy(fn, tile, masses, ko,
+                                            threads=True)
+    if fn == "vjp_sym_info":
+        design, cap, warps = (tile // 4) * (tile // 8), 128, 16
+    elif ko == 9:
+        design, cap, warps = 2 * tile, 128, 16
+    else:
+        design, cap, warps = tile, 168, 12
+    assert threads == design
+    assert regs <= cap and local == 0 and ctas * threads // 32 >= warps
