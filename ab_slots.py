@@ -1,10 +1,10 @@
-"""Times the register-body kernels K3, K2, B6, B16, B14, B10, B11 and B13 of
-two trees of this repo on one card, in turns, on the same inputs, and prints
-digests of their outputs.
+"""Times the register-body kernels K3, K2, B6, B16, B14, B10, B11, B13 and
+B12 and the slot-order reduce of two trees of this repo on one card, in
+turns, on the same inputs, and prints digests of their outputs.
 
     python3 ab_slots.py --other DIR [--turns other,this,this,other]
                         [--only slots,band,passes,b15,b6,vjp,rollout,
-                                pvjp,bwdmax]
+                                pvjp,bwdmax,b12,reduce]
 
 DIR is another checkout of the repo (for example the parent commit unpacked
 with ``git archive``, in a directory that .gitignore lists). Each turn runs
@@ -31,9 +31,25 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   after the duplicate scan);
 - vjp: on the same plummer bodies with a normal cotangent, B14 (one square
   launch, tile 128, with masses under 'fast' and 'masked', with unit masses
-  under 'fast'), B10 (one square
-  launch, masses, 'fast', at block 512 and 256) and B12 (both sides of
-  ``vjp_pos_pair`` over the whole 262,144^2 square, block 512);
+  under 'fast') and B10 (one square launch, masses, 'fast', at block 512
+  and 256);
+- b12: ``vjp_pos_pair`` (B12, the grid backward) on the same bodies, a
+  whole call over the 262,144^2 square with masses and with unit masses,
+  and a ragged 3001 x 9001 call with masses (a tree with the pair-once
+  B12: at its tile, else at block 512); in such a tree the whole call's
+  slot_reduce launches alone, and the same call as B11's CROSS mode
+  (``vjp_sym_sums_``, 'masked', zero column cotangents, tile 128), with
+  its error on B12's scale; and the same function as two B10 launches,
+  each side with the other side's cotangent zero (the two-sided design on
+  B10's register body);
+- reduce: slot_reduce alone on random partials: one piece of K3's cross
+  list at N = 2^20's chunk 131,072 (tile 128, width 3), the same piece at
+  K2's width 8, and the first piece of B13's tri list at N = 65,536 (tile
+  128, width 8); the reduces of a whole 2^20 ``auto`` (K3) and
+  ``sym_mxu`` (K2) pass (8 tri and 28 cross calls' pieces), each a list
+  of readings; in a tree whose plans carry a launch order, each also with
+  the identity order (turns: the plan's, identity, identity, the plan's);
+  and digests of B9a and B9b (16 x 4096 plummer systems with masses);
 - rollout: one warm 10-step "sqrt" rollout gradient at N = 262,144 (config
   3's physics: leapfrog, dt 1e-3) on ``auto`` (K3 + B10, loss on the final
   positions) and on ``sym_mxu`` (K2 + B14, loss on the final velocities),
@@ -53,8 +69,8 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   and K2's sums of the timed calls, B15's final state in both classes, B6's
   raw sums and forces at 262,144 in both classes, B16's rows and columns of
   one tri and one cross call, B14's rows, B10's and B12's outputs, B11's
-  and B13's partial tiles, calls and ensemble backwards; equal digests mean
-  equal bits;
+  and B13's partial tiles, calls and ensemble backwards, the reduces'
+  accumulators, B9a's and B9b's forces; equal digests mean equal bits;
 - nvcc's ptxas report for those kernels (registers, spill bytes), and
   CTAs per SM: from the kernel's own occupancy query where the tree has one
   (``symmetric_force_info``, ``slot_pipe_info``, ``mxu_force_info``,
@@ -63,13 +79,13 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   computed from the registers, threads and shared memory of the body (H100:
   65,536 registers, 2048 threads, 32 CTAs and 233,472 bytes of shared
   memory per SM);
-- the SASS of B10, B14, B11 and B13 (``cuobjdump -sass`` of the tree's
-  library): for each loop holding a rsqrt (``MUFU.RSQ``), its instructions
-  and rsqrts, so instructions per pair of the innermost pair loop; and for
-  each straight run of code (no label, no branch) holding 8 rsqrts or more,
-  its instructions from the first rsqrt to the last and its rsqrts, so
-  instructions per pair of a pass unrolled over its pairs (B11's micro-tile,
-  B13's steps).
+- the SASS of B10, B14, B11, B13 and B12 (``cuobjdump -sass`` of the
+  tree's library): for each loop holding a rsqrt (``MUFU.RSQ``), its
+  instructions and rsqrts, so instructions per pair of the innermost pair
+  loop; and for each straight run of code (no label, no branch) holding 8
+  rsqrts or more, its instructions from the first rsqrt to the last and
+  its rsqrts, so instructions per pair of a pass unrolled over its pairs
+  (B11's and B12's micro-tiles, B13's steps).
 The parent prints the same lines, so the two trees are compared within one
 call on one card. The card's name and power limit are printed first.
 """
@@ -91,7 +107,10 @@ N_CONFIG3, SOFT_CONFIG3 = 262144, 1e-2
 ROLLOUT_STEPS, ROLLOUT_DT = 10, 1e-3
 REPS = 5
 SECTIONS = ("slots", "band", "passes", "b15", "b6", "vjp", "rollout", "pvjp",
-            "bwdmax")
+            "bwdmax", "b12", "reduce")
+#: b12: the ragged call's sets; reduce: the ensemble (B, N) of B9a and B9b.
+B12_RAGGED = (3001, 9001)
+ENS_REDUCE = (16, 4096)
 #: pvjp: N of the launches and calls, the ensemble (B, N); bwdmax: the Ns.
 N_PVJP, ENS_PVJP = 65536, (16, 65536)
 BWDMAX_NS = (65536, 131072, 262144)
@@ -107,11 +126,12 @@ BWDMAX_NS = (65536, 131072, 262144)
 #: its fp32 W and C tiles (rows padded to T + 1) and the blocks (36,864
 #: bytes at tile 64); B13 256 threads, its bf16 W and C tiles for both fold
 #: sides, Qg, Qp, the warps' products, the blocks and the mass partials
-#: (177,152 bytes at tile 128).
+#: (177,152 bytes at tile 128); B12's two sides as B10's old body.
 SHARED_W_BODIES = {"K3": (256, 70144), "K2": (256, 76800),
                    "B6": (256, 48640), "B16": (256, 41984),
                    "B14": (256, 89088), "B10": (512, 16384),
-                   "B11": (128, 36864), "B13": (256, 177152)}
+                   "B11": (128, 36864), "B13": (256, 177152),
+                "B12": (512, 16384)}
 #: The timed instantiations: K3 at tile 128, unit masses, fast rsqrt; K2 and
 #: B16 at tile 128 without split_w (B16 with fast rsqrt); B6's bf16 class
 #: with masses; B14 at tile 128 and B10 at block 512, with masses. Parts of
@@ -127,7 +147,12 @@ SLOT_KERNELS = {"K3": ("symmetric_force_kernelILi128ELi3ELb1E",),
                 "B10": ("vjp_ordered_kernelILi4ELb1E",
                         "vjp_ordered_kernelILb1ELi0E"),
                 "B11": ("vjp_sym_kernelILi64ELi4ELi3E",),
-                "B13": ("vjp_mxu_kernelILi128ELi4ELi8E",)}
+                "B13": ("vjp_mxu_kernelILi128ELi4ELi8E",),
+                "B12": ("vjp_pair_kernelILi128ELi4E",
+                        "vjp_side_kernelILb1ELi1E")}
+#: B12's kernels whose SASS is counted: this tree's with masses, the
+#: parent's two sides with masses.
+B12_SASS = ("vjp_pair_kernelILi128ELi4E", "vjp_side_kernelILb1ELi")
 
 
 def find_kernel(report, names):
@@ -241,6 +266,7 @@ def worker(tree, only):
     sys.path.insert(0, os.path.abspath(tree))
     import ctypes
 
+    import numpy as np
     import torch
 
     from mini_nbody_tpu_torch import BodyState, SimConfig, _build, init
@@ -431,12 +457,137 @@ def worker(tree, only):
             "ms_per_launch": time_fn(vk.vjp_pos_direct, *args,
                                      reps=REPS) * 1e3,
             "digest": digest(vk.vjp_pos_direct(*args))}
-    if "vjp" in only:
-        args = (s3.pos, g3, s3.pos, s3.mass, s3.mass, SOFT_CONFIG3, 512)
-        rec["kernels"]["B12"] = {
-            "n": N_CONFIG3, "block": 512,
-            "ms_per_call": time_fn(vk.vjp_pos_pair, *args, reps=3) * 1e3,
-            "digest": digest(*vk.vjp_pos_pair(*args))}
+
+    # B12 on the same bodies: this tree's (or the parent's, at block 512),
+    # its reduces alone, B11's cross mode with zero column cotangents, and
+    # the two-sided design on B10's body.
+    if "b12" in only:
+        new_b12 = hasattr(vk, "PAIR_TILE")
+        sizes = {"tile ": (vk.PAIR_TILE,)} if new_b12 else {"": (512,)}
+        ra, rb = B12_RAGGED
+        gr = torch.Generator(device=dev).manual_seed(SEED + 12)
+        pr = torch.rand((ra + rb, 3), generator=gr, device=dev) * 2 - 1
+        mr = torch.rand(ra + rb, generator=gr, device=dev) + 0.5
+        cases = (("", s3.pos, g3, s3.pos, s3.mass),
+                 (" unit masses", s3.pos, g3, s3.pos, None),
+                 (f" ragged {ra}x{rb}", pr[:ra], g3[:ra], pr[ra:], mr[ra:]))
+        for (what, size), (case, pa, ga, pb, mb) in (
+                ((w, z), c) for w, zs in sizes.items() for z in zs
+                for c in cases):
+            kw = {} if new_b12 else {"block": size}
+            args = (pa, ga, pb, None, mb, SOFT_CONFIG3)
+            rec["kernels"][f"B12 {what}{size}{case}"] = {
+                "na": pa.shape[0], "nb": pb.shape[0],
+                "ms_per_call": time_fn(lambda: vk.vjp_pos_pair(*args, **kw),
+                                       reps=3) * 1e3,
+                "digest": digest(*vk.vjp_pos_pair(*args, **kw))}
+        if new_b12:
+            t = vk.PAIR_TILE
+            np_ = -(-N_CONFIG3 // t) * t
+            table = sp.slot_table(np_ // t, False, True, dev)
+            acc = torch.zeros((np_, 3), device=dev)
+            rec["b12_reduce_ms"] = time_fn(
+                sp.run_slot_pieces, "none", table, False, t, 3, acc,
+                torch.zeros_like(acc), lambda *a: 0, lambda: None,
+                reps=3) * 1e3
+            from mini_nbody_tpu_torch.ops.symmetric_force import _pack
+
+            def b11_as_b12(m):
+                # the 262,144^2 square as B11's CROSS mode, 'masked', g_b = 0
+                pk = _pack(s3.pos, m, N_CONFIG3, np_)
+                gk = vk._pad_rows(g3, np_)
+                acc_a = torch.zeros((np_, 3), device=dev)
+                acc_b = torch.zeros((np_, 3), device=dev)
+                vk.vjp_sym_sums_(acc_a, acc_b, pk, pk, gk,
+                                 torch.zeros_like(gk), table, t,
+                                 SOFT_CONFIG3, mask_offdiag=True)
+                return acc_a[:N_CONFIG3], acc_b[:N_CONFIG3]
+
+            for case, m in (("", s3.mass), (" unit masses", None)):
+                got = b11_as_b12(m)
+                want = vk.vjp_pos_pair(s3.pos, g3, s3.pos, None, m,
+                                       SOFT_CONFIG3)
+                rec["kernels"][f"B12 as B11 cross tile {t}{case}"] = {
+                    "ms_per_call": time_fn(b11_as_b12, m, reps=3) * 1e3,
+                    "digest": digest(*got),
+                    "max_err_of_b12_scale": max(
+                        ((x - y).abs().max() / y.abs().max()).item()
+                        for x, y in zip(got, want))}
+        one = torch.ones_like(s3.mass)
+
+        def two_b10():
+            zero = torch.zeros_like(g3)
+            return (vk.vjp_pos_rect(s3.pos, g3, s3.pos, zero, one, s3.mass,
+                                    SOFT_CONFIG3, 512),
+                    vk.vjp_pos_rect(s3.pos, zero, s3.pos, g3, s3.mass, one,
+                                    SOFT_CONFIG3, 512))
+
+        rec["kernels"]["B12 as two B10 launches"] = {
+            "ms_per_call": time_fn(two_b10, reps=3) * 1e3,
+            "digest": digest(*two_b10())}
+
+    # slot_reduce alone on random partials (the same on both trees: one
+    # generator seed), and the ensemble forces behind it.
+    # A tree whose plans carry a launch order (longest list first) also
+    # runs every reduce with the identity order, the variants in turns
+    # (order, identity, identity, order).
+    if "reduce" in only:
+        _, c65, _, _ = sm._resolve_tiling(N_PVJP, TILE, CHUNK, kernel=True)
+        cases = (("K3 cross piece", slots["cross"], False, 3, c),
+                 ("K2 cross piece", slots["cross"], False, 8, c),
+                 ("B13 tri piece", sp.slot_table(c65 // TILE, True, False,
+                                                 dev), True, 8, c65))
+        ordered = hasattr(sp, "launch_order")
+        longest_first = getattr(sp, "launch_order", None)
+        variants = (("", " identity order", " identity order", "")
+                    if ordered else ("",))
+        for turn, suffix in enumerate(variants):
+            if ordered:
+                sp.launch_order = (longest_first if not suffix else
+                                   lambda off: np.arange(len(off) - 1))
+                sp._PLANS.clear()
+            gr = torch.Generator(device=dev).manual_seed(SEED + 13)
+            for name, table, tri, width, rows in cases:
+                plan = sp.reduce_plan(table, tri)[0]
+                part = torch.randn(plan[1] * 2 * TILE * width, generator=gr,
+                                   device=dev)
+                acc = [torch.zeros((rows, width), device=dev)
+                       for _ in range(2)]
+                accs = (acc[0], acc[0] if tri else acc[1])
+                ms = time_fn(sp.slot_reduce_, part, plan, *accs, TILE, width,
+                             reps=REPS) * 1e3
+                acc = [torch.zeros((rows, width), device=dev)
+                       for _ in range(2)]
+                accs = (acc[0], acc[0] if tri else acc[1])
+                sp.slot_reduce_(part, plan, *accs, TILE, width)
+                rec["kernels"].setdefault(f"reduce {name}{suffix}", {
+                    "width": width, "slots": plan[1],
+                    "targets": plan[2].shape[0], "ms_per_launch": [],
+                    "digest": digest(*acc)})["ms_per_launch"].append(ms)
+            for name, width in (("auto", 3), ("sym_mxu", 8)):
+                acc = torch.zeros((c, width), device=dev)
+                ms = {mode: time_fn(sp.run_slot_pieces, "none", table,
+                                    mode == "tri", TILE, width, acc,
+                                    acc if mode == "tri" else acc.clone(),
+                                    lambda *a: 0, lambda: None, reps=3) * 1e3
+                      for mode, table in slots.items()}
+                nc = N // c
+                rec.setdefault(f"pass_reduce_ms_{name}{suffix}", []).append(
+                    nc * ms["tri"] + nc * (nc - 1) // 2 * ms["cross"])
+        if ordered:
+            sp.launch_order = longest_first
+            sp._PLANS.clear()
+        b, n = ENS_REDUCE
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        systems = [init.plummer(n, generator=gen, device=dev)
+                   for _ in range(b)]
+        pos_e = torch.stack([x.pos for x in systems])
+        mass_e = torch.stack([x.mass for x in systems])
+        rec["kernels"]["B9a"] = {"b": b, "n": n, "digest": digest(
+            sm.body_force_sym_mxu_ensemble(pos_e, mass_e,
+                                           traversal="slots"))}
+        rec["kernels"]["B9b"] = {"b": b, "n": n, "digest": digest(
+            sf.body_force_symmetric_ensemble(pos_e, mass_e))}
 
     # The rollout gradient at config 3's N, warm (time_fn's warm-up run).
     for backend, on in (("auto", "pos"), ("sym_mxu", "vel")) \
@@ -553,25 +704,33 @@ def worker(tree, only):
         ln for ln in _build.BUILD_LOG.splitlines()
         if "Compiling entry" in ln or "spill" in ln or "Used" in ln)
     occ = {}
+    # B12's query, and B10's without the side argument B12's two sides
+    # needed, in a tree with the pair-once B12.
+    pair_once = hasattr(lib, "vjp_pair_info")
     for name, fn, args in (("K3", "symmetric_force_info", (3, tile, fast)),
                            ("K2", "slot_pipe_info", (tile, 0)),
                            ("B6", "mxu_force_info", (1, 1)),
                            ("B16", "band_mxu_info", (tile, 0, fast)),
                            ("B14", "vjp_rect_mxu_info", (128, 1)),
-                           ("B10", "vjp_ordered_info", (0, 512, 1)),
+                           ("B10", "vjp_ordered_info",
+                            (512, 1) if pair_once else (0, 512, 1)),
                            ("B11", "vjp_sym_info", (64, 1, 3)),
-                           ("B13", "vjp_mxu_info", (128, 1, 8))):
+                           ("B13", "vjp_mxu_info", (128, 1, 8)),
+                           ("B12", "vjp_pair_info" if pair_once
+                            else "vjp_ordered_info",
+                            (1,) if pair_once else (1, 512, 1))):
         if hasattr(lib, fn):
             out = (ctypes.c_int * 4)()  # the VJPs' add threads
             _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)),
                          fn)
             occ[name] = {"registers": out[0], "local_bytes": out[1],
                          "ctas_per_sm": out[2], "from": fn}
-            if name in ("B14", "B10", "B11", "B13"):
+            if name in ("B14", "B10", "B11", "B13", "B12"):
                 occ[name]["threads"] = out[3]
     rec["occupancy"] = occ
     rec["sass_loops"] = kernel_sass(lib._name, [
-        m for k in ("B14", "B10", "B11", "B13") for m in SLOT_KERNELS[k]])
+        m for k in ("B14", "B10", "B11", "B13") for m in SLOT_KERNELS[k]]
+        + list(B12_SASS))
     rec["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(rec), flush=True)
 

@@ -89,19 +89,20 @@ each with every launch count set to 0 just before it and read just after:
   single-card ``simulate`` on the kernel its shard runs, with exact kernel
   and collective counts and the ms per step beside the single card's;
   config 3 (plummer, N = 262,144) through one differentiable step under
-  ``grid`` (backward B12, two launches) and ``ring`` on ``sym_mxu``
-  (backward B14) against the single-card gradient (B10); the parameter
+  ``grid`` (backward B12, one launch per piece of its slots) and ``ring``
+  on ``sym_mxu`` (backward B14) against the single-card gradient (B10); the
+  parameter
   sweep with a mesh, bitwise the unsharded ensemble.
 
 B16 makes one launch per piece of its row blocks
 (``sym_mxu_force.BAND_PIECE_TILES``) and group of systems, each followed by
 one launch of ``csrc/slot_reduce.cu`` that adds the piece's column partials
-in increasing row block. A slot kernel (K2, K3, B11, B13, and the ensembles
-B9a and B9b) makes one
-launch per piece of its slot list (``slot_pipe.PIECE_SLOTS`` slots) and
-group of systems, each followed by one launch of ``csrc/slot_reduce.cu``,
-which adds the piece's partial sums in slot order; the launch counts and
-the per-launch times of the kernels line count those launches.
+in increasing row block. A slot kernel (K2, K3, B11, B12, B13, and the
+ensembles B9a and B9b) makes one launch per piece of its slot list
+(``slot_pipe.PIECE_SLOTS`` slots) and group of systems, each followed by
+one launch of ``csrc/slot_reduce.cu``, which adds the piece's partial sums
+in slot order; the launch counts and the per-launch times of the kernels
+line count those launches.
 
 Before the paths, ``vjp_vs_plain`` holds the VJP kernels B10, B11, B13 and
 B14 against their plain versions, ``b6_vs_plain`` and ``b4_vs_plain``
@@ -381,7 +382,7 @@ COUNTERS = {"direct": (df, "LAUNCHES"), "fused": (df, "FUSED_LAUNCHES"),
 SLOT_KERNELS = ("slot_tri", "slot_cross", "pair_mxu", "slot_ensemble",
                 "sym_tri", "sym_cross", "sym_ensemble", "vjp_sym_tri",
                 "vjp_sym_cross", "vjp_mxu_tri", "vjp_mxu_cross",
-                "vjp_sym_ensemble", "vjp_mxu_ensemble")
+                "vjp_sym_ensemble", "vjp_mxu_ensemble", "vjp_pair")
 
 
 #: B16's modes. csrc/slot_reduce.cu runs once after each launch that stores
@@ -570,15 +571,13 @@ BODIES = {
             (sm.DEFAULT_TILE, 0, int(fast_rsqrt_cube(SOFTENING))),
             "band_mxu_kernelILi128ELb0ELb1E"),
     # The VJPs as the gradients at config 3's N run them, with masses: B14
-    # at the rectangular tile, B10 and B12's two sides at SimConfig.tile_i.
+    # at the rectangular tile, B10 at SimConfig.tile_i, B12 at its tile.
     "B14": ("vjp_rect_mxu_info", (vm.RECT_TILE, 1),
             "vjp_rect_mxu_kernelILi128ELi4E"),
-    "B10": ("vjp_ordered_info", (0, SimConfig(n=N_CONFIG3).tile_i, 1),
+    "B10": ("vjp_ordered_info", (SimConfig(n=N_CONFIG3).tile_i, 1),
             "vjp_ordered_kernelILi4ELb1E"),
-    "B12 a_bar": ("vjp_ordered_info", (1, SimConfig(n=N_CONFIG3).tile_i, 1),
-                  "vjp_side_kernelILb1ELi1E"),
-    "B12 b_bar": ("vjp_ordered_info", (2, SimConfig(n=N_CONFIG3).tile_i, 1),
-                  "vjp_side_kernelILb1ELi2E"),
+    "B12": ("vjp_pair_info", (1,),
+            f"vjp_pair_kernelILi{vk.PAIR_TILE}ELi4E"),
     # The pair-once VJPs with masses, without the mass cotangent, at their
     # modules' tiles (--bwd-tile sets both): B11 and B9c, B13 and B9d.
     "B11": lambda: ("vjp_sym_info", (vk.DEFAULT_TILE, 1, 3),
@@ -1136,7 +1135,7 @@ def time_reduce(launches, c, tile):
     nb, width = c // tile, 3
     slots = sp.slot_table(nb, False, True, DEV)
     piece_plan = sp.reduce_plan(slots, False)[0]
-    n, targets, offsets, entries = piece_plan[1:]
+    n, targets, offsets, entries = piece_plan[1:5]
     part = torch.randn(n * 2 * tile * width, device=DEV)
     accs = [[torch.zeros((c, width), device=DEV) for _ in range(2)]
             for _ in range(2)]
@@ -2843,6 +2842,13 @@ def b12_bound(na, nb):
     return bound(float(na) * nb * OPS_B12, (na * 9 + nb * 7) * 4.0)
 
 
+def b12_launches(na, nb):
+    """B12's launches per call of na x nb bodies: one per piece of its
+    cross slot table (each followed by one slot_reduce)."""
+    tile = vk.PAIR_TILE
+    return per_call(-(-na // tile) * -(-nb // tile))
+
+
 def b12_phase(rng):
     """B12 (vjp_pos_pair) against vjp_pos_pair_plain on the card: the tile
     of rank (0, 0) of a 2 x 2 and a 4 x 2 grid over config 3's plummer
@@ -2851,14 +2857,13 @@ def b12_phase(rng):
     masses, at K1's bound on each output's scale; every call twice,
     bitwise. Then B12 on the whole pair matrix (262,144 x 262,144, a 1 x 1
     grid, what the grid gradient of the sharded phase gives it) against its
-    plain version at the same bound, and timed beside its bound and its
-    plain version. Every call takes the grid backward's block
-    (SimConfig.tile_i). Returns (its max error, its kernels-line record
+    plain version at the same bound, and timed beside its bound, its plain
+    version and its slot_reduce launches (B12's tile is
+    vjp_kernel.PAIR_TILE). Returns (its max error, its kernels-line record
     without its launches)."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 14)
     state = init.plummer(N_CONFIG3, generator=gen, device=DEV)
     soft = 1e-2
-    block = grad_cfg(N_CONFIG3).tile_i
     cases = []
     for shape in B12_TILES:
         (pa, ma), (pb, mb) = b12_tile(state.pos, state.mass, shape)
@@ -2870,13 +2875,13 @@ def b12_phase(rng):
     errs, of_scale, shapes = [], [], []
     for what, pa, ma, pb, mb in cases:
         g = normal(rng, pa.shape[0])
+        per = b12_launches(pa.shape[0], pb.shape[0])
         for masses in (True, False):
             m = (ma, mb) if masses else (None, None)
             reset_counts()
-            got = vk.vjp_pos_pair(pa, g, pb, *m, softening=soft, block=block)
-            again = vk.vjp_pos_pair(pa, g, pb, *m, softening=soft,
-                                    block=block)
-            expect_counts(read_counts(), f"b12 {what}", vjp_pair=4)
+            got = vk.vjp_pos_pair(pa, g, pb, *m, softening=soft)
+            again = vk.vjp_pos_pair(pa, g, pb, *m, softening=soft)
+            expect_counts(read_counts(), f"b12 {what}", vjp_pair=2 * per)
             want = vk.vjp_pos_pair_plain(pa, g, pb, *m, softening=soft)
             for a, b, w, side in zip(got, again, want, ("a_bar", "b_bar")):
                 if not torch.equal(a, b):
@@ -2886,31 +2891,35 @@ def b12_phase(rng):
                                        f"B12 {what} masses={masses} "
                                        f"{side}"))
                 of_scale.append(scale_err(a, w))
-        shapes.append([what, pa.shape[0], pb.shape[0]])
+        shapes.append([what, pa.shape[0], pb.shape[0], per])
     g = normal(rng, N_CONFIG3)
     args = (state.pos, g, state.pos, None, state.mass, soft)
+    per = b12_launches(N_CONFIG3, N_CONFIG3)
     reset_counts()
-    got = vk.vjp_pos_pair(*args, block=block)
-    expect_counts(read_counts(), "b12 whole pair matrix", vjp_pair=2)
+    got = vk.vjp_pos_pair(*args)
+    expect_counts(read_counts(), "b12 whole pair matrix", vjp_pair=per)
     plain_s, want = host_time(vk.vjp_pos_pair_plain, *args)
     whole = [close_grad(a, w, K1_RTOL, K1_ATOL,
                         f"B12 {N_CONFIG3}^2 {side}")
              for a, w, side in zip(got, want, ("a_bar", "b_bar"))]
     of_scale += [scale_err(a, w) for a, w in zip(got, want)]
-    shapes.append(["whole", N_CONFIG3, N_CONFIG3])
+    shapes.append(["whole", N_CONFIG3, N_CONFIG3, per])
     err = max(errs + whole)
-    ms = time_fn(vk.vjp_pos_pair, *args, block, reps=3) * 1e3
+    call_ms = time_fn(vk.vjp_pos_pair, *args, reps=3) * 1e3
+    tile = vk.PAIR_TILE
+    n_p = -(-N_CONFIG3 // tile) * tile
+    red_ms = reduce_ms(sp.slot_table(n_p // tile, False, True, DEV), False,
+                       tile, 3, n_p)
     bnd = b12_bound(N_CONFIG3, N_CONFIG3)
     line("b12_vs_plain", cases=shapes, masses=[True, False],
          max_abs_err=err, max_err_of_scale=max(of_scale),
          whole_max_abs_err=max(whole), bitwise_rerun=True, n=N_CONFIG3,
-         block=block, kernel_ms=ms, plain_ms=plain_s * 1e3, **bnd,
-         share=bnd["bound_ms"] / ms)
-    return err, entry("vjp_pos_pair (B12)", "vjp_kernel.cu",
-                      "vjp_kernel.py:831", 0, max(whole), ms, plain_s * 1e3,
-                      bnd, n=N_CONFIG3, block=block, launches_per_call=2,
-                      body={side: body_info(f"B12 {side}")
-                            for side in ("a_bar", "b_bar")})
+         tile=tile, call_ms=call_ms, slot_reduce_ms=red_ms,
+         plain_ms=plain_s * 1e3, **bnd, share=bnd["bound_ms"] / call_ms)
+    return err, slot_entry("vjp_pos_pair (B12)", "vjp_kernel.cu",
+                           "vjp_kernel.py:831", 0, max(whole), call_ms,
+                           red_ms, per, plain_s * 1e3, bnd, n=N_CONFIG3,
+                           tile=tile, body=body_info("B12"))
 
 
 @contextlib.contextmanager
@@ -2991,11 +3000,11 @@ def sharded_phase():
                 "ms_per_step": secs / SHARDED_STEPS * 1e3,
                 "single_ms_per_step":
                     out["single_ms_per_step"][single]})
-        grads, b12_launches = sharded_grads(meshes, out)
+        grads, b12 = sharded_grads(meshes, out)
         out["gradients"] = grads
         out["ensemble"] = sharded_ensemble(meshes[(1,)])
     line("sharded", n=N_MAIN, steps=SHARDED_STEPS, **out)
-    return b12_launches
+    return b12
 
 
 def sharded_grads(meshes, out):
@@ -3018,7 +3027,7 @@ def sharded_grads(meshes, out):
     m_tri, m_cross = pass_launches(N_CONFIG3, sm.DEFAULT_TILE)
     for comm, backend, shape, tol, kern, calls in (
             ("grid", "direct", (1, 1), (K1_RTOL, K1_ATOL),
-             dict(direct=1, vjp_pair=2),
+             dict(direct=1, vjp_pair=b12_launches(N_CONFIG3, N_CONFIG3)),
              dict(all_gather=3 + 4, reduce_scatter=1 + 2)),
             ("ring", "sym_mxu", (1,), (SYM_RTOL, SYM_ATOL),
              dict(slot_tri=m_tri, slot_cross=m_cross, vjp_rect_mxu=1),
@@ -3380,12 +3389,13 @@ def band_reduce_ms(c, tile, cross, n_sys=1):
 
     def run():
         for i0, i1 in pieces:
-            tg, off, ent = sm._band_plan(nb, cross, i0, i1, str(DEV))
+            tg, off, ent, order = sm._band_plan(nb, cross, i0, i1,
+                                                str(DEV))
             for g0 in range(0, n_sys, group):
                 g = min(group, n_sys - g0)
                 _build.check(lib, lib.slot_reduce_launch(
                     part.data_ptr(), tile * 8, tg.shape[0], tg.data_ptr(),
-                    off.data_ptr(), ent.data_ptr(),
+                    off.data_ptr(), ent.data_ptr(), order.data_ptr(),
                     cols[g0 * c:].data_ptr(), cols[g0 * c:].data_ptr(), g,
                     c * 8, (i1 - i0) * steps, stream), "slot_reduce_launch")
 

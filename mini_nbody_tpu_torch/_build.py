@@ -57,19 +57,18 @@ SIGNATURES = {
     # sys_rows, tile, softening, fast, split_w, mask_offdiag, stream
     "band_mxu_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I,
                          _F, _I, _I, _I, _P], _I),
-    # part, tile_elems, n_targets, targets, offsets, entries, acc_a, acc_b,
-    # n_sys, sys_acc_stride, sys_part_tiles, stream
-    "slot_reduce_launch": ([_P, _I, _I, _P, _P, _P, _P, _P, _I, _L, _L, _P],
-                           _I),
+    # part, tile_elems, n_targets, targets, offsets, entries, order, acc_a,
+    # acc_b, n_sys, sys_acc_stride, sys_part_tiles, stream
+    "slot_reduce_launch": ([_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _L,
+                            _P], _I),
     # pos, mass (or NULL), n, rows, softening, block, stream
     "pe_rows_launch": ([_P, _P, _I, _P, _F, _I, _P], _I),
     # pos_k, g_k, mass_k (or NULL), nk, pos_j, g_j, mass_j (or NULL), nj,
     # out, softening, overlap_only, block, stream
     "vjp_ordered_launch": ([_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _I, _I,
                             _P], _I),
-    # side, pos_a, g_a, na, pos_b, mass_b (or NULL), nb, out, softening,
-    # block, stream
-    "vjp_pair_launch": ([_I, _P, _P, _I, _P, _P, _I, _P, _F, _I, _P], _I),
+    # slots, n_slots, pos_a, g_a, pos_b, part, k, softening, stream
+    "vjp_pair_launch": ([_P, _I, _P, _P, _P, _P, _I, _F, _P], _I),
     # slots, n_slots, n_sys, sys_rows, pos_a, pos_b, g_a, g_b, part, k, ko,
     # tile, softening, mask_offdiag, stream
     "vjp_sym_launch": ([_P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I, _I, _F,
@@ -101,8 +100,11 @@ SIGNATURES = {
     "band_mxu_info": ([_I, _I, _I, _P], _I),
     # tile, masses, out (4 ints: as above, then threads per CTA)
     "vjp_rect_mxu_info": ([_I, _I, _P], _I),
-    # side (0: B10, 1 / 2: B12's sides), block, masses, out (4 ints)
-    "vjp_ordered_info": ([_I, _I, _I, _P], _I),
+    # block, masses, out (4 ints: registers, local bytes, CTAs per SM,
+    # threads per CTA): B10's kernel
+    "vjp_ordered_info": ([_I, _I, _P], _I),
+    # masses, out (4 ints, as above): B12's kernel (tile 128)
+    "vjp_pair_info": ([_I, _P], _I),
     # tile, masses, ko, out (4 ints: registers, local bytes, CTAs per SM,
     # threads per CTA): B11's kernel, then B13's
     "vjp_sym_info": ([_I, _I, _I, _P], _I),

@@ -13,7 +13,7 @@
 //         block.
 // Each body stores the slot's two partial tiles (side 0: block bi, side 1:
 // block bj; a DIAG slot writes side 0 only) at `out`, for the slot-order
-// reduction (ordered_sum, in csrc/slot_reduce.cu or B15's reduce phase).
+// reduction (csrc/slot_reduce.cu, or ordered_sum in B15's reduce phase).
 //
 // Both bodies keep each pair's weight w in registers: no pair costs a
 // shared-memory access. Shared memory stages the two blocks once per slot
@@ -49,7 +49,8 @@ constexpr int kSlotFold = 2;
 // e1) are its tiles in slot order, base points at the element in tile 0.
 // The sum starts at 0 and adds them in list order; kUnroll loads are in
 // flight before their adds, so a long list costs one load latency per
-// kUnroll adds (csrc/slot_reduce.cu and B15's reduce phase).
+// kUnroll adds (B15's reduce phase; csrc/slot_reduce.cu adds in the same
+// order through its cp.async ring, so the bits are the same).
 constexpr int kUnroll = 8;
 
 __device__ __forceinline__ float ordered_sum(const float* __restrict__ base,

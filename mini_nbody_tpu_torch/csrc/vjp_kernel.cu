@@ -1,7 +1,7 @@
 // B10: the ordered fp32 force VJP, one thread per receiver k.
 // B11: the pair-once fp32 force VJP on K3's slot + fold geometry.
-// B12: the one-cotangent VJP of the ordered pairs a <- b, one side of B10's
-//      kernel per launch.
+// B12: the one-cotangent VJP of the ordered pairs a <- b, each pair once on
+//      a cross slot table (B11's slot walk, a wider register micro-tile).
 //
 // With d = p_j - p_k, s = |d|^2 + softening, inv = rsqrt(s), w = inv^3,
 // u = w inv^2 and the cotangent g of F:
@@ -94,20 +94,29 @@
 // `pallas_call` :923), the per-device tile of the 2-D grid backward
 // (parallel/sharded.py): with d = p_b - p_a and only a's cotangents g_a,
 //   t(a, b) = 3 u m_b (g_a.d) d - w m_b g_a,
-//   a_bar[a] = sum_b t(a, b),   b_bar[b] = -sum_a t(a, b).
-// The TPU kernel carries b_bar as a whole-B buffer across its sequential
-// grid; blocks here run in no order and nothing carries over, so B12 is the
-// ordered VJP with a compile-time side (kSide), one thread per receiver
-// (B10's shape before its micro-tiles): a_bar is the receiver half over
-// (a <- b) with g_k = g_a, and b_bar is the source half over (b <- a) with
-// g_j = g_a, m_k[sum_j w g_j - 3 u (g_j.d) d] = -sum_a t(a, b) (the sign of
-// d flips, (g.d) d does not). Each launch drops the other half's terms and
-// loads: the receiver side stages no g_j, the source side no m_j, and the
-// unit-mass source side needs no mass at all. No atomics, no scratch: every
-// output bit is the same on every run. B12 always masks d2 == 0 (a body
-// present in both sets meets itself), with no coincident routing. Its w and
-// u are computed once per side, twice per pair; JAX's single pass counts 26
-// fp32 operations per pair (vjp_kernel.py:944), the two sides here ~22 each.
+//   a_bar[a] = sum_b t(a, b),   b_bar[b] = -sum_a t(a, b),
+// d2 == 0 masked (a body present in both sets meets itself). The TPU kernel
+// carries b_bar as a whole-B buffer across its sequential grid; here each
+// ordered pair is computed once, on B11's design: a cross slot table over
+// the row blocks of a and the column blocks of b (slot_pipe.slot_table with
+// nb_b), walked persistently (walk_slots) by CTAs of 4 x 16 register
+// micro-tiles, each slot's two (T, 3) partials (a_bar rows, b_bar columns)
+// stored for csrc/slot_reduce.cu, which adds them in slot order: every
+// output bit is the same on every run. t is B11's term with g_b = 0, and
+// its body is B11's specialised to it (pair_pass): per pair d and r2 as one
+// FMA chain, rsqrt_normal, w' = m_b w and u' = m_b u, one dot product and
+// ud = u' (g_a.d); the rows sum ud d and w', the columns ud d and w' g_a,
+// and the 3 and g_a are applied once per slot: ~29 instructions a pair by
+// the source's count, 37.3 a pair over the slot loop's SASS with the
+// per-slot combining (ab_slots.py). The 4 x 16 micro-tile spreads that
+// combining over 64 pairs a thread; 4 x 8 (39.8 a pair), 4 x 32 and tile 64
+// measured slower (PERF.md, the B12 sweep), so the tile is 128 alone. The
+// mask is the plain version's d2 == 0 (its squares rounded apart, then
+// added): that holds iff every |d_i| <= 2^-75, whose square rounds to 0, so
+// the kernel compares the largest |d_i| with 2^-75 and zeroes inv, so w'
+// and u'.
+// Pads are FAR with zero cotangent (rows) and zero mass (columns): every
+// term against a pad is exactly 0, so ragged sets need no branch.
 //
 // What bounds them on an H100: fp32 arithmetic. B10: ~35 fp32 operations and
 // one rsqrt per ordered pair (JAX's count, vjp_kernel.py:656), and in fact
@@ -118,7 +127,12 @@
 // dynamic shared memory is the staged blocks, the row totals and the warps'
 // column partials: 7,936 bytes at T = 64 (9,216 with the mass cotangent) and
 // 34,304 at T = 128 (43,008); the launch raises the dynamic limit first and
-// returns cudaGetLastError().
+// returns cudaGetLastError(). B12: JAX counts 26 per ordered pair
+// (vjp_kernel.py:944); its issue rate bounds it as B11's does: 128
+// registers a thread, 16 warps per SM (2 CTAs of (T / 4) (T / 16) = 256
+// threads), 19,968 bytes of dynamic shared memory; the per-slot combining
+// of its sums, spread over a thread's 64 pairs, and its partials (24 / T
+// bytes a pair, 12.9 GB at 262,144^2) cost the rest.
 //
 // Built without --use_fast_math (see direct_force.cu); nvcc contracts the
 // mul/add pairs into FMAs, which the plain PyTorch version does not do.
@@ -132,15 +146,6 @@ namespace {
 constexpr float kFar = 1.0e18f;
 constexpr int kSlotDiag = 0;
 constexpr int kSlotFold = 2;
-
-__device__ __forceinline__ void weights(float d2, float softening, bool mask,
-                                        float* w, float* u) {
-  const float inv = rsqrtf(d2 + softening);
-  const float inv2 = inv * inv;
-  *w = inv2 * inv;
-  *u = *w * inv2;
-  if (mask && d2 == 0.f) *w = *u = 0.f;
-}
 
 // ---------------------------------------------------------------- B10 ---
 
@@ -289,110 +294,9 @@ __global__ void __launch_bounds__(1024 / R, R == 4 ? 2 : 1)
   }
 }
 
-// ---------------------------------------------------------------- B12 ---
-
-// kSide of vjp_side_kernel: the receiver half (a_bar) or the source half
-// (b_bar) of the ordered VJP.
-constexpr int kReceiver = 1, kSource = 2;
-
-// One side of the ordered VJP per thread and receiver k: B10's shape before
-// its register micro-tiles, kept as it was so that B12's bits stay.
-template <bool kMass, int kSide>
-__global__ void vjp_side_kernel(const float* __restrict__ pos_k,
-                                const float* __restrict__ g_k,
-                                const float* __restrict__ mass_k, int nk,
-                                const float* __restrict__ pos_j,
-                                const float* __restrict__ g_j,
-                                const float* __restrict__ mass_j, int nj,
-                                float* __restrict__ out, float softening) {
-  constexpr bool kRecv = kSide == kReceiver;  // the receiver half: g_k, m_j
-  constexpr bool kSrc = kSide == kSource;     // the source half: g_j, m_k
-  extern __shared__ float4 smem4[];
-  float4* sp = smem4;               // (x, y, z, m) of the j tile
-  float4* sg = smem4 + blockDim.x;  // (gx, gy, gz, 0)
-  const int k0 = blockIdx.x * blockDim.x;
-  const int i = k0 + threadIdx.x;
-  float x = kFar, y = kFar, z = kFar, mk = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
-  if (i < nk) {
-    x = pos_k[3 * i];
-    y = pos_k[3 * i + 1];
-    z = pos_k[3 * i + 2];
-    if (kRecv) {
-      gx = g_k[3 * i];
-      gy = g_k[3 * i + 1];
-      gz = g_k[3 * i + 2];
-    }
-    mk = kMass && kSrc ? mass_k[i] : 1.f;
-  }
-  // receiver: t (3), sum (m) w; source: s (3). Each j tile is summed into
-  // its own partials (pt*, ps*), which are then added to the row's totals.
-  float t0 = 0.f, t1 = 0.f, t2 = 0.f, sw = 0.f;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int base = 0; base < nj; base += blockDim.x) {
-    const int j = base + threadIdx.x;
-    float4 p = make_float4(kFar, kFar, kFar, 0.f);
-    float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < nj) {
-      p = make_float4(pos_j[3 * j], pos_j[3 * j + 1], pos_j[3 * j + 2],
-                      kMass && kRecv ? mass_j[j] : 1.f);
-      if (kSrc)
-        h = make_float4(g_j[3 * j], g_j[3 * j + 1], g_j[3 * j + 2], 0.f);
-    }
-    __syncthreads();  // every thread is done with the previous tile
-    sp[threadIdx.x] = p;
-    if (kSrc) sg[threadIdx.x] = h;
-    __syncthreads();
-    float pt0 = 0.f, pt1 = 0.f, pt2 = 0.f, ptw = 0.f;
-    float ps0 = 0.f, ps1 = 0.f, ps2 = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < blockDim.x; ++c) {
-      const float4 q = sp[c];
-      const float dx = q.x - x, dy = q.y - y, dz = q.z - z;
-      float w, u;
-      weights(dx * dx + dy * dy + dz * dz, softening, true, &w, &u);
-      if (kRecv) {
-        const float dot_k = gx * dx + gy * dy + gz * dz;
-        const float a = kMass ? 3.f * (u * q.w * dot_k) : 3.f * (u * dot_k);
-        pt0 += a * dx;
-        pt1 += a * dy;
-        pt2 += a * dz;
-        ptw += kMass ? w * q.w : w;
-      }
-      if (kSrc) {
-        const float4 gj = sg[c];
-        const float b = 3.f * (u * (gj.x * dx + gj.y * dy + gj.z * dz));
-        ps0 += w * gj.x - b * dx;
-        ps1 += w * gj.y - b * dy;
-        ps2 += w * gj.z - b * dz;
-      }
-    }
-    t0 += pt0;
-    t1 += pt1;
-    t2 += pt2;
-    sw += ptw;
-    s0 += ps0;
-    s1 += ps1;
-    s2 += ps2;
-  }
-  if (i < nk) {
-    if (kSide == kSource) {
-      out[3 * i] = mk * s0;
-      out[3 * i + 1] = mk * s1;
-      out[3 * i + 2] = mk * s2;
-    } else {
-      out[3 * i] = (t0 - gx * sw) + mk * s0;
-      out[3 * i + 1] = (t1 - gy * sw) + mk * s1;
-      out[3 * i + 2] = (t2 - gz * sw) + mk * s2;
-    }
-  }
-}
-
 using OrderedKernel = void (*)(const float*, const float*, const float*, int,
                                const float*, const float*, const float*, int,
                                float*, float, int);
-using SideKernel = void (*)(const float*, const float*, const float*, int,
-                            const float*, const float*, const float*, int,
-                            float*, float);
 
 // B10's kernel for (block, masses) and its threads per block, or nullptr.
 OrderedKernel pick_ordered(int block, bool masses, int* threads) {
@@ -404,15 +308,6 @@ OrderedKernel pick_ordered(int block, bool masses, int* threads) {
   if (r == 2) return masses ? vjp_ordered_kernel<2, true>
                             : vjp_ordered_kernel<2, false>;
   return masses ? vjp_ordered_kernel<1, true> : vjp_ordered_kernel<1, false>;
-}
-
-// B12's kernel for (side, masses), or nullptr.
-SideKernel pick_side(int side, bool masses) {
-  if (side == kReceiver) return masses ? vjp_side_kernel<true, kReceiver>
-                                       : vjp_side_kernel<false, kReceiver>;
-  if (side == kSource) return masses ? vjp_side_kernel<true, kSource>
-                                     : vjp_side_kernel<false, kSource>;
-  return nullptr;
 }
 
 // ---------------------------------------------------------------- B11 ---
@@ -438,16 +333,15 @@ constexpr size_t sym_smem_bytes() {
          (1 + sym_threads<T>() / 32) * T * KO * sizeof(float);
 }
 
-// One block's positions (K floats a body) and cotangents (3) in registers:
-// load() reads them from device memory, store() writes them to shared
-// float4s, (x, y, z, m) at sp and (gx, gy, gz, -) at sg (the unit-mass
-// kernel reads no m).
-template <int T, int K>
+// One block's positions (K floats a body) and cotangents (3; none without
+// kCot) in registers: load() reads them from device memory, store() writes
+// them to shared float4s, (x, y, z, m) at sp and (gx, gy, gz, -) at sg (the
+// unit-mass kernels read no m).
+template <int T, int K, bool kCot = true, int kThreads = sym_threads<T>()>
 struct SymBlock {
-  static constexpr int kThreads = sym_threads<T>();
   static constexpr int kP = (T * K + kThreads - 1) / kThreads;
-  static constexpr int kG = (T * 3 + kThreads - 1) / kThreads;
-  float p[kP], g[kG];
+  static constexpr int kG = kCot ? (T * 3 + kThreads - 1) / kThreads : 0;
+  float p[kP], g[kG > 0 ? kG : 1];
 
   __device__ __forceinline__ void load(const float* __restrict__ pos,
                                        const float* __restrict__ gr) {
@@ -710,6 +604,189 @@ SymKernel pick_sym(int tile, int k, int ko, int* threads, size_t* smem) {
   return nullptr;
 }
 
+// ---------------------------------------------------------------- B12 ---
+
+// B12's tile, and its micro-tile: kPairR rows x kPairC columns a thread,
+// the columns in groups of 4 (64 pairs a thread per slot, so the per-slot
+// work of combining the sums is spread over twice B11's pairs).
+constexpr int kPairTile = 128;
+constexpr int kPairR = 4, kPairC = 16;
+// The largest |d_i| whose square rounds to 0 in fp32 (2^-150 is a tie
+// between 0 and 2^-149, rounded to even): d2 == 0 iff max |d_i| <= this.
+constexpr float kD2Zero = 0x1p-75f;
+
+template <int T>
+__host__ __device__ constexpr int pair_threads() {
+  return (T / kPairR) * (T / kPairC);
+}
+
+// One pass of B12 over the T x T ordered pairs of row block A (positions,
+// cotangents AG) and column block B ((x, y, z[, m])): thread (ty, tx) owns
+// rows ty + Gr i (i < kPairR) in registers and columns tx + Gc j (j <
+// kPairC), read once each from shared memory, in groups of 4. Per pair,
+// with d = p_b - p_a, w' = m_b w and u' = m_b u:
+//   ud = u' (g_a.d);  rows += (ud d, w');  columns += (ud d, w' g_a).
+// inv is zeroed where the plain version's d2 == 0 (every |d_i| <= kD2Zero;
+// then w' and u' are 0 and so is every term). After a group the
+// thread forms its columns' b_bar partials, w'g_a sums - 3 ud d sums, the
+// lanes that share a column (bits [log2 Gc, 5)) combine them (lane_sums)
+// and each warp stores its column partials to cols (warps x T x 3); after
+// the groups its rows' a_bar partials, 3 ud d sums - g_a w' sums, are
+// combined across the lanes that share a row (bits [0, log2 Gc)) and one
+// lane writes each row's total to rows (T x 3). Then a barrier.
+template <int T, bool kMass>
+__device__ __forceinline__ void pair_pass(const float4* A, const float4* AG,
+                                          const float4* B, float softening,
+                                          float* rows, float* cols) {
+  constexpr int R = kPairR, H = 4, kGroups = kPairC / H;
+  constexpr int Gr = T / R, Gc = T / kPairC;
+  constexpr int kLogC = 3;
+  static_assert(Gc == 1 << kLogC, "tile 128");
+  constexpr int kColBits = 5 - kLogC;
+  // the columns a lane keeps of a group after lane_sums
+  constexpr int kLeft = (H >> kColBits) > 0 ? (H >> kColBits) : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = lane & (Gc - 1), ty = threadIdx.x >> kLogC;
+
+  float3 p[R], h[R];
+  float f[R][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float4 a = A[ty + Gr * i], g = AG[ty + Gr * i];
+    p[i] = make_float3(a.x, a.y, a.z);
+    h[i] = make_float3(g.x, g.y, g.z);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) f[i][k] = 0.f;
+  }
+#pragma unroll
+  for (int grp = 0; grp < kGroups; ++grp) {
+    float s[H][6];
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int k = 0; k < 6; ++k) s[j][k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float4 q = B[tx + Gc * (H * grp + j)];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float dx = q.x - p[i].x, dy = q.y - p[i].y, dz = q.z - p[i].z;
+        float inv = slot_body::rsqrt_normal(
+            fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, softening))));
+        if (fmaxf(fabsf(dx), fmaxf(fabsf(dy), fabsf(dz))) <= kD2Zero)
+          inv = 0.f;
+        const float inv2 = inv * inv;
+        const float w = kMass ? (inv2 * inv) * q.w : inv2 * inv;
+        const float ud = (w * inv2) * (h[i].x * dx + h[i].y * dy +
+                                       h[i].z * dz);
+        f[i][0] += ud * dx;
+        f[i][1] += ud * dy;
+        f[i][2] += ud * dz;
+        f[i][3] += w;
+        s[j][0] += ud * dx;
+        s[j][1] += ud * dy;
+        s[j][2] += ud * dz;
+        s[j][3] += w * h[i].x;
+        s[j][4] += w * h[i].y;
+        s[j][5] += w * h[i].z;
+      }
+    }
+    float col[H][3];
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) col[j][k] = s[j][3 + k] - 3.f * s[j][k];
+    int coff = 0;
+    bool cwriter = true;
+    slot_body::lane_sums<H, kLogC, kColBits>(col, lane, coff, cwriter);
+    float* cw = cols + warp * T * 3;
+    if (cwriter)
+#pragma unroll
+      for (int j = 0; j < kLeft; ++j)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          cw[(tx + Gc * (H * grp + coff + j)) * 3 + k] = col[j][k];
+  }
+  float row[R][3];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    row[i][0] = 3.f * f[i][0] - h[i].x * f[i][3];
+    row[i][1] = 3.f * f[i][1] - h[i].y * f[i][3];
+    row[i][2] = 3.f * f[i][2] - h[i].z * f[i][3];
+  }
+  int off = 0;
+  bool writer = true;
+  slot_body::lane_sums<R, 0, kLogC>(row, lane, off, writer);
+  if (writer)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rows[(ty + Gr * off) * 3 + k] = row[0][k];
+  __syncthreads();
+}
+
+template <int T>
+constexpr size_t pair_smem_bytes() {
+  // the staged blocks (three float4s a body: a's position and cotangent,
+  // b's position and mass), the row totals and the warps' column partials
+  return 3 * T * sizeof(float4) +
+         (1 + pair_threads<T>() / 32) * T * 3 * sizeof(float);
+}
+
+// B12: the slots of a cross table over the row blocks of pos_a / g_a ((na,
+// 3) each) and the column blocks of pos_b ((nb, K)); part: 2 (T, 3) tiles
+// per slot, side 0 block bi's a_bar partial, side 1 block bj's b_bar
+// partial, for slot_reduce_launch. Each CTA walks its slots
+// (slot_body::walk_slots), loading the next slot's blocks into registers
+// while it computes one.
+template <int T, int K>
+__global__ void __launch_bounds__(
+    pair_threads<T>(),
+    slot_body::stream_min_ctas(pair_threads<T>(), kSymWarps))
+    vjp_pair_kernel(const int* __restrict__ slots, int n_slots,
+                    const float* __restrict__ pos_a,
+                    const float* __restrict__ g_a,
+                    const float* __restrict__ pos_b, float* part,
+                    float softening) {
+  constexpr int kThreads = pair_threads<T>(), kWarps = kThreads / 32;
+  extern __shared__ __align__(16) float smem[];
+  const float4* s4 = reinterpret_cast<const float4*>(smem);
+  float* rows = smem + 12 * T;
+  float* cols = rows + 3 * T;
+  SymBlock<T, 3, true, kThreads> a;
+  SymBlock<T, K, false, kThreads> b;
+  slot_body::walk_slots(
+      slots, n_slots,
+      [&](const slot_body::Slot& sl) {
+        a.load(pos_a + static_cast<size_t>(sl.bi) * T * 3,
+               g_a + static_cast<size_t>(sl.bi) * T * 3);
+        b.load(pos_b + static_cast<size_t>(sl.bj) * T * K, nullptr);
+      },
+      [&] {
+        a.store(smem, smem + 4 * T);
+        b.store(smem + 8 * T, nullptr);
+      },
+      [&](const slot_body::Slot&, int s) {
+        pair_pass<T, K == 4>(s4, s4 + T, s4 + 2 * T, softening, rows, cols);
+        float* out = part + static_cast<long long>(s) * 2 * T * 3;
+        for (int e = threadIdx.x; e < T * 3; e += kThreads) {
+          out[e] = rows[e];
+          out[T * 3 + e] = slot_body::warp_total<T, kWarps>(cols, e);
+        }
+      });
+}
+
+using PairKernel = void (*)(const int*, int, const float*, const float*,
+                            const float*, float*, float);
+
+// B12's kernel for k, its threads per CTA and dynamic shared memory, or
+// nullptr.
+PairKernel pick_pair(int k, int* threads, size_t* smem) {
+  *threads = pair_threads<kPairTile>();
+  *smem = pair_smem_bytes<kPairTile>();
+  if (k == 3) return vjp_pair_kernel<kPairTile, 3>;
+  if (k == 4) return vjp_pair_kernel<kPairTile, 4>;
+  return nullptr;
+}
+
 }  // namespace
 
 // B10. pos_k, g_k (nk, 3), mass_k (nk,) or NULL; pos_j, g_j (nj, 3), mass_j
@@ -736,48 +813,71 @@ extern "C" int vjp_ordered_launch(const float* pos_k, const float* g_k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B12, one side per call; every tile masks d2 == 0. side 1 (a_bar): pos_a,
-// g_a (na, 3) receivers, pos_b (nb, 3) sources, mass_b (nb,) or NULL, out
-// (na, 3). side 2 (b_bar): pos_b (nb, 3) receivers with mass_b or NULL,
-// pos_a, g_a (na, 3) sources, out (nb, 3). fp32, contiguous, on the current
-// device; block: threads per block and j-tile size, a multiple of 32 up to
-// 1024. Returns cudaGetLastError().
-extern "C" int vjp_pair_launch(int side, const float* pos_a, const float* g_a,
-                               int na, const float* pos_b,
-                               const float* mass_b, int nb, float* out,
-                               float softening, int block, void* stream) {
-  const SideKernel kernel = pick_side(side, mass_b != nullptr);
-  if (kernel == nullptr || block <= 0 || block > 1024 || block % 32 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool recv = side == kReceiver;
-  const int nk = recv ? na : nb;
-  if (nk == 0) return 0;
-  kernel<<<(nk + block - 1) / block, block, 2 * block * sizeof(float4),
-           static_cast<cudaStream_t>(stream)>>>(
-      recv ? pos_a : pos_b, recv ? g_a : nullptr, recv ? nullptr : mass_b,
-      nk, recv ? pos_b : pos_a, recv ? nullptr : g_a,
-      recv ? mass_b : nullptr, recv ? nb : na, out, softening);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // out[4]: registers per thread, local bytes per thread, CTAs per SM and
-// threads per CTA of the ordered kernel at `block` with or without masses:
-// side 0 is B10's (block / ordered_r(block) threads), side 1 and 2 B12's
-// a_bar and b_bar sides.
-extern "C" int vjp_ordered_info(int side, int block, int masses, int* out) {
-  int threads = block;
-  const void* kernel = nullptr;
-  if (side == 0)
-    kernel = reinterpret_cast<const void*>(
-        pick_ordered(block, masses, &threads));
-  else if (block > 0 && block <= 1024 && block % 32 == 0)
-    kernel = reinterpret_cast<const void*>(pick_side(side, masses));
+// threads per CTA of B10's kernel at `block` with or without masses (block
+// / ordered_r(block) threads).
+extern "C" int vjp_ordered_info(int block, int masses, int* out) {
+  int threads = 0;
+  const void* kernel =
+      reinterpret_cast<const void*>(pick_ordered(block, masses, &threads));
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &out[2], kernel, threads, 2 * block * sizeof(float4));
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[3] = threads;
+  return static_cast<int>(err);
+}
+
+// B12. slots (n_slots, 3) int32, a cross table (kind, bi, bj) over the row
+// blocks of pos_a, g_a ((rows_a, 3)) and the column blocks of pos_b
+// ((rows_b, k), k = 3 (unit masses) or 4 (x, y, z, m)), rows of each a
+// multiple of tile, pads FAR with zero cotangent and zero mass; fp32,
+// contiguous, on the current device. part: n_slots x 2 tiles of (tile, 3)
+// fp32, side 0 of slot s block bi's a_bar partial, side 1 block bj's b_bar
+// partial, for slot_reduce_launch. The tile is 128 (kPairTile). Returns
+// cudaGetLastError().
+extern "C" int vjp_pair_launch(const int* slots, int n_slots,
+                               const float* pos_a, const float* g_a,
+                               const float* pos_b, float* part, int k,
+                               float softening, void* stream) {
+  int threads = 0;
+  size_t smem = 0;
+  const PairKernel kernel = pick_pair(k, &threads, &smem);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_slots == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int width = 0;
+  err = slot_body::stream_width(kernel, threads, smem, n_slots, 1, &width);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<width, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      slots, n_slots, pos_a, g_a, pos_b, part, softening);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: registers per thread, local bytes per thread, CTAs per SM and
+// threads per CTA of B12's kernel with or without masses, at its launch's
+// shared memory.
+extern "C" int vjp_pair_info(int masses, int* out) {
+  int threads = 0;
+  size_t smem = 0;
+  const PairKernel kernel = pick_pair(masses ? 4 : 3, &threads, &smem);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      threads, smem);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
   out[3] = threads;

@@ -24,12 +24,13 @@ own blocks. ``build_tri_slot_call`` / ``build_cross_slot_call`` return
 the raw sums in the JAX (8, c) layout; the positions go in as (c, 3) only
 (no (3, c) transpose: the kernel reads both orientations from one copy).
 
-The slot kernels K2, K3 (ops/symmetric_force.py), B11 (ops/vjp_kernel.py)
-and B13 (ops/vjp_mxu.py) sum deterministically: ``run_slot_pieces`` cuts the
-slot list into pieces of PIECE_SLOTS system-local slots, launches a kernel
-that stores two partial tiles per slot, and then ``csrc/slot_reduce.cu``,
-which adds each block's partials in slot order. The plan of that reduction
-is built once per slot table (``reduce_plan``).
+The slot kernels K2, K3 (ops/symmetric_force.py), B11 and B12
+(ops/vjp_kernel.py) and B13 (ops/vjp_mxu.py) sum deterministically:
+``run_slot_pieces`` cuts the slot list into pieces of PIECE_SLOTS
+system-local slots, launches a kernel that stores two partial tiles per
+slot, and then ``csrc/slot_reduce.cu``, which adds each block's partials in
+slot order. The plan of that reduction is built once per slot table
+(``reduce_plan``).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ KERNEL_TILES = (64, 128)
 #: pair_slot_sums_, CROSS_LAUNCHES the cross-mode share of them,
 #: PAIR_LAUNCHES the share of that made for body_force_pair_mxu (B4);
 #: ENSEMBLE_LAUNCHES those of tri_slot_sums_ensemble_ (B9a); REDUCE_LAUNCHES
-#: those of csrc/slot_reduce.cu behind K2, K3, B11 and B13.
+#: those of csrc/slot_reduce.cu behind K2, K3, B11, B12 and B13.
 LAUNCHES = 0
 CROSS_LAUNCHES = 0
 PAIR_LAUNCHES = 0
@@ -143,15 +144,23 @@ def plan_pieces(rows: np.ndarray, tri: bool):
     return pieces
 
 
+def launch_order(offsets: np.ndarray) -> np.ndarray:
+    """The targets of a piece (CSR ``offsets``) longest list first, ties in
+    target order: the order csrc/slot_reduce.cu starts their CTAs in, so
+    the longest chains of adds are not left to the last wave."""
+    return np.argsort(-np.diff(offsets), kind="stable")
+
+
 #: The reduction plans of the live slot tables: id(table) -> {(tri,
 #: PIECE_SLOTS): plan}, each entry dropped with its table.
 _PLANS: dict[int, dict] = {}
 
 
 def reduce_plan(slots: torch.Tensor, tri: bool):
-    """plan_pieces of a slot table, with its index arrays on the table's
-    device, built from one host copy of the table once per table, mode and
-    PIECE_SLOTS."""
+    """plan_pieces of a slot table, each piece with its launch_order as a
+    6th field ((first slot, slots, targets, offsets, entries, order)), the
+    index arrays on the table's device, built from one host copy of the
+    table once per table, mode and PIECE_SLOTS."""
     key = id(slots)
     if key not in _PLANS:
         _PLANS[key] = {}
@@ -160,7 +169,7 @@ def reduce_plan(slots: torch.Tensor, tri: bool):
     if (tri, PIECE_SLOTS) not in plans:
         plans[tri, PIECE_SLOTS] = [
             (s0, n, *(torch.from_numpy(a.astype(np.int32)).to(slots.device)
-                      for a in arrays))
+                      for a in (*arrays, launch_order(arrays[1]))))
             for s0, n, *arrays in plan_pieces(slots.cpu().numpy(), tri)]
     return plans[tri, PIECE_SLOTS]
 
@@ -178,9 +187,11 @@ def slot_reduce_(part, piece_plan, acc_a, acc_b, tile, width, n_sys=1,
     """Add the partials ``part`` of one piece (n_sys systems of
     2 n_slots (tile, width) fp32 tiles each) into acc_a / acc_b ((rows,
     width), system s at row s * sys_rows) in slot order, as the piece's
-    plan (from reduce_plan) says: csrc/slot_reduce.cu on CUDA tensors,
-    slot_reduce_plain on CPU tensors."""
-    _, n, targets, offsets, entries = piece_plan
+    plan (from reduce_plan) says: csrc/slot_reduce.cu on CUDA tensors
+    (which refuses a tile of tile * width not a multiple of 4, or part or
+    an accumulator not 16-byte aligned), slot_reduce_plain on CPU
+    tensors."""
+    _, n, targets, offsets, entries, order = piece_plan
     if not _build.on_card(part.device):
         slot_reduce_plain(part, piece_plan, acc_a, acc_b, tile, width, n_sys,
                           sys_rows)
@@ -188,8 +199,8 @@ def slot_reduce_(part, piece_plan, acc_a, acc_b, tile, width, n_sys=1,
     lib = _build.load_library()
     code = lib.slot_reduce_launch(
         part.data_ptr(), tile * width, targets.shape[0], targets.data_ptr(),
-        offsets.data_ptr(), entries.data_ptr(), acc_a.data_ptr(),
-        acc_b.data_ptr(), n_sys, sys_rows * width, n * 2,
+        offsets.data_ptr(), entries.data_ptr(), order.data_ptr(),
+        acc_a.data_ptr(), acc_b.data_ptr(), n_sys, sys_rows * width, n * 2,
         _build.stream_ptr(part.device))
     _build.check(lib, code, "slot_reduce_launch")
     global REDUCE_LAUNCHES
@@ -200,7 +211,7 @@ def slot_reduce_plain(part, piece_plan, acc_a, acc_b, tile, width, n_sys=1,
                       sys_rows=0):
     """Plain version of slot_reduce_: each target's tiles summed in slot
     order, one target at a time."""
-    _, n, targets, offsets, entries = piece_plan
+    _, n, targets, offsets, entries = piece_plan[:5]
     tiles = part[:n_sys * n * 2 * tile * width].view(n_sys, n * 2, tile,
                                                      width)
     offsets, entries = offsets.tolist(), entries.tolist()

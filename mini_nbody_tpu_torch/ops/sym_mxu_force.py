@@ -322,8 +322,13 @@ def _band_plan_np(nb: int, cross: bool, i0: int, i1: int):
 
 @functools.lru_cache(maxsize=64)
 def _band_plan(nb: int, cross: bool, i0: int, i1: int, device: str):
+    """_band_plan_np on ``device``, with slot_reduce's launch order as a
+    4th array: (targets, offsets, entries, order)."""
+    from mini_nbody_tpu_torch.ops.slot_pipe import launch_order
+
+    arrays = _band_plan_np(nb, cross, i0, i1)
     return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
-                 for a in _band_plan_np(nb, cross, i0, i1))
+                 for a in (*arrays, launch_order(arrays[1])))
 
 
 def _band_sums_plain(rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
@@ -413,8 +418,8 @@ def _band_kernel(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
     with torch.cuda.device(device):
         stream = _build.stream_ptr(device)
         for i0, i1 in pieces:
-            targets, offsets, entries = _band_plan(nb, cross, i0, i1,
-                                                   str(device))
+            targets, offsets, entries, order = _band_plan(nb, cross, i0,
+                                                          i1, str(device))
             for g0 in range(0, n_sys, group):
                 g, r0 = min(group, n_sys - g0), g0 * c
                 _build.check(lib, lib.band_mxu_launch(
@@ -430,7 +435,8 @@ def _band_kernel(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
                 _build.check(lib, lib.slot_reduce_launch(
                     part.data_ptr(), tile * 8, targets.shape[0],
                     targets.data_ptr(), offsets.data_ptr(),
-                    entries.data_ptr(), cols[r0:].data_ptr(),
+                    entries.data_ptr(), order.data_ptr(),
+                    cols[r0:].data_ptr(),
                     cols[r0:].data_ptr(), g, c * 8, (i1 - i0) * steps,
                     stream), "slot_reduce_launch")
                 BAND_REDUCE_LAUNCHES += 1

@@ -47,11 +47,11 @@ packing, FAR tails with zero mass in both mass modes, and zero cotangents
 
 ``vjp_pos_pair`` (JAX ``:776-949``) launches B12, the 2-D grid's backward
 (``parallel/sharded.py``): the VJP of the ordered pairs a <- b with a's
-cotangents only, as two one-sided launches of the ordered kernel's
-one-side loop (one thread per receiver, B10's shape before its register
-micro-tiles), the receiver half for a_bar and the source half for b_bar,
-every tile masked. CPU
-tensors take ``vjp_pos_pair_plain``, JAX's ``_onesided_grad_block`` in row
+cotangents only, each pair once, on a cross slot table over a's row blocks
+and b's column blocks (B11's slot walk on 4 x 16 register micro-tiles,
+B11's term with g_b = 0), every pair masked, each slot's a_bar and b_bar
+partials added in slot order by ``slot_pipe.run_slot_pieces``. CPU tensors
+take ``vjp_pos_pair_plain``, JAX's ``_onesided_grad_block`` in row
 blocks.
 """
 
@@ -89,7 +89,9 @@ DEFAULT_TILE = 128
 #: group of systems).
 LAUNCHES = 0
 SYM_LAUNCHES = 0
-#: B12's launches, made by vjp_pos_pair: two per call (a_bar, then b_bar).
+#: B12's launches, made by vjp_pos_pair: one per piece of its cross slot
+#: table (slot_pipe.PIECE_SLOTS slots), each followed by one slot_reduce
+#: launch (slot_pipe.REDUCE_LAUNCHES).
 PAIR_LAUNCHES = 0
 SYM_CROSS_LAUNCHES = 0
 SYM_ENSEMBLE_LAUNCHES = 0
@@ -242,8 +244,9 @@ def vjp_pos_direct(pos, g, mass=None, softening: float = SOFTENING,
                     square_coincident=coincident)
 
 
-#: The sides of csrc/vjp_kernel.cu's vjp_pair_launch.
-_SIDE_ROWS, _SIDE_COLS = 1, 2
+#: B12's tile (csrc/vjp_kernel.cu kPairTile): tile 64 took 62% longer at
+#: 262,144 x 262,144 (PERF.md, the B12 sweep).
+PAIR_TILE = 128
 
 
 def vjp_pos_pair_plain(pos_a, g_a, pos_b, mass_a=None, mass_b=None,
@@ -276,17 +279,26 @@ def vjp_pos_pair_plain(pos_a, g_a, pos_b, mass_a=None, mass_b=None,
     return torch.cat(a_bar), b_bar
 
 
+def pair_operands(pos_a, g_a, pos_b, mass_b, tile):
+    """B12's operands padded to whole tiles: pos_a (Na_p, 3) and g_a
+    (Na_p, 3), pos_b (Nb_p, 3) or, with mass_b, (Nb_p, 4); pads FAR, with
+    zero cotangent and zero mass, so every term against a pad is 0."""
+    na, nb = pos_a.shape[0], pos_b.shape[0]
+    na_p, nb_p = -(-na // tile) * tile, -(-nb // tile) * tile
+    return (_pack(pos_a, None, na, na_p), _pad_rows(g_a.float(), na_p),
+            _pack(pos_b, mass_b, nb, nb_p))
+
+
 def vjp_pos_pair(pos_a, g_a, pos_b, mass_a=None, mass_b=None,
-                 softening: float = SOFTENING, block: int = 256):
+                 softening: float = SOFTENING):
     """Both-sided position cotangents of the ordered pairs (a <- b) with
     receiver cotangents g_a only: (a_bar (Na,3), b_bar (Nb,3)). The 2-D
     grid backward runs it once per device on its (row group, column group)
     tile; a body in both sets meets itself under the d2 == 0 mask. The
     function reads the column masses mass_b only: mass_a (JAX's signature)
     may be left out, and is refused without mass_b; the mass cotangent is
-    zero by contract. CUDA tensors launch B12 twice (``block`` threads per
-    block, SimConfig.tile_i on the grid backward as for B10), CPU tensors
-    take vjp_pos_pair_plain."""
+    zero by contract. CUDA tensors launch B12 (one launch per piece of the
+    slot table, tile PAIR_TILE), CPU tensors take vjp_pos_pair_plain."""
     if mass_a is not None and mass_b is None:
         raise ValueError("vjp_pos_pair: mass_a without mass_b")
     device = pos_a.device
@@ -301,22 +313,29 @@ def vjp_pos_pair(pos_a, g_a, pos_b, mass_a=None, mass_b=None,
     if not _build.on_card(device):
         return vjp_pos_pair_plain(pos_a, g_a, pos_b, mass_a, mass_b,
                                   softening)
-    _check_block(block)
+    tile = PAIR_TILE
     _build.refuse_grad("vjp_pos_pair", pos_a, g_a, pos_b, mass_a, mass_b)
-    global PAIR_LAUNCHES
+    pa, ga, pb = pair_operands(pos_a, g_a, pos_b, mass_b, tile)
+    slots = slot_pipe.slot_table(pa.shape[0] // tile, False, True, device,
+                                 nb_b=pb.shape[0] // tile)
+    acc_a = torch.zeros((pa.shape[0], 3), dtype=f32, device=device)
+    acc_b = torch.zeros((pb.shape[0], 3), dtype=f32, device=device)
     lib = _build.load_library()
-    outs = (torch.empty((na, 3), dtype=f32, device=device),
-            torch.empty((nb, 3), dtype=f32, device=device))
+
+    def count():
+        global PAIR_LAUNCHES
+        PAIR_LAUNCHES += 1
+
+    def launch(piece, n, _g, _g0, part):
+        return lib.vjp_pair_launch(
+            piece.data_ptr(), n, pa.data_ptr(), ga.data_ptr(), pb.data_ptr(),
+            part.data_ptr(), pb.shape[1], float(softening),
+            _build.stream_ptr(device))
+
     with torch.cuda.device(device):
-        for side, out in zip((_SIDE_ROWS, _SIDE_COLS), outs):
-            code = lib.vjp_pair_launch(
-                side, pos_a.data_ptr(), g_a.data_ptr(), na, pos_b.data_ptr(),
-                None if mass_b is None else mass_b.data_ptr(), nb,
-                out.data_ptr(), float(softening), block,
-                _build.stream_ptr(device))
-            _build.check(lib, code, "vjp_pair_launch")
-            PAIR_LAUNCHES += 1
-    return outs
+        slot_pipe.run_slot_pieces("vjp_pair_launch", slots, False, tile, 3,
+                                  acc_a, acc_b, launch, count)
+    return acc_a[:na], acc_b[:nb]
 
 
 def _pair_terms(p, q, gp, gq, softening, mask, keep=None):

@@ -295,8 +295,7 @@ def _make_local_diff_force(cfg: SimConfig, mesh: Mesh):
             # B12 reads the column masses only (JAX also gathers the rows').
             cols_m = _comm.all_gather(mass_local, grp, dev) if use_m else None
             a_bar, b_bar = vjp_pos_pair(rows_pos, g_rows, cols_pos,
-                                        mass_b=cols_m, softening=soft,
-                                        block=cfg.tile_i)
+                                        mass_b=cols_m, softening=soft)
             return (_comm.reduce_scatter(a_bar, rows_g, dev)
                     + _comm.reduce_scatter(b_bar, grp, dev))
         if cfg.comm in ("ring", "ring_sym") and n_shards > 1:

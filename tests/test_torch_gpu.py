@@ -43,11 +43,16 @@ system bitwise its standalone call, and simulate on the band through B16
 alone.
 
 B12 (vjp_pos_pair, the 2-D grid backward) against its plain version at the
-K1 bound, with sets that share bodies, two launches per call, two calls
-bitwise equal. The sharded path on a one-rank NCCL group: every comm
-bitwise the single-card run on its shard's kernel, and the grid's gradient
-through B12 within the fp32 class of the single-card B10 gradient (rtol
-1e-3, atol 1e-4 of its scale).
+K1 bound, with sets that share bodies, coincident bodies off the
+diagonal, pairs whose d2 underflows to 0 (masked) or is a denormal (not),
+pads inside a micro-tile and several pieces of slots, one launch and one slot_reduce per piece, two calls bitwise equal;
+its registers, spills and CTAs per SM. slot_reduce bitwise its plain
+version at widths 3, 4 and 8, tiles 64 and 128, lists of 1 to 2049 tiles
+and one or three systems, and refused on misaligned operands. The
+sharded path on a one-rank NCCL group: every comm bitwise the single-card
+run on its shard's kernel, and the grid's gradient through B12 within the
+fp32 class of the single-card B10 gradient (rtol 1e-3, atol 1e-4 of its
+scale).
 
 K3's and K2's register bodies one slot at a time: a DIAG, a CROSS and a
 FOLD slot at tiles 64 and 128, with a ragged tail whose pads start inside
@@ -473,26 +478,57 @@ def test_b10_vs_plain(cuda, n, masses, softening, coincident, block):
 
 @pytest.mark.parametrize("na,nb,shared", [(1000, 3001, True),
                                           (3001, 1000, False),
-                                          (4096, 4096, True)])
+                                          (4096, 4096, True),
+                                          (130, 69, True), (1, 1, True),
+                                          (3001, 9001, "apart"),
+                                          (300, 200, "tiny")])
 @pytest.mark.parametrize("masses", [False, True])
-@pytest.mark.parametrize("block", [128, 256])
-def test_b12_vs_plain(cuda, na, nb, shared, masses, block):
-    # A grid tile: a's first half of its bodies are also b's last ones.
+def test_b12_vs_plain(cuda, na, nb, shared, masses, monkeypatch):
+    # A grid tile: a's first half of its bodies are also b's last ones
+    # (True), or a few of a's bodies sit at other indices of b ("apart":
+    # coincident pairs off the diagonal of every tile), or ("tiny") two of
+    # a's bodies lie 1e-24 and 1e-20 from one of b's: the first pair's d2
+    # underflows to 0 and is masked, the second's is a denormal and is not.
+    # Pads start inside a micro-tile (130 = 128 + 2 rows, 69 columns);
+    # 3001 x 9001 takes several pieces at PIECE_SLOTS = 2^10. One launch and
+    # one slot_reduce per piece; two calls bitwise.
+    monkeypatch.setattr(sp, "PIECE_SLOTS", 1 << 10)
     pos_a, g, m_a = _vjp_case(na, 21, masses, cuda, False)
     pos_b, _, m_b = _vjp_case(nb, 22, masses, cuda, False)
-    if shared:
-        k = min(na, nb) // 2
+    if shared == "apart":
+        for i, j in ((3, 4000), (2999, 17), (1500, 9000)):
+            pos_b[j] = pos_a[i]
+    elif shared == "tiny":
+        pos_b[150] = 0.0
+        pos_a[7] = pos_a.new_tensor([1e-24, 0.0, 0.0])
+        pos_a[250] = pos_a.new_tensor([0.0, -1e-20, 0.0])
+    elif shared:
+        k = max(1, min(na, nb) // 2)
         pos_b[nb - k:] = pos_a[:k]
         if masses:
             m_b[nb - k:] = m_a[:k]
-    before = vk.PAIR_LAUNCHES
-    got = vk.vjp_pos_pair(pos_a, g, pos_b, m_a, m_b, 1e-2, block=block)
-    assert vk.PAIR_LAUNCHES == before + 2
-    again = vk.vjp_pos_pair(pos_a, g, pos_b, m_a, m_b, 1e-2, block=block)
+    tile = vk.PAIR_TILE
+    pieces = -(-(-(-na // tile) * -(-nb // tile)) // sp.PIECE_SLOTS)
+    before = (vk.PAIR_LAUNCHES, sp.REDUCE_LAUNCHES)
+    got = vk.vjp_pos_pair(pos_a, g, pos_b, m_a, m_b, 1e-2)
+    assert (vk.PAIR_LAUNCHES - before[0],
+            sp.REDUCE_LAUNCHES - before[1]) == (pieces, pieces)
+    again = vk.vjp_pos_pair(pos_a, g, pos_b, m_a, m_b, 1e-2)
     want = vk.vjp_pos_pair_plain(pos_a, g, pos_b, m_a, m_b, 1e-2)
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         _close(a, w, 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("masses", [0, 1])
+def test_b12_registers_without_spills(cuda, masses):
+    # 4 x 16 micro-tiles at tile 128: 256 threads at 16 warps per SM (at
+    # most 128 registers), no local memory.
+    regs, local, ctas, threads = _occupancy("vjp_pair_info", masses,
+                                            threads=True)
+    tile = vk.PAIR_TILE
+    assert threads == (tile // 4) * (tile // 16)
+    assert regs <= 128 and local == 0 and ctas * threads // 32 >= 16
 
 
 @pytest.fixture
@@ -551,7 +587,8 @@ def test_sharded_grid_gradient_goes_through_b12(nccl_one_rank):
     got = grad(make_sharded_step_fn(cfg, make_mesh((1, 1)),
                                     differentiable=True),
                shard_state(s, make_mesh((1, 1))))
-    assert vk.PAIR_LAUNCHES == before + 4  # two per backward pass
+    # one per backward pass: 3000^2 at tile 128 is one piece of slots
+    assert vk.PAIR_LAUNCHES == before + 2
     want = grad(make_step_fn(cfg.replace(mesh_shape=None, comm="all_gather",
                                          backend="auto"),
                              differentiable=True), s)
@@ -950,7 +987,7 @@ def test_b14_threads_are_the_design(cuda, tile, masses):
 def test_b10_threads_are_the_design(cuda, block, masses):
     # tests/test_torch_vjp_design.py models B10 at
     # vk.ordered_receivers(block) receivers a thread.
-    *_, threads = _occupancy("vjp_ordered_info", 0, block, masses,
+    *_, threads = _occupancy("vjp_ordered_info", block, masses,
                              threads=True)
     assert threads == block // vk.ordered_receivers(block)
 
@@ -959,7 +996,7 @@ def test_b10_threads_are_the_design(cuda, block, masses):
 @pytest.mark.parametrize("masses", [0, 1])
 def test_b10_registers_without_spills(cuda, block, masses):
     # At most 128 registers (4 receivers a thread), so 16 warps per SM.
-    regs, local, ctas = _occupancy("vjp_ordered_info", 0, block, masses)
+    regs, local, ctas = _occupancy("vjp_ordered_info", block, masses)
     assert regs <= 128 and local == 0 and ctas >= 1
 
 
@@ -1249,6 +1286,62 @@ def test_slot_reduce_bitwise_plain(cuda, cross):
         accs.append((a, b))
     assert torch.equal(accs[0][0], accs[1][0])
     assert torch.equal(accs[0][1], accs[1][1])
+
+
+def _lists_plan(lengths, n_tiles, device, seed):
+    """A reduce plan of one piece: target t (t even: acc_a block t // 2,
+    odd: acc_b) adds lengths[t] tiles drawn without replacement from the
+    piece's n_tiles, in a shuffled list order."""
+    rng = np.random.default_rng(seed)
+    pick = rng.permutation(n_tiles)
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    assert offsets[-1] <= n_tiles
+    arrays = (np.arange(len(lengths)), offsets, pick[:offsets[-1]],
+              sp.launch_order(offsets))
+    return (0, n_tiles // 2, *(torch.from_numpy(a.astype(np.int32)).to(
+        device) for a in arrays))
+
+
+@pytest.mark.parametrize("width", [3, 4, 8])
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("lengths", [(1, 7, 64, 1024), (2048, 1, 33),
+                                     (5, 3, 9, 17, 31, 2049)])
+@pytest.mark.parametrize("n_sys", [1, 3])
+def test_slot_reduce_lists_bitwise_plain(cuda, width, tile, lengths, n_sys):
+    # Lists of 1, 7, 64, 1024 and 2048 tiles (B12's row lists at 262,144
+    # bodies and tile 128), lengths that are no multiple of the ring's depth
+    # (4 .. 32) and one past a 2048-entry window of staged entries, targets
+    # on both accumulators, over n_sys systems: bitwise the plain version.
+    n_tiles = 2 * -(-sum(lengths) // 2)
+    plan = _lists_plan(lengths, n_tiles, cuda, width + tile + n_sys)
+    rows = tile * -(-len(lengths) // 2)
+    part = torch.randn(n_sys * n_tiles * tile * width, device=cuda)
+    accs = []
+    for run in (sp.slot_reduce_, sp.slot_reduce_plain):
+        torch.manual_seed(0)
+        a, b = (torch.randn((n_sys * rows, width), device=cuda)
+                for _ in range(2))
+        run(part, plan, a, b, tile, width, n_sys, rows)
+        accs.append((a, b))
+    assert torch.equal(accs[0][0], accs[1][0])
+    assert torch.equal(accs[0][1], accs[1][1])
+
+
+@pytest.mark.parametrize("what", ["part", "acc", "tile"])
+def test_slot_reduce_refuses_misaligned(cuda, what):
+    # float4 copies need 16-byte aligned partials and accumulators and a
+    # tile of a multiple of 4 floats: such a call is refused, never run on
+    # a slower path.
+    tile, width = 64, 3
+    plan = _lists_plan((3, 5), 8, cuda, 0)
+    part = torch.randn(8 * tile * width + 1, device=cuda)
+    acc = torch.zeros((tile * width + 1,), device=cuda)
+    args = {"part": (part[1:], acc[:-1].view(tile, width), tile),
+            "acc": (part[:-1], acc[1:].view(tile, width), tile),
+            "tile": (part[:-1], acc[:-1].view(tile, width), tile - 1)}[what]
+    p, a, t = args
+    with pytest.raises(RuntimeError, match="slot_reduce_launch"):
+        sp.slot_reduce_(p, plan, a, a, t, width)
 
 
 # ------------------------------------------------- B9c, B9d: ensemble VJPs
