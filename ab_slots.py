@@ -1,10 +1,11 @@
-"""Times the register-body kernels K3, K2, B6, B16, B14, B10, B11, B13 and
-B12 and the slot-order reduce of two trees of this repo on one card, in
-turns, on the same inputs, and prints digests of their outputs.
+"""Times the register-body kernels K3, K2, B6, B16, B14, B10, B11, B13,
+B12, K1, K5 and K4 and the slot-order reduce of two trees of this repo on
+one card, in turns, on the same inputs, and prints digests of their outputs.
 
     python3 ab_slots.py --other DIR [--turns other,this,this,other]
                         [--only slots,band,passes,b15,b6,vjp,rollout,
-                                pvjp,bwdmax,b12,reduce]
+                                pvjp,bwdmax,b12,reduce,direct,pe]
+                        [--sass-dir DIR]
 
 DIR is another checkout of the repo (for example the parent commit unpacked
 with ``git archive``, in a directory that .gitignore lists). Each turn runs
@@ -65,6 +66,24 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   (plummer, 'fast'): B11 (``vjp_pos_sym``, chunked at 131,072) against B10
   (``vjp_pos_direct``, block 512) and B13 (``vjp_pos_sym_mxu``) against
   B14 (``vjp_rect_mxu``), the routing ``autodiff._SYM_BWD_MAX`` sets;
+- direct: K1 through ``body_force_direct`` over one N = 2^20 pass at
+  block (tile_i) 512, with unit masses and with masses; K5 at config 2
+  (``simulate`` of N = 65,536 uniform bodies, 10 fused Euler steps, block
+  512), ms per step; digests of K1 and of one K5 step on 50,001 bodies
+  (a ragged edge) at blocks 128, 256 and 512, with and without masses, at
+  softenings 1e-9 and 1e-13, and of K1 from one half of them onto the
+  other at those and 1e-40 (the cube, normal and rsqrtf forms of a tree
+  with ``direct_force.rsqrt_form``); in such a tree, the sweep of rows
+  a thread R and rows a CTA that chose ``row_schedule`` (K1 at 2^20 with
+  unit masses, K5 at config 2), each with its digest, registers and CTAs
+  per SM;
+- pe: K4 through ``potential_energy_kernel`` on config 3's plummer bodies
+  (N = 262,144, softening 1e-2) with masses and with unit masses, and on
+  3001 bodies with masses, with U and the digest of its row sums; digests
+  of the row sums on the 50,001 bodies at blocks 128, 256 and 512, with
+  and without masses, at softenings 1e-2 and 1e-40 (normal and rsqrtf); in
+  a tree with the row schedule, its sweep of R and rows at 262,144 with
+  masses;
 - SHA-256 digests (first 16 hex digits) of each kernel's output bytes: K3's
   and K2's sums of the timed calls, B15's final state in both classes, B6's
   raw sums and forces at 262,144 in both classes, B16's rows and columns of
@@ -79,13 +98,16 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   computed from the registers, threads and shared memory of the body (H100:
   65,536 registers, 2048 threads, 32 CTAs and 233,472 bytes of shared
   memory per SM);
-- the SASS of B10, B14, B11, B13 and B12 (``cuobjdump -sass`` of the
-  tree's library): for each loop holding a rsqrt (``MUFU.RSQ``), its
-  instructions and rsqrts, so instructions per pair of the innermost pair
-  loop; and for each straight run of code (no label, no branch) holding 8
-  rsqrts or more, its instructions from the first rsqrt to the last and
-  its rsqrts, so instructions per pair of a pass unrolled over its pairs
-  (B11's and B12's micro-tiles, B13's steps).
+- the SASS of B10, B14, B11, B13, B12, K1, K5 and K4 (``cuobjdump -sass``
+  of the tree's library): for each loop holding a rsqrt (``MUFU.RSQ``), its
+  instructions, rsqrts and the instructions of rsqrtf's denormal
+  rescaling (those with the 2^24 scale, 16777216), so instructions per
+  pair of the innermost pair loop; and for each straight run of code (no
+  label, no branch) holding 8 rsqrts or more, its instructions from the
+  first rsqrt to the last and its rsqrts, so instructions per pair of a
+  pass unrolled over its pairs (B11's and B12's micro-tiles, B13's steps).
+  With direct or pe and ``--sass-dir DIR``, the SASS text of K1, K5 and
+  K4 goes to ``DIR/ab_sass_<tree's directory name>.txt``.
 The parent prints the same lines, so the two trees are compared within one
 call on one card. The card's name and power limit are printed first.
 """
@@ -107,13 +129,23 @@ N_CONFIG3, SOFT_CONFIG3 = 262144, 1e-2
 ROLLOUT_STEPS, ROLLOUT_DT = 10, 1e-3
 REPS = 5
 SECTIONS = ("slots", "band", "passes", "b15", "b6", "vjp", "rollout", "pvjp",
-            "bwdmax", "b12", "reduce")
+            "bwdmax", "b12", "reduce", "direct", "pe")
 #: b12: the ragged call's sets; reduce: the ensemble (B, N) of B9a and B9b.
 B12_RAGGED = (3001, 9001)
 ENS_REDUCE = (16, 4096)
 #: pvjp: N of the launches and calls, the ensemble (B, N); bwdmax: the Ns.
 N_PVJP, ENS_PVJP = 65536, (16, 65536)
 BWDMAX_NS = (65536, 131072, 262144)
+#: direct and pe: K1's block at 2^20, config 2 (N, fused Euler steps), the
+#: digests' N (a ragged edge at every block), blocks and softenings (K1 and
+#: K5: the cube, normal and rsqrtf forms; K4: normal and rsqrtf), K4's
+#: ragged N; the sweep's rows a thread and rows a CTA.
+DIRECT_BLOCK = 512
+N_CONFIG2, STEPS_CONFIG2 = 65536, 10
+N_DIGEST, DIGEST_BLOCKS = 50001, (128, 256, 512)
+DIRECT_SOFTENINGS, PE_SOFTENINGS = (1e-9, 1e-13, 1e-40), (1e-2, 1e-40)
+N_PE_RAGGED = 3001
+SWEEP_R, SWEEP_ROWS = (1, 2, 4), (128, 256, 512, 1024)
 #: Threads and dynamic shared memory per CTA of the bodies before their
 #: register designs, for trees without an occupancy query: K3 2T threads and
 #: a T x T w tile, (T (T + 1) + 8 T) floats; K2 256 threads, the bf16 W tile
@@ -126,17 +158,22 @@ BWDMAX_NS = (65536, 131072, 262144)
 #: its fp32 W and C tiles (rows padded to T + 1) and the blocks (36,864
 #: bytes at tile 64); B13 256 threads, its bf16 W and C tiles for both fold
 #: sides, Qg, Qp, the warps' products, the blocks and the mass partials
-#: (177,152 bytes at tile 128); B12's two sides as B10's old body.
+#: (177,152 bytes at tile 128); B12's two sides as B10's old body; K1 and
+#: K5 one thread a row at block 512, K4 at its block 256 (a float4 per
+#: staged source).
 SHARED_W_BODIES = {"K3": (256, 70144), "K2": (256, 76800),
                    "B6": (256, 48640), "B16": (256, 41984),
                    "B14": (256, 89088), "B10": (512, 16384),
                    "B11": (128, 36864), "B13": (256, 177152),
-                "B12": (512, 16384)}
+                   "B12": (512, 16384), "K1": (512, 8192),
+                   "K5": (512, 8192), "K4": (256, 4096)}
 #: The timed instantiations: K3 at tile 128, unit masses, fast rsqrt; K2 and
 #: B16 at tile 128 without split_w (B16 with fast rsqrt); B6's bf16 class
 #: with masses; B14 at tile 128 and B10 at block 512, with masses. Parts of
 #: the mangled names, this tree's and the parent's; B11 at tile 64 and B13
-#: at tile 128 with masses, no mass cotangent (the parent's default tiles).
+#: at tile 128 with masses, no mass cotangent (the parent's default tiles);
+#: K1 (2^20) and K5 (config 2) with unit masses and the cube form at the
+#: rows a thread row_schedule gives them, K4 with the normal form.
 SLOT_KERNELS = {"K3": ("symmetric_force_kernelILi128ELi3ELb1E",),
                 "K2": ("slot_pipe_kernelILi128ELb0E",),
                 "B6": ("mxu_bf16_kernelILb1E",
@@ -149,7 +186,12 @@ SLOT_KERNELS = {"K3": ("symmetric_force_kernelILi128ELi3ELb1E",),
                 "B11": ("vjp_sym_kernelILi64ELi4ELi3E",),
                 "B13": ("vjp_mxu_kernelILi128ELi4ELi8E",),
                 "B12": ("vjp_pair_kernelILi128ELi4E",
-                        "vjp_side_kernelILb1ELi1E")}
+                        "vjp_side_kernelILb1ELi1E"),
+                "K1": ("direct_force_kernelILi4ELb0ELi2ELb0E",
+                       "direct_force_kernelILb0ELb1ELb0E"),
+                "K5": ("direct_force_kernelILi1ELb0ELi2ELb1E",
+                       "direct_force_kernelILb0ELb1ELb1E"),
+                "K4": ("pe_rows_kernelILi2ELb1E", "pe_rows_kernelILb1E")}
 #: B12's kernels whose SASS is counted: this tree's with masses, the
 #: parent's two sides with masses.
 B12_SASS = ("vjp_pair_kernelILi128ELi4E", "vjp_side_kernelILb1ELi")
@@ -183,10 +225,10 @@ def ctas_per_sm(regs, threads, smem):
     return min(by_regs, by_smem, 2048 // threads, 32)
 
 
-def sass_loops(sass):
-    """[(instructions, rsqrts)] of each loop of one function's SASS
-    (``cuobjdump -sass`` text) that holds a ``MUFU.RSQ``: a loop runs from a
-    backward branch's target to the branch."""
+def loop_bodies(sass):
+    """[instructions] of each loop of one function's SASS (``cuobjdump
+    -sass`` text) that holds a ``MUFU.RSQ``: a loop runs from a backward
+    branch's target to the branch."""
     addr, ops, labels, branches = [], [], {}, []
     pending = []
     for ln in sass.splitlines():
@@ -212,10 +254,22 @@ def sass_loops(sass):
         if t is None or t > a:
             continue
         body = [op for x, op in zip(addr, ops) if t <= x <= a]
-        rsq = sum("MUFU.RSQ" in op for op in body)
-        if rsq:
-            loops.append((len(body), rsq))
+        if any("MUFU.RSQ" in op for op in body):
+            loops.append(body)
     return loops
+
+
+def sass_loops(sass):
+    """[(instructions, rsqrts)] of each loop of loop_bodies."""
+    return [(len(b), sum("MUFU.RSQ" in op for op in b))
+            for b in loop_bodies(sass)]
+
+
+def sass_rescales(sass):
+    """For each loop of loop_bodies, its instructions of rsqrtf's denormal
+    rescaling: those holding its 2^24 input scale (16777216)."""
+    return [sum(bool(re.search(r"\b16777216\b", op)) for op in b)
+            for b in loop_bodies(sass)]
 
 
 def sass_runs(sass, least=8):
@@ -246,23 +300,32 @@ def sass_runs(sass, least=8):
     return runs
 
 
-def kernel_sass(lib_path, names):
-    """{mangled name: [(instructions, rsqrts) per loop]} of the kernels of
-    the library whose mangled names contain one of ``names``."""
+def kernel_sass(lib_path, names, dump=(), dump_to=None):
+    """{mangled name: its sass_loops, sass_runs and sass_rescales} of the
+    kernels of the library whose mangled names contain one of ``names``;
+    the SASS text of those containing one of ``dump`` goes to the file
+    ``dump_to``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=600).stdout
-    out = {}
+    out, dumped = {}, []
     for part in re.split(r"\n\s*Function : ", text)[1:]:
         name = part.split(None, 1)[0]
         if any(n in name for n in names):
-            out[name] = {"loops": sass_loops(part), "runs": sass_runs(part)}
+            out[name] = {"loops": sass_loops(part), "runs": sass_runs(part),
+                         "rescales": sass_rescales(part)}
+        if any(n in name for n in dump):
+            dumped.append(f"Function : {part}")
+    if dump_to is not None and dumped:
+        os.makedirs(os.path.dirname(dump_to), exist_ok=True)
+        with open(dump_to, "w") as f:
+            f.write("\n".join(dumped))
     return out
 
 
-def worker(tree, only):
+def worker(tree, only, sass_dir=None):
     sys.path.insert(0, os.path.abspath(tree))
     import ctypes
 
@@ -270,7 +333,10 @@ def worker(tree, only):
     import torch
 
     from mini_nbody_tpu_torch import BodyState, SimConfig, _build, init
+    from mini_nbody_tpu_torch import simulate
+    from mini_nbody_tpu_torch.ops import direct_force as df
     from mini_nbody_tpu_torch.ops import mxu_force as mf
+    from mini_nbody_tpu_torch.ops import pe_kernel as pk
     from mini_nbody_tpu_torch.ops import resident_sym as rs
     from mini_nbody_tpu_torch.ops import slot_pipe as sp
     from mini_nbody_tpu_torch.ops import sym_mxu_force as sm
@@ -699,11 +765,151 @@ def worker(tree, only):
             rec.setdefault("bwdmax_ms", {}).setdefault(name, {})[n] = \
                 time_fn(fn, *args, reps=3) * 1e3
 
+    # K1 and K5 (direct), K4 (pe): each tree through its public wrappers,
+    # so the parent's kernels run as they did; in a tree with the row
+    # schedule, also the sweep of R and rows that chose it.
+    sched = hasattr(df, "row_schedule")
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    pd = torch.rand((N_DIGEST, 3), generator=dgen, device=dev) * 2 - 1
+    vd = torch.rand((N_DIGEST, 3), generator=dgen, device=dev) * 2 - 1
+    md = torch.rand(N_DIGEST, generator=dgen, device=dev) + 0.5
+
+    def info(fn, *args):
+        out = (ctypes.c_int * 4)()
+        _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
+        return {"registers": out[0], "local_bytes": out[1],
+                "ctas_per_sm": out[2], "threads": out[3], "from": fn}
+
+    if "direct" in only:
+        m1 = torch.rand(N, generator=dgen, device=dev) + 0.5
+        for case, m in (("unit masses", None), ("masses", m1)):
+            args = (state.pos, state.pos, m, soft, DIRECT_BLOCK)
+            rec["kernels"][f"K1 pass {case}"] = {
+                "n": N, "block": DIRECT_BLOCK,
+                "schedule": df.row_schedule(N, DIRECT_BLOCK) if sched
+                else None,
+                "ms_per_launch": time_fn(df.body_force_direct, *args,
+                                         reps=3) * 1e3,
+                "digest": digest(df.body_force_direct(*args))}
+        s2 = init.uniform_random(N_CONFIG2, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 3), device=dev)
+        cfg2 = SimConfig(n=N_CONFIG2, steps=STEPS_CONFIG2, backend="direct",
+                         fused_integrate=True)
+        out2 = simulate(cfg2, s2)
+        rec["kernels"]["K5 config 2"] = {
+            "n": N_CONFIG2, "block": cfg2.tile_i, "steps": STEPS_CONFIG2,
+            "schedule": df.row_schedule(N_CONFIG2, cfg2.tile_i) if sched
+            else None,
+            "ms_per_step": time_fn(simulate, cfg2, s2, reps=REPS) * 1e3
+            / STEPS_CONFIG2,
+            "digest": digest(out2.pos, out2.vel)}
+        # Below FLT_MIN the self pair's w overflows, so every row of a
+        # square call is NaN: the rsqrtf form is digested on a rectangle of
+        # two disjoint sets.
+        dig = rec.setdefault("digests", {})
+        a, b = pd[:N_DIGEST // 2], pd[N_DIGEST // 2:]
+        for soft_d in DIRECT_SOFTENINGS:
+            for case, m in (("unit masses", None), ("masses", md)):
+                for block in DIGEST_BLOCKS:
+                    key = f"soft {soft_d} {case} block {block}"
+                    mb = None if m is None else m[N_DIGEST // 2:]
+                    dig[f"K1 rect {key}"] = digest(df.body_force_direct(
+                        a, b, mb, soft_d, block))
+                    if soft_d < 2.0 ** -126:
+                        continue
+                    dig[f"K1 {key}"] = digest(df.body_force_direct(
+                        pd, pd, m, soft_d, block))
+                    dig[f"K5 {key}"] = digest(*df.euler_step_fused(
+                        pd, vd, m, 1e-3, soft_d, block))
+        if sched:
+            sweep = rec.setdefault("sweep", {})
+            for r in SWEEP_R:
+                for rows in SWEEP_ROWS:
+                    if rows % (32 * r) or rows < 256:
+                        continue
+                    args = (state.pos, state.pos, None, soft, r, rows)
+                    sweep[f"K1 2^20 r {r} rows {rows}"] = {
+                        "ms": time_fn(df.launch_direct, *args,
+                                      reps=3) * 1e3,
+                        "digest": digest(df.launch_direct(*args)),
+                        **info("direct_force_info", r, rows, 0,
+                               df.rsqrt_form(soft), 0)}
+            for r in SWEEP_R:
+                for rows in SWEEP_ROWS:
+                    if rows % (32 * r):
+                        continue
+                    args = (s2.pos, s2.vel, None, cfg2.dt, cfg2.softening,
+                            r, rows)
+                    sweep[f"K5 config 2 r {r} rows {rows}"] = {
+                        "ms": time_fn(df.launch_fused, *args,
+                                      reps=REPS) * 1e3,
+                        "digest": digest(*df.launch_fused(*args)),
+                        **info("direct_force_info", r, rows, 0,
+                               df.rsqrt_form(cfg2.softening), 1)}
+            r1, rows1 = df.row_schedule(N, DIRECT_BLOCK)
+            r5, rows5 = df.row_schedule(N_CONFIG2, cfg2.tile_i)
+            rec["occupancy"] = {
+                "K1": {"r": r1, "rows": rows1, **info(
+                    "direct_force_info", r1, rows1, 0, df.rsqrt_form(soft),
+                    0)},
+                "K5": {"r": r5, "rows": rows5, **info(
+                    "direct_force_info", r5, rows5, 0,
+                    df.rsqrt_form(cfg2.softening), 1)}}
+
+    if "pe" in only:
+        def pe_rows(pos, m, soft_p, block=None):
+            if sched:
+                return pk.launch_rows(pos, m, soft_p, *(
+                    pk.schedule(pos.shape[0]) if block is None
+                    else df.row_schedule(pos.shape[0], block)))
+            block = pk.BLOCK if block is None else block
+            rows = torch.empty(pos.shape[0], device=dev)
+            _build.check(lib, lib.pe_rows_launch(
+                pos.data_ptr(), None if m is None else m.data_ptr(),
+                pos.shape[0], rows.data_ptr(), soft_p, block, stream),
+                "pe_rows_launch")
+            return rows
+
+        pr = torch.rand((N_PE_RAGGED, 3), generator=dgen, device=dev) * 2 - 1
+        mr = torch.rand(N_PE_RAGGED, generator=dgen, device=dev) + 0.5
+        for case, pos, m in (("masses", s3.pos, s3.mass),
+                             ("unit masses", s3.pos, None),
+                             (f"ragged {N_PE_RAGGED} masses", pr, mr)):
+            rec["kernels"][f"K4 {case}"] = {
+                "n": pos.shape[0],
+                "schedule": pk.schedule(pos.shape[0]) if sched
+                else (1, pk.BLOCK),
+                "ms_per_launch": time_fn(pk.potential_energy_kernel, pos, m,
+                                         SOFT_CONFIG3, reps=REPS) * 1e3,
+                "u": pk.potential_energy_kernel(pos, m, SOFT_CONFIG3).item(),
+                "digest": digest(pe_rows(pos, m, SOFT_CONFIG3))}
+        dig = rec.setdefault("digests", {})
+        for soft_p in PE_SOFTENINGS:
+            for case, m in (("unit masses", None), ("masses", md)):
+                for block in DIGEST_BLOCKS:
+                    dig[f"K4 soft {soft_p} {case} block {block}"] = digest(
+                        pe_rows(pd, m, soft_p, block))
+        if sched:
+            sweep = rec.setdefault("sweep", {})
+            for r in SWEEP_R:
+                for rows in SWEEP_ROWS:
+                    if rows % (32 * r):
+                        continue
+                    args = (s3.pos, s3.mass, SOFT_CONFIG3, r, rows)
+                    sweep[f"K4 262144 r {r} rows {rows}"] = {
+                        "ms": time_fn(pk.launch_rows, *args,
+                                      reps=REPS) * 1e3,
+                        "digest": digest(pk.launch_rows(*args)),
+                        **info("pe_rows_info", r, rows, 1)}
+            r4, rows4 = pk.schedule(N_CONFIG3)
+            rec.setdefault("occupancy", {})["K4"] = {
+                "r": r4, "rows": rows4, **info("pe_rows_info", r4, rows4, 1)}
+
     # nvcc's report of the slot kernels, parsed by this tree's _build.
     rec["ptxas_log"] = "\n".join(
         ln for ln in _build.BUILD_LOG.splitlines()
         if "Compiling entry" in ln or "spill" in ln or "Used" in ln)
-    occ = {}
+    occ = rec.pop("occupancy", {})
     # B12's query, and B10's without the side argument B12's two sides
     # needed, in a tree with the pair-once B12.
     pair_once = hasattr(lib, "vjp_pair_info")
@@ -728,9 +934,14 @@ def worker(tree, only):
             if name in ("B14", "B10", "B11", "B13", "B12"):
                 occ[name]["threads"] = out[3]
     rec["occupancy"] = occ
+    direct = ("direct_force_kernel", "pe_rows_kernel")
+    dump = sass_dir is not None and {"direct", "pe"} & set(only)
     rec["sass_loops"] = kernel_sass(lib._name, [
         m for k in ("B14", "B10", "B11", "B13") for m in SLOT_KERNELS[k]]
-        + list(B12_SASS))
+        + list(B12_SASS) + list(direct), dump=direct if dump else (),
+        dump_to=os.path.join(
+            sass_dir, f"ab_sass_{os.path.basename(os.path.abspath(tree))}"
+            ".txt") if dump else None)
     rec["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(rec), flush=True)
 
@@ -741,13 +952,15 @@ def main():
     ap.add_argument("--turns", default="other,this,this,other")
     ap.add_argument("--only", default=",".join(SECTIONS),
                     help="the worker's sections to run, comma-separated")
+    ap.add_argument("--sass-dir", help="where the SASS text of K1, K5 "
+                    "and K4 goes (direct, pe)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = args.only.split(",")
     if not set(only) <= set(SECTIONS):
         sys.exit(f"--only takes sections of {SECTIONS}")
     if args.worker:
-        worker(args.worker, only)
+        worker(args.worker, only, args.sass_dir)
         return
     import torch
 
@@ -764,8 +977,11 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"this": here, "other": os.path.abspath(args.other)}
     for turn in args.turns.split(","):
+        sass = ([] if args.sass_dir is None
+                else ["--sass-dir", os.path.abspath(args.sass_dir)])
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--worker", trees[turn], "--only", args.only],
+                            "--worker", trees[turn], "--only", args.only,
+                            *sass],
                            cwd=trees[turn],
                            capture_output=True, text=True)
         if r.returncode != 0:
@@ -776,9 +992,12 @@ def main():
         rec["ptxas"] = {k: v for k, v in report.items()
                         if any(m in k for ms in SLOT_KERNELS.values()
                                for m in ms)}
+        skip = {"K1", "K5"} - ({"K1", "K5"} if "direct" in only else set())
+        skip |= {"K4"} - ({"K4"} if "pe" in only else set())
         for name, mangled in SLOT_KERNELS.items():
             regs = find_kernel(report, mangled).get("registers")
-            if name not in rec["occupancy"] and regs is not None:
+            if name not in rec["occupancy"] and name not in skip \
+                    and regs is not None:
                 rec["occupancy"][name] = {
                     "registers": regs, "from": "computed",
                     "ctas_per_sm": ctas_per_sm(regs,

@@ -587,13 +587,31 @@ BODIES = {
 }
 
 
-def body_info(kernel):
+def schedule_info(kernel, n, block, masses, softening):
+    """body_info of K1 or K5 at n rows and ``block``, or of K4 at n rows
+    (block None: it picks its own rows a CTA), as their wrappers launch
+    them, with its rows a thread (R) and rows a CTA."""
+    if kernel == "K4":
+        r, rows = pk.schedule(n)
+        normal = int(df.rsqrt_form(softening, cube=False) == df.FORM_NORMAL)
+        body = ("pe_rows_info", (r, rows, normal),
+                f"pe_rows_kernelILi{r}ELb{normal}E")
+    else:
+        r, rows = df.row_schedule(n, block)
+        form, euler = df.rsqrt_form(softening), int(kernel == "K5")
+        body = ("direct_force_info", (r, rows, int(masses), form, euler),
+                f"direct_force_kernelILi{r}ELb{int(masses)}ELi{form}"
+                f"ELb{euler}E")
+    return {"r": r, "rows_per_cta": rows, **body_info(kernel, body)}
+
+
+def body_info(kernel, body=None):
     """Registers and local bytes per thread and CTAs per SM of a register
-    body (the kernel's own occupancy query), and its spill bytes from
-    nvcc's ptxas report (None when the library was built before this
-    run)."""
+    body (the kernel's own occupancy query; ``body`` an entry as BODIES'
+    where the kernel has none there), and its spill bytes from nvcc's
+    ptxas report (None when the library was built before this run)."""
     lib = _build.load_library()
-    body = BODIES[kernel]
+    body = BODIES[kernel] if body is None else body
     fn, args, mangled = body() if callable(body) else body
     out = (ctypes.c_int * 4)()  # the VJPs' add threads
     _build.check(lib, getattr(lib, fn)(*args, ctypes.addressof(out)), fn)
@@ -1005,11 +1023,13 @@ def times_phase(state, launches, k1_err, cfg_sym, cfg_dir):
                                            reps=1, warmup=0)
     else:
         plain_n, plain_s = N_MAIN // 4, plain_small_s
+    k1_body = schedule_info("K1", N_MAIN, cfg_dir.tile_i, False,
+                            cfg_dir.softening)
     line("time_direct", n=N_MAIN, kernel_ms=k1_s * 1e3,
          kernel_ginter_s=gips(N_MAIN, k1_s),
          kernel_gflops_20=gips(N_MAIN, k1_s) * FLOPS_PER_INTERACTION,
          plain_n=plain_n, plain_ms=plain_s * 1e3,
-         plain_ginter_s=gips(plain_n, plain_s))
+         plain_ginter_s=gips(plain_n, plain_s), body=k1_body)
 
     # One tri call (chunk 0) and one cross call (chunks 0, 1) at the
     # main path's chunk and tile, maskless (no duplicates), fold.
@@ -1059,7 +1079,7 @@ def times_phase(state, launches, k1_err, cfg_sym, cfg_dir):
         entry("direct_force (K1)", "direct_force.cu", "pallas_force.py:44",
               launches["direct"], k1_err, k1_s * 1e3, plain_s * 1e3,
               bound(n * (n - 1) * OPS_ORDERED, n * 6 * 4), n=N_MAIN,
-              plain_n=plain_n),
+              plain_n=plain_n, body=k1_body),
         slot_entry("slot_pipe tri mode (K2)", "slot_pipe.cu",
                    "slot_pipe.py:165", launches["slot_tri"], tri_err,
                    tri_s * 1e3, red["tri"], per_call(tri_slots(c, tile)),
@@ -1179,14 +1199,15 @@ def time_k4(state3, state_main, launches):
     main_s = time_fn(pk.potential_energy_kernel, state_main.pos,
                      state_main.mass, soft, reps=3)
     nm = float(N_MAIN)
+    body = schedule_info("K4", N_CONFIG3, None, True, soft)
     line("time_pe", n=N_CONFIG3, kernel_ms=k4_s * 1e3, plain_ms=plain_s * 1e3,
          n_main=N_MAIN, kernel_main_ms=main_s * 1e3,
          bound_main_ms=bound(nm * (nm - 1) * OPS_PE, nm * 20.0,
-                             rsqrts=nm * (nm - 1))["bound_ms"])
+                             rsqrts=nm * (nm - 1))["bound_ms"], body=body)
     return [entry("pe_kernel (K4)", "pe_kernel.cu", "pe_kernel.py:31",
                   launches["pe"], err, k4_s * 1e3, plain_s * 1e3,
                   bound(n * (n - 1) * OPS_PE, n * 20.0,
-                        rsqrts=n * (n - 1)), n=N_CONFIG3)]
+                        rsqrts=n * (n - 1)), n=N_CONFIG3, body=body)]
 
 
 def time_k5(state2, launches):
@@ -1201,13 +1222,14 @@ def time_k5(state2, launches):
     got = df.euler_step_fused(*args, block)
     err = max(close(g, w, K1_RTOL, K1_ATOL, f"K5 {what} vs plain")
               for g, w, what in zip(got, want, ("pos", "vel")))
+    body = schedule_info("K5", N_CONFIG2, block, False, args[4])
     line("time_fused_euler", n=N_CONFIG2, block=block, kernel_ms=k5_s * 1e3,
-         plain_ms=plain_s * 1e3, max_abs_err=err)
+         plain_ms=plain_s * 1e3, max_abs_err=err, body=body)
     return [entry("direct_force fused Euler (K5)", "direct_force.cu",
                   "pallas_force.py:92", launches["fused_euler"], err,
                   k5_s * 1e3, plain_s * 1e3,
                   bound(n * (n - 1) * OPS_ORDERED + n * OPS_EULER,
-                        n * 12 * 4.0), n=N_CONFIG2)]
+                        n * 12 * 4.0), n=N_CONFIG2, body=body)]
 
 
 

@@ -38,13 +38,14 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: is a c_void_p, or ctypes would pass it as a 32-bit int; a long long is a
 #: c_longlong.
 SIGNATURES = {
-    # pos_i, ni, pos_j, mass_j (or NULL), nj, out, softening, fast, block,
-    # stream
-    "direct_force_launch": ([_P, _I, _P, _P, _I, _P, _F, _I, _I, _P], _I),
-    # pos, vel, mass (or NULL), n, pos_out, vel_out, softening, dt, fast,
-    # block, stream
-    "direct_euler_launch": ([_P, _P, _P, _I, _P, _P, _F, _F, _I, _I, _P],
+    # pos_i, ni, pos_j, mass_j (or NULL), nj, out, softening, rsqrt form,
+    # rows a thread, rows a CTA, stream
+    "direct_force_launch": ([_P, _I, _P, _P, _I, _P, _F, _I, _I, _I, _P],
                             _I),
+    # pos, vel, mass (or NULL), n, pos_out, vel_out, softening, dt, rsqrt
+    # form, rows a thread, rows a CTA, stream
+    "direct_euler_launch": ([_P, _P, _P, _I, _P, _P, _F, _F, _I, _I, _I,
+                             _P], _I),
     # slots, n_slots, n_sys, sys_rows, pos_a, pos_b, v_a, v_b, part, tile,
     # softening, fast, split_w, mask_offdiag, stream
     "slot_pipe_launch": ([_P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _F, _I, _I,
@@ -61,8 +62,9 @@ SIGNATURES = {
     # acc_b, n_sys, sys_acc_stride, sys_part_tiles, stream
     "slot_reduce_launch": ([_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _L,
                             _P], _I),
-    # pos, mass (or NULL), n, rows, softening, block, stream
-    "pe_rows_launch": ([_P, _P, _I, _P, _F, _I, _P], _I),
+    # pos, mass (or NULL), n, rows, softening, normal, rows a thread, rows
+    # a CTA, stream
+    "pe_rows_launch": ([_P, _P, _I, _P, _F, _I, _I, _I, _P], _I),
     # pos_k, g_k, mass_k (or NULL), nk, pos_j, g_j, mass_j (or NULL), nj,
     # out, softening, overlap_only, block, stream
     "vjp_ordered_launch": ([_P, _P, _P, _I, _P, _P, _P, _I, _P, _F, _I, _I,
@@ -100,6 +102,12 @@ SIGNATURES = {
     "band_mxu_info": ([_I, _I, _I, _P], _I),
     # tile, masses, out (4 ints: as above, then threads per CTA)
     "vjp_rect_mxu_info": ([_I, _I, _P], _I),
+    # rows a thread, rows a CTA, masses, rsqrt form, euler, out (4 ints:
+    # registers, local bytes, CTAs per SM, threads per CTA): K1's or K5's
+    # kernel
+    "direct_force_info": ([_I, _I, _I, _I, _I, _P], _I),
+    # rows a thread, rows a CTA, normal, out (4 ints, as above): K4's kernel
+    "pe_rows_info": ([_I, _I, _I, _P], _I),
     # block, masses, out (4 ints: registers, local bytes, CTAs per SM,
     # threads per CTA): B10's kernel
     "vjp_ordered_info": ([_I, _I, _P], _I),

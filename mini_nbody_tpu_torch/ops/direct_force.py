@@ -9,10 +9,15 @@ tensors. Rectangular ``(Ni, Nj)``, so later ring exchanges can reuse it.
 ``euler_step_fused`` launches K5, K1 with a semi-implicit Euler epilogue in
 the same source, so the force never reaches device memory; its plain
 version is ``euler_step_fused_plain``. Its output is out of place, as JAX's.
+
+``row_schedule`` maps ``block`` onto the kernels' rows a thread and rows a
+CTA, and ``rsqrt_form`` picks the rsqrt instantiation from the softening;
+K4 (``pe_kernel.py``) takes both too. Neither changes a bit of the output.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mini_nbody_tpu_torch import _build
@@ -23,6 +28,41 @@ from mini_nbody_tpu_torch.utils.config import (SOFTENING, fast_rsqrt_cube,
 LAUNCHES = 0
 #: Kernel launches made by euler_step_fused (CUDA tensors only).
 FUSED_LAUNCHES = 0
+
+#: The smallest normal fp32. From a softening of FLT_MIN every r2 is normal,
+#: so rsqrt.approx.ftz gives rsqrtf's bits without its denormal rescaling.
+FLT_MIN = 2.0 ** -126
+#: The rsqrt forms of K1, K4 and K5 (csrc/direct_force.cu): rsqrtf of r2,
+#: rsqrt.approx.ftz of r2, rsqrt.approx.ftz of r2^3.
+FORM_RSQRTF, FORM_NORMAL, FORM_CUBE = 0, 1, 2
+#: Rows a thread that row_schedule tries, the largest first.
+ROWS_A_THREAD = (4, 2, 1)
+#: Threads a grid keeps before a thread takes more rows (row_schedule):
+#: ~31 warps on each of an H100's 132 SMs. With fewer, the rsqrt's latency
+#: shows (PERF.md: K5 at 65,536 rows, K4 at 262,144).
+FILL_THREADS = 131072
+
+
+def rsqrt_form(softening, cube: bool = True) -> int:
+    """The kernels' rsqrt form at ``softening``: FORM_CUBE under
+    fast_rsqrt_cube (r2^3 >= 1e-36; ``cube`` False for K4, whose rsqrt is
+    of r2), else FORM_NORMAL where the fp32 softening is at least FLT_MIN
+    (every r2 >= softening is normal), else FORM_RSQRTF. Each gives
+    rsqrtf's bits; the kernels refuse a form that does not hold."""
+    if cube and fast_rsqrt_cube(softening):
+        return FORM_CUBE
+    return FORM_NORMAL if np.float32(softening) >= FLT_MIN else FORM_RSQRTF
+
+
+def row_schedule(n: int, block: int):
+    """(R, rows) of a K1, K4 or K5 launch over n rows at ``block``: rows a
+    CTA (and j tile) = block, R rows a thread the largest of ROWS_A_THREAD
+    that keeps whole warps (block % (32 R) == 0) and leaves the grid at
+    least FILL_THREADS threads."""
+    for r in ROWS_A_THREAD:  # ends with 1, which always fits
+        if r == 1 or (block % (32 * r) == 0 and
+                      -(-n // block) * (block // r) >= FILL_THREADS):
+            return r, block
 
 
 def direct_force_plain(pos_i, pos_j, mass_j=None,
@@ -60,9 +100,10 @@ def body_force_direct(pos_i, pos_j, mass_j=None,
     ((Nj,), None = unit masses): (Ni,3) fp32.
 
     CPU tensors take direct_force_plain. CUDA tensors launch K1 with
-    ``block`` threads per block (a multiple of 32 up to 1024; each block
-    stages j in tiles of that size) or raise, as they do when an input
-    requires grad under grad mode (``_build.refuse_grad``)."""
+    ``block`` rows per CTA (a multiple of 32 up to 1024; each CTA stages j
+    in tiles of that size, row_schedule picks its rows a thread) or raise,
+    as they do when an input requires grad under grad mode
+    (``_build.refuse_grad``)."""
     device = pos_i.device
     ni, nj = pos_i.shape[0], pos_j.shape[0]
     f32 = torch.float32
@@ -74,15 +115,26 @@ def body_force_direct(pos_i, pos_j, mass_j=None,
         return direct_force_plain(pos_i, pos_j, mass_j, softening)
     _check_block(block)
     _build.refuse_grad("body_force_direct", pos_i, pos_j, mass_j)
+    return launch_direct(pos_i, pos_j, mass_j, softening,
+                         *row_schedule(ni, block))
+
+
+def launch_direct(pos_i, pos_j, mass_j, softening, r: int, rows: int):
+    """K1 at an explicit schedule: r rows a thread, ``rows`` rows a CTA and
+    j tile (the kernel refuses r outside (1, 2, 4) and rows not a multiple
+    of 32 r up to 1024). CUDA tensors, checked by the caller; the bits do
+    not depend on (r, rows)."""
     global LAUNCHES
+    device = pos_i.device
     lib = _build.load_library()
-    out = torch.empty((ni, 3), dtype=torch.float32, device=device)
+    out = torch.empty((pos_i.shape[0], 3), dtype=torch.float32,
+                      device=device)
     with torch.cuda.device(device):
         code = lib.direct_force_launch(
-            pos_i.data_ptr(), ni, pos_j.data_ptr(),
-            None if mass_j is None else mass_j.data_ptr(), nj,
-            out.data_ptr(), float(softening), int(fast_rsqrt_cube(softening)),
-            block, _build.stream_ptr(device))
+            pos_i.data_ptr(), pos_i.shape[0], pos_j.data_ptr(),
+            None if mass_j is None else mass_j.data_ptr(), pos_j.shape[0],
+            out.data_ptr(), float(softening), rsqrt_form(softening), r, rows,
+            _build.stream_ptr(device))
     _build.check(lib, code, "direct_force_launch")
     LAUNCHES += 1
     return out
@@ -107,7 +159,7 @@ def euler_step_fused(pos, vel, mass=None, dt: float = 0.01,
     (N,3), vel (N,3), masses (N,) or None: (pos', vel'), new tensors.
 
     CPU tensors take euler_step_fused_plain. CUDA tensors launch K5 with
-    ``block`` threads per block (as body_force_direct) or raise."""
+    ``block`` rows per CTA (as body_force_direct) or raise."""
     device = pos.device
     n = pos.shape[0]
     f32 = torch.float32
@@ -119,15 +171,23 @@ def euler_step_fused(pos, vel, mass=None, dt: float = 0.01,
         return euler_step_fused_plain(pos, vel, mass, dt, softening)
     _check_block(block)
     _build.refuse_grad("euler_step_fused", pos, vel, mass)
+    return launch_fused(pos, vel, mass, dt, softening,
+                        *row_schedule(n, block))
+
+
+def launch_fused(pos, vel, mass, dt, softening, r: int, rows: int):
+    """K5 at an explicit schedule (as launch_direct): (pos', vel')."""
     global FUSED_LAUNCHES
+    device = pos.device
     lib = _build.load_library()
     pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
     with torch.cuda.device(device):
         code = lib.direct_euler_launch(
             pos.data_ptr(), vel.data_ptr(),
-            None if mass is None else mass.data_ptr(), n, pos_out.data_ptr(),
-            vel_out.data_ptr(), float(softening), float(dt),
-            int(fast_rsqrt_cube(softening)), block, _build.stream_ptr(device))
+            None if mass is None else mass.data_ptr(), pos.shape[0],
+            pos_out.data_ptr(), vel_out.data_ptr(), float(softening),
+            float(dt), rsqrt_form(softening), r, rows,
+            _build.stream_ptr(device))
     _build.check(lib, code, "direct_euler_launch")
     FUSED_LAUNCHES += 1
     return pos_out, vel_out

@@ -8,7 +8,8 @@ term), then U = -1/2 sum_i m_i row_i as a PyTorch fp32 sum.
 ``potential_energy_kernel`` launches the hand-written kernel
 ``csrc/pe_kernel.cu`` (K4) for CUDA tensors and takes
 ``potential_energy_plain`` (``pe_rows_plain``, the same arithmetic in
-PyTorch, and the same epilogue) for CPU tensors.
+PyTorch, and the same epilogue) for CPU tensors. The kernel takes K1's
+schedule and rsqrt forms (``direct_force.row_schedule``, ``rsqrt_form``).
 """
 
 from __future__ import annotations
@@ -16,12 +17,28 @@ from __future__ import annotations
 import torch
 
 from mini_nbody_tpu_torch import _build
+from mini_nbody_tpu_torch.ops.direct_force import (FORM_NORMAL, rsqrt_form,
+                                                   row_schedule)
 from mini_nbody_tpu_torch.utils.config import SOFTENING, plain_block_elems
 
 #: Kernel launches made by potential_energy_kernel (CUDA tensors only).
 LAUNCHES = 0
-#: Threads per block of K4, which is also its j-tile size.
-BLOCK = 256
+#: Rows a CTA of K4, which is also its j-tile size, where n gives every SM
+#: a CTA (schedule; the sweep in PERF.md chose 1024 rows, 2 a thread, at
+#: 262,144 bodies), and the fewest it halves to.
+BLOCK, MIN_BLOCK = 1024, 128
+#: An H100's SMs.
+SMS = 132
+
+
+def schedule(n: int):
+    """(R, rows a CTA) of K4 over n rows: BLOCK rows, halved (to MIN_BLOCK
+    at least) while the grid would leave one of SMS SMs without a CTA, and
+    row_schedule's R for them."""
+    rows = BLOCK
+    while rows > MIN_BLOCK and -(-n // rows) < SMS:
+        rows //= 2
+    return row_schedule(n, rows)
 
 
 def pe_rows_plain(pos, mass=None, softening: float = SOFTENING):
@@ -71,14 +88,26 @@ def potential_energy_kernel(pos, mass=None, softening: float = SOFTENING):
     if not _build.on_card(device):
         return potential_energy_plain(pos, mass, softening)
     _build.refuse_grad("potential_energy_kernel", pos, mass)
+    rows = launch_rows(pos, mass, softening, *schedule(n))
+    return potential_from_rows(rows, mass)
+
+
+def launch_rows(pos, mass, softening, r: int, rows: int):
+    """K4's row sums (N,) at an explicit schedule: r rows a thread, ``rows``
+    rows a CTA and j tile (refused outside r in (1, 2, 4), rows a multiple
+    of 32 r up to 1024). CUDA tensors, checked by the caller; the bits do
+    not depend on (r, rows)."""
     global LAUNCHES
+    device = pos.device
+    n = pos.shape[0]
     lib = _build.load_library()
-    rows = torch.empty((n,), dtype=f32, device=device)
+    out = torch.empty((n,), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         code = lib.pe_rows_launch(
             pos.data_ptr(), None if mass is None else mass.data_ptr(), n,
-            rows.data_ptr(), float(softening), BLOCK,
+            out.data_ptr(), float(softening),
+            int(rsqrt_form(softening, cube=False) == FORM_NORMAL), r, rows,
             _build.stream_ptr(device))
     _build.check(lib, code, "pe_rows_launch")
     LAUNCHES += 1
-    return potential_from_rows(rows, mass)
+    return out

@@ -136,6 +136,27 @@ def test_sass_loops_count_each_rsqrt_loop():
     assert ab_slots.sass_loops("") == []
 
 
+RESCALED_SASS = """
+.L_x_4:
+        /*0000*/                   FSETP.GEU.AND P0, PT, |R2|, 1.175494350822287508e-38, PT ;
+        /*0010*/               @!P0 FMUL R2, R2, 16777216 ;
+        /*0020*/                   MUFU.RSQ R3, R2 ;
+        /*0030*/               @!P0 FMUL R3, R3, 4096 ;
+        /*0040*/               @P1 BRA `(.L_x_4) ;
+.L_x_5:
+        /*0050*/                   MUFU.RSQ R4, R5 ;
+        /*0060*/               @P2 BRA `(.L_x_5) ;
+"""
+
+
+def test_sass_rescales_count_rsqrtf_denormal_scaling():
+    # rsqrtf's rescaling multiplies a denormal input by 2^24; the
+    # rsqrt.approx.ftz loop has none.
+    assert ab_slots.sass_loops(RESCALED_SASS) == [(5, 1), (2, 1)]
+    assert ab_slots.sass_rescales(RESCALED_SASS) == [1, 0]
+    assert ab_slots.sass_rescales(SASS) == [0, 0]
+
+
 def test_signatures_match_the_c_entry_points():
     # Every C entry of csrc/*.cu has a ctypes signature with its number of
     # arguments, and every signature names an entry.

@@ -79,7 +79,16 @@ masked and maskless; one DIAG, CROSS or FOLD slot alone with coincident
 pairs, the rest of the accumulators exactly zero; two runs bitwise and
 'fast' bitwise 'masked'; 7 ensemble systems in one launch (7 divides no
 persistent width) each bitwise its standalone call; and no spills at the
-warps per SM each is compiled for, from vjp_sym_info and vjp_mxu_info."""
+warps per SM each is compiled for, from vjp_sym_info and vjp_mxu_info.
+
+K1, K5 and K4 on their row schedule (R rows a thread, rows a CTA): K1's
+forces and K4's row sums bitwise equal at blocks 128, 256 and 512 and at
+every R a launch can take, ragged n included, in each rsqrt form (K1's
+rsqrtf form on a rectangle of disjoint sets, where no self pair overflows);
+K5's (pos', vel') bitwise K1's force followed by PyTorch's v + dt F, p + dt
+v'; K4 below FLT_MIN (the rsqrtf instantiation) with a coincident pair
+against its fp64 plain version within 1e-5 of |U|; the rsqrt.approx.ftz
+forms refused where the softening does not make them exact; no spills."""
 
 import numpy as np
 import pytest
@@ -1937,3 +1946,127 @@ def test_pair_once_vjp_registers_without_spills(cuda, fn, masses, ko, tile):
         design, cap, warps = tile, 168, 12
     assert threads == design
     assert regs <= cap and local == 0 and ctas * threads // 32 >= warps
+
+
+# ----------------------------------- K1, K5 and K4: the row schedule ---
+
+def _schedules(block):
+    """Every (R, rows) a launch at ``block`` rows a CTA can take."""
+    return [(r, block) for r in df.ROWS_A_THREAD if block % (32 * r) == 0]
+
+
+@pytest.mark.parametrize("ni,nj,softening", [
+    (3001, 3001, 1e-2), (4096, 4096, 1e-2), (1000, 3001, 1e-2),
+    (3001, 3001, 1e-13), (1000, 3001, 1e-13), (1000, 3001, 1e-40)])
+@pytest.mark.parametrize("masses", [False, True])
+def test_k1_bitwise_across_blocks_and_r(cuda, ni, nj, masses, softening):
+    # One running sum per row in j order: the same bits at every block and
+    # every R, in each rsqrt form (cube, normal, rsqrtf). Below FLT_MIN a
+    # self pair's w overflows (NaN rows), so the rsqrtf form runs on two
+    # disjoint sets.
+    pj = _pos(nj, 21, cuda)
+    pi = pj if ni == nj else _pos(ni, 22, cuda)
+    m = torch.rand(nj, device=cuda) + 0.5 if masses else None
+    want = df.body_force_direct(pi, pj, m, softening, block=128)
+    for block in (128, 256, 512):
+        assert torch.equal(
+            df.body_force_direct(pi, pj, m, softening, block=block), want)
+        for r, rows in _schedules(block):
+            assert torch.equal(
+                df.launch_direct(pi, pj, m, softening, r, rows), want)
+    _close(want, df.direct_force_plain(pi, pj, m, softening), 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("n,masses", [(1, False), (3001, True),
+                                      (4096, False)])
+@pytest.mark.parametrize("block", [128, 256, 512])
+@pytest.mark.parametrize("softening", [1e-2, 1e-13])
+def test_k5_is_k1_then_the_update(cuda, n, masses, block, softening):
+    # K5's force loop is K1's: (pos', vel') bitwise K1's force followed by
+    # PyTorch's v + dt F, p + dt v', at every R the launcher takes.
+    pos, vel = _pos(n, 23, cuda), _pos(n, 24, cuda)
+    m = torch.rand(n, device=cuda) + 0.5 if masses else None
+    dt = 1e-3
+    v_ref = vel + dt * df.body_force_direct(pos, pos, m, softening, block)
+    p_ref = pos + dt * v_ref
+    p2, v2 = df.euler_step_fused(pos, vel, m, dt, softening, block)
+    assert torch.equal(v2, v_ref) and torch.equal(p2, p_ref)
+    for r, rows in _schedules(block):
+        p3, v3 = df.launch_fused(pos, vel, m, dt, softening, r, rows)
+        assert torch.equal(v3, v_ref) and torch.equal(p3, p_ref)
+
+
+@pytest.mark.parametrize("n", [3001, 4096])
+@pytest.mark.parametrize("masses", [False, True])
+@pytest.mark.parametrize("softening", [1e-2, 1e-40])
+def test_k4_bitwise_across_blocks_and_r(cuda, n, masses, softening):
+    # The diagonal tile apart, one running sum per row: the same row sums
+    # at every block and R, in the normal and the rsqrtf form.
+    pos = _pos(n, 25, cuda)
+    pos[n // 2] = pos[7]  # distinct coincident bodies keep their term
+    m = torch.rand(n, device=cuda) + 0.5 if masses else None
+    want = pk.launch_rows(pos, m, softening, 1, 128)
+    for block in (128, 256, 512):
+        for r, rows in _schedules(block):
+            assert torch.equal(pk.launch_rows(pos, m, softening, r, rows),
+                               want)
+    got = pk.potential_energy_kernel(pos, m, softening).item()
+    oracle = pk.potential_energy_plain(
+        pos.double(), None if m is None else m.double(), softening).item()
+    assert abs(got - oracle) <= 1e-5 * abs(oracle)
+
+
+@pytest.mark.parametrize("masses", [False, True])
+def test_k4_rsqrtf_form_below_flt_min(cuda, masses):
+    # Below FLT_MIN the host picks rsqrtf: the coincident pair's r2 is the
+    # denormal softening, whose term (~1e20) rsqrt.approx.ftz would flush
+    # to inf.
+    soft = 1e-40
+    assert df.rsqrt_form(soft, cube=False) == df.FORM_RSQRTF
+    pos = _pos(64, 26, cuda)
+    pos[20] = pos[10]
+    m = torch.rand(64, device=cuda) + 0.5 if masses else None
+    got = pk.potential_energy_kernel(pos, m, soft).item()
+    oracle = pk.potential_energy_plain(
+        pos.double(), None if m is None else m.double(), soft).item()
+    assert abs(got - oracle) <= 1e-5 * abs(oracle)
+
+
+def test_normal_forms_refused_below_their_bound(cuda):
+    # The kernels refuse an rsqrt.approx.ftz form the softening does not
+    # make exact; the host never asks for one.
+    from mini_nbody_tpu_torch import _build
+
+    lib = _build.load_library()
+    pos = _pos(256, 27, cuda)
+    out = torch.empty((256, 3), device=cuda)
+    rows = torch.empty(256, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for form, soft in ((df.FORM_CUBE, 1e-14), (df.FORM_NORMAL, 1e-40)):
+        assert lib.direct_force_launch(
+            pos.data_ptr(), 256, pos.data_ptr(), None, 256, out.data_ptr(),
+            soft, form, 1, 128, stream) != 0
+    assert lib.pe_rows_launch(pos.data_ptr(), None, 256, rows.data_ptr(),
+                              1e-40, 1, 1, 128, stream) != 0
+
+
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("rows", [128, 512, 1024])
+@pytest.mark.parametrize("masses,form,euler", [
+    (0, df.FORM_CUBE, 0), (1, df.FORM_CUBE, 0), (0, df.FORM_NORMAL, 0),
+    (1, df.FORM_RSQRTF, 0), (0, df.FORM_CUBE, 1), (1, df.FORM_NORMAL, 1)])
+def test_k1_k5_registers_without_spills(cuda, r, rows, masses, form, euler):
+    regs, local, ctas, threads = _occupancy(
+        "direct_force_info", r, rows, masses, form, euler, threads=True)
+    assert threads == rows // r
+    assert local == 0 and ctas >= 1 and regs <= 65536 // (rows // r)
+
+
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("rows", [128, 256, 1024])
+@pytest.mark.parametrize("normal", [0, 1])
+def test_k4_registers_without_spills(cuda, r, rows, normal):
+    regs, local, ctas, threads = _occupancy("pe_rows_info", r, rows, normal,
+                                            threads=True)
+    assert threads == rows // r
+    assert local == 0 and ctas >= 1
