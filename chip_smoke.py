@@ -94,6 +94,28 @@ each with every launch count set to 0 just before it and read just after:
   parameter
   sweep with a mesh, bitwise the unsharded ensemble.
 
+Then, after the kernels' timings and before the kernels line, the port's
+entry points as users call them (``mini_nbody_tpu_torch.cli`` in process,
+the demos as modules):
+
+- ``cli_check``: ``nbody-torch check`` at N = 262,144 on ``sym`` and on
+  ``sym_mxu`` (plummer): JAX's gates pass;
+- ``cli_run_resume``: 10 + 10 Euler steps at N = 65,536 through ``--save``
+  / ``--resume``, bitwise a 20-step ``simulate``;
+- ``cli_bench``: ``bench`` at N = 1,048,576 on ``sym_mxu``, ``direct``,
+  ``auto`` and ``mxu``/bfloat16: ``roofline_frac`` in (0, 1], beside the
+  value PERF.md's times predict;
+- ``cli_shmoo``: ``shmoo`` over N = 4096 .. 262,144 on ``auto``, the 4096
+  row on the resident kernel;
+- ``cli_tune``: ``tune`` at N = 262,144 on ``sym`` into a temporary cache,
+  which ``run --autotune`` then reads without measuring;
+- ``trace``: 2 steps under ``utils/tracing.profile_trace`` in ``annotate``
+  spans: the Chrome trace holds the span and K3's kernel;
+- ``examples``: the six demos of examples/torch at quick sizes;
+
+and ``sharded`` also writes its state with ``save_sharded`` and restores it
+with ``load_sharded``, bitwise, with no collective.
+
 B16 makes one launch per piece of its row blocks
 (``sym_mxu_force.BAND_PIECE_TILES``) and group of systems, each followed by
 one launch of ``csrc/slot_reduce.cu`` that adds the piece's column partials
@@ -129,12 +151,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -163,6 +188,9 @@ from mini_nbody_tpu_torch.ops.reference import body_force_torch
 from mini_nbody_tpu_torch.sim import init_carry
 from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
                                                fast_rsqrt_cube)
+from mini_nbody_tpu_torch import cli
+from mini_nbody_tpu_torch.utils import autotune, harness, tracing
+from mini_nbody_tpu_torch.utils import checkpoint as ckpt
 from mini_nbody_tpu_torch.utils.harness import FLOPS_PER_INTERACTION, time_fn
 
 N_MAIN = 1 << 20
@@ -179,22 +207,17 @@ N_CONFIG2, STEPS_CONFIG2 = 65536, 10
 CONFIG3_MAX_S = 600.0
 SEED = 0
 
-#: H100 SXM peaks (NVIDIA's published figures): fp32 outside the
-#: tensor cores, dense bf16 on the tensor cores, device memory.
-PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
-#: The special-function unit's rsqrt rate: 16 results per clock per SM
-#: (CUDA's arithmetic-instruction throughput table for compute capability
-#: 9.0) on the H100 SXM's 132 SMs at its 1,980 MHz boost clock. The
-#: pair-once slot bodies (K2, K3 and the kernels on them: B4, B9a, B9b,
-#: B15) take one rsqrt per unordered pair.
-PEAK_RSQRT = 16 * 132 * 1.98e9
-#: fp32 operations per pair for the bounds: an ordered interaction is 20 (the
-#: repo's convention, harness.py); a pair-once evaluation computes w once
-#: (12, the rsqrt counted as 1) and sums both sides (6 each, +1 each with a
-#: mass); K2 computes w (12) in fp32 and its sums on the tensor cores (two
-#: sides x 8 columns x 2); the potential is 12 per ordered pair.
-OPS_ORDERED, OPS_PAIR_ONCE, OPS_PAIR_ONCE_MASS = 20, 24, 26
-OPS_K2_FP32, OPS_K2_MMA, OPS_PE = 12, 32, 12
+#: H100 SXM peaks (utils/harness.py CHIP_PEAKS): fp32 outside the tensor
+#: cores, dense bf16 on the tensor cores, the special-function unit's rsqrt
+#: rate (one rsqrt per unordered pair of the pair-once slot bodies K2, K3
+#: and the kernels on them: B4, B9a, B9b, B15) and device memory.
+PEAKS = harness.CHIP_PEAKS["h100"]
+#: fp32 operations per pair for the bounds (utils/harness.py: 20 an ordered
+#: interaction, 24 / 26 a pair-once evaluation, K2's 12 fp32 + 32 bf16);
+#: the potential is 12 per ordered pair.
+OPS_ORDERED, OPS_PAIR_ONCE, OPS_PAIR_ONCE_MASS = (
+    harness.OPS_ORDERED, harness.OPS_PAIR_ONCE, harness.OPS_PAIR_ONCE_MASS)
+OPS_K2_FP32, OPS_K2_MMA, OPS_PE = harness.OPS_K2_FP32, harness.OPS_K2_MMA, 12
 #: K5's epilogue per body: v' = v + dt F and p' = p + dt v'.
 OPS_EULER = 12
 
@@ -243,9 +266,11 @@ ADAM_ITERS, ADAM_STEPS, ADAM_DT = 5, 20, 5e-3
 #: fp32 and 32 bf16 per ordered pair (one side; vjp_mxu.py:681).
 OPS_B10, OPS_B11, OPS_B11_MASS = 35, 44, 52
 OPS_B13_FP32, OPS_B13_MMA, OPS_B14_FP32, OPS_B14_MMA = 30, 64, 30, 32
-#: B6 per ordered pair: w in fp32 (12, the rsqrt counted as 1; 13 with a
-#: mass) and, in the bf16 class, 8 operand columns x 2 on the tensor cores.
-OPS_B6_FP32, OPS_B6_MASS, OPS_B6_MMA = 12, 13, 16
+#: B6 per ordered pair (utils/harness.py): w in fp32 (12, the rsqrt
+#: counted as 1; 13 with a mass) and, in the bf16 class, 8 operand columns
+#: x 2 on the tensor cores.
+OPS_B6_FP32, OPS_B6_MASS, OPS_B6_MMA = (
+    harness.OPS_B6_FP32, harness.OPS_B6_MASS, harness.OPS_B6_MMA)
 
 #: The determinism phase's N: two chunks of CHUNK, so tri and cross
 #: launches.
@@ -310,6 +335,28 @@ B12_TILES = ((2, 2), (4, 2))
 B12_RAGGED = (3001, 9001)
 #: sharded: Euler steps at N_MAIN per comm.
 SHARDED_STEPS = 2
+#: The CLI phases: check at N_CLI_CHECK; 10 + 10 Euler steps through
+#: --save / --resume at N_CLI_RUN; bench at N_MAIN, each backend beside the
+#: roofline_frac PERF.md's card times predict (bound / pass time: sym_mxu
+#: 131.5 / 477 ms, direct 328.2 / 526.4, auto 196.9 / 492.9, mxu with
+#: bf16 pairs 262.9 / 559); the shmoo's sizes (4096 routes B15); tune at
+#: N_CLI_TUNE.
+N_CLI_CHECK, N_CLI_RUN, CLI_RUN_STEPS, N_CLI_TUNE = 262144, 65536, 10, 262144
+CLI_BENCH = ((["--backend", "sym_mxu"], 0.28), (["--backend", "direct"], 0.62),
+             (["--backend", "auto"], 0.40),
+             (["--backend", "mxu", "--pair-dtype", "bfloat16"], 0.47))
+CLI_SHMOO_SIZES = (4096, 16384, 65536, 262144)
+#: The trace phase: 2 steps at N_TRACE on auto (K3).
+N_TRACE = 65536
+#: Each example of examples/torch at a quick size on the card.
+EXAMPLES = (("cold_collapse", ["--n", "8192", "--steps", "100",
+                                "--interval", "50"]),
+            ("infer_masses", ["--n", "16", "--steps", "10", "--iters",
+                              "120"]),
+            ("optimize_impact", []),
+            ("parameter_sweep", []),
+            ("reference_envelope", None),
+            ("multihost_cpu", None))
 
 DEV = torch.device("cuda", 0)
 
@@ -500,15 +547,11 @@ def slot_entry(name, source, replaces, launches, err, call_ms, red_ms, per,
 
 
 def bound(fp32_ops, nbytes, bf16_ops=0.0, rsqrts=0.0):
-    """The least time the card could take: the largest of the fp32
-    operations over their peak rate, the tensor-core operations over
-    theirs, the rsqrts over the special-function unit's rate (the pipes
-    run at once) and the bytes over the memory rate."""
-    t_ops = max(fp32_ops / PEAK_FP32, bf16_ops / PEAK_BF16,
-                rsqrts / PEAK_RSQRT)
-    t_bytes = nbytes / PEAK_BYTES
-    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    """The least time the card could take (utils/harness.bound at the H100
+    peaks): the largest of the fp32 operations, the tensor-core operations
+    and the rsqrts over their rates (the pipes run at once) and the bytes
+    over the memory rate."""
+    return harness.bound(fp32_ops, nbytes, bf16_ops, rsqrts, PEAKS)
 
 
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, **kw):
@@ -3025,6 +3068,7 @@ def sharded_phase():
         grads, b12 = sharded_grads(meshes, out)
         out["gradients"] = grads
         out["ensemble"] = sharded_ensemble(meshes[(1,)])
+        out["checkpoint"] = sharded_checkpoint(meshes[(1,)], state)
     line("sharded", n=N_MAIN, steps=SHARDED_STEPS, **out)
     return b12
 
@@ -3072,6 +3116,32 @@ def sharded_grads(meshes, out):
         if comm == "grid":
             b12 = launches["vjp_pair"]
     return recs, b12
+
+
+def sharded_checkpoint(mesh, state):
+    """save_sharded / load_sharded on the one-rank group: the block
+    shard_state gives back bitwise, the whole state bitwise without a mesh,
+    and no collective but the barriers (no all-gather)."""
+    local = psh.shard_state(state, mesh, pad_far=True)
+    before = dict(_comm.CALLS)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save_sharded(f"{d}/ck", mesh, local, step=7,
+                          cfg=SimConfig(n=state.n))
+        save_s = time.perf_counter() - t0
+        back, step, _ = ckpt.load_sharded(f"{d}/ck", mesh, pad_far=True)
+        whole, _, cfg_d = ckpt.load_sharded(f"{d}/ck", device=DEV)
+    if _comm.CALLS != before:
+        fail(f"sharded checkpoint: collectives {_comm.CALLS} != {before}")
+    for got, want, what in ((back, local, "the block"),
+                            (whole, state, "the whole state")):
+        if not all(torch.equal(getattr(got, f), getattr(want, f))
+                   for f in ("pos", "vel", "mass")):
+            fail(f"sharded checkpoint: {what} is not bitwise the saved one")
+    if step != 7 or cfg_d["n"] != state.n:
+        fail(f"sharded checkpoint: step {step}, config {cfg_d}")
+    return {"n": state.n, "save_s": save_s, "bitwise": True,
+            "collectives": "none"}
 
 
 def sharded_ensemble(mesh):
@@ -3463,6 +3533,190 @@ def time_band(state, launches, cfg_band):
     return out
 
 
+def cli_json(argv):
+    """Run nbody-torch in this process: (its stdout lines as JSON, its exit
+    code)."""
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main([*argv, "--device", DEV.type])
+        except SystemExit as e:
+            code = e.code
+    return [json.loads(x) for x in buf.getvalue().splitlines() if x], code
+
+
+def cli_check_phase():
+    """nbody-torch check on sym (uniform) and on sym_mxu (plummer,
+    softening 1e-2) at N_CLI_CHECK: JAX's gates, exit code 0."""
+    t0 = time.perf_counter()
+    runs = []
+    for backend, extra in (("sym", []),
+                           ("sym_mxu", ["--init", "plummer", "--softening",
+                                        "1e-2"])):
+        out, code = cli_json(["check", "--n", str(N_CLI_CHECK), "--backend",
+                              backend, *extra])
+        rep = out[-1]
+        if code != 0 or not rep["ok"] or rep["backend"] != backend:
+            fail(f"cli check on {backend}: exit {code}, {rep}")
+        runs.append(rep)
+    line("cli_check", n=N_CLI_CHECK, runs=runs,
+         seconds=time.perf_counter() - t0)
+
+
+def cli_run_resume_phase():
+    """nbody-torch run: CLI_RUN_STEPS Euler steps saved, then as many
+    resumed from the checkpoint; the final checkpoint bitwise a 2 x
+    CLI_RUN_STEPS-step simulate of the same seed."""
+    t0 = time.perf_counter()
+    n, k = N_CLI_RUN, CLI_RUN_STEPS
+    with tempfile.TemporaryDirectory() as d:
+        common = ["run", "--n", str(n), "--steps", str(k)]
+        (first,), c1 = cli_json([*common, "--save", f"{d}/a"])
+        (second,), c2 = cli_json([*common, "--resume", f"{d}/a", "--save",
+                                  f"{d}/b"])
+        got, step, _ = ckpt.load(f"{d}/b", device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    want = simulate(SimConfig(n=n, steps=2 * k),
+                    init.uniform_random(n, generator=gen, device=DEV))
+    if c1 or c2 or step != 2 * k:
+        fail(f"cli run/resume: exits {c1}, {c2}, step {step}")
+    if not (torch.equal(got.pos, want.pos) and torch.equal(got.vel,
+                                                           want.vel)):
+        fail("cli run/resume: not bitwise the 20-step simulate")
+    line("cli_run_resume", n=n, steps=[k, k], bitwise_simulate=2 * k,
+         wall_s=[first["wall_s"], second["wall_s"]],
+         seconds=time.perf_counter() - t0)
+
+
+def cli_bench_phase():
+    """nbody-torch bench at N_MAIN on each of CLI_BENCH's backends, --reps
+    2: each roofline_frac in (0, 1], beside the expected one."""
+    t0 = time.perf_counter()
+    runs = []
+    for argv, expected in CLI_BENCH:
+        (rep,), code = cli_json(["bench", "--n", str(N_MAIN), *argv,
+                                 "--reps", "2"])
+        frac = rep["roofline_frac"]
+        if code or not 0 < frac <= 1:
+            fail(f"cli bench {argv}: exit {code}, roofline_frac {frac}")
+        runs.append({**rep, "roofline_frac_expected": expected})
+    line("cli_bench", runs=runs, seconds=time.perf_counter() - t0)
+    return runs
+
+
+def cli_shmoo_phase():
+    """nbody-torch shmoo over CLI_SHMOO_SIZES on auto: the 4096 row is
+    sym_resident (B15), every roofline_frac in (0, 1]."""
+    t0 = time.perf_counter()
+    rows, code = cli_json(["shmoo", "--sizes",
+                           ",".join(map(str, CLI_SHMOO_SIZES)),
+                           "--backend", "auto", "--format", "jsonl"])
+    if code or [r["n"] for r in rows] != list(CLI_SHMOO_SIZES):
+        fail(f"cli shmoo: exit {code}, rows {rows}")
+    if rows[0]["backend"] != "sym_resident":
+        fail(f"cli shmoo: the 4096 row ran {rows[0]['backend']}")
+    if not all(0 < r["roofline_frac"] <= 1 for r in rows):
+        fail(f"cli shmoo: roofline_frac outside (0, 1]: {rows}")
+    line("cli_shmoo", rows=rows, seconds=time.perf_counter() - t0)
+
+
+def cli_tune_phase():
+    """nbody-torch tune at N_CLI_TUNE on sym with the cache in a temporary
+    directory, then run --autotune, which must read the cache back (the
+    tuner's measurement is replaced by one that fails)."""
+    t0 = time.perf_counter()
+    saved_env = os.environ.get(autotune.CACHE_ENV)
+    saved_measure = autotune._default_measure
+
+    def refuse(*_):
+        fail("run --autotune measured again instead of reading the cache")
+
+    with tempfile.TemporaryDirectory() as d:
+        os.environ[autotune.CACHE_ENV] = f"{d}/autotune.json"
+        try:
+            (rep,), code = cli_json(["tune", "--n", str(N_CLI_TUNE),
+                                     "--backend", "sym"])
+            cache = json.loads(Path(f"{d}/autotune.json").read_text())
+            autotune._default_measure = refuse
+            _, run_code = cli_json(["run", "--n", str(N_CLI_TUNE),
+                                    "--backend", "sym", "--steps", "2",
+                                    "--autotune"])
+            applied = autotune.tune(SimConfig(n=N_CLI_TUNE, backend="sym"),
+                                    device=DEV)
+        finally:
+            autotune._default_measure = saved_measure
+            if saved_env is None:
+                os.environ.pop(autotune.CACHE_ENV, None)
+            else:
+                os.environ[autotune.CACHE_ENV] = saved_env
+    (key, entry_), = cache.items()
+    if code or run_code or entry_["params"]["sym_tile"] != rep["sym_tile"] \
+            or applied.sym_tile != rep["sym_tile"]:
+        fail(f"cli tune: exits {code}, {run_code}; {rep}; {entry_}")
+    line("cli_tune", key=key, best=rep, results=entry_["results"],
+         ginter_s=entry_["ginter_s"], read_back=True,
+         seconds=time.perf_counter() - t0)
+
+
+def trace_phase():
+    """2 steps at N_TRACE on auto under utils/tracing.profile_trace, each
+    in an annotate span: the Chrome trace holds the span and K3's kernel."""
+    t0 = time.perf_counter()
+    cfg = SimConfig(n=N_TRACE)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    state = init.uniform_random(N_TRACE, generator=gen, device=DEV)
+    step = tsim.make_step_fn(cfg)
+    carry = init_carry(cfg, state)
+    step(carry)  # warm: first-use costs stay out of the trace
+    with tempfile.TemporaryDirectory() as d:
+        with tracing.profile_trace(d, device=DEV) as prof:
+            for _ in range(2):
+                with tracing.annotate("nbody_step", device=DEV):
+                    carry = step(carry)
+            torch.cuda.synchronize()
+        events = json.loads(
+            (Path(d) / tracing.TRACE_FILE).read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    k3 = [k for k in kernels if "symmetric_force_kernel" in k]
+    if "nbody_step" not in names or not k3:
+        fail(f"trace: span found {'nbody_step' in names}, kernels "
+             f"{kernels[:8]}")
+    top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    line("trace", n=N_TRACE, steps=2, span="nbody_step", kernels=len(kernels),
+         k3_events=sum(e.get("name") in k3 for e in events),
+         top_device_us={a.key[:60]: a.self_device_time_total
+                        for a in top[:4]},
+         seconds=time.perf_counter() - t0)
+
+
+def examples_phase():
+    """Each examples/torch script in this process on the card (EXAMPLES'
+    arguments; multihost_cpu spawns its own gloo ranks on the CPU); its
+    last line of output is kept."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    runs = {}
+    for name, argv in EXAMPLES:
+        path = Path(__file__).resolve().parent / "examples" / "torch" / \
+            f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"ex_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = (mod.main(argv) if argv is not None
+                  else mod.main(2) if name == "multihost_cpu"
+                  else mod.main())
+        if rc:
+            fail(f"example {name}: returned {rc}")
+        runs[name] = {"last": (buf.getvalue().splitlines() or [""])[-1],
+                      "seconds": time.perf_counter() - t1}
+    line("examples", runs=runs, seconds=time.perf_counter() - t0)
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3519,6 +3773,13 @@ def main(argv=None):
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on its path")
+    cli_check_phase()
+    cli_run_resume_phase()
+    cli_bench_phase()
+    cli_shmoo_phase()
+    cli_tune_phase()
+    trace_phase()
+    examples_phase()
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
