@@ -26,7 +26,12 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   ``sym_mxu`` (K2), ``mxu`` with pair_dtype "bfloat16" (B6) and the band
   (B16);
 - b15: B15 on config 1 (N = 4096, 10 Euler steps, dt 0.01) in both classes,
-  ms per launch;
+  ms per launch, and a leapfrog and a Yoshida-4 call of config 1's N and
+  steps, with digests; a step at N = 16,384 in both classes (a 20-step
+  call); the
+  fixed cost of a resident Euler ``simulate`` call at N = 512 in both
+  classes (calls of 2 and of 20 steps), with torch.profiler's CPU
+  operators and the kernel's device time per call;
 - b6: B6's bf16 class, one launch at config 3's N = 262,144 (plummer,
   masses, softening 1e-2) on the route 'auto' takes there (the overlap run
   after the duplicate scan);
@@ -130,6 +135,11 @@ ROLLOUT_STEPS, ROLLOUT_DT = 10, 1e-3
 REPS = 5
 SECTIONS = ("slots", "band", "passes", "b15", "b6", "vjp", "rollout", "pvjp",
             "bwdmax", "b12", "reduce", "direct", "pe")
+#: b15: the larger N of its fp32 step and that call's steps; the N of its
+#: fixed-cost runs, their steps (fewer, more), the profiled calls and the
+#: CPU operators shown.
+B15_BIG_N, B15_BIG_STEPS = 16384, 20
+B15_SMALL_N, B15_SHORT, B15_PROFILED, B15_TOP_OPS = 512, (2, 20), 20, 8
 #: b12: the ragged call's sets; reduce: the ensemble (B, N) of B9a and B9b.
 B12_RAGGED = (3001, 9001)
 ENS_REDUCE = (16, 4096)
@@ -325,6 +335,73 @@ def kernel_sass(lib_path, names, dump=(), dump_to=None):
     return out
 
 
+def b15_extra(dev, gen, rs, simulate, SimConfig, init, time_fn, digest):
+    """The b15 section beyond config 1: a step at B15_BIG_N in both
+    classes (ms per step of a B15_BIG_STEPS-step call, and its digest);
+    the fixed cost of a resident Euler ``simulate`` call at B15_SMALL_N in
+    both classes (median host ms of calls of B15_SHORT steps, so ms per
+    step and the fixed part by their difference); and where that fixed part goes: torch.profiler
+    over B15_PROFILED calls of the shorter one, the CPU operators' self
+    time per call and the kernel's device time per call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    s = init.uniform_random(B15_BIG_N, generator=gen, device=dev)
+
+    def big(mxu):
+        return rs.simulate_resident_sym(s.pos, s.vel, None,
+                                        steps=B15_BIG_STEPS, dt=1e-4,
+                                        mxu=mxu)
+
+    out["big_n"] = B15_BIG_N
+    for mxu in (False, True):
+        cls = "bf16" if mxu else "fp32"
+        out[f"big_ms_per_step_{cls}"] = time_fn(big, mxu,
+                                                reps=REPS) * 1e3 / (
+            B15_BIG_STEPS)
+        out[f"big_digest_{cls}"] = digest(*big(mxu))
+    small = init.uniform_random(B15_SMALL_N, generator=gen, device=dev)
+    for backend in ("sym", "sym_mxu"):
+        calls = {k: (lambda k=k: simulate(SimConfig(
+            n=B15_SMALL_N, steps=k, dt=1e-4, backend=backend,
+            resident=True), small)) for k in B15_SHORT}
+        ms = {}
+        for k, fn in calls.items():
+            fn()
+            times = []
+            for _ in range(4 * REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            ms[k] = float(np.median(times)) * 1e3
+        lo, hi = B15_SHORT
+        step = (ms[hi] - ms[lo]) / (hi - lo)
+        rec = {"ms_per_call": {str(k): v for k, v in ms.items()},
+               "ms_per_step": step, "fixed_ms": ms[lo] - lo * step}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(B15_PROFILED):
+                calls[lo]()
+            torch.cuda.synchronize()
+        cpu, device_us = {}, 0.0
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            if "resident" in e.key and dev_us > 0:
+                device_us += dev_us / B15_PROFILED
+            elif e.self_cpu_time_total > 0:
+                cpu[e.key] = e.self_cpu_time_total / B15_PROFILED
+        rec["kernel_device_us_per_call"] = device_us
+        rec["cpu_self_us_per_call"] = dict(sorted(
+            cpu.items(), key=lambda kv: -kv[1])[:B15_TOP_OPS])
+        out[f"n{B15_SMALL_N}_{backend}"] = rec
+    return out
+
+
 def worker(tree, only, sass_dir=None):
     sys.path.insert(0, os.path.abspath(tree))
     import ctypes
@@ -480,12 +557,19 @@ def worker(tree, only, sass_dir=None):
                                          reps=3) * 1e3
     s1 = init.uniform_random(N_CONFIG1, generator=gen, device=dev)
     for mxu in (False, True) if "b15" in only else ():
-        run = (lambda mxu=mxu: rs.simulate_resident_sym(
-            s1.pos, s1.vel, None, steps=STEPS_CONFIG1, dt=DT_CONFIG1,
-            mxu=mxu))
         cls = "bf16" if mxu else "fp32"
-        rec[f"b15_config1_ms_{cls}"] = time_fn(run, reps=REPS) * 1e3
-        rec[f"b15_config1_digest_{cls}"] = digest(*run())
+        for name, fn in (("", rs.simulate_resident_sym),
+                         ("_leapfrog", rs.simulate_resident_sym_leapfrog),
+                         ("_yoshida4", rs.simulate_resident_sym_yoshida4)):
+            run = (lambda fn=fn, mxu=mxu: fn(
+                s1.pos, s1.vel, None, steps=STEPS_CONFIG1, dt=DT_CONFIG1,
+                mxu=mxu))
+            rec[f"b15_config1{name}_ms_{cls}"] = time_fn(run,
+                                                         reps=REPS) * 1e3
+            rec[f"b15_config1{name}_digest_{cls}"] = digest(*run())
+    if "b15" in only:
+        rec["b15"] = b15_extra(dev, gen, rs, simulate, SimConfig, init,
+                               time_fn, digest)
 
     # B6 at config 3's N on the route 'auto' takes (the overlap run when
     # the scan finds no duplicate), bf16 class timed, both classes digested.

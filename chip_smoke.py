@@ -60,17 +60,20 @@ each with every launch count set to 0 just before it and read just after:
   VJP at the same tile, the mass cotangent too, no gradient in other
   systems from a loss on system 0, 16 x 4096 in one launch, and each
   kernel against its plain version at 3 x 4096;
-- ``resident``: the resident kernel B15 (one launch per trajectory) in
-  both classes: BASELINE config 1 (N = 4096 uniform, 10 Euler steps, dt
-  0.01) against the streamed run, 200 leapfrog and Yoshida-4 steps at
-  4096, config 2's N = 65,536 with masses, the cap N = 131,072,
-  examples/parameter_sweep.py's defaults on the resident ensemble (systems
-  0 and 31 bitwise their standalone resident runs), reruns and a split
-  Yoshida-4 phase bitwise, a 'fast' fold over pads finite, and B15 against
-  its plain version at N = 1000;
+- ``resident``: the resident kernel B15 (one launch per trajectory, the
+  end passes of leapfrog and Yoshida-4 included) in both classes:
+  BASELINE config 1 (N = 4096 uniform, 10 Euler steps, dt 0.01) against
+  the streamed run, 200 leapfrog and Yoshida-4 steps at 4096, config 2's
+  N = 65,536 with masses, the cap N = 131,072,
+  examples/parameter_sweep.py's defaults on the resident ensemble (one
+  launch; systems 0 and 31 bitwise their standalone resident runs),
+  reruns and a split Yoshida-4 phase bitwise, a 'fast' fold over pads
+  finite, B15 against its plain version at N = 1000, config 1's leapfrog
+  and Yoshida-4 call times, and B15's registers, spills and CTAs per SM;
 - ``resident_crossover``: ms per step of B15 (fold on and off) against the
-  streamed loop at N = 512 .. 16,384, and of the resident ensemble against
-  B9a / B9b at (B, N) = (256, 256) .. (8, 8192): the card's crossovers;
+  streamed loop at N = 512 .. 32,768, and of the resident ensemble against
+  B9a / B9b at (B, N) = (256, 256) .. (4, 16384): the card's crossovers;
+  then whole calls of 2-20 steps of each integrator, routed and streamed;
 - ``band_main_path``: ``simulate`` at N = 1,048,576 on ``sym_mxu`` with
   ``traversal='band'`` (B16), 2 Euler steps: B16's tri and cross launches
   and no K2 launch, forces against the float64 oracle and against the slot
@@ -308,17 +311,19 @@ RES_FP32, RES_BF16 = (1e-4, 1e-5), (2e-2, 2e-3)
 #: rounding of v itself against a small change).
 RES_PLAIN_TOL = {"config1_1step": (4e-6, 2e-3), "config1": (5e-3, 5e-2),
                  "plummer": (1e-4, 1e-4)}
-#: resident_crossover: the sizes of JAX's crossover probes (sim.py:205-217),
-#: Euler steps per timed run, timed runs per variant (turns interleaved).
-CROSS_NS = (512, 1024, 2048, 4096, 8192, 16384)
-CROSS_ENS = ((256, 256), (64, 1024), (32, 2048), (16, 4096), (8, 8192))
+#: resident_crossover: the sizes of JAX's crossover probes (sim.py:205-217)
+#: and the next size up of each, Euler steps per timed run, timed runs per
+#: variant (turns interleaved).
+CROSS_NS = (512, 1024, 2048, 4096, 8192, 16384, 32768)
+CROSS_ENS = ((256, 256), (64, 1024), (32, 2048), (16, 4096), (8, 8192),
+             (4, 16384))
 CROSS_STEPS, CROSS_REPS = 100, 5
 #: The short runs of resident_crossover: whole simulate calls of this many
 #: steps, each integrator, routed (resident=True) against the streamed loop
 #: at the sizes of CROSS_NS and CROSS_ENS up to these per-system N (where
 #: B15 won at CROSS_STEPS steps).
 CROSS_SHORT_STEPS = (2, 3, 5, 10, 20)
-CROSS_SHORT_MAX_N, CROSS_SHORT_MAX_ENS_N = 8192, 2048
+CROSS_SHORT_MAX_N, CROSS_SHORT_MAX_ENS_N = 32768, 16384
 #: B15's fp32 operations per unordered pair and step in the fp32 class
 #: (JAX's cost estimate, resident_sym.py:656, :796; below K3's 24, so the
 #: bound is if anything short) and its bytes per body (state in and out).
@@ -2566,15 +2571,6 @@ def res_vs_streamed(cfg, state, what, **want):
             "launches": launches, "bitwise_streamed": True}
 
 
-def end_passes(n, mxu, passes=2):
-    """The launch counts of the streamed end passes of a resident leapfrog
-    or Yoshida-4 run (one tri call of the class per pass)."""
-    tile = sm.DEFAULT_TILE if mxu else sf.DEFAULT_TILE
-    tri, cross = pass_launches(n, tile, passes)
-    return ({"slot_tri": tri, "slot_cross": cross} if mxu
-            else {"sym_tri": tri, "sym_cross": cross})
-
-
 def res_plain(s, masses, steps, dt, softening, mxu):
     """B15's plain version on the card's tensors (bf16 mode in the bf16
     class): (pos, vel) after ``steps`` Euler steps of one system at B15's
@@ -2632,9 +2628,8 @@ def resident_phase():
         for integ in ("leapfrog", "yoshida4"):
             cfg = res_cfg(N_CONFIG1, backend, steps=RES_LONG_STEPS,
                           integrator=integ)
-            runs[integ] = res_vs_streamed(
-                cfg, s4k, f"{integ} {backend}", resident=1,
-                **end_passes(N_CONFIG1, mxu))
+            runs[integ] = res_vs_streamed(cfg, s4k, f"{integ} {backend}",
+                                          resident=1)
         runs["config2"] = res_vs_streamed(
             res_cfg(N_CONFIG2, backend, steps=RES_CONFIG2_STEPS), s2,
             f"config2 {backend}", resident=1)
@@ -2686,6 +2681,13 @@ def resident_phase():
                                             dt=DT_CONFIG1, mxu=mxu)
 
         ms = time_fn(config1, reps=3) * 1e3
+        # Leapfrog and Yoshida-4 calls of config 1's steps (one launch
+        # each, the end passes included).
+        kdk_ms = {integ: time_fn(lambda fn=fn: fn(
+            s1.pos, s1.vel, None, steps=STEPS_CONFIG1, dt=DT_CONFIG1,
+            mxu=mxu), reps=3) * 1e3 for integ, fn in (
+                ("leapfrog", rs.simulate_resident_sym_leapfrog),
+                ("yoshida4", rs.simulate_resident_sym_yoshida4))}
         n = float(N_CONFIG1)
         pairs = STEPS_CONFIG1 * n * (n - 1) / 2
         bnd = (bound(pairs * OPS_K2_FP32, n * BYTES_B15, pairs * OPS_K2_MMA,
@@ -2693,6 +2695,8 @@ def resident_phase():
                if mxu else bound(pairs * OPS_B15, n * BYTES_B15,
                                  rsqrts=pairs))
         runs.update(fold_c4_finite=True, config1_launch_ms=ms,
+                    config1_leapfrog_ms=kdk_ms["leapfrog"],
+                    config1_yoshida4_ms=kdk_ms["yoshida4"],
                     config1_plain_ms=plain_s * 1e3,
                     vs_plain={k: {"max_abs_err": e, "err_of_scale": sc}
                               for k, (e, sc, _) in vs_plain.items()})
@@ -2704,13 +2708,46 @@ def resident_phase():
             bnd, n=N_CONFIG1, steps=STEPS_CONFIG1, tile=rs.auto_tile(
                 N_CONFIG1), per="launch (a whole trajectory)"))
     out["sweep"] = resident_sweep()
+    out["b15_bodies"] = b15_bodies()
     line("resident", runs=out)
     return records
 
 
+def b15_bodies():
+    """B15's registers, spills and CTAs per SM for every instantiation
+    (tile, class; in the fp32 class k = 3 or 4 and the fast rsqrt or not;
+    in the bf16 class the narrow and the wide one): the fp32 class must
+    hold at least 2 CTAs an SM with no spills, K3's 16 warps at tile 128 (2
+    CTAs of 256 threads) and 12 at tile 64, the bf16 class no fewer CTAs
+    per SM than K2."""
+    out = {}
+    for tile in rs.RESIDENT_TILES:
+        k2 = body_info("K2", ("slot_pipe_info", (tile, 0),
+                              f"slot_pipe_kernelILi{tile}ELb0E"))
+        fp32_warps = 16 if tile == 128 else 12
+        for mxu, k, fast, wide in ((False, 3, 0, 0), (False, 3, 1, 0),
+                                   (False, 4, 0, 0), (False, 4, 1, 0),
+                                   (True, 3, 1, 0), (True, 3, 1, 1)):
+            name = (f"tile {tile} bf16 {'wide' if wide else 'narrow'}"
+                    if mxu else f"tile {tile} fp32 k={k} fast={fast}")
+            warps = (16 if wide else 12) if mxu else fp32_warps
+            got = body_info("B15", (
+                "resident_sym_info", (tile, int(mxu), k, fast, wide),
+                f"resident_kernelILi{tile}ELb{int(mxu)}ELi{k}"
+                f"ELb{0 if mxu else fast}ELi{warps}E"))
+            have = got["ctas_per_sm"] * (
+                tile // 32 if mxu else (tile // 8) ** 2 // 32)
+            if (got["ctas_per_sm"] < k2["ctas_per_sm"] if mxu else
+                    got["local_bytes"] != 0 or got["ctas_per_sm"] < 2
+                    or have < warps):
+                fail(f"B15 {name}: {got} (K2 at this tile: {k2})")
+            out[name] = got
+    return out
+
+
 def resident_sweep():
     """examples/parameter_sweep.py at its defaults on the resident ensemble
-    (one B15 launch and two B9a end passes): systems 0 and B - 1 bitwise
+    (one B15 launch, its end passes included): systems 0 and B - 1 bitwise
     their standalone resident runs at the ensemble's tiles, and the sweep
     bitwise the streamed ensemble."""
     b, n = SWEEP_B, SWEEP_N
@@ -2720,8 +2757,7 @@ def resident_sweep():
     reset_counts()
     seconds, res = host_time(simulate_ensemble, cfg, st)
     launches = read_counts()
-    expect_counts(launches, "resident sweep", resident=1,
-                  slot_ensemble=2 * per_call(tri_slots(c, t), b))
+    expect_counts(launches, "resident sweep", resident=1)
     for i in (0, b - 1):
         one = BodyState(pos=st.pos[i], vel=st.vel[i], mass=st.mass[i])
         ref = simulate(cfg.replace(sym_tile=t, sym_chunk=c), one)

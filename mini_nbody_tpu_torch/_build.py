@@ -86,12 +86,17 @@ SIGNATURES = {
     # pos_i, ni, pos_j, mass_j (or NULL), nj, out, sums (or NULL), softening,
     # overlap_only, bf16, stream
     "mxu_force_launch": ([_P, _I, _P, _P, _I, _P, _P, _F, _I, _I, _P], _I),
-    # slots, pieces, n_pieces, targets, entries, pos, vel, mass (or NULL), q,
-    # acc, part, n_sys, np, n_real, steps, dt, softening, fast, mask_offdiag,
-    # y4c (9 host floats or NULL), y4_phase, tile, mxu, k, stream
-    "resident_sym_launch": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _L, _I, _I, _F, _F, _I, _I, _P, _I, _I, _I, _I,
-                             _P], _I),
+    # slots, pieces, n_pieces, targets, entries, last_target, largest,
+    # pos_in, vel_in, mass_in (or NULL), pos_out, vel_out, pos, vel, q (or
+    # NULL), acc (or NULL), part, bar, n_sys, np, n_real, steps, ends, dt,
+    # softening, far, fast, mask_offdiag, coef (11 host floats or NULL),
+    # y4_phase, tile, mxu, k, stream
+    "resident_sym_launch": ([_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F,
+                             _F, _F, _I, _I, _P, _I, _I, _I, _I, _P], _I),
+    # tile, mxu, k, fast, wide, out (3 ints: registers, local bytes, CTAs
+    # per SM)
+    "resident_sym_info": ([_I, _I, _I, _I, _I, _P], _I),
     # k, tile, fast, out (3 ints: registers, local bytes, CTAs per SM)
     "symmetric_force_info": ([_I, _I, _I, _P], _I),
     # tile, split_w, out (as above)
@@ -258,6 +263,11 @@ def refuse_grad(what: str, *tensors) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of a CUDA device as a pointer, without building a
+    torch Stream object (a few microseconds a launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -102,8 +102,8 @@ __device__ __forceinline__ void band_tile(const slot_body::MxuRows& rw,
                                           float (&acc)[kMxuStrips][4],
                                           float* cw) {
   const int g = (threadIdx.x & 31) >> 2;
-  auto weight = [softening](const float4& p, const float4& q, int, int,
-                            bool) {
+  auto weight = [softening](const float4& p, const float4& q, int,
+                            int) {
     const float dx = q.x - p.x;
     const float dy = q.y - p.y;
     const float dz = q.z - p.z;
@@ -177,7 +177,6 @@ __global__ void __launch_bounds__(
     const float* k0 = vi + (strip + 2 * t) * 8 + g;
     rw.bp0[h] = slot_body::pack_bf16x2(k0[0], k0[8]);
     rw.bp1[h] = slot_body::pack_bf16x2(k0[64], k0[72]);
-    rw.real0[h] = rw.real1[h] = true;
     row_sum[h][0] = row_sum[h][1] = row_sum[h][2] = row_sum[h][3] = 0.f;
   }
   float* cw = cols + warp * T * 8;  // this warp's column partials

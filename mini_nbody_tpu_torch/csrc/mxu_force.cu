@@ -124,7 +124,7 @@ __device__ __forceinline__ void b6_tile(const slot_body::MxuRows& rw,
                                         const JTile& jt, float softening,
                                         float (&acc)[kH][4]) {
   const int g = (threadIdx.x & 31) >> 2;
-  auto w = [softening](const float4& p, const float4& q, int, int, bool) {
+  auto w = [softening](const float4& p, const float4& q, int, int) {
     float dx, dy, dz;
     return weight<kMass, true>(p.x, p.y, p.z, q.x, q.y, q.z, q.w, softening,
                                kD2, dx, dy, dz);
@@ -168,7 +168,6 @@ __global__ void __launch_bounds__(
     rw.p0[h] = receiver(pos_i, it * TI + rw.r0[h], ni);
     rw.p1[h] = receiver(pos_i, it * TI + rw.r0[h] + 8, ni);
     rw.bp0[h] = rw.bp1[h] = 0u;
-    rw.real0[h] = rw.real1[h] = true;
     s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.f;
   }
 

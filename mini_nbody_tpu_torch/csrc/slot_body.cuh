@@ -13,7 +13,8 @@
 //         block.
 // Each body stores the slot's two partial tiles (side 0: block bi, side 1:
 // block bj; a DIAG slot writes side 0 only) at `out`, for the slot-order
-// reduction (csrc/slot_reduce.cu, or ordered_sum in B15's reduce phase).
+// reduction (csrc/slot_reduce.cu, or ordered_sum and ordered_row_sum in
+// B15's reduce and integrate phases).
 //
 // Both bodies keep each pair's weight w in registers: no pair costs a
 // shared-memory access. Shared memory stages the two blocks once per slot
@@ -23,10 +24,11 @@
 // T x T tile, one per side, with w zeroed outside the side's triangle (fold
 // slots are nb / 2 of ~nb^2 / 2).
 //
-// kPads (B15 only): w is zeroed on every pair where either body's
-// system-local index is n_real or more. The streamed kernels drop the pad
-// rows after every pass; B15 integrates them, so a pad must never gain a
-// force. The streamed kernels instantiate kPads = false.
+// Pads: a real body against a FAR pad gets w = 0 exactly (r2^3 overflows
+// and rsqrt(inf) = 0, or rsqrt(r2)^3 underflows). The streamed kernels drop
+// the pad rows after every pass; B15 places each pad of a block at its own
+// far point, so every pair of two bodies that touches a pad, pad with pad
+// included, gets w = 0 the same way.
 //
 // The caller keeps every thread of the CTA in the call (the bodies hold
 // __syncthreads) and syncs before it reuses the shared memory for the next
@@ -68,6 +70,38 @@ __device__ __forceinline__ float ordered_sum(const float* __restrict__ base,
   }
   for (; e < e1; ++e) s += base[entries[e] * tile_elems];
   return s;
+}
+
+// ordered_sum of the W consecutive elements base[0 .. W) of a target's
+// partials (one body's row of a (T, W) tile) into s: each s[k] bitwise
+// ordered_sum(base + k, ...), the W columns loaded together, kRowUnroll
+// entries in flight (B15's fused reduce and integrate of the fp32 class,
+// one thread per body, which has the registers for them).
+constexpr int kRowUnroll = 2 * kUnroll;
+
+template <int W>
+__device__ __forceinline__ void ordered_row_sum(const float* __restrict__ base,
+                                                const int* __restrict__ entries,
+                                                int e, int e1,
+                                                long long tile_elems,
+                                                float (&s)[W]) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) s[k] = 0.f;
+  for (; e + kRowUnroll <= e1; e += kRowUnroll) {
+    float v[kRowUnroll][W];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u)
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        v[u][k] = base[entries[e + u] * tile_elems + k];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u)
+#pragma unroll
+      for (int k = 0; k < W; ++k) s[k] += v[u][k];
+  }
+  for (; e < e1; ++e)
+#pragma unroll
+    for (int k = 0; k < W; ++k) s[k] += base[entries[e] * tile_elems + k];
 }
 
 // rsqrt of a normal float or +inf, flushing denormal inputs: with kFast
@@ -114,8 +148,13 @@ cudaError_t stream_width(Kernel kernel, int threads, size_t smem,
 }
 
 // CTAs per SM a streamed kernel of `threads` threads is compiled for, to
-// hold `warps` warps per SM: K3 16 (at most 128 registers per thread), K2
-// 12 (at most 168; its two-strip body spills at 128).
+// hold `warps` warps per SM: the fp32 body (K3) kFp32Warps = 16 (at most
+// 128 registers per thread), the bf16 body (K2) kMxuWarps = 12 (at most
+// 168; its two-strip body spills at 128). B15 takes its own
+// (csrc/resident_sym.cu res_warps).
+constexpr int kFp32Warps = 16;
+constexpr int kMxuWarps = 12;
+
 __host__ __device__ constexpr int stream_min_ctas(int threads, int warps) {
   return 32 * warps / threads;
 }
@@ -225,14 +264,13 @@ __device__ __forceinline__ void lane_sums(float (&s)[M][K], int lane,
   }
 }
 
-// One pass over the T x T pairs of blocks P (rows, block index pb) and Q
-// (columns, qb): row totals to rows (T x 3, shared), the warps' column
-// partials to cols (warps x T x 3, shared), then a barrier. kCols = false
-// skips the reactions (DIAG); kTri zeroes w off the triangle `tri` (FOLD).
-template <int T, int K, bool kFast, bool kPads, bool kCols, bool kTri>
+// One pass over the T x T pairs of blocks P (rows) and Q (columns): row
+// totals to rows (T x 3, shared), the warps' column partials to cols
+// (warps x T x 3, shared), then a barrier. kCols = false skips the
+// reactions (DIAG); kTri zeroes w off the triangle `tri` (FOLD).
+template <int T, int K, bool kFast, bool kCols, bool kTri>
 __device__ __forceinline__ void fp32_pass(const float4* P, const float4* Q,
-                                          int pb, int qb, int tri,
-                                          float softening, int n_real,
+                                          int tri, float softening,
                                           float* rows, float* cols) {
   constexpr int G = T / 8;
   constexpr int kLog = T == 128 ? 4 : 3;
@@ -242,13 +280,8 @@ __device__ __forceinline__ void fp32_pass(const float4* P, const float4* Q,
   const int tx = lane & (G - 1), ty = threadIdx.x >> kLog;
 
   float4 p[8];
-  unsigned rv = 0xffu, cv = 0xffu;  // kPads: real rows, real columns
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    p[i] = P[ty + G * i];
-    if (kPads && pb * T + ty + G * i >= n_real) rv &= ~(1u << i);
-    if (kPads && qb * T + tx + G * i >= n_real) cv &= ~(1u << i);
-  }
+  for (int i = 0; i < 8; ++i) p[i] = P[ty + G * i];
   float f[8][3], g[8][3];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -267,7 +300,6 @@ __device__ __forceinline__ void fp32_pass(const float4* P, const float4* Q,
       const float r2 = dx * dx + dy * dy + (dz * dz + softening);
       float w = pair_weight<kFast>(r2);
       if (kTri && off_triangle(tri, ty + G * i, c)) w = 0.f;
-      if (kPads && !((rv >> i) & (cv >> j) & 1u)) w = 0.f;
       const float wr = kMass ? w * q.w : w;
       f[i][0] += dx * wr;
       f[i][1] += dy * wr;
@@ -352,10 +384,9 @@ struct Fp32Stage {
 
 // The slot's passes on its staged blocks (Fp32Stage::store, then a
 // barrier); out: its two (T, 3) partial tiles.
-template <int T, int K, bool kFast, bool kPads>
-__device__ __forceinline__ void fp32_compute(int kind, int bi, int bj,
-                                             float* out, float softening,
-                                             int n_real, float* smem) {
+template <int T, int K, bool kFast>
+__device__ __forceinline__ void fp32_compute(int kind, float* out,
+                                             float softening, float* smem) {
   constexpr int kThreads = fp32_threads<T>();
   constexpr int kWarps = kThreads / 32;
   const float4* pa = reinterpret_cast<const float4*>(smem);
@@ -365,44 +396,23 @@ __device__ __forceinline__ void fp32_compute(int kind, int bi, int bj,
 
   if (kind == kSlotFold) {
     // Side a's triangle (c < r), then side b's (c > r): rows - reactions.
-    fp32_pass<T, K, kFast, kPads, true, true>(pa, pa, bi, bi, 1, softening,
-                                              n_real, rows, cols);
+    fp32_pass<T, K, kFast, true, true>(pa, pa, 1, softening, rows, cols);
     for (int e = threadIdx.x; e < 3 * T; e += kThreads)
       out[e] = rows[e] - warp_total<T, kWarps>(cols, e);
     __syncthreads();
-    fp32_pass<T, K, kFast, kPads, true, true>(pb, pb, bj, bj, 2, softening,
-                                              n_real, rows, cols);
+    fp32_pass<T, K, kFast, true, true>(pb, pb, 2, softening, rows, cols);
     for (int e = threadIdx.x; e < 3 * T; e += kThreads)
       out[3 * T + e] = rows[e] - warp_total<T, kWarps>(cols, e);
   } else if (kind == kSlotDiag) {
-    fp32_pass<T, K, kFast, kPads, false, false>(pa, pb, bi, bj, 0,
-                                                softening, n_real, rows,
-                                                cols);
+    fp32_pass<T, K, kFast, false, false>(pa, pb, 0, softening, rows, cols);
     for (int e = threadIdx.x; e < 3 * T; e += kThreads) out[e] = rows[e];
   } else {
-    fp32_pass<T, K, kFast, kPads, true, false>(pa, pb, bi, bj, 0, softening,
-                                               n_real, rows, cols);
+    fp32_pass<T, K, kFast, true, false>(pa, pb, 0, softening, rows, cols);
     for (int e = threadIdx.x; e < 3 * T; e += kThreads) {
       out[e] = rows[e];
       out[3 * T + e] = -warp_total<T, kWarps>(cols, e);
     }
   }
-}
-
-// pos_a / pos_b: the (rows, K) positions (x, y, z[, m]) of the slot's
-// system; out: its two (T, 3) partial tiles.
-template <int T, int K, bool kFast, bool kPads>
-__device__ __forceinline__ void fp32_slot(int kind, int bi, int bj,
-                                          const float* __restrict__ pos_a,
-                                          const float* __restrict__ pos_b,
-                                          float* out, float softening,
-                                          int n_real, float* smem) {
-  Fp32Stage<T, K> stage;
-  stage.load(bi, bj, pos_a, pos_b);
-  stage.store(smem);
-  __syncthreads();
-  fp32_compute<T, K, kFast, kPads>(kind, bi, bj, out, softening, n_real,
-                                   smem);
 }
 
 // ------------------------------------------------- bf16 class (K2) ---
@@ -435,11 +445,17 @@ __host__ __device__ constexpr int mxu_threads() {
   return 32 * T / (16 * kMxuStrips);
 }
 
+// The two staged blocks and v^T of both in bf16 (rows padded to T + 8) of
+// the bf16 body's shared memory.
 template <int T>
-constexpr size_t mxu_smem_bytes() {
-  // two staged blocks, v^T of both blocks in bf16 (rows padded to T + 8),
-  // a fold pass's rows, the warps' reaction partials
-  return 2 * T * sizeof(float4) + 2 * 8 * (T + 8) * sizeof(__nv_bfloat16) +
+__host__ __device__ constexpr size_t mxu_stage_bytes() {
+  return 2 * T * sizeof(float4) + 2 * 8 * (T + 8) * sizeof(__nv_bfloat16);
+}
+
+template <int T>
+__host__ __device__ constexpr size_t mxu_smem_bytes() {
+  // the staged blocks, a fold pass's rows, the warps' reaction partials
+  return mxu_stage_bytes<T>() +
          (1 + mxu_threads<T>() / 32) * T * 8 * sizeof(float);
 }
 
@@ -471,22 +487,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // A lane's rows of a bf16 pass, per strip h (rows r0[h] = 16 (H warp + h)
-// + g and r0[h] + 8 of the tile): the two rows' positions (float4), whether
-// each is a real body (kPads), and the B fragment of the strip's v (k = the
-// strip's rows) for the reactions.
+// + g and r0[h] + 8 of the tile): the two rows' positions (float4) and the
+// B fragment of the strip's v (k = the strip's rows) for the reactions.
 struct MxuRows {
   int r0[kMxuStrips];
   float4 p0[kMxuStrips], p1[kMxuStrips];
   uint32_t bp0[kMxuStrips], bp1[kMxuStrips];
-  bool real0[kMxuStrips], real1[kMxuStrips];
 };
 
 // The T / 16 column steps of a pass over the columns Q (float4 per body) and
 // vq (row g of v_Q^T in bf16, as bf16 pairs): for each strip the row
 // product W @ v_Q into acc[h] (added to, in the tensor cores' own fp32
 // adds), and with kCols each step's reaction fragment W^T @ v_P to cw
-// (this warp's T x 8 partials). weight(p, q, r, c, real) is the w of pair
-// (row r at p, column c at q).
+// (this warp's T x 8 partials). weight(p, q, r, c) is the w of pair (row r
+// at p, column c at q).
 template <int T, bool kSplit, bool kCols, class Weight>
 __device__ __forceinline__ void mxu_steps(const MxuRows& rw, const float4* Q,
                                           const uint32_t* vq,
@@ -518,14 +532,14 @@ __device__ __forceinline__ void mxu_steps(const MxuRows& rw, const float4* Q,
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       const int ra = rw.r0[h], rb = ra + 8;
-      const float w00 = weight(rw.p0[h], q0, ra, c0, rw.real0[h]);
-      const float w01 = weight(rw.p0[h], q1, ra, c1, rw.real0[h]);
-      const float w10 = weight(rw.p1[h], q0, rb, c0, rw.real1[h]);
-      const float w11 = weight(rw.p1[h], q1, rb, c1, rw.real1[h]);
-      const float w02 = weight(rw.p0[h], q2, ra, c2, rw.real0[h]);
-      const float w03 = weight(rw.p0[h], q3, ra, c3, rw.real0[h]);
-      const float w12 = weight(rw.p1[h], q2, rb, c2, rw.real1[h]);
-      const float w13 = weight(rw.p1[h], q3, rb, c3, rw.real1[h]);
+      const float w00 = weight(rw.p0[h], q0, ra, c0);
+      const float w01 = weight(rw.p0[h], q1, ra, c1);
+      const float w10 = weight(rw.p1[h], q0, rb, c0);
+      const float w11 = weight(rw.p1[h], q1, rb, c1);
+      const float w02 = weight(rw.p0[h], q2, ra, c2);
+      const float w03 = weight(rw.p0[h], q3, ra, c3);
+      const float w12 = weight(rw.p1[h], q2, rb, c2);
+      const float w13 = weight(rw.p1[h], q3, rb, c3);
       // A fragment: (ra, c0..c1), (rb, c0..c1), (ra, c2..c3), (rb, c2..c3).
       const uint32_t a[4] = {pack_bf16x2(w00, w01), pack_bf16x2(w10, w11),
                              pack_bf16x2(w02, w03), pack_bf16x2(w12, w13)};
@@ -562,18 +576,16 @@ __device__ __forceinline__ void mxu_steps(const MxuRows& rw, const float4* Q,
   }
 }
 
-// One pass over the T x T pairs of blocks P (rows, block pb, operand VP,
-// v^T in bf16) and Q (columns, qb, VQ): the row sums to rows_out (T x 8,
-// global or shared), the warps' reaction partials to cols (warps x T x 8,
-// shared) unless !kCols, then a barrier. kD2 masks d2 == 0; kTri zeroes w
-// off the triangle `tri` and the self diagonal (FOLD).
-template <int T, bool kSplit, bool kFast, bool kPads, bool kCols, bool kD2,
-          bool kTri>
+// One pass over the T x T pairs of blocks P (rows, operand VP, v^T in
+// bf16) and Q (columns, VQ): the row sums to rows_out (T x 8, global or
+// shared), the warps' reaction partials to cols (warps x T x 8, shared)
+// unless !kCols, then a barrier. kD2 masks d2 == 0; kTri zeroes w off the
+// triangle `tri` and the self diagonal (FOLD).
+template <int T, bool kSplit, bool kFast, bool kCols, bool kD2, bool kTri>
 __device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
                                          const __nv_bfloat16* VP,
-                                         const __nv_bfloat16* VQ, int pb,
-                                         int qb, int tri, float softening,
-                                         int n_real, float* rows_out,
+                                         const __nv_bfloat16* VQ, int tri,
+                                         float softening, float* rows_out,
                                          float* cols) {
   constexpr int LDV = T + 8;
   constexpr int H = kMxuStrips;
@@ -590,8 +602,6 @@ __device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
     rw.p1[h] = P[rw.r0[h] + 8];
     rw.bp0[h] = vp[(strip + 2 * t) / 2];
     rw.bp1[h] = vp[(strip + 2 * t + 8) / 2];
-    rw.real0[h] = !kPads || pb * T + rw.r0[h] < n_real;
-    rw.real1[h] = !kPads || pb * T + rw.r0[h] + 8 < n_real;
   }
 
   float acc[H][4];
@@ -599,8 +609,7 @@ __device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
   for (int h = 0; h < H; ++h)
     acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
 
-  auto weight = [&](const float4& p, const float4& q, int r, int c,
-                    bool real) {
+  auto weight = [&](const float4& p, const float4& q, int r, int c) {
     const float dx = q.x - p.x;
     const float dy = q.y - p.y;
     const float dz = q.z - p.z;
@@ -608,7 +617,6 @@ __device__ __forceinline__ void mxu_pass(const float4* P, const float4* Q,
     float w = pair_weight<kFast>(d2 + softening);
     if (kD2 && d2 == 0.f) w = 0.f;
     if (kTri && off_triangle(tri, r, c)) w = 0.f;
-    if (kPads && !(real && qb * T + c < n_real)) w = 0.f;
     return w;
   };
   mxu_steps<T, kSplit, kCols>(rw, Q, vq, acc, cols + warp * T * 8, weight);
@@ -641,21 +649,20 @@ __device__ __forceinline__ float4 warp_total4(const float* cols, int e) {
   return s;
 }
 
-template <int T, bool kSplit, bool kFast, bool kPads>
+template <int T, bool kSplit, bool kFast>
 __device__ __forceinline__ void mxu_slot_body(
-    int kind, int bi, int bj, const float4* pa, const float4* pb,
-    const __nv_bfloat16* va, const __nv_bfloat16* vb, float* out,
-    float softening, int mask_offdiag, int n_real, float* rows,
-    float* cols) {
+    int kind, const float4* pa, const float4* pb, const __nv_bfloat16* va,
+    const __nv_bfloat16* vb, float* out, float softening, int mask_offdiag,
+    float* rows, float* cols) {
   // A (T, 8) tile is 2T float4s.
   constexpr int kThreads = mxu_threads<T>();
   float4* out4 = reinterpret_cast<float4*>(out);
   const float4* rows4 = reinterpret_cast<const float4*>(rows);
   if (kind == kSlotFold) {
     // Side a's triangle (c < r), then side b's (c > r): rows + reactions.
-#define NBODY_FOLD_PASS(D2, P, V, B, TRI, SIDE)                               \
-  mxu_pass<T, kSplit, kFast, kPads, true, D2, true>(                          \
-      P, P, V, V, B, B, TRI, softening, n_real, rows, cols);                  \
+#define NBODY_FOLD_PASS(D2, P, V, TRI, SIDE)                                  \
+  mxu_pass<T, kSplit, kFast, true, D2, true>(P, P, V, V, TRI, softening,      \
+                                             rows, cols);                     \
   for (int e = threadIdx.x; e < 2 * T; e += kThreads) {                       \
     const float4 c = warp_total4<T>(cols, e), r = rows4[e];                   \
     out4[SIDE * 2 * T + e] =                                                  \
@@ -663,23 +670,23 @@ __device__ __forceinline__ void mxu_slot_body(
   }                                                                           \
   __syncthreads();
     if (mask_offdiag) {
-      NBODY_FOLD_PASS(true, pa, va, bi, 1, 0)
-      NBODY_FOLD_PASS(true, pb, vb, bj, 2, 1)
+      NBODY_FOLD_PASS(true, pa, va, 1, 0)
+      NBODY_FOLD_PASS(true, pb, vb, 2, 1)
     } else {
-      NBODY_FOLD_PASS(false, pa, va, bi, 1, 0)
-      NBODY_FOLD_PASS(false, pb, vb, bj, 2, 1)
+      NBODY_FOLD_PASS(false, pa, va, 1, 0)
+      NBODY_FOLD_PASS(false, pb, vb, 2, 1)
     }
 #undef NBODY_FOLD_PASS
   } else if (kind == kSlotDiag) {
-    mxu_pass<T, kSplit, kFast, kPads, false, true, false>(
-        pa, pb, va, vb, bi, bj, 0, softening, n_real, out, cols);
+    mxu_pass<T, kSplit, kFast, false, true, false>(pa, pb, va, vb, 0,
+                                                   softening, out, cols);
   } else {
     if (mask_offdiag)
-      mxu_pass<T, kSplit, kFast, kPads, true, true, false>(
-          pa, pb, va, vb, bi, bj, 0, softening, n_real, out, cols);
+      mxu_pass<T, kSplit, kFast, true, true, false>(pa, pb, va, vb, 0,
+                                                    softening, out, cols);
     else
-      mxu_pass<T, kSplit, kFast, kPads, true, false, false>(
-          pa, pb, va, vb, bi, bj, 0, softening, n_real, out, cols);
+      mxu_pass<T, kSplit, kFast, true, false, false>(pa, pb, va, vb, 0,
+                                                     softening, out, cols);
     for (int e = threadIdx.x; e < 2 * T; e += kThreads)
       out4[2 * T + e] = warp_total4<T>(cols, e);
   }
@@ -762,48 +769,31 @@ struct MxuStage {
   }
 };
 
-// The slot's passes on its staged blocks (MxuStage::store, then a barrier);
-// out: its two (T, 8) partial tiles.
-template <int T, bool kSplit, bool kPads>
-__device__ __forceinline__ void mxu_compute(int kind, int bi, int bj,
-                                            float* out, float softening,
-                                            int fast, int mask_offdiag,
-                                            int n_real, unsigned char* smem) {
+// The slot's passes on its staged blocks (MxuStage::store, then a barrier)
+// at smem; out: its two (T, 8) partial tiles. The passes' scratch follows
+// the blocks unless `scratch` puts it elsewhere (B15, whose two staged
+// areas share one scratch).
+template <int T, bool kSplit>
+__device__ __forceinline__ void mxu_compute(int kind, float* out,
+                                            float softening, int fast,
+                                            int mask_offdiag,
+                                            unsigned char* smem,
+                                            float* scratch = nullptr) {
   constexpr int LDV = T + 8;
   const float4* pa = reinterpret_cast<const float4*>(smem);
   const float4* pb = pa + T;
   const __nv_bfloat16* va = reinterpret_cast<const __nv_bfloat16*>(pb + T);
   const __nv_bfloat16* vb = va + 8 * LDV;
-  float* rows = reinterpret_cast<float*>(smem + 2 * T * sizeof(float4) +
-                                         2 * 8 * LDV * sizeof(__nv_bfloat16));
+  float* rows = scratch != nullptr
+                    ? scratch
+                    : reinterpret_cast<float*>(smem + mxu_stage_bytes<T>());
   float* cols = rows + T * 8;  // warps x T x 8
   if (fast)
-    mxu_slot_body<T, kSplit, true, kPads>(kind, bi, bj, pa, pb, va, vb, out,
-                                          softening, mask_offdiag, n_real,
-                                          rows, cols);
+    mxu_slot_body<T, kSplit, true>(kind, pa, pb, va, vb, out, softening,
+                                   mask_offdiag, rows, cols);
   else
-    mxu_slot_body<T, kSplit, false, kPads>(kind, bi, bj, pa, pb, va, vb, out,
-                                           softening, mask_offdiag, n_real,
-                                           rows, cols);
-}
-
-// pos_a / pos_b (rows, 3) and v_a / v_b (rows, 8) of the slot's system;
-// out: its two (T, 8) partial tiles.
-template <int T, bool kSplit, bool kPads>
-__device__ __forceinline__ void mxu_slot(int kind, int bi, int bj,
-                                         const float* __restrict__ pos_a,
-                                         const float* __restrict__ pos_b,
-                                         const float* __restrict__ v_a,
-                                         const float* __restrict__ v_b,
-                                         float* out, float softening,
-                                         int fast, int mask_offdiag,
-                                         int n_real, unsigned char* smem) {
-  MxuStage<T> stage;
-  stage.load(bi, bj, pos_a, pos_b, v_a, v_b);
-  stage.store(smem);
-  __syncthreads();
-  mxu_compute<T, kSplit, kPads>(kind, bi, bj, out, softening, fast,
-                                mask_offdiag, n_real, smem);
+    mxu_slot_body<T, kSplit, false>(kind, pa, pb, va, vb, out, softening,
+                                    mask_offdiag, rows, cols);
 }
 
 }  // namespace slot_body

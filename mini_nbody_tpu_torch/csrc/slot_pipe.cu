@@ -35,8 +35,8 @@
 // per SM: ~131 ms of rsqrt per N = 2^20 pass). The tensor-core products are
 // tiny (N = 8): ~6% of that.
 //
-// Design (the slot body is slot_body::mxu_slot in csrc/slot_body.cuh, which
-// B15 shares): one CTA of T threads, T / 32 warps, warp m owning the rows
+// Design (the slot body is slot_body::mxu_compute in csrc/slot_body.cuh,
+// which B15 shares): one CTA of T threads, T / 32 warps, warp m owning the rows
 // [32 m, 32 m + 32) as two 16-row strips. For each 16-column step each lane
 // computes in fp32 the 8 weights its mma.sync m16n8k16 A fragment holds in
 // each strip, packs them to bf16 pairs and runs the row product W @ v_b at
@@ -83,7 +83,8 @@ namespace {
 template <int T, bool kSplit>
 __global__ void __launch_bounds__(
     slot_body::mxu_threads<T>(),
-    slot_body::stream_min_ctas(slot_body::mxu_threads<T>(), 12))
+    slot_body::stream_min_ctas(slot_body::mxu_threads<T>(),
+                               slot_body::kMxuWarps))
     slot_pipe_kernel(const int* __restrict__ slots, int n_slots,
                      const float* __restrict__ pos_a,
                      const float* __restrict__ pos_b,
@@ -106,9 +107,8 @@ __global__ void __launch_bounds__(
       [&] { stage.store(smem); },
       [&](const slot_body::Slot& sl, int s) {
         float* out = part + (sys * n_slots + s) * 2 * T * 8;
-        slot_body::mxu_compute<T, kSplit, false>(sl.kind, sl.bi, sl.bj, out,
-                                                 softening, fast,
-                                                 mask_offdiag, 0, smem);
+        slot_body::mxu_compute<T, kSplit>(sl.kind, out, softening, fast,
+                                          mask_offdiag, smem);
       });
 }
 

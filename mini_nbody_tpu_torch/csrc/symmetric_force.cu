@@ -33,20 +33,19 @@
 // (and one multiply each by the partner's mass): ~15-17 fp32 instructions
 // at 128 lanes per clock per SM, against one rsqrt at 16 (PERF.md §6).
 //
-// Design (the slot body is slot_body::fp32_slot in csrc/slot_body.cuh, which
-// B15 shares): stage block bi and block bj (x, y, z[, m]) in shared memory
-// as one float4 per body, then each of the CTA's (T/8)^2 threads computes an
-// 8 x 8 register micro-tile of pairs (rows ty + G i, columns tx + G j, G =
-// T / 8): its rows stay in registers, each column is one broadcast load per
-// 8 pairs, and w, d and both sides' sums never leave registers. After the
-// walk the row sums of the G lanes that share a row, and the column sums of
-// the lanes and warps that share a column, are added in a fixed order: a
-// halving exchange of shuffles inside each warp, then the warps' column
-// partials through shared memory in increasing warp index. At T = 128 the
-// CTA takes 256 threads and 17,920 bytes of shared memory. The grid holds
-// as many CTAs as the card runs at once (slot_body::stream_width); each
-// walks its slots and loads the next slot's blocks into registers while it
-// computes one.
+// Design (the slot body is slot_body::fp32_compute in csrc/slot_body.cuh, which
+// B15 shares): stage block bi and block bj (x, y, z[, m]) in shared memory as
+// one float4 per body, then each of the CTA's (T/8)^2 threads computes an 8 x 8
+// register micro-tile of pairs (rows ty + G i, columns tx + G j, G = T / 8):
+// its rows stay in registers, each column is one broadcast load per 8 pairs,
+// and w, d and both sides' sums never leave registers. After the walk the row
+// sums of the G lanes that share a row, and the column sums of the lanes and
+// warps that share a column, are added in a fixed order: a halving exchange of
+// shuffles inside each warp, then the warps' column partials through shared
+// memory in increasing warp index. At T = 128 the CTA takes 256 threads and
+// 17,920 bytes of shared memory. The grid holds as many CTAs as the card runs
+// at once (slot_body::stream_width); each walks its slots and loads the next
+// slot's blocks into registers while it computes one.
 //
 // Cross-block sums: the TPU carries the whole-chunk reaction buffer across
 // its sequential grid; CTAs here run in no order, so each CTA stores its two
@@ -84,7 +83,8 @@ namespace {
 template <int T, int K, bool kFast>
 __global__ void __launch_bounds__(
     slot_body::fp32_threads<T>(),
-    slot_body::stream_min_ctas(slot_body::fp32_threads<T>(), 16))
+    slot_body::stream_min_ctas(slot_body::fp32_threads<T>(),
+                               slot_body::kFp32Warps))
     symmetric_force_kernel(const int* __restrict__ slots, int n_slots,
                            const float* __restrict__ pos_a,
                            const float* __restrict__ pos_b, float* part,
@@ -103,8 +103,7 @@ __global__ void __launch_bounds__(
       [&](const slot_body::Slot& sl, int s) {
         // Side 0's tile (block bi), then side 1's (block bj).
         float* out = part + (sys * n_slots + s) * 2 * T * 3;
-        slot_body::fp32_compute<T, K, kFast, false>(sl.kind, sl.bi, sl.bj,
-                                                    out, softening, 0, smem);
+        slot_body::fp32_compute<T, K, kFast>(sl.kind, out, softening, smem);
       });
 }
 

@@ -1,30 +1,35 @@
-"""The resident trajectory: a whole run of Euler steps (or Yoshida-4
-substeps) in one launch, the state kept on the card (B15).
+"""The resident trajectory: a whole run of Euler steps, or of leapfrog or
+Yoshida-4 steps, in one launch, the state kept on the card (B15).
 
 Counterpart of ``mini_nbody_tpu/ops/resident_sym.py`` (``:557-664``
 simulate_resident_sym, ``:667-692`` auto_tile_ensemble, ``:695-806``
 simulate_resident_sym_ensemble, ``:809-866`` the ensemble leapfrog and
 its class force, ``:868-898`` the leapfrog, ``:901-927`` y4_cycle,
-``:930-994`` the Yoshida-4 drivers, ``:997-1016`` _class_force).
+``:930-994`` the Yoshida-4 drivers).
 
 CUDA tensors launch ``csrc/resident_sym.cu`` once per call: a cooperative
-kernel that, every step, runs the streamed pair-once slot bodies (K3's in
-the fp32 class, ``mxu=False``; K2's in the bf16 class, ``mxu=True``) over
-the tri slot list in pieces of ``slot_pipe.PIECE_SLOTS`` slots, adds each
-block's partials in slot order, and integrates in place, with grid barriers
-between the phases. CPU tensors take ``resident_plain``, the same schedule
-in PyTorch: per step, each piece's per-slot partials, the slot-order sums
-(``slot_pipe.slot_reduce_plain``), then the same integrate.
+kernel that copies the bodies into its padded state, then, every force
+pass, runs the streamed pair-once slot bodies (K3's in the fp32 class,
+``mxu=False``; K2's in the bf16 class, ``mxu=True``) over the tri slot list
+in pieces of ``slot_pipe.PIECE_SLOTS`` slots, adds each block's partials
+in slot order and integrates in place (the last piece's sums added by the
+integrating thread itself), with grid barriers between the phases, and
+writes the real bodies out after the last pass. CPU tensors take
+``resident_plain``, the same schedule in PyTorch: per pass, each piece's
+per-slot partials, the slot-order sums (``slot_pipe.slot_reduce_plain``
+for every piece but the last, the integrate's own sums for the last), then
+the same integrate.
 
-Leapfrog and Yoshida-4 need no second kernel: between two force passes a
+Leapfrog and Yoshida-4 run in the same launch: between two force passes a
 KDK step is one substep of the kernel's (kick_a, kick_b, drift) form, so
-``simulate_resident_sym_kdk`` runs one streamed force pass of the same
-class at each end (half-kick and drift, then the closing half-kick) around
-steps - 1 resident leapfrog substeps (every substep (dt / 2, dt / 2, dt)) or
-3 steps - 1 Yoshida-4 substeps (``y4_cycle``): the force passes of the
-streamed loop. The two half-kicks stay unmerged, as the streamed loop adds
-them, so at the same tile and slot list a resident Euler, leapfrog or
-Yoshida-4 run is bitwise the streamed run (JAX merges the leapfrog kicks).
+``simulate_resident_sym_kdk`` runs an opening pass (half-kick and drift),
+steps - 1 leapfrog substeps (every substep (dt / 2, dt / 2, dt)) or
+3 steps - 1 Yoshida-4 substeps (``y4_cycle``), and a closing pass
+(half-kick, no drift): the force passes of the streamed loop. The two
+half-kicks stay unmerged, as the streamed loop adds them, so at the same
+tile and slot list a resident Euler, leapfrog or Yoshida-4 run is bitwise
+the streamed run (JAX merges the leapfrog kicks, and runs its end passes
+outside the kernel).
 
 Not carried over: the v5e VMEM admission and rate tables (``_MAX_NB``,
 ``_MAX_NB_FP32_MASS``, ``_TILE_RATE``) and the v5e fold policy
@@ -71,15 +76,17 @@ RESIDENT_SYM_MAX_N = 131072
 
 #: Whether the tri slot list folds diagonal block pairs when the caller
 #: names no fold. chip_smoke.py's resident_crossover phase (NVIDIA H100 80GB
-#: HBM3, 700 W) timed B15 with fold on and off: for one system at N = 512
-#: .. 16,384 the fold is from 6% faster to 5% slower per step, for 256
-#: systems of 256 up to 18% slower. It stays on: with the streamed kernels'
-#: slot list, B15's Euler and Yoshida-4 runs are bitwise the streamed runs,
-#: so routing a run to B15 changes no bit of its result.
+#: HBM3, 700 W) timed B15 with fold on and off, eight runs: the fold is
+#: slower per step at every size, for one system by 5-8% at 16,384 and
+#: 32,768 and by up to 44% (fp32 at N = 4096: each fold slot runs its two
+#: passes in a row, on the pass's longest path), for ensembles by up to 61%
+#: (256 systems of 256). It stays on: with the streamed kernels' slot list,
+#: B15's runs are bitwise the streamed runs, so routing a run to B15
+#: changes no bit of its result.
 FOLD_DEFAULT = True
 
 #: Kernel launches on CUDA tensors, one per resident call (a whole
-#: trajectory, or its interior substeps), counted at each launch.
+#: trajectory, its end passes included), counted at each launch.
 LAUNCHES = 0
 
 
@@ -129,6 +136,7 @@ def resident_plan(slots: torch.Tensor):
     """The kernel's reduction plan of a tri slot table, on its device, from
     slot_pipe.plan_pieces: (pieces (P, 4) [first slot, slots, first target,
     end target], targets (., 3) [block, first entry, end entry], entries,
+    last_target (nb,) [each block's target in the last piece, or -1],
     largest piece), built once per table and PIECE_SLOTS."""
     key = id(slots)
     if key not in _PLANS:
@@ -136,16 +144,19 @@ def resident_plan(slots: torch.Tensor):
         weakref.finalize(slots, _PLANS.pop, key, None)
     plans = _PLANS[key]
     if slot_pipe.PIECE_SLOTS not in plans:
+        rows = slots.cpu().numpy()
         pieces, targets, entries = [], [], []
         n_entries = 0
-        for s0, n, tgt, offsets, ent in slot_pipe.plan_pieces(
-                slots.cpu().numpy(), True):
+        for s0, n, tgt, offsets, ent in slot_pipe.plan_pieces(rows, True):
             t0 = sum(len(t) for t in targets)
             pieces.append((s0, n, t0, t0 + len(tgt)))
             targets.append(np.stack([tgt >> 1, offsets[:-1] + n_entries,
                                      offsets[1:] + n_entries], axis=1))
             entries.append(ent)
             n_entries += ent.shape[0]
+        last_target = np.full(int(rows[:, 1:].max()) + 1, -1)
+        t0, t1 = pieces[-1][2:]
+        last_target[targets[-1][:, 0]] = np.arange(t0, t1)
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a).astype(
@@ -154,7 +165,8 @@ def resident_plan(slots: torch.Tensor):
         plans[slot_pipe.PIECE_SLOTS] = (
             dev(np.asarray(pieces).reshape(-1, 4)),
             dev(np.concatenate(targets).reshape(-1, 3)),
-            dev(np.concatenate(entries)), max(p[1] for p in pieces))
+            dev(np.concatenate(entries)), dev(last_target),
+            max(p[1] for p in pieces))
     return plans[slot_pipe.PIECE_SLOTS]
 
 
@@ -236,11 +248,36 @@ def _mxu_partials(kind, pa, pb, va, vb, pad, softening, fast, mask_offdiag,
     return out
 
 
+def _last_piece_plain(part, plan, acc, tile, width):
+    """B15's fused reduce of the last piece, as the integrate sees it: acc
+    plus each body's row of its block's partials (part: the piece's
+    (2 slots, tile, width) tiles) summed in slot order, the sum added to
+    the accumulator value as the streamed reduce adds it (0 + the sum in a
+    one-piece pass); acc as it stands for a block that is no target of the
+    last piece (resident_plan's last_target)."""
+    _, targets, entries, last_target, _ = plan
+    tiles = part.view(-1, tile, width)
+    out = acc.clone()
+    for blk, t in enumerate(last_target.tolist()):
+        if t < 0:
+            continue
+        _, e0, e1 = targets[t].tolist()
+        total = torch.zeros((tile, width), dtype=part.dtype,
+                            device=part.device)
+        for e in entries[e0:e1].tolist():
+            total = total + tiles[e]
+        rows = slice(blk * tile, (blk + 1) * tile)
+        out[rows] = acc[rows] + total
+    return out
+
+
 def _force_plain(pos, mass, slots, tile, n_real, softening, mxu,
                  mask_offdiag, mma_dtype):
-    """One system's (rows, 3|8) accumulator of one step: per piece of the
-    slot list the per-slot partials in batches of slots, then their sums in
-    slot order (slot_pipe.slot_reduce_plain), as B15 adds them."""
+    """One system's (rows, 3|8) sums of one pass: per piece of the slot
+    list the per-slot partials in batches of slots, then their sums in
+    slot order, as B15 adds them: every piece but the last into the
+    accumulator (slot_pipe.slot_reduce_plain), the last by
+    _last_piece_plain."""
     width = 8 if mxu else 3
     fast = fast_rsqrt_cube(softening)
     acc = torch.zeros((pos.shape[0], width), dtype=torch.float32,
@@ -253,7 +290,8 @@ def _force_plain(pos, mass, slots, tile, n_real, softening, mxu,
         vblocks = _pack(pos, mass, rows, rows)[1].view(-1, tile, 8)
     batch = max(1, plain_block_elems(pos.device) // (tile * tile))
     table = slots.to(dtype=torch.long)
-    for plan in slot_pipe.reduce_plan(slots, True):
+    pieces = slot_pipe.reduce_plan(slots, True)
+    for i, plan in enumerate(pieces):
         s0, n = plan[:2]
         piece = table[s0:s0 + n]
         part = pos.new_zeros((n, 2, tile, width))
@@ -272,107 +310,176 @@ def _force_plain(pos, mass, slots, tile, n_real, softening, mxu,
                 else:
                     part[at] = _fp32_partials(kind, blocks[bi], blocks[bj],
                                               pad, softening, fast)
+        if i + 1 == len(pieces):
+            return _last_piece_plain(part, resident_plan(slots), acc, tile,
+                                     width)
         slot_pipe.slot_reduce_plain(part.reshape(-1), plan, acc, acc, tile,
                                     width)
-    return acc
 
 
 def _integrate_plain(pos, vel, acc, mxu, dt, coeffs):
     """The integrate of B15 on one system, in place: F from the sums, then
-    Euler (coeffs None) or one Yoshida-4 substep (kick_a, kick_b, drift)."""
+    an Euler step (coeffs None: v += dt F, x += dt v) or one pass's
+    (kick_a, kick_b, drift): v += kick_a F, then v += kick_b F unless
+    kick_b is None, then x += drift v unless drift is None."""
     if mxu:
         s = acc[:, 0:4] + acc[:, 4:8]
         f = s[:, 0:3] - pos * s[:, 3:4]
     else:
         f = acc
-    if coeffs is None:
-        vel.copy_(vel + dt * f)
-        pos.copy_(pos + dt * vel)
-        return
-    ka, kb, h = coeffs
-    vel.copy_((vel + ka * f) + kb * f)
-    pos.copy_(pos + h * vel)
+    ka, kb, h = (dt, None, dt) if coeffs is None else coeffs
+    v = vel + ka * f
+    if kb is not None:
+        v = v + kb * f
+    vel.copy_(v)
+    if h is not None:
+        pos.copy_(pos + h * vel)
+
+
+def _pass_coeffs(steps, y4, y4_phase, ends):
+    """Each force pass's integrate coefficients (_integrate_plain's
+    coeffs): with ends (half, h1), the opening pass (half, None, h1)
+    first and the closing pass (half, None, None) last; between them
+    `steps` Euler steps (y4 None) or substeps of the cycle y4 from
+    y4_phase."""
+    inner = [None if y4 is None else y4[(step + y4_phase) % 3]
+             for step in range(steps)]
+    if ends is None:
+        return inner
+    half, h1 = ends
+    return [(half, None, h1), *inner, (half, None, None)]
 
 
 def resident_plain(pos, vel, mass, slots, tile, n_real, steps, dt,
                    softening, mxu, mask_offdiag, y4=None, y4_phase=0,
-                   mma_dtype=torch.float32):
+                   mma_dtype=torch.float32, ends=None):
     """Plain version of B15, in place on pos, vel (B, Np, 3) and mass
-    (B, Np) or None: B15's schedule system by system, step by step (the
-    forces of the whole step, then the integrate). mma_dtype as in
-    slot_pipe's plain sums: torch.float32 multiplies in fp32 (JAX's CPU
-    interpret run), torch.bfloat16 rounds w and the operands as the tensor
-    cores do."""
+    (B, Np) or None: B15's schedule system by system, pass by pass (the
+    forces of the whole pass, then the integrate): `steps` Euler steps or
+    substeps of y4, and with ends (half, h1) an opening pass before them
+    and a closing pass after (_pass_coeffs). mma_dtype as in slot_pipe's
+    plain sums: torch.float32 multiplies in fp32 (JAX's CPU interpret
+    run), torch.bfloat16 rounds w and the operands as the tensor cores
+    do."""
+    passes = _pass_coeffs(steps, y4, y4_phase, ends)
     for y in range(pos.shape[0]):
         m = None if mass is None else mass[y]
-        for step in range(steps):
+        for coeffs in passes:
             acc = _force_plain(pos[y], m, slots, tile, n_real, softening,
                                mxu, mask_offdiag, mma_dtype)
-            coeffs = None if y4 is None else y4[(step + y4_phase) % 3]
             _integrate_plain(pos[y], vel[y], acc, mxu, dt, coeffs)
 
 
 # ----------------------------------------------------------- kernel ---
 
-def _launch(pos, vel, mass, slots, tile, n_real, steps, dt, softening, mxu,
-            mask_offdiag, y4, y4_phase):
-    """B15 on the card, in place on pos, vel (B, Np, 3) and mass (B, Np) or
-    None."""
+#: Floats each scratch array of a launch is aligned to (256 bytes).
+_ALIGN = 64
+
+
+@functools.lru_cache(maxsize=64)
+def _coef(y4, ends):
+    """The kernel's 11 coefficients as a host array: the cycle's (kick_a,
+    kick_b, drift) triples, then the end passes' half-kick and opening
+    drift; None for Euler steps."""
+    if y4 is None:
+        return None
+    half, h1 = (0.0, 0.0) if ends is None else ends
+    return (ctypes.c_float * 11)(*(c for triple in y4 for c in triple),
+                                 half, h1)
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(b, n, tile, mxu, kp, multi, largest):
+    """The scratch of a launch over b systems of n bodies, as one
+    allocation: (floats, the float offset of each array or None, np).
+    The arrays: pos (kp floats a row), vel, the bf16 operands, the
+    accumulator of a run of several pieces, the partials, the grid
+    barrier's count (8 bytes)."""
+    np_ = round_up(n, tile)
+    rows = b * np_
+    width = 8 if mxu else 3
+    sizes = (rows * kp, rows * 3, rows * 8 if mxu else 0,
+             rows * width if multi else 0, b * largest * 2 * tile * width, 2)
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total if size else None)
+        total += round_up(size, _ALIGN)
+    return total, tuple(offsets), np_
+
+
+def _float(x):
+    """x as a contiguous fp32 tensor, itself when it is one."""
+    if x is None or (x.dtype == torch.float32 and x.is_contiguous()):
+        return x
+    return x.float().contiguous()
+
+
+def _launch(pos, vel, mass, slots, tile, steps, dt, softening, mxu,
+            mask_offdiag, y4, y4_phase, ends):
+    """B15 on the card: the bodies pos, vel (N, 3) or (B, N, 3) and mass
+    (N,), (B, N) or None through the passes of resident_plain; returns
+    the new (pos, vel) in pos's shape. The kernel pads and packs the bodies
+    itself, into one scratch allocation, and writes its outputs once."""
     global LAUNCHES
     if tile not in RESIDENT_TILES:
         raise ValueError(f"the CUDA resident kernel takes tile in "
                          f"{RESIDENT_TILES}, got {tile}")
     _build.refuse_grad("simulate_resident_sym", pos, vel, mass)
-    b, np_ = pos.shape[0], pos.shape[1]
+    b = 1 if pos.ndim == 2 else pos.shape[0]
+    n = pos.shape[-2]
+    kp = 4 if mass is not None and not mxu else 3
+    pieces, targets, entries, last_target, largest = resident_plan(slots)
+    total, offsets, np_ = _layout(b, n, tile, mxu, kp, pieces.shape[0] > 1,
+                                  largest)
     device = pos.device
-    width = 8 if mxu else 3
-    if mxu or mass is None:
-        p = pos.reshape(b * np_, 3)
-    else:
-        p = torch.cat([pos, mass[..., None]], dim=2).reshape(b * np_, 4)
-    p = p.contiguous()
-    v = vel.reshape(b * np_, 3).contiguous()
-    m = (mass.reshape(b * np_).contiguous()
-         if mxu and mass is not None else None)
-    q = torch.empty((b * np_, 8), dtype=torch.float32,
-                    device=device) if mxu else None
-    acc = torch.zeros((b * np_, width), dtype=torch.float32, device=device)
-    pieces, targets, entries, largest = resident_plan(slots)
-    part = torch.empty(b * largest * 2 * tile * width, dtype=torch.float32,
-                       device=device)
-    y4c = None
-    if y4 is not None:
-        y4c = (ctypes.c_float * 9)(*(c for triple in y4 for c in triple))
+    scratch = torch.empty(total, dtype=torch.float32, device=device)
+    ptr = [None if o is None else scratch.data_ptr() + 4 * o
+           for o in offsets]
+    p_out, v_out = torch.empty((2, *pos.shape), dtype=torch.float32,
+                               device=device).unbind(0)
+    p_in, v_in, m_in = _float(pos), _float(vel), _float(mass)
+    coef = _coef(None if y4 is None else tuple(map(tuple, y4)), ends)
     lib = _build.load_library()
-    with torch.cuda.device(device):
+    index = torch.cuda.current_device() if device.index is None else (
+        device.index)
+    with torch.cuda.device(index):
         code = lib.resident_sym_launch(
             slots.data_ptr(), pieces.data_ptr(), pieces.shape[0],
-            targets.data_ptr(), entries.data_ptr(), p.data_ptr(),
-            v.data_ptr(), None if m is None else m.data_ptr(),
-            None if q is None else q.data_ptr(), acc.data_ptr(),
-            part.data_ptr(), b, np_, n_real, steps, float(dt),
-            float(softening), int(fast_rsqrt_cube(softening)),
-            int(mask_offdiag), None if y4c is None else ctypes.addressof(y4c),
-            y4_phase, tile, int(mxu), p.shape[1], _build.stream_ptr(device))
+            targets.data_ptr(), entries.data_ptr(), last_target.data_ptr(),
+            largest, p_in.data_ptr(), v_in.data_ptr(),
+            None if m_in is None else m_in.data_ptr(), p_out.data_ptr(),
+            v_out.data_ptr(), *ptr, b, np_, n, steps,
+            int(ends is not None), float(dt), float(softening), FAR,
+            int(fast_rsqrt_cube(softening)), int(mask_offdiag),
+            None if coef is None else ctypes.addressof(coef), y4_phase, tile,
+            int(mxu), kp, _build.stream_ptr(device))
     _build.check(lib, code, "resident_sym_launch")
     LAUNCHES += 1
-    pos.copy_(p[:, :3].view(b, np_, 3))
-    vel.copy_(v.view(b, np_, 3))
+    return p_out, v_out
 
 
 # ---------------------------------------------------------- drivers ---
 
 def _run(pos, vel, mass, steps, dt, softening, mxu, tile, coincident, y4,
-         y4_phase, fold):
-    """B systems pos, vel (B, N, 3), mass (B, N) or None through `steps`
-    resident steps at `tile`: pad each system to round_up(N, tile) (FAR
-    positions, zero velocities and masses), run the kernel on the card or
-    its plain version on the CPU, cut the pads."""
-    b, n = pos.shape[0], pos.shape[1]
+         y4_phase, fold, ends=None):
+    """One system pos, vel (N, 3), mass (N,) or None, or B systems (B, N,
+    3), (B, N), through the passes of resident_plain at `tile`: on the card
+    the kernel, which pads each system to round_up(N, tile) itself (each
+    pad at its own far point, zero velocity and mass); on the CPU its
+    plain version on copies padded with FAR positions; either way new
+    (pos, vel) in pos's shape."""
+    n = pos.shape[-2]
     np_ = round_up(n, tile)
     nb = np_ // tile
     fold = (FOLD_DEFAULT if fold is None else bool(fold)) and nb >= 2
-    pad = np_ - n
+    slots = slot_pipe.slot_table(nb, fold, False, pos.device)
+    mask_offdiag = coincident != "fast"
+    if _build.on_card(pos.device):
+        return _launch(pos, vel, mass, slots, tile, steps, dt, softening,
+                       mxu, mask_offdiag, y4, y4_phase, ends)
+    shape = pos.shape
+    b, pad = (1 if pos.ndim == 2 else shape[0]), np_ - n
+    pos, vel = pos.reshape(b, n, 3), vel.reshape(b, n, 3)
     # New tensors even without pads: the run updates them in place.
     p = torch.cat([pos.float(), pos.new_full((b, pad, 3), FAR,
                                              dtype=torch.float32)], dim=1)
@@ -380,23 +487,51 @@ def _run(pos, vel, mass, steps, dt, softening, mxu, tile, coincident, y4,
                                               dtype=torch.float32)], dim=1)
     m = None
     if mass is not None:
-        m = torch.cat([mass.float(), mass.new_zeros((b, pad),
-                                                    dtype=torch.float32)],
-                      dim=1)
-    slots = slot_pipe.slot_table(nb, fold, False, p.device)
-    args = (p, v, m, slots, tile, n, steps, dt, softening, mxu,
-            coincident != "fast", y4, y4_phase)
-    if _build.on_card(p.device):
-        _launch(*args)
-    else:
-        with torch.no_grad():
-            resident_plain(*args)
-    return p[:, :n].contiguous(), v[:, :n].contiguous()
+        m = torch.cat([mass.reshape(b, n).float(),
+                       mass.new_zeros((b, pad), dtype=torch.float32)], dim=1)
+    with torch.no_grad():
+        resident_plain(p, v, m, slots, tile, n, steps, dt, softening, mxu,
+                       mask_offdiag, y4, y4_phase, ends=ends)
+    return (p[:, :n].reshape(shape).contiguous(),
+            v[:, :n].reshape(shape).contiguous())
+
+
+#: ensemble_tiling, once per (N, tile, card or CPU).
+_tiling = functools.lru_cache(maxsize=256)(ensemble_tiling)
 
 
 def _check_steps(steps, what):
     if steps < 1:
         raise ValueError(f"{what} needs steps >= 1")
+
+
+def _single_tile(pos, tile):
+    """The tile of a resident run of one system pos (N, 3), within the
+    cap."""
+    n = pos.shape[0]
+    if n > RESIDENT_SYM_MAX_N:
+        raise ValueError(
+            f"simulate_resident_sym holds one trajectory in one launch: "
+            f"N={n} > RESIDENT_SYM_MAX_N={RESIDENT_SYM_MAX_N}; use "
+            "sim.simulate (the streamed kernels)")
+    return _tiling(n, tile, _build.on_card(pos.device))[0]
+
+
+def _ensemble_tile(pos, mass, tile):
+    """The tile of a resident run of B systems pos (B, N, 3), whose
+    stacked B Np must be within the cap."""
+    check_ensemble(pos, mass)
+    b, n = pos.shape[0], pos.shape[1]
+    kernel = _build.on_card(pos.device)
+    if tile is None:
+        tile = auto_tile_ensemble(b, n, kernel)
+    t, np_ = _tiling(n, tile, kernel)
+    if b * np_ > RESIDENT_SYM_MAX_N:
+        raise ValueError(
+            f"the resident ensemble holds all B systems in one launch: "
+            f"B*Np = {b * np_} > {RESIDENT_SYM_MAX_N}; use "
+            "sim.simulate_ensemble's streamed path")
+    return t
 
 
 def simulate_resident_sym(pos, vel, mass=None, *, steps: int, dt: float,
@@ -414,17 +549,10 @@ def simulate_resident_sym(pos, vel, mass=None, *, steps: int, dt: float,
     mask of real bodies (self and pad pairs stay masked). CUDA tensors
     launch B15 (tile 64 or 128), CPU tensors its plain version."""
     check_coincident(coincident)
-    n = pos.shape[0]
-    if n > RESIDENT_SYM_MAX_N:
-        raise ValueError(
-            f"simulate_resident_sym holds one trajectory in one launch: "
-            f"N={n} > RESIDENT_SYM_MAX_N={RESIDENT_SYM_MAX_N}; use "
-            "sim.simulate (the streamed kernels)")
+    t = _single_tile(pos, tile)
     _check_steps(steps, "simulate_resident_sym")
-    t, _ = ensemble_tiling(n, tile, _build.on_card(pos.device))
-    p, v = _run(pos[None], vel[None], None if mass is None else mass[None],
-                steps, dt, softening, mxu, t, coincident, y4, y4_phase, fold)
-    return p[0], v[0]
+    return _run(pos, vel, mass, steps, dt, softening, mxu, t, coincident,
+                y4, y4_phase, fold)
 
 
 def simulate_resident_sym_ensemble(pos, vel, mass=None, *, steps: int,
@@ -440,102 +568,35 @@ def simulate_resident_sym_ensemble(pos, vel, mass=None, *, steps: int,
     check_coincident(coincident)
     check_ensemble(pos, mass)
     _check_steps(steps, "simulate_resident_sym_ensemble")
-    b, n = pos.shape[0], pos.shape[1]
-    kernel = _build.on_card(pos.device)
-    if tile is None:
-        tile = auto_tile_ensemble(b, n, kernel)
-    t, np_ = ensemble_tiling(n, tile, kernel)
-    if b * np_ > RESIDENT_SYM_MAX_N:
-        raise ValueError(
-            f"the resident ensemble holds all B systems in one launch: "
-            f"B*Np = {b * np_} > {RESIDENT_SYM_MAX_N}; use "
-            "sim.simulate_ensemble's streamed path")
+    t = _ensemble_tile(pos, mass, tile)
     return _run(pos, vel, mass, steps, dt, softening, mxu, t, coincident,
                 y4, y4_phase, fold)
-
-
-def _class_force(mxu: bool, softening: float, coincident: str = "auto",
-                 tile=None, chunk=None):
-    """The streamed force of the same class for the end kicks (sym_mxu's K2
-    or sym's K3) at the given tile and chunk (their defaults when None). A
-    single pass, so 'auto' keeps its own routing there."""
-    kw = {k: v for k, v in (("tile", tile), ("chunk", chunk))
-          if v is not None}
-    if mxu:
-        from mini_nbody_tpu_torch.ops.sym_mxu_force import body_force_sym_mxu
-
-        def force(pos, mass):
-            return body_force_sym_mxu(pos, mass, softening=softening,
-                                      coincident=coincident, **kw)
-    else:
-        from mini_nbody_tpu_torch.ops.symmetric_force import (
-            body_force_symmetric)
-
-        def force(pos, mass):
-            return body_force_symmetric(pos, mass, softening=softening, **kw)
-    return force
-
-
-def _class_force_ensemble(mxu: bool, softening: float,
-                          coincident: str = "auto", tile=None):
-    """The streamed ensemble force of the same class for the ensemble end
-    kicks (B9a or B9b): each system bitwise the standalone force at the
-    ensemble's tile and chunk."""
-    if mxu:
-        from mini_nbody_tpu_torch.ops.sym_mxu_force import (
-            body_force_sym_mxu_ensemble)
-
-        def force(pos, mass):
-            return body_force_sym_mxu_ensemble(
-                pos, mass, softening=softening, tile=tile,
-                coincident=coincident)
-    else:
-        from mini_nbody_tpu_torch.ops.symmetric_force import (
-            body_force_symmetric_ensemble)
-
-        def force(pos, mass):
-            return body_force_symmetric_ensemble(pos, mass,
-                                                 softening=softening,
-                                                 tile=tile)
-    return force
 
 
 def simulate_resident_sym_kdk(pos, vel, mass=None, *, steps: int,
                               dt: float, softening: float = SOFTENING,
                               mxu: bool = False, tile: int | None = None,
                               coincident: str = "auto", fold=None,
-                              y4: bool = False, force_tile=None,
-                              force_chunk=None):
+                              y4: bool = False):
     """`steps` KDK leapfrog steps (y4 False) or Yoshida-4 steps (y4 True)
     of one system pos, vel (N, 3) [, mass (N,)] or of B systems (B, N, 3)
-    [, (B, N)]: one streamed force pass of the class opens (half-kick,
-    drift), one resident launch takes the steps - 1 leapfrog or 3 steps - 1
-    Yoshida-4 interior substeps (none for one leapfrog step), one streamed
-    pass closes (half-kick): the streamed loop's force passes, and its
-    bits. The end passes take force_tile and force_chunk (one system) or
-    the ensemble's force at force_tile (B systems)."""
+    [, (B, N)] in one launch: an opening pass (half-kick, drift), the
+    steps - 1 leapfrog or 3 steps - 1 Yoshida-4 interior substeps (none for
+    one leapfrog step) and a closing pass (half-kick): the streamed loop's
+    force passes, and its bits."""
+    check_coincident(coincident)
     _check_steps(steps, "simulate_resident_sym_kdk")
-    if pos.ndim == 3:
-        force = _class_force_ensemble(mxu, softening, coincident, force_tile)
-        run = simulate_resident_sym_ensemble
-    else:
-        force = _class_force(mxu, softening, coincident, force_tile,
-                             force_chunk)
-        run = simulate_resident_sym
+    t = (_ensemble_tile(pos, mass, tile) if pos.ndim == 3
+         else _single_tile(pos, tile))
     dt = float(dt)
     if y4:
         cycle, h1 = y4_cycle(dt)
     else:  # every substep closes one leapfrog step and opens the next
         cycle, h1 = ((0.5 * dt, 0.5 * dt, dt),) * 3, dt
     half = 0.5 * h1
-    vh = vel + half * force(pos, mass)
-    pos = pos + h1 * vh
     k = 3 * steps - 1 if y4 else steps - 1
-    if k > 0:
-        pos, vh = run(pos, vh, mass, steps=k, dt=dt, softening=softening,
-                      mxu=mxu, tile=tile, coincident=coincident, y4=cycle,
-                      fold=fold)
-    return pos, vh + half * force(pos, mass)
+    return _run(pos, vel, mass, k, dt, softening, mxu, t, coincident, cycle,
+                0, fold, ends=(half, h1))
 
 
 #: JAX's driver names (resident_sym.py:809, :868, :930, :965): the shape of

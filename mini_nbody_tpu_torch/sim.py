@@ -184,39 +184,37 @@ def _stack(snaps, pos):
 
 #: The card's crossovers of the resident kernel (B15) against the streamed
 #: step loop, per class: resident=None routes a CUDA state of at most this
-#: many bodies to B15 (from RESIDENT_AUTO_MIN_STEPS steps): the largest N at
-#: which B15 won in each of six runs of chip_smoke.py's resident_crossover
-#: phase (ms per Euler step on an NVIDIA H100 80GB HBM3 at 700 W, B15
-#: against the streamed loop, over the runs): sym 0.016-0.018 /
-#: 0.119-0.226 at N = 512, 0.107-0.113 / 0.117-0.220 at 8192, 0.348-0.364 /
-#: 0.278-0.283 at 16,384; sym_mxu 0.021-0.023 / 0.253-0.442, 0.131-0.136 /
-#: 0.244-0.434, 0.442-0.463 / 0.344-0.371. JAX's values (sim.py:203, :218)
-#: are v5e measurements and are not carried over.
-RESIDENT_AUTO_MAX_N = {"sym": 8192, "sym_mxu": 8192}
+#: many bodies to B15 (from RESIDENT_AUTO_MIN_STEPS steps): the largest N
+#: at which B15 won, per Euler step and in every short run, in each of
+#: three runs of chip_smoke.py's resident_crossover phase (NVIDIA H100
+#: 80GB HBM3, 700.00 W; ms per Euler step of 100-step calls, B15 against
+#: the streamed loop, over the runs): sym 0.0104-0.0109 / 0.150-0.200 at
+#: N = 512, 0.0502-0.0510 / 0.172-0.199 at 8192, 0.1633-0.1639 /
+#: 0.174-0.212 at 16,384, where short runs lost (Euler, 10 steps: 1.744 /
+#: 1.600 ms; leapfrog, 2 steps: 0.565 / 0.515); sym_mxu 0.0133-0.0136 /
+#: 0.212-0.278 at 512, 0.2132-0.2142 / 0.233-0.389 at 16,384, short runs
+#: won from 2 steps; both lost at 32,768 (0.6153-0.6168 / 0.521-0.523,
+#: 0.7213-0.7226 / 0.530-0.535). JAX's values (sim.py:203, :218) are v5e
+#: measurements and are not carried over.
+RESIDENT_AUTO_MAX_N = {"sym": 8192, "sym_mxu": 16384}
 
 #: The same for the per-system N of an ensemble, against B9b / B9a, at
-#: (B, N) = (256, 256), (64, 1024), (32, 2048), (16, 4096), (8, 8192): sym
-#: won to (64, 1024) in every run (0.110-0.115 / 0.125-0.255 ms per step)
-#: and at (32, 2048) in three of six (0.189-0.195 / 0.151-0.236); sym_mxu
-#: won to (32, 2048) in every run (0.246-0.257 / 0.250-0.370), but lost
-#: there in short runs (Euler, 2-5 steps: 0.618 / 0.591 ms per call at 2);
-#: both lost from (16, 4096) on.
-RESIDENT_ENSEMBLE_AUTO_MAX_N = {"sym": 1024, "sym_mxu": 1024}
+#: (B, N) = (256, 256), (64, 1024), (32, 2048), (16, 4096), (8, 8192),
+#: (4, 16384), in the same three runs: sym won to (32, 2048) in every run
+#: (0.0987-0.1011 / 0.109-0.206 ms per step) and at (16, 4096) in two of
+#: three (0.1685-0.1691 / 0.166-0.209); sym_mxu won to (16, 4096) in every
+#: run (0.2475-0.2489 / 0.266-0.358); both lost from (8, 8192) on.
+RESIDENT_ENSEMBLE_AUTO_MAX_N = {"sym": 2048, "sym_mxu": 4096}
 
 #: The fewest steps of each integrator that resident=None routes to B15
 #: (one system or an ensemble, within the sizes above): the fewest from
-#: which B15 won every short run in each of three runs of the
-#: resident_crossover phase (whole calls of 2, 3, 5, 10 and 20 steps at the
-#: routed sizes; NVIDIA H100 80GB HBM3 at 700 W). B15 costs a fixed ~0.2-0.3
-#: ms per call, the streamed loop 0.11-0.45 ms per step at these sizes, so
-#: short runs can lose near the crossover: in one run of three fp32 Euler
-#: at N = 8192 lost at 2 and 3 steps (0.321 / 0.308, 0.439 / 0.438 ms per
-#: call) and won from 5 (0.677 / 0.704), and the fp32 ensemble (64, 1024)
-#: lost at 2. A leapfrog run's two streamed end passes cost about the
-#: streamed 2-step run, so leapfrog lost at 2 in every fp32 run (at 8192:
-#: 0.81 / 0.71, 0.67 / 0.64, 0.57 / 0.54 ms) and won from 3. Yoshida-4
-#: (3 steps - 1 substeps in one launch) won from 2 everywhere.
-RESIDENT_AUTO_MIN_STEPS = {"euler": 5, "leapfrog": 3, "yoshida4": 2}
+#: which B15 won every short run in each of the same three runs (whole
+#: calls of 2, 3, 5, 10 and 20 steps at the routed sizes). B15's fixed
+#: cost per call is ~0.05-0.08 ms (PERF.md §5) and its leapfrog and
+#: Yoshida-4 end passes run in the launch, so every integrator won from 2
+#: steps but one: a leapfrog call of 2 steps of 16 bf16 systems of 4096
+#: lost in one run of three (0.825 / 0.813 ms) and won from 3.
+RESIDENT_AUTO_MIN_STEPS = {"euler": 2, "leapfrog": 3, "yoshida4": 2}
 
 _RESIDENT_INTEGRATORS = tuple(RESIDENT_AUTO_MIN_STEPS)
 
@@ -280,9 +278,8 @@ def _route_resident_ensemble(cfg: SimConfig, steps: int, b: int,
 def _simulate_resident(cfg: SimConfig, state: BodyState, steps: int,
                        ensemble: bool = False) -> BodyState:
     """The whole trajectory (of B systems when ensemble) in one resident
-    launch (ops/resident_sym.py) at _resident_tile; leapfrog and Yoshida-4
-    add one streamed pass of the class at each end, at cfg.sym_tile (and
-    cfg.sym_chunk for one system)."""
+    launch (ops/resident_sym.py) at _resident_tile, the opening and
+    closing passes of leapfrog and Yoshida-4 included."""
     from mini_nbody_tpu_torch.ops import resident_sym as rs
 
     if cfg.integrator == "euler":
@@ -290,9 +287,7 @@ def _simulate_resident(cfg: SimConfig, state: BodyState, steps: int,
                else rs.simulate_resident_sym)
     else:
         run = functools.partial(rs.simulate_resident_sym_kdk,
-                                y4=cfg.integrator == "yoshida4",
-                                force_tile=cfg.sym_tile,
-                                force_chunk=cfg.sym_chunk)
+                                y4=cfg.integrator == "yoshida4")
     pos, vel = run(state.pos, state.vel,
                    state.mass if cfg.use_masses else None, steps=steps,
                    dt=float(cfg.dt), softening=float(cfg.softening),

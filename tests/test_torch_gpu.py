@@ -33,7 +33,12 @@ split Yoshida-4 phase bitwise one run, 'auto' bitwise 'masked', a 'fast'
 fold over pads within the class bound of 'masked' (tests/test_resident_sym.py:
 rtol 1e-4, atol 1e-5 of the scale in the fp32 class, 2e-2 and 2e-3 in the
 bf16 class), and simulate's resident route, forced or by default, bitwise
-the streamed loop.
+the streamed loop: a routed leapfrog or Yoshida-4 simulate and
+simulate_ensemble call is one B15 launch with no streamed force launch and
+no slot_reduce, the parameter sweep too, a run of many pieces bitwise the
+streamed Euler, leapfrog and Yoshida-4 runs; B15's occupancy (no spills
+and at least 2 CTAs per SM in the fp32 class, the bf16 class's two
+instantiations no fewer CTAs per SM than K2).
 
 B16 (the band traversal) against its plain version in bf16 mode in its
 tri, cross and ensemble modes at the bf16 class per column (rtol 2e-2,
@@ -1637,9 +1642,11 @@ def test_ensemble_vjp_grouping_keeps_the_bits(cuda, monkeypatch, mxu):
 
 @pytest.mark.parametrize("mxu", [False, True])
 def test_b15_many_pieces(cuda, monkeypatch, mxu):
-    # Pieces of 7 slots: B15's per-piece barriers and reduces. Each system
-    # bitwise its standalone run, the run bitwise the streamed Euler run
-    # (the same slot bodies, pieces and adds), and the plain schedule
+    # Pieces of 7 slots: B15's per-piece barriers and reduces, and the
+    # last piece's sums added by the integrating thread (some blocks are
+    # no target of the last piece). Each system bitwise its standalone
+    # run, the Euler, leapfrog and Yoshida-4 runs bitwise the streamed
+    # runs (the same slot bodies, pieces and adds), and the plain schedule
     # within the class bound.
     monkeypatch.setattr(sp, "PIECE_SLOTS", 7)
     n, tile = 1000, 64
@@ -1650,17 +1657,102 @@ def test_b15_many_pieces(cuda, monkeypatch, mxu):
         pi, vi = rs.simulate_resident_sym(ss[i].pos, ss[i].vel, ss[i].mass,
                                           **kw)
         assert torch.equal(p[i], pi) and torch.equal(v[i], vi), i
-    ref = simulate(SimConfig(n=n, steps=3, dt=1e-3, softening=1e-2,
-                             use_masses=True, sym_tile=tile,
-                             backend="sym_mxu" if mxu else "sym",
-                             resident=False), ss[0])
+    cfg = SimConfig(n=n, steps=3, dt=1e-3, softening=1e-2, use_masses=True,
+                    sym_tile=tile, backend="sym_mxu" if mxu else "sym",
+                    resident=False)
+    ref = simulate(cfg, ss[0])
     assert torch.equal(p[0], ref.pos) and torch.equal(v[0], ref.vel)
+    for integrator in ("leapfrog", "yoshida4"):
+        kdk = cfg.replace(integrator=integrator)
+        before = rs.LAUNCHES
+        res = simulate(kdk.replace(resident=True), ss[0])
+        assert rs.LAUNCHES == before + 1
+        ref = simulate(kdk, ss[0])
+        assert torch.equal(res.pos, ref.pos), integrator
+        assert torch.equal(res.vel, ref.vel), integrator
     pp, vv, mm = _padded(ss[0], n, tile, True)
     slots = sp.slot_table(pp.shape[1] // tile, True, False, cuda)
+    last = rs.resident_plan(slots)[3]
+    assert len(rs.resident_plan(slots)[0]) > 1 and (last < 0).any()
     rs.resident_plain(pp, vv, mm, slots, tile, n, 3, 1e-3, 1e-2, mxu, True,
                       mma_dtype=torch.bfloat16 if mxu else torch.float32)
     _close_change(p[0], pp[0, :n], ss[0].pos, RES_PLAIN[mxu])
     _close_change(v[0], vv[0, :n], ss[0].vel, RES_PLAIN[mxu])
+
+
+def _streamed_launches():
+    """The launch counts of the streamed force kernels and the reduce: K2,
+    K3, B9a, B9b (in those counters) and slot_reduce."""
+    return (sp.LAUNCHES, sf.LAUNCHES, sp.ENSEMBLE_LAUNCHES,
+            sf.ENSEMBLE_LAUNCHES, sp.REDUCE_LAUNCHES)
+
+
+@pytest.mark.parametrize("backend", ["auto", "sym_mxu"])
+@pytest.mark.parametrize("integrator", ["leapfrog", "yoshida4"])
+def test_routed_kdk_is_one_b15_launch(cuda, backend, integrator):
+    # resident=None: a leapfrog or Yoshida-4 simulate and simulate_ensemble
+    # call within the crossovers is one B15 launch, its opening and
+    # closing passes included, with no streamed force launch and no
+    # slot_reduce; each bitwise the streamed loop.
+    from mini_nbody_tpu_torch import sim as tsim
+
+    eff = "sym" if backend == "auto" else backend
+    steps = max(3, tsim.RESIDENT_AUTO_MIN_STEPS[integrator])
+    n = min(1000, tsim.RESIDENT_ENSEMBLE_AUTO_MAX_N[eff])
+    ss, st = _ensemble(n, 3, True, cuda, seed=62)
+    cfg = SimConfig(n=n, dt=1e-3, steps=steps, softening=1e-2,
+                    backend=backend, integrator=integrator, use_masses=True)
+    for run, state in ((simulate, ss[0]), (simulate_ensemble, st)):
+        before, streamed = rs.LAUNCHES, _streamed_launches()
+        out = run(cfg, state)
+        assert rs.LAUNCHES == before + 1, run.__name__
+        assert _streamed_launches() == streamed, run.__name__
+        ref = run(cfg.replace(resident=False), state)
+        assert torch.equal(out.pos, ref.pos), run.__name__
+        assert torch.equal(out.vel, ref.vel), run.__name__
+
+
+def test_resident_sweep_is_one_launch(cuda):
+    # examples/parameter_sweep.py at its defaults (32 systems of 1024
+    # plummer bodies, 200 leapfrog steps on sym_mxu) on the resident
+    # ensemble: one B15 launch, no B9a, bitwise the streamed ensemble.
+    b, n = 32, 1024
+    gen = torch.Generator(device=cuda).manual_seed(63)
+    base = init.plummer(n, generator=gen, device=cuda)
+    q = torch.linspace(0.2, 1.6, b, device=cuda)
+    st = BodyState(pos=base.pos.expand(b, n, 3).contiguous(),
+                   vel=(base.vel[None] * q[:, None, None]).contiguous(),
+                   mass=base.mass.expand(b, n).contiguous())
+    cfg = SimConfig(n=n, dt=2e-3, steps=200, softening=1e-3,
+                    integrator="leapfrog", use_masses=True,
+                    backend="sym_mxu", resident=True)
+    before, streamed = rs.LAUNCHES, _streamed_launches()
+    out = simulate_ensemble(cfg, st)
+    assert rs.LAUNCHES == before + 1
+    assert _streamed_launches() == streamed
+    ref = simulate_ensemble(cfg.replace(resident=False), st)
+    assert torch.equal(out.pos, ref.pos) and torch.equal(out.vel, ref.vel)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_b15_occupancy(cuda, tile):
+    # The force phase's warps per SM (csrc/resident_sym.cu res_min_ctas):
+    # the fp32 class at least 2 CTAs per SM with no spills, K3's 16 warps
+    # at tile 128 and 12 at tile 64; both bf16 instantiations no fewer CTAs
+    # per SM than K2 (slot_pipe_info), the wide one 16 warps.
+    for k in (3, 4):
+        for fast in (0, 1):
+            regs, local, ctas = _occupancy("resident_sym_info", tile, 0, k,
+                                           fast, 0)
+            assert ctas >= 2 and local == 0, (k, fast)
+            warps = ctas * (tile // 8) ** 2 // 32
+            assert warps >= (16 if tile == 128 else 12), (k, fast)
+    _, _, k2 = _occupancy("slot_pipe_info", tile, 0)
+    for wide in (0, 1):
+        regs, local, ctas = _occupancy("resident_sym_info", tile, 1, 3, 1,
+                                       wide)
+        assert ctas >= k2, wide
+        assert not wide or ctas * tile // 32 >= 16
 
 
 # ------------------------------------------------ band traversal (B16)
