@@ -113,7 +113,9 @@ the demos as modules):
 - ``cli_tune``: ``tune`` at N = 262,144 on ``sym`` into a temporary cache,
   which ``run --autotune`` then reads without measuring;
 - ``trace``: 2 steps under ``utils/tracing.profile_trace`` in ``annotate``
-  spans: the Chrome trace holds the span and K3's kernel;
+  spans: the Chrome trace holds the span, the program's ``nbody.force``
+  span of each step and K3's kernel; under ``emit_nvtx()`` (Nsight's ranges)
+  the span's gate reads the profiler as on;
 - ``examples``: the six demos of examples/torch at quick sizes;
 
 and ``sharded`` also writes its state with ``save_sharded`` and restores it
@@ -407,28 +409,26 @@ def close_cols(got, want, atol, what):
     return err.max().item()
 
 
-#: Launch counters of every kernel wrapper: name -> (module, attribute).
-COUNTERS = {"direct": (df, "LAUNCHES"), "fused": (df, "FUSED_LAUNCHES"),
-            "slot": (sp, "LAUNCHES"), "slot_cross": (sp, "CROSS_LAUNCHES"),
-            "sym": (sf, "LAUNCHES"), "sym_cross": (sf, "CROSS_LAUNCHES"),
-            "pe": (pk, "LAUNCHES"), "vjp_ordered": (vk, "LAUNCHES"),
-            "vjp_sym": (vk, "SYM_LAUNCHES"),
-            "vjp_sym_cross": (vk, "SYM_CROSS_LAUNCHES"),
-            "vjp_mxu": (vm, "LAUNCHES"),
-            "vjp_mxu_cross": (vm, "CROSS_LAUNCHES"),
-            "vjp_rect_mxu": (vm, "RECT_LAUNCHES"), "mxu": (mf, "LAUNCHES"),
-            "pair": (sp, "PAIR_LAUNCHES"),
-            "slot_ensemble": (sp, "ENSEMBLE_LAUNCHES"),
-            "sym_ensemble": (sf, "ENSEMBLE_LAUNCHES"),
-            "vjp_sym_ensemble": (vk, "SYM_ENSEMBLE_LAUNCHES"),
-            "vjp_mxu_ensemble": (vm, "ENSEMBLE_LAUNCHES"),
-            "resident": (rs, "LAUNCHES"),
-            "vjp_pair": (vk, "PAIR_LAUNCHES"),
-            "slot_reduce": (sp, "REDUCE_LAUNCHES"),
-            "band": (sm, "BAND_LAUNCHES"),
-            "band_cross": (sm, "BAND_CROSS_LAUNCHES"),
-            "band_ensemble": (sm, "BAND_ENSEMBLE_LAUNCHES"),
-            "band_reduce": (sm, "BAND_REDUCE_LAUNCHES")}
+#: The launch counters of read_counts: its name -> the registry's
+#: (utils/tracing.counters).
+COUNTERS = {"direct": "launch.K1", "fused_euler": "launch.K5",
+            "slot_tri": "launch.K2.tri", "slot_cross": "launch.K2.cross",
+            "pair_mxu": "launch.B4", "mxu": "launch.B6",
+            "sym_tri": "launch.K3.tri", "sym_cross": "launch.K3.cross",
+            "pe": "launch.K4", "vjp_ordered": "launch.B10",
+            "vjp_sym_tri": "launch.B11.tri",
+            "vjp_sym_cross": "launch.B11.cross",
+            "vjp_mxu_tri": "launch.B13.tri",
+            "vjp_mxu_cross": "launch.B13.cross",
+            "vjp_rect_mxu": "launch.B14", "slot_ensemble": "launch.B9a",
+            "sym_ensemble": "launch.B9b", "vjp_sym_ensemble": "launch.B9c",
+            "vjp_mxu_ensemble": "launch.B9d", "resident": "launch.B15",
+            "vjp_pair": "launch.B12", "slot_reduce": "launch.slot_reduce",
+            "band_tri": "launch.B16.tri", "band_cross": "launch.B16.cross",
+            "band_ensemble": "launch.B16.ensemble",
+            "band_reduce": "launch.band_reduce"}
+#: The registry's counts at the last reset_counts.
+_COUNTS_AT_RESET = tracing.counters()
 #: The slot kernels of read_counts: slot_reduce runs once after each of
 #: their launches (B15 adds its partials inside its own launch).
 SLOT_KERNELS = ("slot_tri", "slot_cross", "pair_mxu", "slot_ensemble",
@@ -444,8 +444,8 @@ BAND_KERNELS = ("band_tri", "band_cross", "band_ensemble")
 
 
 def reset_counts():
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
+    global _COUNTS_AT_RESET
+    _COUNTS_AT_RESET = tracing.counters()
     for k in _comm.CALLS:
         _comm.CALLS[k] = 0
 
@@ -462,27 +462,9 @@ def expect_calls(path, **want):
 
 def read_counts():
     """Launches per kernel (tri and cross modes apart) since reset_counts."""
-    c = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
-    return {"direct": c["direct"], "fused_euler": c["fused"],
-            "slot_tri": c["slot"] - c["slot_cross"],
-            "slot_cross": c["slot_cross"] - c["pair"],
-            "pair_mxu": c["pair"], "mxu": c["mxu"],
-            "sym_tri": c["sym"] - c["sym_cross"], "sym_cross": c["sym_cross"],
-            "pe": c["pe"], "vjp_ordered": c["vjp_ordered"],
-            "vjp_sym_tri": c["vjp_sym"] - c["vjp_sym_cross"],
-            "vjp_sym_cross": c["vjp_sym_cross"],
-            "vjp_mxu_tri": c["vjp_mxu"] - c["vjp_mxu_cross"],
-            "vjp_mxu_cross": c["vjp_mxu_cross"],
-            "vjp_rect_mxu": c["vjp_rect_mxu"],
-            "slot_ensemble": c["slot_ensemble"],
-            "sym_ensemble": c["sym_ensemble"],
-            "vjp_sym_ensemble": c["vjp_sym_ensemble"],
-            "vjp_mxu_ensemble": c["vjp_mxu_ensemble"],
-            "resident": c["resident"], "vjp_pair": c["vjp_pair"],
-            "slot_reduce": c["slot_reduce"], "band_tri": c["band"],
-            "band_cross": c["band_cross"],
-            "band_ensemble": c["band_ensemble"],
-            "band_reduce": c["band_reduce"]}
+    now = tracing.counters()
+    return {k: now[name] - _COUNTS_AT_RESET[name]
+            for k, name in COUNTERS.items()}
 
 
 def expect_counts(got, path, **want):
@@ -3697,7 +3679,9 @@ def cli_tune_phase():
 
 def trace_phase():
     """2 steps at N_TRACE on auto under utils/tracing.profile_trace, each
-    in an annotate span: the Chrome trace holds the span and K3's kernel."""
+    in an annotate span: the Chrome trace holds the span, one nbody.force
+    span a step and K3's kernel. Also reports whether annotate's gate is
+    on under emit_nvtx(), where Nsight would record its ranges."""
     t0 = time.perf_counter()
     cfg = SimConfig(n=N_TRACE)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -3708,7 +3692,7 @@ def trace_phase():
     with tempfile.TemporaryDirectory() as d:
         with tracing.profile_trace(d, device=DEV) as prof:
             for _ in range(2):
-                with tracing.annotate("nbody_step", device=DEV):
+                with tracing.annotate("nbody_step"):
                     carry = step(carry)
             torch.cuda.synchronize()
         events = json.loads(
@@ -3716,11 +3700,16 @@ def trace_phase():
     names = {e.get("name", "") for e in events}
     kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
     k3 = [k for k in kernels if "symmetric_force_kernel" in k]
-    if "nbody_step" not in names or not k3:
-        fail(f"trace: span found {'nbody_step' in names}, kernels "
-             f"{kernels[:8]}")
+    forces = sum(e.get("cat") == "user_annotation"
+                 and e.get("name") == "nbody.force" for e in events)
+    if "nbody_step" not in names or not k3 or forces != 2:
+        fail(f"trace: span found {'nbody_step' in names}, nbody.force spans "
+             f"{forces}, kernels {kernels[:8]}")
+    with torch.autograd.profiler.emit_nvtx():
+        nvtx_gate = tracing._profiler_enabled()
     top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
-    line("trace", n=N_TRACE, steps=2, span="nbody_step", kernels=len(kernels),
+    line("trace", n=N_TRACE, steps=2, span="nbody_step", force_spans=forces,
+         gate_under_emit_nvtx=nvtx_gate, kernels=len(kernels),
          k3_events=sum(e.get("name") in k3 for e in events),
          top_device_us={a.key[:60]: a.self_device_time_total
                         for a in top[:4]},

@@ -3,7 +3,9 @@
 Counterpart of ``mini_nbody_tpu/cli.py:1-520``, with its subcommands,
 options and JSON keys:
 
-  run    — integrate a system for S steps (optionally checkpointing)
+  run    — integrate a system for S steps (optionally checkpointing;
+           ``--trace DIR`` writes a profiler trace of the run, the
+           program's spans in it, and reports the counters it moved)
   bench  — time the step loop, report GInteractions/s + roofline
   shmoo  — scaling sweep over N, CSV/JSONL out
   check  — numerics gate: force error vs a float64 oracle, energy drift,
@@ -33,6 +35,7 @@ import json
 import math
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -193,6 +196,29 @@ def _device_kind(device):
 
 
 def cmd_run(args):
+    """Print _run's report; with --trace DIR, the run under
+    utils/tracing.profile_trace(DIR) (the program's nbody.* spans beside
+    the card's kernels), and the report adds the trace file ("trace") and
+    the counters the run moved ("counters": launches, routes, scans)."""
+    if not args.trace:
+        _emit(json.dumps(_run(args)))
+        return
+    from mini_nbody_tpu_torch.utils import tracing
+
+    if _parse_mesh(args.devices):
+        raise SystemExit("--trace traces one process: run it without "
+                         "--devices")
+    device = _device(args)
+    before = tracing.counters()
+    with tracing.profile_trace(args.trace, device=device.type):
+        report = _run(args)
+    report["trace"] = str(Path(args.trace) / tracing.TRACE_FILE)
+    report["counters"] = dict(tracing.counters() - before)
+    _emit(json.dumps(report))
+
+
+def _run(args):
+    """The run subcommand's work; returns its JSON report."""
     from mini_nbody_tpu_torch.ops import diagnostics as diag
     from mini_nbody_tpu_torch.sim import simulate
     from mini_nbody_tpu_torch.utils import checkpoint as ckpt
@@ -211,8 +237,7 @@ def cmd_run(args):
     if mesh is not None:
         device = mesh.device
     if args.ensemble:
-        _run_ensemble(args, cfg, device, mesh)
-        return
+        return _run_ensemble(args, cfg, device, mesh)
     if args.resume:
         state, start_step, _ = ckpt.load(args.resume, device=device)
         _emit(f"resumed from {args.resume} at step {start_step}", sys.stderr)
@@ -267,7 +292,7 @@ def cmd_run(args):
         written = ckpt.save(args.save, out, step=start_step + cfg.steps,
                             cfg=cfg)
         report["checkpoint"] = str(written)
-    _emit(json.dumps(report))
+    return report
 
 
 def _run_ensemble(args, cfg, device, mesh):
@@ -303,11 +328,9 @@ def _run_ensemble(args, cfg, device, mesh):
     _sync(device)
     wall = time.perf_counter() - t0
     mom = (out_b.vel * out_b.mass[..., None]).sum(dim=1)
-    _emit(json.dumps({
-        "n": cfg.n, "steps": cfg.steps, "ensemble": b,
-        "wall_s": round(wall, 3),
-        "momentum_max_abs": float(mom.abs().max()),
-    }))
+    return {"n": cfg.n, "steps": cfg.steps, "ensemble": b,
+            "wall_s": round(wall, 3),
+            "momentum_max_abs": float(mom.abs().max())}
 
 
 def cmd_bench(args):
@@ -493,6 +516,11 @@ def main(argv=None):
     p.add_argument("--resume", help="resume from checkpoint")
     p.add_argument("--energy", action="store_true",
                    help="report total energy")
+    p.add_argument("--trace", metavar="DIR",
+                   help="run under torch.profiler and write its Chrome "
+                        "trace (the program's nbody.* spans beside the "
+                        "card's kernels) into DIR; the report adds the "
+                        "trace file and the counters the run moved")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("bench", help="time the step loop")

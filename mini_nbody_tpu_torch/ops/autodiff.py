@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from mini_nbody_tpu_torch import _build
+from mini_nbody_tpu_torch.utils.tracing import annotate, count
 
 #: Bound of the pair-once backward kernels in JAX (the (ko, N) VMEM
 #: reaction buffer); beyond it the ordered backwards take over.
@@ -96,7 +97,8 @@ def _route(pos, g, mass, softening, backward, unit_mass, block, mass_grad,
            sym_bwd_tile, coincident):
     """(pos_bar, mass_bar or None) for cotangent g: the JAX routing, with
     mass_grad beyond the bound on the card sent to B11 (module
-    docstring)."""
+    docstring). The kernel routed to is counted as route.vjp.<kernel>
+    (B10, B11, B13, B14, or torch for the plain PyTorch VJP)."""
     from mini_nbody_tpu_torch.ops import vjp_kernel, vjp_mxu
 
     n = pos.shape[0]
@@ -104,10 +106,12 @@ def _route(pos, g, mass, softening, backward, unit_mass, block, mass_grad,
     sym_kw = dict(softening=softening, tile=sym_bwd_tile,
                   mass_grad=mass_grad, coincident=coincident)
     if backward != "torch" and n <= _SYM_BWD_MAX:
-        sym = (vjp_mxu.vjp_pos_sym_mxu if backward == "bf16"
-               else vjp_kernel.vjp_pos_sym)
+        bf16 = backward == "bf16"
+        count("route.vjp.B13" if bf16 else "route.vjp.B11")
+        sym = vjp_mxu.vjp_pos_sym_mxu if bf16 else vjp_kernel.vjp_pos_sym
         out = sym(pos, g, m, **sym_kw)
     elif backward != "torch" and not mass_grad:
+        count("route.vjp.B14" if backward == "bf16" else "route.vjp.B10")
         if backward == "bf16":
             out = vjp_mxu.vjp_rect_mxu(pos, g, pos, g, m, m,
                                        softening=softening,
@@ -117,8 +121,10 @@ def _route(pos, g, mass, softening, backward, unit_mass, block, mass_grad,
                                             block=block,
                                             coincident=coincident)
     elif backward != "torch" and _build.on_card(pos.device):
+        count("route.vjp.B11")
         out = vjp_kernel.vjp_pos_sym(pos, g, m, **sym_kw)
     else:
+        count("route.vjp.torch")
         # Unit masses as the forward took them (JAX's jnp backward uses the
         # passed masses here even when the forward ignored them).
         out = _vjp_pos(pos, g, torch.ones_like(mass) if unit_mass else mass,
@@ -128,7 +134,7 @@ def _route(pos, g, mass, softening, backward, unit_mass, block, mass_grad,
 
 class _BodyForceDiff(torch.autograd.Function):
     """forward: the force kernel (no autograd history of its own);
-    backward: the routed VJP kernel."""
+    backward: the routed VJP kernel, one nbody.vjp span."""
 
     @staticmethod
     def forward(ctx, pos, mass, impl, spec):
@@ -138,11 +144,12 @@ class _BodyForceDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        pos, mass = ctx.saved_tensors
-        pos_bar, mass_bar = _route(pos, g.contiguous(), mass, **ctx.spec)
-        if mass_bar is None and ctx.needs_input_grad[1]:
-            mass_bar = torch.zeros_like(mass)
-        return pos_bar, mass_bar, None, None
+        with annotate("nbody.vjp"):
+            pos, mass = ctx.saved_tensors
+            pos_bar, mass_bar = _route(pos, g.contiguous(), mass, **ctx.spec)
+            if mass_bar is None and ctx.needs_input_grad[1]:
+                mass_bar = torch.zeros_like(mass)
+            return pos_bar, mass_bar, None, None
 
 
 def make_body_force_diff(force_impl, softening: float,
@@ -213,9 +220,9 @@ def make_differentiable_force(cfg, mass_grad: bool = False):
 
 class StaticMassForce(torch.autograd.Function):
     """forward: a force fwd(pos, mass) that has no autograd history;
-    backward: its VJP bwd(pos, g, mass). The masses are static (no
-    gradient), as in JAX's ensemble and sharded forces. Used by
-    make_differentiable_ensemble_force and the sharded step
+    backward: its VJP bwd(pos, g, mass), one nbody.vjp span. The masses
+    are static (no gradient), as in JAX's ensemble and sharded forces. Used
+    by make_differentiable_ensemble_force and the sharded step
     (parallel/sharded.py)."""
 
     @staticmethod
@@ -226,8 +233,9 @@ class StaticMassForce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        pos, mass = ctx.saved_tensors
-        return ctx.bwd(pos, g.contiguous(), mass), None, None, None
+        with annotate("nbody.vjp"):
+            pos, mass = ctx.saved_tensors
+            return ctx.bwd(pos, g.contiguous(), mass), None, None, None
 
 
 def make_differentiable_ensemble_force(cfg):
@@ -236,7 +244,8 @@ def make_differentiable_ensemble_force(cfg):
     body_force_sym_mxu_ensemble (B9a) for 'sym_mxu' or
     body_force_symmetric_ensemble (B9b) for 'sym' and 'auto'; backward
     vjp_pos_sym_mxu_ensemble (B9d) or vjp_pos_sym_ensemble (B9c), at
-    cfg.sym_bwd_tile. Gradients flow to pos only; the masses are static."""
+    cfg.sym_bwd_tile. Gradients flow to pos only; the masses are static.
+    A call is one force pass: one nbody.force span."""
     eff = cfg.effective_backend()
     if eff not in ("sym", "sym_mxu"):
         raise ValueError(
@@ -275,6 +284,7 @@ def make_differentiable_ensemble_force(cfg):
         if mass is None:
             mass = torch.ones(pos.shape[:2], dtype=pos.dtype,
                               device=pos.device)
-        return StaticMassForce.apply(pos, mass, fwd, bwd)
+        with annotate("nbody.force"):
+            return StaticMassForce.apply(pos, mass, fwd, bwd)
 
     return force

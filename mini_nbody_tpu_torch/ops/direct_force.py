@@ -23,11 +23,7 @@ import torch
 from mini_nbody_tpu_torch import _build
 from mini_nbody_tpu_torch.utils.config import (SOFTENING, fast_rsqrt_cube,
                                                plain_block_elems)
-
-#: Kernel launches made by body_force_direct (CUDA tensors only).
-LAUNCHES = 0
-#: Kernel launches made by euler_step_fused (CUDA tensors only).
-FUSED_LAUNCHES = 0
+from mini_nbody_tpu_torch.utils.tracing import count
 
 #: The smallest normal fp32. From a softening of FLT_MIN every r2 is normal,
 #: so rsqrt.approx.ftz gives rsqrtf's bits without its denormal rescaling.
@@ -123,8 +119,7 @@ def launch_direct(pos_i, pos_j, mass_j, softening, r: int, rows: int):
     """K1 at an explicit schedule: r rows a thread, ``rows`` rows a CTA and
     j tile (the kernel refuses r outside (1, 2, 4) and rows not a multiple
     of 32 r up to 1024). CUDA tensors, checked by the caller; the bits do
-    not depend on (r, rows)."""
-    global LAUNCHES
+    not depend on (r, rows). Counted as launch.K1."""
     device = pos_i.device
     lib = _build.load_library()
     out = torch.empty((pos_i.shape[0], 3), dtype=torch.float32,
@@ -136,7 +131,7 @@ def launch_direct(pos_i, pos_j, mass_j, softening, r: int, rows: int):
             out.data_ptr(), float(softening), rsqrt_form(softening), r, rows,
             _build.stream_ptr(device))
     _build.check(lib, code, "direct_force_launch")
-    LAUNCHES += 1
+    count("launch.K1")
     return out
 
 
@@ -176,8 +171,8 @@ def euler_step_fused(pos, vel, mass=None, dt: float = 0.01,
 
 
 def launch_fused(pos, vel, mass, dt, softening, r: int, rows: int):
-    """K5 at an explicit schedule (as launch_direct): (pos', vel')."""
-    global FUSED_LAUNCHES
+    """K5 at an explicit schedule (as launch_direct): (pos', vel'),
+    counted as launch.K5."""
     device = pos.device
     lib = _build.load_library()
     pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
@@ -189,5 +184,5 @@ def launch_fused(pos, vel, mass, dt, softening, r: int, rows: int):
             float(dt), rsqrt_form(softening), r, rows,
             _build.stream_ptr(device))
     _build.check(lib, code, "direct_euler_launch")
-    FUSED_LAUNCHES += 1
+    count("launch.K5")
     return pos_out, vel_out

@@ -16,6 +16,7 @@ from __future__ import annotations
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
 from mini_nbody_tpu_torch.utils.config import (AUTO_BACKEND, SOFTENING,
                                                SimConfig)
+from mini_nbody_tpu_torch.utils.tracing import annotate
 
 #: Element bound of the plain backend's (rows, Nj) intermediate.
 _TORCH_BLOCK_ELEMS = 1 << 24
@@ -32,7 +33,19 @@ def body_force(pos_i, pos_j, mass_j=None, softening: float = SOFTENING,
     tile_i is the direct kernel's block size and, with tile_j, the tiling
     of the mxu plain version; pair_dtype is mxu's precision class;
     sym_tile / sym_chunk override the sym and sym_mxu defaults; split_w
-    applies to sym_mxu, coincident to sym_mxu and to square mxu calls."""
+    applies to sym_mxu, coincident to sym_mxu and to square mxu calls.
+    One call is one force pass: one nbody.force span."""
+    with annotate("nbody.force"):
+        return dispatch(pos_i, pos_j, mass_j, softening, backend, tile_i,
+                        tile_j, pair_dtype, split_w, traversal, sym_tile,
+                        sym_chunk, coincident)
+
+
+def dispatch(pos_i, pos_j, mass_j, softening, backend, tile_i, tile_j,
+             pair_dtype, split_w, traversal, sym_tile, sym_chunk,
+             coincident):
+    """body_force without its span, for a caller whose pass is several
+    calls (parallel/sharded.py's exchanges)."""
     if backend == "auto":
         backend = AUTO_BACKEND if pos_i is pos_j else "direct"
     if backend == "torch":

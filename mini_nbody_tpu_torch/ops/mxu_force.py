@@ -49,12 +49,10 @@ from mini_nbody_tpu_torch.ops.sym_mxu_force import any_coincident, resolve_auto
 from mini_nbody_tpu_torch.utils.config import (_PAIR_DTYPES, FAR, SOFTENING,
                                                check_coincident,
                                                plain_block_elems, round_up)
+from mini_nbody_tpu_torch.utils.tracing import count
 
 #: B6's receivers per CTA and sources per j tile.
 KERNEL_TILE = 128
-
-#: Kernel launches made by hybrid_forces (B6), on CUDA tensors only.
-LAUNCHES = 0
 
 #: B6's coincident gate: below this many bodies a square call's 'auto' is
 #: 'masked', without the duplicate scan: the smallest N of chip_smoke.py's
@@ -159,7 +157,6 @@ def hybrid_forces(pos_i, pos_j, mass_j=None, softening=SOFTENING,
         f = _epilogue(pos_i, s)
         return (f, s) if with_sums else f
     _build.refuse_grad("mxu_force", pos_i, pos_j, mass_j)
-    global LAUNCHES
     lib = _build.load_library()
     f = torch.empty((ni, 3), dtype=torch.float32, device=device)
     s = (torch.empty((ni, 8 if bf16 else 3), dtype=torch.float32,
@@ -171,7 +168,7 @@ def hybrid_forces(pos_i, pos_j, mass_j=None, softening=SOFTENING,
             None if s is None else s.data_ptr(), float(softening),
             int(overlap_only), int(bf16), _build.stream_ptr(device))
     _build.check(lib, code, "mxu_force_launch")
-    LAUNCHES += 1
+    count("launch.B6")
     return (f, s) if with_sums else f
 
 

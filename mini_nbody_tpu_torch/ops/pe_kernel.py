@@ -20,9 +20,8 @@ from mini_nbody_tpu_torch import _build
 from mini_nbody_tpu_torch.ops.direct_force import (FORM_NORMAL, rsqrt_form,
                                                    row_schedule)
 from mini_nbody_tpu_torch.utils.config import SOFTENING, plain_block_elems
+from mini_nbody_tpu_torch.utils.tracing import count
 
-#: Kernel launches made by potential_energy_kernel (CUDA tensors only).
-LAUNCHES = 0
 #: Rows a CTA of K4, which is also its j-tile size, where n gives every SM
 #: a CTA (schedule; the sweep in PERF.md chose 1024 rows, 2 a thread, at
 #: 262,144 bodies), and the fewest it halves to.
@@ -96,8 +95,7 @@ def launch_rows(pos, mass, softening, r: int, rows: int):
     """K4's row sums (N,) at an explicit schedule: r rows a thread, ``rows``
     rows a CTA and j tile (refused outside r in (1, 2, 4), rows a multiple
     of 32 r up to 1024). CUDA tensors, checked by the caller; the bits do
-    not depend on (r, rows)."""
-    global LAUNCHES
+    not depend on (r, rows). Counted as launch.K4."""
     device = pos.device
     n = pos.shape[0]
     lib = _build.load_library()
@@ -109,5 +107,5 @@ def launch_rows(pos, mass, softening, r: int, rows: int):
             int(rsqrt_form(softening, cube=False) == FORM_NORMAL), r, rows,
             _build.stream_ptr(device))
     _build.check(lib, code, "pe_rows_launch")
-    LAUNCHES += 1
+    count("launch.K4")
     return out

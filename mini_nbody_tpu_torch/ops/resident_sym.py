@@ -69,6 +69,7 @@ from mini_nbody_tpu_torch.utils.config import (FAR, RESIDENT_TILES,
                                                SOFTENING, check_coincident,
                                                fast_rsqrt_cube,
                                                plain_block_elems, round_up)
+from mini_nbody_tpu_torch.utils.tracing import count
 
 #: The most bodies one resident launch holds: N for one system, B Np for an
 #: ensemble (the JAX package's cap; 32 B of state per body, 4 MB here).
@@ -84,10 +85,6 @@ RESIDENT_SYM_MAX_N = 131072
 #: B15's runs are bitwise the streamed runs, so routing a run to B15
 #: changes no bit of its result.
 FOLD_DEFAULT = True
-
-#: Kernel launches on CUDA tensors, one per resident call (a whole
-#: trajectory, its end passes included), counted at each launch.
-LAUNCHES = 0
 
 
 def auto_tile(n: int, kernel: bool = True) -> int:
@@ -419,8 +416,8 @@ def _launch(pos, vel, mass, slots, tile, steps, dt, softening, mxu,
     """B15 on the card: the bodies pos, vel (N, 3) or (B, N, 3) and mass
     (N,), (B, N) or None through the passes of resident_plain; returns
     the new (pos, vel) in pos's shape. The kernel pads and packs the bodies
-    itself, into one scratch allocation, and writes its outputs once."""
-    global LAUNCHES
+    itself, into one scratch allocation, and writes its outputs once.
+    Counted as launch.B15, one a call (a whole trajectory)."""
     if tile not in RESIDENT_TILES:
         raise ValueError(f"the CUDA resident kernel takes tile in "
                          f"{RESIDENT_TILES}, got {tile}")
@@ -454,7 +451,7 @@ def _launch(pos, vel, mass, slots, tile, steps, dt, softening, mxu,
             None if coef is None else ctypes.addressof(coef), y4_phase, tile,
             int(mxu), kp, _build.stream_ptr(device))
     _build.check(lib, code, "resident_sym_launch")
-    LAUNCHES += 1
+    count("launch.B15")
     return p_out, v_out
 
 

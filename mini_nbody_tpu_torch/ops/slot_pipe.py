@@ -45,6 +45,7 @@ from mini_nbody_tpu_torch import _build
 from mini_nbody_tpu_torch.ops.sym_mxu_force import _w_block, _w_from_d, _w_parts
 from mini_nbody_tpu_torch.utils.config import (fast_rsqrt_cube,
                                                plain_block_elems)
+from mini_nbody_tpu_torch.utils.tracing import count
 
 SLOT_DIAG = 0
 SLOT_CROSS = 1
@@ -53,19 +54,14 @@ SLOT_FOLD = 2
 #: The tiles the CUDA kernel is compiled for.
 KERNEL_TILES = (64, 128)
 
-#: Kernel launches on CUDA tensors, counted at each launch (a call makes
-#: one launch of its kernel per piece of its slot list and group of
-#: systems, and one slot_reduce launch after each; run_slot_pieces):
-#: LAUNCHES those of K2 made by tri_slot_sums_, cross_slot_sums_ and
-#: pair_slot_sums_, CROSS_LAUNCHES the cross-mode share of them,
-#: PAIR_LAUNCHES the share of that made for body_force_pair_mxu (B4);
-#: ENSEMBLE_LAUNCHES those of tri_slot_sums_ensemble_ (B9a); REDUCE_LAUNCHES
-#: those of csrc/slot_reduce.cu behind K2, K3, B11, B12 and B13.
-LAUNCHES = 0
-CROSS_LAUNCHES = 0
-PAIR_LAUNCHES = 0
-ENSEMBLE_LAUNCHES = 0
-REDUCE_LAUNCHES = 0
+#: The registry's counter of each kind of K2 call (utils/tracing.count),
+#: counted at each launch on CUDA tensors: a call makes one launch of its
+#: kernel per piece of its slot list and group of systems, and one
+#: slot_reduce launch after each (launch.slot_reduce, behind K2, K3, B11,
+#: B12 and B13; run_slot_pieces). "pair" is body_force_pair_mxu's cross
+#: mode (B4), "ensemble" tri_slot_sums_ensemble_ (B9a).
+COUNTERS = {"tri": "launch.K2.tri", "cross": "launch.K2.cross",
+            "pair": "launch.B4", "ensemble": "launch.B9a"}
 
 #: System-local slots per piece. A slot list is cut at multiples of this, so
 #: the grouping of every add depends on the slot list alone, never on the
@@ -203,8 +199,7 @@ def slot_reduce_(part, piece_plan, acc_a, acc_b, tile, width, n_sys=1,
         acc_a.data_ptr(), acc_b.data_ptr(), n_sys, sys_rows * width, n * 2,
         _build.stream_ptr(part.device))
     _build.check(lib, code, "slot_reduce_launch")
-    global REDUCE_LAUNCHES
-    REDUCE_LAUNCHES += 1
+    count("launch.slot_reduce")
 
 
 def slot_reduce_plain(part, piece_plan, acc_a, acc_b, tile, width, n_sys=1,
@@ -227,13 +222,14 @@ def slot_reduce_plain(part, piece_plan, acc_a, acc_b, tile, width, n_sys=1,
 
 
 def run_slot_pieces(what, slots, tri, tile, width, acc_a, acc_b, launch,
-                    count, n_sys=1, sys_rows=0):
+                    counter, n_sys=1, sys_rows=0):
     """Drive one slot kernel deterministically: for each piece of the slot
     list and each group of systems, ``launch(piece, n_slots, n_sys_group,
     first_system, part)`` stores the per-slot partials ((tile, width) fp32
-    tiles, two per slot) in ``part`` and returns the CUDA status, and
-    ``count()`` counts that launch; then slot_reduce_ adds them into acc_a /
-    acc_b ((rows, width), system s at row s * sys_rows) in slot order."""
+    tiles, two per slot) in ``part`` and returns the CUDA status, and the
+    registry counter ``counter`` counts that launch; then slot_reduce_ adds
+    them into acc_a / acc_b ((rows, width), system s at row s * sys_rows)
+    in slot order."""
     plan = reduce_plan(slots, tri)
     if not plan or n_sys == 0:
         return
@@ -246,7 +242,7 @@ def run_slot_pieces(what, slots, tri, tile, width, acc_a, acc_b, launch,
         s0, n = piece_plan[:2]
         for g0, g in groups:
             _build.check(lib, launch(slots[s0:s0 + n], n, g, g0, part), what)
-            count()
+            count(counter)
             slot_reduce_(part, piece_plan, acc_a[g0 * sys_rows:],
                          acc_b[g0 * sys_rows:], tile, width, g, sys_rows)
 
@@ -324,25 +320,10 @@ def _check_sides(acc_a, acc_b, pos_a, pos_b, v_a, v_b, tile):
                                 device)
 
 
-def _count(kind):
-    """The launch counter of a K2 call: "tri", "cross", "pair" (B4) or
-    "ensemble" (B9a)."""
-    def count():
-        global LAUNCHES, CROSS_LAUNCHES, PAIR_LAUNCHES, ENSEMBLE_LAUNCHES
-        if kind == "ensemble":
-            ENSEMBLE_LAUNCHES += 1
-            return
-        LAUNCHES += 1
-        CROSS_LAUNCHES += int(kind != "tri")
-        PAIR_LAUNCHES += int(kind == "pair")
-
-    return count
-
-
 def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
                 softening, split_w, mask_offdiag, n_sys=1, sys_rows=0):
     """K2 on the card over n_sys systems of sys_rows rows (tri mode), a
-    call of _count's ``kind``."""
+    call of a ``kind`` of COUNTERS."""
     _build.refuse_grad("slot_pipe", pos_a, pos_b, v_a, v_b)
     if tile not in KERNEL_TILES:
         raise ValueError(f"the CUDA slot kernel takes tile in {KERNEL_TILES}, "
@@ -362,7 +343,7 @@ def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,
     with torch.cuda.device(device):
         run_slot_pieces("slot_pipe_launch", slots,
                         kind in ("tri", "ensemble"), tile, 8, acc_a, acc_b,
-                        launch, _count(kind), n_sys, sys_rows)
+                        launch, COUNTERS[kind], n_sys, sys_rows)
 
 
 def _launch(cross, acc_a, acc_b, pos_a, pos_b, v_a, v_b, slots, tile,

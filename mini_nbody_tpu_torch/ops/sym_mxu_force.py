@@ -57,6 +57,7 @@ from mini_nbody_tpu_torch.utils.config import (FAR, SOFTENING,
                                                check_coincident,
                                                fast_rsqrt_cube,
                                                plain_block_elems, round_up)
+from mini_nbody_tpu_torch.utils.tracing import annotate, count
 
 #: The port's default slot tile (the CUDA kernel takes 64 or 128; JAX's
 #: 1024 is a VMEM-sized tile).
@@ -80,16 +81,13 @@ COINCIDENT_AUTO_MIN_N = math.inf
 #: 63.86), the largest N it measures.
 BAND_COINCIDENT_AUTO_MIN_N = 262144
 
-#: B16 launches on CUDA tensors, counted at each launch, one counter per
-#: mode: BAND_LAUNCHES (tri), BAND_CROSS_LAUNCHES (cross) and
-#: BAND_ENSEMBLE_LAUNCHES (tri over a system axis). A call launches once per
-#: piece of its row blocks and group of systems (band_pieces), and after
-#: each launch that stores column partials, csrc/slot_reduce.cu once
-#: (BAND_REDUCE_LAUNCHES).
-BAND_LAUNCHES = 0
-BAND_CROSS_LAUNCHES = 0
-BAND_ENSEMBLE_LAUNCHES = 0
-BAND_REDUCE_LAUNCHES = 0
+#: The registry's counter of each B16 mode (utils/tracing.count), counted
+#: at each launch on CUDA tensors: tri, cross and tri over a system axis
+#: ("ensemble"). A call launches once per piece of its row blocks and group
+#: of systems (band_pieces), and after each launch that stores column
+#: partials, csrc/slot_reduce.cu once (launch.band_reduce).
+BAND_COUNTERS = {"tri": "launch.B16.tri", "cross": "launch.B16.cross",
+                 "ensemble": "launch.B16.ensemble"}
 
 #: (tile, 8) fp32 column-partial tiles of one B16 launch: one per row block
 #: and band step of its piece and systems (4 GiB at tile 128). A call's row
@@ -136,12 +134,15 @@ def any_coincident(pos) -> bool:
     hold a d2 == 0 pair between DISTINCT bodies
     (JAX sym_mxu_force.py:105-142): exact duplicate rows (after -0.0 ->
     +0.0), any coordinate with 0 < |c| < 2^-48, or any |c| >= FAR. Returns
-    a Python bool, so it syncs with the device."""
-    p = pos.float() + 0.0
-    dup = torch.unique(p, dim=0).shape[0] < p.shape[0]
-    a = p.abs()
-    flags = ((a > 0.0) & (a < 2.0 ** -48)).any() | (a >= FAR).any()
-    return dup or bool(flags)
+    a Python bool, so it syncs with the device. Every caller's scan is one
+    nbody.coincident_scan span and one count of coincident.scan."""
+    count("coincident.scan")
+    with annotate("nbody.coincident_scan"):
+        p = pos.float() + 0.0
+        dup = torch.unique(p, dim=0).shape[0] < p.shape[0]
+        a = p.abs()
+        flags = ((a > 0.0) & (a < 2.0 ** -48)).any() | (a >= FAR).any()
+        return dup or bool(flags)
 
 
 def any_coincident_ensemble(pos) -> bool:
@@ -383,25 +384,14 @@ def _band_sums_plain(rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
     cv[tj] = cv[tj] + col_sum
 
 
-def _band_count(kind):
-    global BAND_LAUNCHES, BAND_CROSS_LAUNCHES, BAND_ENSEMBLE_LAUNCHES
-    if kind == "tri":
-        BAND_LAUNCHES += 1
-    elif kind == "cross":
-        BAND_CROSS_LAUNCHES += 1
-    else:
-        BAND_ENSEMBLE_LAUNCHES += 1
-
-
 def _band_kernel(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
                  split_w, mask_offdiag, n_sys, c):
-    """B16 on the card, a call of _band_count's ``kind``: for each piece
+    """B16 on the card, a call of a ``kind`` of BAND_COUNTERS: for each piece
     of row blocks and group of systems one launch, then one slot_reduce
     launch that adds the piece's column partials to cols in increasing i."""
     from mini_nbody_tpu_torch import _build
     from mini_nbody_tpu_torch.ops import slot_pipe
 
-    global BAND_REDUCE_LAUNCHES
     _build.refuse_grad("band_mxu", pos_a, pos_b, v_a, v_b)
     if tile not in slot_pipe.KERNEL_TILES:
         raise ValueError(f"the CUDA band kernel takes tile in "
@@ -429,7 +419,7 @@ def _band_kernel(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
                     int(cross), g, c, tile, float(softening), fast,
                     int(split_w), int(mask_offdiag), stream),
                     "band_mxu_launch")
-                _band_count(kind)
+                count(BAND_COUNTERS[kind])
                 if targets.shape[0] == 0:
                     continue
                 _build.check(lib, lib.slot_reduce_launch(
@@ -439,7 +429,7 @@ def _band_kernel(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,
                     cols[r0:].data_ptr(),
                     cols[r0:].data_ptr(), g, c * 8, (i1 - i0) * steps,
                     stream), "slot_reduce_launch")
-                BAND_REDUCE_LAUNCHES += 1
+                count("launch.band_reduce")
 
 
 def _band_launch(kind, rows, cols, pos_a, pos_b, v_a, v_b, tile, softening,

@@ -55,13 +55,12 @@ from mini_nbody_tpu_torch.utils.config import (FAR, SOFTENING,
 DEFAULT_TILE = 128
 KERNEL_TILES = (64, 128)
 
-#: Kernel launches on CUDA tensors, counted at each launch (one per piece
-#: of the slot list and group of systems, slot_pipe.run_slot_pieces): made
-#: by symmetric_sums_ (LAUNCHES; CROSS_LAUNCHES their cross-mode share) and
-#: by symmetric_sums_ensemble_ (ENSEMBLE_LAUNCHES, B9b).
-LAUNCHES = 0
-CROSS_LAUNCHES = 0
-ENSEMBLE_LAUNCHES = 0
+#: The registry's counter of each kind of K3 call (utils/tracing.count),
+#: counted at each launch on CUDA tensors (one per piece of the slot list
+#: and group of systems, slot_pipe.run_slot_pieces): symmetric_sums_'s tri
+#: and cross modes, and symmetric_sums_ensemble_ (B9b).
+COUNTERS = {"tri": "launch.K3.tri", "cross": "launch.K3.cross",
+            "ensemble": "launch.B9b"}
 
 
 def _pack(pos, mass, n, np_):
@@ -163,23 +162,10 @@ def _check(acc_a, acc_b, pos_a, pos_b, slots, tile):
                         device)
 
 
-def _count(kind):
-    """The launch counter of a K3 call: "tri", "cross" or "ensemble"."""
-    def count():
-        global LAUNCHES, CROSS_LAUNCHES, ENSEMBLE_LAUNCHES
-        if kind == "ensemble":
-            ENSEMBLE_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
-            CROSS_LAUNCHES += int(kind == "cross")
-
-    return count
-
-
 def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, slots, tile, softening,
                 n_sys=1, sys_rows=0):
     """K3 on the card over n_sys systems of sys_rows rows (tri mode), a
-    call of _count's ``kind``."""
+    call of a ``kind`` of COUNTERS."""
     _build.refuse_grad("symmetric_sums_", pos_a, pos_b)
     if tile not in KERNEL_TILES:
         raise ValueError(f"the CUDA symmetric kernel takes tile in "
@@ -199,7 +185,8 @@ def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, slots, tile, softening,
     with torch.cuda.device(device):
         slot_pipe.run_slot_pieces("symmetric_force_launch", slots,
                                   kind != "cross", tile, 3, acc_a, acc_b,
-                                  launch, _count(kind), n_sys, sys_rows)
+                                  launch, COUNTERS[kind], n_sys,
+                                  sys_rows)
 
 
 def symmetric_sums_(acc_a, acc_b, pos_a, pos_b, slots, tile, softening):

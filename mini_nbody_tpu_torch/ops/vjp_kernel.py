@@ -72,6 +72,7 @@ from mini_nbody_tpu_torch.ops.symmetric_force import _pack
 from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
                                                check_coincident,
                                                plain_block_elems)
+from mini_nbody_tpu_torch.utils.tracing import count
 
 #: Tile of the pair-once backward when the caller names none. On the
 #: register micro-tiles one call at N = 65,536 with masses took 4.22-4.28
@@ -81,20 +82,15 @@ from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
 #: 64 and 11.41 at 128.
 DEFAULT_TILE = 128
 
-#: Kernel launches on CUDA tensors, counted at each launch: made by
-#: vjp_pos_direct / vjp_pos_rect (B10, one per call), by vjp_sym_sums_
-#: (B11, one per piece of the slot list, slot_pipe.run_slot_pieces;
-#: SYM_CROSS_LAUNCHES counts their cross-mode share) and by
-#: vjp_sym_sums_ensemble_ (B9c, SYM_ENSEMBLE_LAUNCHES, one per piece and
-#: group of systems).
-LAUNCHES = 0
-SYM_LAUNCHES = 0
-#: B12's launches, made by vjp_pos_pair: one per piece of its cross slot
-#: table (slot_pipe.PIECE_SLOTS slots), each followed by one slot_reduce
-#: launch (slot_pipe.REDUCE_LAUNCHES).
-PAIR_LAUNCHES = 0
-SYM_CROSS_LAUNCHES = 0
-SYM_ENSEMBLE_LAUNCHES = 0
+#: The registry's counters (utils/tracing.count), counted at each launch
+#: on CUDA tensors: vjp_pos_direct / vjp_pos_rect count launch.B10, one per
+#: call; vjp_pos_pair launch.B12, one per piece of its cross slot table
+#: (slot_pipe.PIECE_SLOTS slots), each followed by one launch.slot_reduce;
+#: vjp_sym_sums_ (B11) and vjp_sym_sums_ensemble_ (B9c) count SYM_COUNTERS
+#: by kind, one per piece of the slot list and group of systems
+#: (slot_pipe.run_slot_pieces).
+SYM_COUNTERS = {"tri": "launch.B11.tri", "cross": "launch.B11.cross",
+                "ensemble": "launch.B9c"}
 
 #: The coincident gates: below this many bodies 'auto' is 'masked', without
 #: the duplicate scan. chip_smoke.py's coincident_gate phase (4096 ..
@@ -203,7 +199,6 @@ def _ordered(pos_k, g_k, pos_j, g_j, mass_k, mass_j, softening, block,
                             COINCIDENT_AUTO_MIN_N)
         overlap_only = mode == "fast" or (mode == "auto"
                                           and not any_coincident(pos_k))
-    global LAUNCHES
     lib = _build.load_library()
     out = torch.empty((nk, 3), dtype=f32, device=device)
     with torch.cuda.device(device):
@@ -215,7 +210,7 @@ def _ordered(pos_k, g_k, pos_j, g_j, mass_k, mass_j, softening, block,
             out.data_ptr(), float(softening), int(overlap_only), block,
             _build.stream_ptr(device))
     _build.check(lib, code, "vjp_ordered_launch")
-    LAUNCHES += 1
+    count("launch.B10")
     return out
 
 
@@ -322,10 +317,6 @@ def vjp_pos_pair(pos_a, g_a, pos_b, mass_a=None, mass_b=None,
     acc_b = torch.zeros((pb.shape[0], 3), dtype=f32, device=device)
     lib = _build.load_library()
 
-    def count():
-        global PAIR_LAUNCHES
-        PAIR_LAUNCHES += 1
-
     def launch(piece, n, _g, _g0, part):
         return lib.vjp_pair_launch(
             piece.data_ptr(), n, pa.data_ptr(), ga.data_ptr(), pb.data_ptr(),
@@ -334,7 +325,7 @@ def vjp_pos_pair(pos_a, g_a, pos_b, mass_a=None, mass_b=None,
 
     with torch.cuda.device(device):
         slot_pipe.run_slot_pieces("vjp_pair_launch", slots, False, tile, 3,
-                                  acc_a, acc_b, launch, count)
+                                  acc_a, acc_b, launch, "launch.B12")
     return acc_a[:na], acc_b[:nb]
 
 
@@ -462,14 +453,6 @@ def _run_sym_kernel(kind, acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
     device = pos_a.device
     k, ko = pos_a.shape[1], acc_a.shape[1]
 
-    def count():
-        global SYM_LAUNCHES, SYM_CROSS_LAUNCHES, SYM_ENSEMBLE_LAUNCHES
-        if kind == "ensemble":
-            SYM_ENSEMBLE_LAUNCHES += 1
-            return
-        SYM_LAUNCHES += 1
-        SYM_CROSS_LAUNCHES += int(kind == "cross")
-
     def launch(piece, n, g, g0, part):
         r0 = g0 * sys_rows
         return lib.vjp_sym_launch(
@@ -480,8 +463,8 @@ def _run_sym_kernel(kind, acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,
 
     with torch.cuda.device(device):
         slot_pipe.run_slot_pieces("vjp_sym_launch", slots, kind != "cross",
-                                  tile, ko, acc_a, acc_b, launch, count,
-                                  n_sys, sys_rows)
+                                  tile, ko, acc_a, acc_b, launch,
+                                  SYM_COUNTERS[kind], n_sys, sys_rows)
 
 
 def vjp_sym_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, slots, tile,

@@ -69,6 +69,7 @@ from mini_nbody_tpu_torch.ops.vjp_kernel import (_pad_rows, check_ensemble_vjp,
 from mini_nbody_tpu_torch.utils.config import (SOFTENING, SYM_BWD_TILES,
                                                check_coincident,
                                                plain_block_elems)
+from mini_nbody_tpu_torch.utils.tracing import count
 
 #: Tile of the pair-once backward when the caller names none, and of the
 #: rectangular one. With w and c in mma.sync fragments one call at N =
@@ -89,15 +90,13 @@ def rect_threads(tile: int) -> int:
     return 2 * tile
 
 
-#: Kernel launches on CUDA tensors, counted at each launch: made by
-#: vjp_mxu_sums_ (B13, one per piece of the slot list,
-#: slot_pipe.run_slot_pieces; CROSS_LAUNCHES counts their cross-mode share),
-#: by vjp_mxu_sums_ensemble_ (B9d, ENSEMBLE_LAUNCHES, one per piece and
-#: group of systems) and by vjp_rect_mxu (B14, RECT_LAUNCHES, one per call).
-LAUNCHES = 0
-CROSS_LAUNCHES = 0
-ENSEMBLE_LAUNCHES = 0
-RECT_LAUNCHES = 0
+#: The registry's counters (utils/tracing.count), counted at each launch
+#: on CUDA tensors: vjp_mxu_sums_ (B13) and vjp_mxu_sums_ensemble_ (B9d)
+#: count COUNTERS by kind, one per piece of the slot list and group of
+#: systems (slot_pipe.run_slot_pieces); vjp_rect_mxu counts launch.B14, one
+#: per call.
+COUNTERS = {"tri": "launch.B13.tri", "cross": "launch.B13.cross",
+            "ensemble": "launch.B9d"}
 
 #: The coincident gates: below this many bodies 'auto' is 'masked', without
 #: the duplicate scan. chip_smoke.py's coincident_gate phase (4096 ..
@@ -270,14 +269,6 @@ def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
     device = pos_a.device
     k, ko = pos_a.shape[1], acc_a.shape[1]
 
-    def count():
-        global LAUNCHES, CROSS_LAUNCHES, ENSEMBLE_LAUNCHES
-        if kind == "ensemble":
-            ENSEMBLE_LAUNCHES += 1
-            return
-        LAUNCHES += 1
-        CROSS_LAUNCHES += int(kind == "cross")
-
     def launch(piece, n, g, g0, part):
         r0 = g0 * sys_rows
         return lib.vjp_mxu_launch(
@@ -289,8 +280,8 @@ def _run_kernel(kind, acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
 
     with torch.cuda.device(device):
         slot_pipe.run_slot_pieces("vjp_mxu_launch", slots, kind != "cross",
-                                  tile, ko, acc_a, acc_b, launch, count,
-                                  n_sys, sys_rows)
+                                  tile, ko, acc_a, acc_b, launch,
+                                  COUNTERS[kind], n_sys, sys_rows)
 
 
 def vjp_mxu_sums_(acc_a, acc_b, pos_a, pos_b, g_a, g_b, q_a, q_b, slots,
@@ -474,7 +465,6 @@ def vjp_rect_mxu_rows(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
     masses = mass_k is not None
     pk = torch.cat([pos_k, mass_k[:, None]], 1) if masses else pos_k
     pj = torch.cat([pos_j, mass_j[:, None]], 1) if masses else pos_j
-    global RECT_LAUNCHES
     lib = _build.load_library()
     rows = torch.empty((nk, 8), dtype=f32, device=device)
     with torch.cuda.device(device):
@@ -483,7 +473,7 @@ def vjp_rect_mxu_rows(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
             g_j.data_ptr(), nj, rows.data_ptr(), int(masses), tile,
             float(softening), int(overlap_only), _build.stream_ptr(device))
     _build.check(lib, code, "vjp_rect_mxu_launch")
-    RECT_LAUNCHES += 1
+    count("launch.B14")
     return rows
 
 

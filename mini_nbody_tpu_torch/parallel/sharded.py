@@ -48,11 +48,12 @@ from functools import partial
 import torch
 
 from mini_nbody_tpu_torch.models.state import BodyState
-from mini_nbody_tpu_torch.ops.force import body_force
+from mini_nbody_tpu_torch.ops.force import dispatch
 from mini_nbody_tpu_torch.ops.integrators import INTEGRATORS, initial_acc
 from mini_nbody_tpu_torch.parallel import _comm
 from mini_nbody_tpu_torch.parallel.mesh import BODY_AXIS, COL_AXIS, Mesh
 from mini_nbody_tpu_torch.utils.config import SimConfig, round_up
+from mini_nbody_tpu_torch.utils.tracing import annotate
 
 
 def _check_mesh(mesh, comm=None) -> None:
@@ -122,7 +123,20 @@ def gather_history(mesh: Mesh, hist, n=None):
 def _make_local_force(cfg: SimConfig, mesh: Mesh):
     """Per-rank force closure: the local block against all N sources via
     cfg.comm, in the integrators' (pos_i, pos_j, mass_j) form (pos_j is
-    ignored: the sources come from the exchange)."""
+    ignored: the sources come from the exchange). A call, its exchange's
+    hops and collectives included, is one force pass: one nbody.force
+    span."""
+    force = _exchange_force(cfg, mesh)
+
+    def one_pass(pos_local, pos_j, mass_local):
+        with annotate("nbody.force"):
+            return force(pos_local, pos_j, mass_local)
+
+    return one_pass
+
+
+def _exchange_force(cfg: SimConfig, mesh: Mesh):
+    """_make_local_force's closure without its span."""
     backend = cfg.effective_backend(sharded=True)
     # The pair-once kernels compute square self-forces only; rectangles go
     # to the streaming kernel of the same precision class (sym -> direct,
@@ -139,12 +153,10 @@ def _make_local_force(cfg: SimConfig, mesh: Mesh):
     # traversal stays 'auto' (the slots): JAX's sharded self kernels never
     # take cfg.traversal (:147-149, :214-219).
     def run(kernel, pos_i, pos_j, mass_j):
-        return body_force(pos_i, pos_j, mass_j if use_m else None,
-                          softening=soft, backend=kernel, tile_i=cfg.tile_i,
-                          tile_j=cfg.tile_j, pair_dtype=pair_dtype,
-                          split_w=cfg.split_w,
-                          sym_tile=cfg.sym_tile, sym_chunk=cfg.sym_chunk,
-                          coincident=cfg.coincident)
+        return dispatch(pos_i, pos_j, mass_j if use_m else None, soft,
+                        kernel, cfg.tile_i, cfg.tile_j, pair_dtype,
+                        cfg.split_w, "auto", cfg.sym_tile, cfg.sym_chunk,
+                        cfg.coincident)
 
     kern = partial(run, rect_backend)
 

@@ -44,6 +44,7 @@ from mini_nbody_tpu_torch.parallel.sharded import (gather_history,
                                                    gather_state,
                                                    shard_systems)
 from mini_nbody_tpu_torch.utils.config import SimConfig, round_up
+from mini_nbody_tpu_torch.utils.tracing import annotate, count
 
 
 def make_step_fn(cfg: SimConfig, differentiable: bool = False):
@@ -72,9 +73,11 @@ def make_step_fn(cfg: SimConfig, differentiable: bool = False):
 
         def fused_step(carry):
             state, acc = carry
-            pos, vel = euler_step_fused(
-                state.pos, state.vel, state.mass if cfg.use_masses else None,
-                dt=cfg.dt, softening=cfg.softening, block=cfg.tile_i)
+            with annotate("nbody.force"):  # the step's one pass, fused
+                pos, vel = euler_step_fused(
+                    state.pos, state.vel,
+                    state.mass if cfg.use_masses else None, dt=cfg.dt,
+                    softening=cfg.softening, block=cfg.tile_i)
             return BodyState(pos=pos, vel=vel, mass=state.mass), acc
 
         return fused_step
@@ -110,7 +113,8 @@ def make_rollout_fn(cfg: SimConfig, steps: int, remat: str = "sqrt"):
         carries for one extra forward.
 
     The kernels sum in a fixed order, so a recomputed forward is bitwise
-    the first one and every remat gives the same gradient bits."""
+    the first one and every remat gives the same gradient bits. A call is
+    one nbody.rollout span."""
     if remat not in ("none", "step", "sqrt"):
         raise ValueError(
             f"remat must be 'none', 'step' or 'sqrt', got {remat!r}")
@@ -126,15 +130,16 @@ def make_rollout_fn(cfg: SimConfig, steps: int, remat: str = "sqrt"):
             carry = step(carry)
         return carry
 
-    if remat != "sqrt" or steps <= 2:
-        return lambda carry: run(carry, steps)
     inner = max(1, math.isqrt(steps))
     full, rem = divmod(steps, inner)
+    if remat != "sqrt" or steps <= 2:
+        full, rem = 0, steps
 
     def rollout(carry):
-        for _ in range(full):
-            carry = checkpoint(run, carry, inner, use_reentrant=False)
-        return run(carry, rem)
+        with annotate("nbody.rollout"):
+            for _ in range(full):
+                carry = checkpoint(run, carry, inner, use_reentrant=False)
+            return run(carry, rem)
 
     return rollout
 
@@ -144,15 +149,21 @@ def simulate(cfg: SimConfig, state: BodyState,
              steps: Optional[int] = None) -> BodyState:
     """Run `steps` (default cfg.steps) integration steps on state's device,
     through the resident kernel where _route_resident says so. Returns
-    without synchronizing: the caller reads or synchronizes."""
+    without synchronizing: the caller reads or synchronizes. The route
+    taken is counted (route.simulate.<route>) and names the call's span
+    (nbody.simulate.<route>), route resident or streamed."""
     steps = cfg.steps if steps is None else steps
-    if _route_resident(cfg, steps, state.pos.device):
-        return _simulate_resident(cfg, state, steps)
-    step = make_step_fn(cfg)
-    carry = init_carry(cfg, state)
-    for _ in range(steps):
-        carry = step(carry)
-    return carry[0]
+    resident = _route_resident(cfg, steps, state.pos.device)
+    route = "resident" if resident else "streamed"
+    count("route.simulate." + route)
+    with annotate("nbody.simulate." + route):
+        if resident:
+            return _simulate_resident(cfg, state, steps)
+        step = make_step_fn(cfg)
+        carry = init_carry(cfg, state)
+        for _ in range(steps):
+            carry = step(carry)
+        return carry[0]
 
 
 @torch.no_grad()
@@ -163,17 +174,19 @@ def trajectory(cfg: SimConfig, state: BodyState, steps: int,
     N, 3)). It always runs the streamed loop; its final state is bitwise
     simulate's on either of simulate's routes (module docstring), unless
     cfg.resident_tile names another tile or N > cfg.sym_chunk, where a
-    resident simulate holds the class bound."""
+    resident simulate holds the class bound. A call is one
+    nbody.trajectory span."""
     if steps % save_every != 0:
         raise ValueError("steps must be divisible by save_every")
-    step = make_step_fn(cfg)
-    carry = init_carry(cfg, state)
-    snaps = []
-    for k in range(1, steps + 1):
-        carry = step(carry)
-        if k % save_every == 0:
-            snaps.append(carry[0].pos)
-    return carry[0], _stack(snaps, state.pos)
+    with annotate("nbody.trajectory"):
+        step = make_step_fn(cfg)
+        carry = init_carry(cfg, state)
+        snaps = []
+        for k in range(1, steps + 1):
+            carry = step(carry)
+            if k % save_every == 0:
+                snaps.append(carry[0].pos)
+        return carry[0], _stack(snaps, state.pos)
 
 
 def _stack(snaps, pos):
@@ -279,7 +292,8 @@ def _simulate_resident(cfg: SimConfig, state: BodyState, steps: int,
                        ensemble: bool = False) -> BodyState:
     """The whole trajectory (of B systems when ensemble) in one resident
     launch (ops/resident_sym.py) at _resident_tile, the opening and
-    closing passes of leapfrog and Yoshida-4 included."""
+    closing passes of leapfrog and Yoshida-4 included: one nbody.resident
+    span."""
     from mini_nbody_tpu_torch.ops import resident_sym as rs
 
     if cfg.integrator == "euler":
@@ -288,12 +302,13 @@ def _simulate_resident(cfg: SimConfig, state: BodyState, steps: int,
     else:
         run = functools.partial(rs.simulate_resident_sym_kdk,
                                 y4=cfg.integrator == "yoshida4")
-    pos, vel = run(state.pos, state.vel,
-                   state.mass if cfg.use_masses else None, steps=steps,
-                   dt=float(cfg.dt), softening=float(cfg.softening),
-                   mxu=cfg.effective_backend() == "sym_mxu",
-                   tile=_resident_tile(cfg, ensemble),
-                   coincident=cfg.coincident)
+    with annotate("nbody.resident"):
+        pos, vel = run(state.pos, state.vel,
+                       state.mass if cfg.use_masses else None, steps=steps,
+                       dt=float(cfg.dt), softening=float(cfg.softening),
+                       mxu=cfg.effective_backend() == "sym_mxu",
+                       tile=_resident_tile(cfg, ensemble),
+                       coincident=cfg.coincident)
     return BodyState(pos=pos, vel=vel, mass=state.mass)
 
 
@@ -324,14 +339,15 @@ def _ensemble_forcefn(cfg: SimConfig, mass):
     form. 'auto' runs 'masked': duplicates can form at any step of a
     trajectory, and a scan per step would cost more than the masked force;
     on duplicate-free bodies the maskless kernel is bitwise the masked one
-    anyway. 'fast' stays an explicit opt-in."""
+    anyway. 'fast' stays an explicit opt-in. A call is one force pass: one
+    nbody.force span."""
     mass = mass if cfg.use_masses else None
     coin = "masked" if cfg.coincident == "auto" else cfg.coincident
     if cfg.effective_backend() == "sym_mxu":
         from mini_nbody_tpu_torch.ops.sym_mxu_force import (
             body_force_sym_mxu_ensemble)
 
-        def force(pi, pj, mj):
+        def run(pi):
             return body_force_sym_mxu_ensemble(
                 pi, mass, softening=cfg.softening, tile=cfg.sym_tile,
                 split_w=cfg.split_w, coincident=coin)
@@ -339,9 +355,14 @@ def _ensemble_forcefn(cfg: SimConfig, mass):
         from mini_nbody_tpu_torch.ops.symmetric_force import (
             body_force_symmetric_ensemble)
 
-        def force(pi, pj, mj):
+        def run(pi):
             return body_force_symmetric_ensemble(
                 pi, mass, softening=cfg.softening, tile=cfg.sym_tile)
+
+    def force(pi, pj, mj):
+        with annotate("nbody.force"):
+            return run(pi)
+
     return force
 
 
@@ -378,14 +399,20 @@ def simulate_ensemble(cfg: SimConfig, state: BodyState,
     in JAX, each rank integrates its B / P systems on the ensemble kernels,
     never the resident one, with no collective in the loop, and every rank
     gets the whole result, gathered once (each system still bitwise its
-    single-card run). Returns without synchronizing."""
+    single-card run). Returns without synchronizing. The route taken is
+    counted (route.ensemble.<route>) and names the call's span
+    (nbody.simulate_ensemble.<route>), route resident or streamed."""
     steps = cfg.steps if steps is None else steps
     local = _ensemble_prepare(cfg, state, mesh)
-    if mesh is None and _route_resident_ensemble(
-            cfg, steps, state.pos.shape[0], state.pos.device):
-        return _simulate_resident(cfg, state, steps, ensemble=True)
-    out = _ensemble_traj_k(cfg, local, steps)[0]
-    return out if mesh is None else gather_state(mesh, out)
+    resident = mesh is None and _route_resident_ensemble(
+        cfg, steps, state.pos.shape[0], state.pos.device)
+    route = "resident" if resident else "streamed"
+    count("route.ensemble." + route)
+    with annotate("nbody.simulate_ensemble." + route):
+        if resident:
+            return _simulate_resident(cfg, state, steps, ensemble=True)
+        out = _ensemble_traj_k(cfg, local, steps)[0]
+        return out if mesh is None else gather_state(mesh, out)
 
 
 @torch.no_grad()
@@ -395,12 +422,14 @@ def trajectory_ensemble(cfg: SimConfig, state: BodyState,
     """simulate_ensemble with the positions after every save_every-th step:
     (state_final, pos_history (steps // save_every, B, N, 3)), each
     system's rows bitwise its ``trajectory``; with a mesh, the history is
-    gathered once after the loop, as the final state is."""
+    gathered once after the loop, as the final state is. A call is one
+    nbody.trajectory span."""
     steps = cfg.steps if steps is None else steps
     if steps % save_every != 0:
         raise ValueError("steps must be divisible by save_every")
     local = _ensemble_prepare(cfg, state, mesh)
-    out, hist = _ensemble_traj_k(cfg, local, steps, save_every)
-    if mesh is None:
-        return out, hist
-    return gather_state(mesh, out), gather_history(mesh, hist)
+    with annotate("nbody.trajectory"):
+        out, hist = _ensemble_traj_k(cfg, local, steps, save_every)
+        if mesh is None:
+            return out, hist
+        return gather_state(mesh, out), gather_history(mesh, hist)

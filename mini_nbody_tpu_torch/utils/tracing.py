@@ -5,17 +5,27 @@ Counterpart of ``mini_nbody_tpu/utils/tracing.py:27-74``:
 * ``profile_trace``: a ``torch.profiler`` trace (CPU activity, and the
   card's kernels when ``device`` is CUDA) around a block, written into
   ``logdir`` as a Chrome trace (chrome://tracing or Perfetto).
-* ``annotate``: a named span, a ``torch.profiler.record_function`` range
-  and, on CUDA, an NVTX range.
+* ``annotate``: a named span. While a profiler records (``profile_trace``,
+  any ``torch.profiler.profile``, or ``torch.autograd.profiler.emit_nvtx()``
+  under Nsight, which turns the same ranges into NVTX ranges) it is a
+  ``record_function`` range, in the same trace as the card's kernels and on
+  the same clock; otherwise it costs one check of the profiler's state.
+* ``count`` / ``counters``: the program's one counter registry (kernel
+  launches ``launch.<kernel>[.<mode>]``, route decisions ``route.*``,
+  duplicate scans ``coincident.scan``), read as a snapshot.
 * ``StepMetrics``: per-interval throughput rows for a long run, JAX's
   fields and rows.
+
+PERF.md lists every span and counter with what reads it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import List, Optional
@@ -48,14 +58,49 @@ def profile_trace(logdir: str, device="cuda"):
     prof.export_chrome_trace(str(out / TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str, device="cuda"):
-    """A named span in profiler traces (and in NVTX on CUDA)."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(record_function(name))
-        if torch.device(device).type == "cuda":
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
+class annotate:
+    """``with annotate(name):`` a named span in the profiler's trace while
+    a profiler records; with none recording, nothing but that check (no
+    ``record_function``, whose bare enter and exit cost microseconds)."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._range = record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
+
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+#: The counter registry: name -> count since the process started. The
+#: autograd engine's device threads count too, hence the lock.
+_COUNTS: Counter = Counter()
+_LOCK = threading.Lock()
+
+
+def count(name: str, k: int = 1):
+    """Add k to counter ``name``."""
+    with _LOCK:
+        _COUNTS[name] += k
+
+
+def counters() -> Counter:
+    """A snapshot copy of every counter; the difference of two snapshots
+    (``after - before``) is what ran between them."""
+    with _LOCK:
+        return Counter(_COUNTS)
 
 
 @dataclass

@@ -21,6 +21,7 @@ from mini_nbody_tpu.ops.pe_kernel import potential_energy_pallas
 from mini_nbody_tpu_torch import BodyState, init
 from mini_nbody_tpu_torch.ops import diagnostics as dg
 from mini_nbody_tpu_torch.ops import pe_kernel as pk
+from mini_nbody_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -81,9 +82,11 @@ def test_potential_energy_kernel_plain_vs_jax_pallas(n, masses, softening):
               else (None, None))
     want = potential_energy_pallas(jnp.asarray(pos), jm, softening=softening,
                                    tile_i=64, tile_j=128, interpret=True)
-    before = pk.LAUNCHES
+    before = tracing.counters()
     got = pk.potential_energy_kernel(torch.from_numpy(pos), tm, softening)
-    assert pk.LAUNCHES == before  # the plain version, not the kernel
+    # the plain version: no kernel launched
+    moved = tracing.counters() - before
+    assert not [k for k in moved if k.startswith("launch.")]
     _u_close(got, want)
     _u_close(got, _u_oracle(pos, m, softening))
 

@@ -18,6 +18,7 @@ from mini_nbody_tpu_torch.ops import direct_force as df
 from mini_nbody_tpu_torch.ops.force import body_force
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
 from mini_nbody_tpu_torch.ops.sym_mxu_force import body_force_sym_mxu
+from mini_nbody_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -96,9 +97,10 @@ def test_direct_and_torch_vs_fp64_oracle(masses, oracle):
 
 def test_wrapper_takes_plain_on_cpu_without_counting():
     pi, pj, m = _inputs(50, 80, True)
-    before = df.LAUNCHES
+    before = tracing.counters()
     got = df.body_force_direct(_t(pi), _t(pj), _t(m))
-    assert df.LAUNCHES == before
+    moved = tracing.counters() - before
+    assert not [k for k in moved if k.startswith("launch.")]
     assert torch.equal(got, df.direct_force_plain(_t(pi), _t(pj), _t(m)))
 
 

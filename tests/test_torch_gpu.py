@@ -115,8 +115,27 @@ from mini_nbody_tpu_torch.ops import vjp_kernel as vk
 from mini_nbody_tpu_torch.ops import vjp_mxu as vm
 from mini_nbody_tpu_torch.sim import init_carry
 from mini_nbody_tpu_torch.ops.reference import body_force_torch
+from mini_nbody_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.gpu
+
+
+def _count(name):
+    """The registry's launch count of ``name`` (utils/tracing.counters); a
+    kernel's name without a mode, such as "launch.K2", sums its modes."""
+    return sum(v for k, v in tracing.counters().items()
+               if k == name or k.startswith(name + "."))
+
+
+def _counts(*names):
+    """_count of each name, as a tuple."""
+    return tuple(_count(n) for n in names)
+
+
+def _launched(before, *names):
+    """_counts(*names) less ``before``, what they were at an earlier
+    point."""
+    return tuple(a - b for a, b in zip(_counts(*names), before))
 
 
 @pytest.fixture
@@ -155,9 +174,9 @@ def test_k1_vs_plain(cuda, ni, nj, masses, block):
     pj = _pos(nj, nj, cuda)
     pi = pj[:ni].contiguous() if ni == nj else _pos(ni, ni + 1, cuda)
     m = torch.rand(nj, device=cuda) + 0.5 if masses else None
-    before = df.LAUNCHES
+    before = _count("launch.K1")
     got = df.body_force_direct(pi, pj, m, block=block)
-    assert df.LAUNCHES == before + 1
+    assert _count("launch.K1") == before + 1
     _close(got, df.direct_force_plain(pi, pj, m), 1e-3, 1e-4)
     if ni == 1:
         assert torch.equal(got, torch.zeros_like(got))
@@ -184,10 +203,10 @@ def test_k2_cross_vs_bf16_plain(cuda, tile, mask):
     n, c = 2000, 1024
     mass = torch.rand(n, device=cuda) + 0.5
     p, v = sm._pack(_pos(n, 6, cuda), mass, n, 2 * c)
-    before = (sp.LAUNCHES, sp.CROSS_LAUNCHES)
+    before = _counts("launch.K2", "launch.K2.cross")
     got = sp.build_cross_slot_call(1e-9, tile, c, mask=mask)(
         p[:c], p[c:], v[:c], v[c:])
-    assert (sp.LAUNCHES, sp.CROSS_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _launched(before, "launch.K2", "launch.K2.cross") == (1, 1)
     want = sp.cross_slot_sums_plain(p[:c], p[c:], v[:c], v[c:], 1e-9, tile,
                                     mask=mask, mma_dtype=torch.bfloat16)
     _close_cols(got[0].T, want[0].T)
@@ -228,11 +247,11 @@ def test_simulate_goes_through_the_kernels(cuda, backend):
     n = 4096
     gen = torch.Generator(device=cuda).manual_seed(0)
     state = init.uniform_random(n, generator=gen, device=cuda)
-    counts = (df.LAUNCHES, sp.LAUNCHES)
+    counts = _counts("launch.K1", "launch.K2")
     out = simulate(SimConfig(n=n, steps=3, backend=backend, softening=1e-2,
                              integrator="leapfrog", sym_chunk=1024), state)
     torch.cuda.synchronize()
-    launched = (df.LAUNCHES - counts[0], sp.LAUNCHES - counts[1])
+    launched = _launched(counts, "launch.K1", "launch.K2")
     # leapfrog: one initial force pass + one per step; sym_mxu at 4 chunks
     # launches 4 tri + 6 cross per pass.
     assert launched == ((4, 0) if backend == "direct" else (0, 40))
@@ -252,9 +271,9 @@ def test_k3_tri_vs_plain(cuda, tile, fold, masses):
     slots = sp.slot_table(c // tile, fold, False, cuda)
     got, want = torch.zeros((c, 3), device=cuda), torch.zeros((c, 3),
                                                                device=cuda)
-    before = (sf.LAUNCHES, sf.CROSS_LAUNCHES)
+    before = _counts("launch.K3", "launch.K3.cross")
     sf.symmetric_sums_(got, got, p, p, slots, tile, 1e-9)
-    assert (sf.LAUNCHES, sf.CROSS_LAUNCHES) == (before[0] + 1, before[1])
+    assert _launched(before, "launch.K3", "launch.K3.cross") == (1, 0)
     sf.symmetric_sums_plain(want, want, p, p, slots, tile, 1e-9)
     _close(got, want, 1e-3, 1e-4)
 
@@ -268,9 +287,9 @@ def test_k3_cross_vs_plain(cuda, tile, masses):
     slots = sp.slot_table(c // tile, False, True, cuda)
     got = [torch.zeros((c, 3), device=cuda) for _ in range(2)]
     want = [torch.zeros((c, 3), device=cuda) for _ in range(2)]
-    before = sf.CROSS_LAUNCHES
+    before = _count("launch.K3.cross")
     sf.symmetric_sums_(*got, p[:c], p[c:], slots, tile, 1e-9)
-    assert sf.CROSS_LAUNCHES == before + 1
+    assert _count("launch.K3.cross") == before + 1
     sf.symmetric_sums_plain(*want, p[:c], p[c:], slots, tile, 1e-9)
     for g, w in zip(got, want):
         _close(g, w, 1e-3, 1e-4)
@@ -407,9 +426,9 @@ def test_k4_vs_plain(cuda, n, softening, masses):
     if n == 64:
         pos[20] = pos[10]  # distinct coincident bodies keep their term
     m = torch.rand(n, device=cuda) + 0.5 if masses else None
-    before = pk.LAUNCHES
+    before = _count("launch.K4")
     got = pk.potential_energy_kernel(pos, m, softening).item()
-    assert pk.LAUNCHES == before + 1
+    assert _count("launch.K4") == before + 1
     want = pk.potential_energy_plain(
         pos.double(), None if m is None else m.double(), softening).item()
     assert abs(got - want) <= 1e-5 * abs(want)
@@ -421,10 +440,10 @@ def test_k4_vs_plain(cuda, n, softening, masses):
 def test_k5_vs_plain(cuda, n, masses, block):
     pos, vel = _pos(n, 14, cuda), _pos(n, 15, cuda)
     m = torch.rand(n, device=cuda) + 0.5 if masses else None
-    before = df.FUSED_LAUNCHES
+    before = _count("launch.K5")
     p2, v2 = df.euler_step_fused(pos, vel, m, dt=1e-3, softening=1e-2,
                                  block=block)
-    assert df.FUSED_LAUNCHES == before + 1
+    assert _count("launch.K5") == before + 1
     p_ref, v_ref = df.euler_step_fused_plain(pos, vel, m, 1e-3, 1e-2)
     _close(v2, v_ref, 1e-3, 1e-4)
     _close(p2, p_ref, 1e-3, 1e-4)
@@ -436,12 +455,12 @@ def test_auto_goes_through_k3_and_total_energy_through_k4(cuda):
     state = init.plummer(n, generator=gen, device=cuda)
     cfg = SimConfig(n=n, steps=10, dt=1e-3, softening=1e-2,
                     integrator="leapfrog", use_masses=True, sym_chunk=1024)
-    counts = (sf.LAUNCHES, df.LAUNCHES, sp.LAUNCHES, pk.LAUNCHES)
+    counts = _counts("launch.K3", "launch.K1", "launch.K2", "launch.K4")
     e0 = dg.total_energy(state, cfg.softening)
     out = simulate(cfg, state)
     e1 = dg.total_energy(out, cfg.softening)
     launched = tuple(a - b for a, b in zip(
-        (sf.LAUNCHES, df.LAUNCHES, sp.LAUNCHES, pk.LAUNCHES), counts))
+        _counts("launch.K3", "launch.K1", "launch.K2", "launch.K4"), counts))
     # 11 force passes of 4 tri + 6 cross launches; two energies.
     assert launched == (110, 0, 0, 2)
     assert dg.energy_drift(e0, e1).item() < 1e-5
@@ -453,9 +472,9 @@ def test_fused_simulate_goes_through_k5(cuda):
     state = init.uniform_random(n, generator=gen, device=cuda)
     cfg = SimConfig(n=n, steps=5, backend="direct", fused_integrate=True,
                     softening=1e-2)
-    counts = (df.FUSED_LAUNCHES, df.LAUNCHES)
+    counts = _counts("launch.K5", "launch.K1")
     out = simulate(cfg, state)
-    assert (df.FUSED_LAUNCHES - counts[0], df.LAUNCHES - counts[1]) == (5, 0)
+    assert _launched(counts, "launch.K5", "launch.K1") == (5, 0)
     ref = simulate(cfg.replace(fused_integrate=False), state)
     _close(out.pos, ref.pos, 1e-4, 1e-5)
     _close(out.vel, ref.vel, 1e-4, 1e-5)
@@ -478,10 +497,10 @@ def test_b10_vs_plain(cuda, n, masses, softening, coincident, block):
     # At softening 1e-9 two distinct bodies share a position ('fast'
     # promises there are none).
     pos, g, m = _vjp_case(n, 20, masses, cuda, softening == 1e-9)
-    before = vk.LAUNCHES
+    before = _count("launch.B10")
     got = vk.vjp_pos_direct(pos, g, m, softening, block=block,
                             coincident=coincident)
-    assert vk.LAUNCHES == before + 1
+    assert _count("launch.B10") == before + 1
     _close(got, vk.vjp_ordered_plain(pos, g, pos, g, m, m, softening),
            1e-3, 1e-4)
     rect = vk.vjp_pos_rect(pos[:700].contiguous(), g[:700].contiguous(), pos,
@@ -523,10 +542,10 @@ def test_b12_vs_plain(cuda, na, nb, shared, masses, monkeypatch):
             m_b[nb - k:] = m_a[:k]
     tile = vk.PAIR_TILE
     pieces = -(-(-(-na // tile) * -(-nb // tile)) // sp.PIECE_SLOTS)
-    before = (vk.PAIR_LAUNCHES, sp.REDUCE_LAUNCHES)
+    before = _counts("launch.B12", "launch.slot_reduce")
     got = vk.vjp_pos_pair(pos_a, g, pos_b, m_a, m_b, 1e-2)
-    assert (vk.PAIR_LAUNCHES - before[0],
-            sp.REDUCE_LAUNCHES - before[1]) == (pieces, pieces)
+    assert _launched(before, "launch.B12", "launch.slot_reduce") == (
+        pieces, pieces)
     again = vk.vjp_pos_pair(pos_a, g, pos_b, m_a, m_b, 1e-2)
     want = vk.vjp_pos_pair_plain(pos_a, g, pos_b, m_a, m_b, 1e-2)
     for a, b, w in zip(got, again, want):
@@ -597,12 +616,12 @@ def test_sharded_grid_gradient_goes_through_b12(nccl_one_rank):
         (carry[0].vel ** 2).sum().backward()
         return p.grad
 
-    before = vk.PAIR_LAUNCHES
+    before = _count("launch.B12")
     got = grad(make_sharded_step_fn(cfg, make_mesh((1, 1)),
                                     differentiable=True),
                shard_state(s, make_mesh((1, 1))))
     # one per backward pass: 3000^2 at tile 128 is one piece of slots
-    assert vk.PAIR_LAUNCHES == before + 2
+    assert _count("launch.B12") == before + 2
     want = grad(make_step_fn(cfg.replace(mesh_shape=None, comm="all_gather",
                                          backend="auto"),
                              differentiable=True), s)
@@ -623,9 +642,9 @@ def test_b11_tri_vs_plain(cuda, tile, masses, mass_grad, fold, mask):
     slots = sp.slot_table(c // tile, fold, False, cuda)
     ko = 4 if mass_grad else 3
     got, want = (torch.zeros((c, ko), device=cuda) for _ in range(2))
-    before = (vk.SYM_LAUNCHES, vk.SYM_CROSS_LAUNCHES)
+    before = _counts("launch.B11", "launch.B11.cross")
     vk.vjp_sym_sums_(got, got, p, p, gp, gp, slots, tile, 1e-9, mask)
-    assert (vk.SYM_LAUNCHES, vk.SYM_CROSS_LAUNCHES) == (before[0] + 1,
+    assert _counts("launch.B11", "launch.B11.cross") == (before[0] + 1,
                                                          before[1])
     vk.vjp_sym_sums_plain(want, want, p, p, gp, gp, slots, tile, 1e-9, mask)
     _close(got[:n], want[:n], 1e-3, 1e-4)
@@ -675,9 +694,9 @@ def test_b13_tri_vs_bf16_plain(cuda, tile, masses, mass_grad, fold, mask):
     (_, c, _, _), (p, gp, q) = vm.sums_inputs(pos, g, m, tile, chunk=1024)
     slots = sp.slot_table(c // tile, fold, False, cuda)
     ko = 9 if mass_grad else 8
-    before = vm.LAUNCHES
+    before = _count("launch.B13")
     got = _mxu_sums(p, gp, q, slots, tile, ko, mask, True)
-    assert vm.LAUNCHES == before + 1
+    assert _count("launch.B13") == before + 1
     want = _mxu_sums(p, gp, q, slots, tile, ko, mask, False)
     _close_cols(got[:n], want[:n])
 
@@ -699,11 +718,11 @@ def test_b14_vs_bf16_plain(cuda, tile, masses, square):
     k = 3001 if square else 900
     pk_, gk_ = pos[:k].contiguous(), g[:k].contiguous()
     mk = None if m is None else m[:k].contiguous()
-    before = vm.RECT_LAUNCHES
+    before = _count("launch.B14")
     got = vm.vjp_rect_mxu_rows(
         pk_, gk_, pos, g, mk, m, 1e-9, tile,
         square_coincident="auto" if square else None)
-    assert vm.RECT_LAUNCHES == before + 1
+    assert _count("launch.B14") == before + 1
     want = vm.vjp_rect_mxu_plain(pk_, gk_, pos, g, mk, m, 1e-9,
                                  mma_dtype=torch.bfloat16)
     _close_cols(got, want)
@@ -778,11 +797,11 @@ def test_grad_goes_through_the_vjp_kernels(cuda, monkeypatch, backend, n):
     cfg = SimConfig(n=n, backend=backend, softening=1e-2, use_masses=True,
                     sym_chunk=2048)
     force = make_differentiable_force(cfg)
-    counts = (vk.LAUNCHES, vk.SYM_LAUNCHES, vm.LAUNCHES, vm.RECT_LAUNCHES)
+    counts = _counts("launch.B10", "launch.B11", "launch.B13", "launch.B14")
     p = pos.clone().requires_grad_(True)
     (force(p, m) ** 2).sum().backward()
     launched = [a - b for a, b in zip(
-        (vk.LAUNCHES, vk.SYM_LAUNCHES, vm.LAUNCHES, vm.RECT_LAUNCHES),
+        _counts("launch.B10", "launch.B11", "launch.B13", "launch.B14"),
         counts)]
     bf16 = backend == "sym_mxu"
     small = n <= 4096
@@ -825,14 +844,14 @@ def test_sqrt_rollout_launch_counts(cuda):
     cfg = SimConfig(n=n, dt=1e-3, softening=1e-2, integrator="leapfrog",
                     use_masses=True, sym_chunk=2048)
     carry0 = init_carry(cfg, s)
-    counts = (sf.LAUNCHES, sf.CROSS_LAUNCHES, vk.SYM_LAUNCHES)
+    counts = _counts("launch.K3", "launch.K3.cross", "launch.B11")
     p = s.pos.clone().requires_grad_(True)
     out, _ = make_rollout_fn(cfg, steps)((BodyState(pos=p, vel=s.vel,
                                                     mass=s.mass), carry0[1]))
     (out.pos ** 2).sum().backward()
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(
-        (sf.LAUNCHES, sf.CROSS_LAUNCHES, vk.SYM_LAUNCHES), counts)]
+        _counts("launch.K3", "launch.K3.cross", "launch.B11"), counts)]
     assert launched == [3 * 19, 19, 9]
     assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0
 
@@ -849,10 +868,10 @@ def test_b6_square_vs_bf16_plain(cuda, n, masses, softening, mode):
     pos, m = _b6_case(n, 30, masses, cuda, softening == 1e-9)
     overlap = mf.square_overlap_only(pos, mode)
     assert not (overlap and softening == 1e-9)  # the scan finds the pair
-    before = mf.LAUNCHES
+    before = _count("launch.B6")
     f, s = mf.hybrid_forces(pos, pos, m, softening, overlap_only=overlap,
                             with_sums=True)
-    assert mf.LAUNCHES == before + 1
+    assert _count("launch.B6") == before + 1
     want = mf.hybrid_sums_plain(pos, pos, m, softening, mf.KERNEL_TILE,
                                 mf.KERNEL_TILE, overlap,
                                 mma_dtype=torch.bfloat16)
@@ -937,10 +956,10 @@ def test_b6_ragged_vs_bf16_plain(cuda, ni, nj, masses, softening):
     if ni == nj:
         runs += [(pj, False), (pj, True)]
     for pi, overlap in runs:
-        before = mf.LAUNCHES
+        before = _count("launch.B6")
         f, s = mf.hybrid_forces(pi, pj, m, softening, overlap_only=overlap,
                                 with_sums=True)
-        assert mf.LAUNCHES == before + 1
+        assert _count("launch.B6") == before + 1
         want = mf.hybrid_sums_plain(pi, pj, m, softening, mf.KERNEL_TILE,
                                     mf.KERNEL_TILE, overlap,
                                     mma_dtype=torch.bfloat16)
@@ -1027,11 +1046,12 @@ def test_b4_vs_bf16_plain(cuda, tile, masses, mask):
     acc_b = torch.zeros((pb.shape[0], 8), device=cuda)
     slots = sp.slot_table(pa.shape[0] // tile, False, True, cuda,
                           nb_b=pb.shape[0] // tile)
-    before = (sp.LAUNCHES, sp.CROSS_LAUNCHES, sp.PAIR_LAUNCHES)
+    before = _counts("launch.K2", "launch.K2.cross", "launch.B4")
     sp.pair_slot_sums_(acc_a, acc_b, pa, pb, va, vb, slots, tile, 1e-9,
                        mask=mask)
-    assert (sp.LAUNCHES, sp.CROSS_LAUNCHES, sp.PAIR_LAUNCHES) == tuple(
-        b + 1 for b in before)
+    # B4 is counted apart from K2's own tri and cross calls
+    assert _counts("launch.K2", "launch.K2.cross", "launch.B4") == (
+        before[0], before[1], before[2] + 1)
     want = sp.cross_slot_sums_plain(pa, pb, va, vb, 1e-9, tile, mask=mask,
                                     mma_dtype=torch.bfloat16)
     _close_cols(acc_a[:na], want[0].T[:na])
@@ -1045,9 +1065,9 @@ def test_b4_vs_b6_and_fp64_oracle(cuda, masses):
     pa, pb = pos[:na].contiguous(), pos[na:].contiguous()
     ma, mb = (None, None) if m is None else (m[:na].contiguous(),
                                              m[na:].contiguous())
-    before = sp.PAIR_LAUNCHES
+    before = _count("launch.B4")
     fa, fb = sm.body_force_pair_mxu(pa, pb, ma, mb, 1e-2, coincident="auto")
-    assert sp.PAIR_LAUNCHES == before + 1
+    assert _count("launch.B4") == before + 1
     for got, pi, pj, mj in ((fa, pa, pb, mb), (fb, pb, pa, ma)):
         want = body_force_torch(pi.double(), pj.double(),
                                 None if mj is None else mj.double(),
@@ -1068,24 +1088,23 @@ def test_mxu_simulate_and_grad_go_through_b6(cuda, monkeypatch, pair_dtype):
     cfg = SimConfig(n=n, steps=3, backend="mxu", pair_dtype=pair_dtype,
                     softening=1e-2, dt=1e-3, integrator="leapfrog",
                     use_masses=True)
-    before = mf.LAUNCHES
+    before = _count("launch.B6")
     out = simulate(cfg, state)
     torch.cuda.synchronize()
-    assert mf.LAUNCHES == before + 4  # the initial pass + one per step
+    assert _count("launch.B6") == before + 4  # the initial pass + one per step
     ref = simulate(cfg.replace(backend="torch"), state)
     _close(out.pos, ref.pos, 1e-3, 1e-4)
     # The backward by class: bf16 -> B13 (<= _SYM_BWD_MAX) or B14 beyond
     # it, fp32 -> B11 or B10.
     for bound, small in ((4096, True), (2048, False)):
         monkeypatch.setattr(autodiff, "_SYM_BWD_MAX", bound)
-        counts = (vk.LAUNCHES, vk.SYM_LAUNCHES, vm.LAUNCHES,
-                  vm.RECT_LAUNCHES, mf.LAUNCHES)
+        names = ("launch.B10", "launch.B11", "launch.B13", "launch.B14",
+                 "launch.B6")
+        counts = _counts(*names)
         p = state.pos.clone().requires_grad_(True)
         force = make_differentiable_force(cfg)
         (force(p, state.mass) ** 2).sum().backward()
-        launched = [a - b for a, b in zip(
-            (vk.LAUNCHES, vk.SYM_LAUNCHES, vm.LAUNCHES, vm.RECT_LAUNCHES,
-             mf.LAUNCHES), counts)]
+        launched = list(_launched(counts, *names))
         bf16 = pair_dtype == "bfloat16"
         assert launched == [int(not bf16 and not small),
                             int(not bf16 and small), int(bf16 and small),
@@ -1174,13 +1193,13 @@ def test_ensemble_force_bitwise_vs_standalone(cuda, mxu, masses, n, tile):
     ss, st = _ensemble(n, 3, masses, cuda)
     m = st.mass if masses else None
     t, c = sm.ensemble_tiling(n, tile, kernel=True)
-    counts = (sp.ENSEMBLE_LAUNCHES, sf.ENSEMBLE_LAUNCHES)
+    counts = _counts("launch.B9a", "launch.B9b")
     if mxu:
         f = sm.body_force_sym_mxu_ensemble(st.pos, m, tile=tile)
     else:
         f = sf.body_force_symmetric_ensemble(st.pos, m, tile=tile)
-    assert (sp.ENSEMBLE_LAUNCHES - counts[0],
-            sf.ENSEMBLE_LAUNCHES - counts[1]) == (int(mxu), int(not mxu))
+    assert _launched(counts, "launch.B9a", "launch.B9b") == (int(mxu),
+                                                             int(not mxu))
     for i in range(3):
         mi = ss[i].mass if masses else None
         ref = (sm.body_force_sym_mxu(ss[i].pos, mi, tile=t, chunk=c) if mxu
@@ -1214,13 +1233,12 @@ def test_simulate_ensemble_bitwise_vs_simulate(cuda, backend, integrator):
     cfg = SimConfig(n=n, dt=1e-3, steps=4, softening=1e-2, backend=backend,
                     integrator=integrator, use_masses=True,
                     resident=False)  # the streamed loop, not B15
-    before = (sp.ENSEMBLE_LAUNCHES, sf.ENSEMBLE_LAUNCHES)
+    before = _counts("launch.B9a", "launch.B9b")
     out = simulate_ensemble(cfg, st)
     passes = {"euler": 4, "leapfrog": 5, "yoshida4": 13}[integrator]
     mxu = backend == "sym_mxu"
-    assert (sp.ENSEMBLE_LAUNCHES - before[0],
-            sf.ENSEMBLE_LAUNCHES - before[1]) == (passes * mxu,
-                                                  passes * (not mxu))
+    assert _launched(before, "launch.B9a", "launch.B9b") == (
+        passes * mxu, passes * (not mxu))
     t, c = sm.ensemble_tiling(n, None, kernel=True)
     for i in range(3):
         ref = simulate(cfg.replace(sym_tile=t, sym_chunk=c), ss[i])
@@ -1269,13 +1287,13 @@ def test_ensemble_past_the_grid_limit(cuda, mxu):
     b, n = 65600, 64
     pos = _pos(b * n, 47, cuda).view(b, n, 3)
     m = torch.rand((b, n), device=cuda) + 0.5
-    counts = (sp.ENSEMBLE_LAUNCHES, sf.ENSEMBLE_LAUNCHES, sp.REDUCE_LAUNCHES)
+    counts = _counts("launch.B9a", "launch.B9b", "launch.slot_reduce")
     if mxu:
         f = sm.body_force_sym_mxu_ensemble(pos, m)
     else:
         f = sf.body_force_symmetric_ensemble(pos, m)
-    assert (sp.ENSEMBLE_LAUNCHES - counts[0], sf.ENSEMBLE_LAUNCHES - counts[1],
-            sp.REDUCE_LAUNCHES - counts[2]) == (2 * mxu, 2 * (not mxu), 2)
+    assert _launched(counts, "launch.B9a", "launch.B9b",
+                     "launch.slot_reduce") == (2 * mxu, 2 * (not mxu), 2)
     for i in (0, 65534, 65535, b - 1):
         ref = (sm.body_force_sym_mxu(pos[i], m[i], tile=64, chunk=64) if mxu
                else sf.body_force_symmetric(pos[i], m[i], tile=64, chunk=64))
@@ -1363,9 +1381,9 @@ def test_slot_reduce_refuses_misaligned(cuda, what):
 def _ens_vjp(mxu):
     if mxu:
         return (vm.vjp_pos_sym_mxu_ensemble, vm.vjp_pos_sym_mxu,
-                (vm, "ENSEMBLE_LAUNCHES"))
+                "launch.B9d")
     return (vk.vjp_pos_sym_ensemble, vk.vjp_pos_sym,
-            (vk, "SYM_ENSEMBLE_LAUNCHES"))
+            "launch.B9c")
 
 
 @pytest.mark.parametrize("mxu", [False, True])
@@ -1376,9 +1394,9 @@ def test_ensemble_vjp_bitwise_vs_standalone(cuda, mxu, mass_grad, n, tile):
     ss, st = _ensemble(n, 3, True, cuda, seed=48)
     g = torch.sin(7.0 * st.pos)
     ens, one, counter = _ens_vjp(mxu)
-    before = getattr(*counter)
+    before = _count(counter)
     got = ens(st.pos, g, st.mass, tile=tile, mass_grad=mass_grad)
-    assert getattr(*counter) == before + 1
+    assert _count(counter) == before + 1
     got = got if mass_grad else (got,)
     for i in range(3):
         ref = one(st.pos[i], g[i], st.mass[i], tile=tile,
@@ -1472,11 +1490,11 @@ def test_b15_vs_plain(cuda, mxu, masses, fold, tile):
     n, steps = 1000, 5
     ss, _ = _ensemble(n, 1, True, cuda, seed=51)
     s = ss[0]
-    before = rs.LAUNCHES
+    before = _count("launch.B15")
     pos, vel = rs.simulate_resident_sym(
         s.pos, s.vel, s.mass if masses else None, steps=steps, dt=1e-3,
         softening=1e-2, mxu=mxu, tile=tile, fold=fold)
-    assert rs.LAUNCHES == before + 1
+    assert _count("launch.B15") == before + 1
     p, v, m = _padded(s, n, tile, masses)
     slots = sp.slot_table(p.shape[1] // tile, fold, False, cuda)
     rs.resident_plain(p, v, m, slots, tile, n, steps, 1e-3, 1e-2, mxu, True,
@@ -1492,9 +1510,9 @@ def test_b15_ensemble_bitwise_vs_standalone(cuda, mxu, masses):
     ss, st = _ensemble(n, b, masses, cuda, seed=52)
     m = st.mass if masses else None
     kw = dict(steps=4, dt=1e-3, softening=1e-2, mxu=mxu, tile=64)
-    before = rs.LAUNCHES
+    before = _count("launch.B15")
     p, v = rs.simulate_resident_sym_ensemble(st.pos, st.vel, m, **kw)
-    assert rs.LAUNCHES == before + 1
+    assert _count("launch.B15") == before + 1
     for i in range(b):
         pi, vi = rs.simulate_resident_sym(ss[i].pos, ss[i].vel,
                                           ss[i].mass if masses else None,
@@ -1542,16 +1560,16 @@ def test_simulate_resident_route(cuda, backend, integrator):
     ss, st = _ensemble(n, 3, True, cuda, seed=55)
     cfg = SimConfig(n=n, dt=1e-3, steps=4, softening=1e-2, backend=backend,
                     integrator=integrator, use_masses=True)
-    before = rs.LAUNCHES
+    before = _count("launch.B15")
     res = simulate(cfg.replace(resident=True), ss[0])
-    assert rs.LAUNCHES == before + 1
+    assert _count("launch.B15") == before + 1
     ref = simulate(cfg.replace(resident=False), ss[0])
     assert torch.equal(res.pos, ref.pos) and torch.equal(res.vel, ref.vel)
     t, c = sm.ensemble_tiling(n, None, kernel=True)
     rcfg = cfg.replace(resident=True, sym_tile=t, sym_chunk=c)
-    before = rs.LAUNCHES
+    before = _count("launch.B15")
     out = simulate_ensemble(rcfg, st)
-    assert rs.LAUNCHES == before + 1
+    assert _count("launch.B15") == before + 1
     for i in range(3):
         one = simulate(rcfg, ss[i])
         assert torch.equal(out.pos[i], one.pos)
@@ -1576,9 +1594,9 @@ def test_default_route_changes_no_bit(cuda, backend, integrator):
     cfg = SimConfig(n=n, dt=1e-3, steps=steps, softening=1e-2,
                     backend=backend, integrator=integrator, use_masses=True)
     s = _ensemble(n, 1, True, cuda, seed=60)[0][0]
-    before = rs.LAUNCHES
+    before = _count("launch.B15")
     out = simulate(cfg, s)
-    assert rs.LAUNCHES == before + 1
+    assert _count("launch.B15") == before + 1
     ref = simulate(cfg.replace(resident=False), s)
     assert torch.equal(out.pos, ref.pos) and torch.equal(out.vel, ref.vel)
     final, hist = trajectory(cfg, s, steps)
@@ -1588,15 +1606,15 @@ def test_default_route_changes_no_bit(cuda, backend, integrator):
     assert n <= tsim.RESIDENT_AUTO_MAX_N[eff]
     ss, st = _ensemble(n, 3, True, cuda, seed=61)
     cfg = cfg.replace(n=n)
-    before = rs.LAUNCHES
+    before = _count("launch.B15")
     ens = simulate_ensemble(cfg, st)
-    assert rs.LAUNCHES == before
+    assert _count("launch.B15") == before
     t, c = sm.ensemble_tiling(n, None, kernel=True)
     for i in range(3):
         one = simulate(cfg.replace(sym_tile=t, sym_chunk=c), ss[i])
         assert torch.equal(ens.pos[i], one.pos), i
         assert torch.equal(ens.vel[i], one.vel), i
-    assert rs.LAUNCHES == before + 3
+    assert _count("launch.B15") == before + 3
 
 
 @pytest.mark.parametrize("backend", ["auto", "sym_mxu"])
@@ -1611,14 +1629,14 @@ def test_auto_routes_small_n_to_b15(cuda, backend):
                       (2 * tsim.RESIDENT_AUTO_MAX_N[eff], False)):
         s = init.uniform_random(n, generator=torch.Generator(
             device=cuda).manual_seed(56), device=cuda)
-        before = rs.LAUNCHES
+        before = _count("launch.B15")
         simulate(SimConfig(n=n, steps=steps, backend=backend), s)
-        assert rs.LAUNCHES - before == int(routed), n
+        assert _count("launch.B15") - before == int(routed), n
     n = tsim.RESIDENT_ENSEMBLE_AUTO_MAX_N[eff]
     _, st = _ensemble(n, 4, True, cuda, seed=57)
-    before = rs.LAUNCHES
+    before = _count("launch.B15")
     simulate_ensemble(SimConfig(n=n, steps=steps, backend=backend), st)
-    assert rs.LAUNCHES - before == 1
+    assert _count("launch.B15") - before == 1
 
 
 @pytest.mark.parametrize("mxu", [False, True])
@@ -1664,9 +1682,9 @@ def test_b15_many_pieces(cuda, monkeypatch, mxu):
     assert torch.equal(p[0], ref.pos) and torch.equal(v[0], ref.vel)
     for integrator in ("leapfrog", "yoshida4"):
         kdk = cfg.replace(integrator=integrator)
-        before = rs.LAUNCHES
+        before = _count("launch.B15")
         res = simulate(kdk.replace(resident=True), ss[0])
-        assert rs.LAUNCHES == before + 1
+        assert _count("launch.B15") == before + 1
         ref = simulate(kdk, ss[0])
         assert torch.equal(res.pos, ref.pos), integrator
         assert torch.equal(res.vel, ref.vel), integrator
@@ -1682,9 +1700,9 @@ def test_b15_many_pieces(cuda, monkeypatch, mxu):
 
 def _streamed_launches():
     """The launch counts of the streamed force kernels and the reduce: K2,
-    K3, B9a, B9b (in those counters) and slot_reduce."""
-    return (sp.LAUNCHES, sf.LAUNCHES, sp.ENSEMBLE_LAUNCHES,
-            sf.ENSEMBLE_LAUNCHES, sp.REDUCE_LAUNCHES)
+    K3, B9a, B9b and slot_reduce."""
+    return _counts("launch.K2", "launch.K3", "launch.B9a", "launch.B9b",
+                   "launch.slot_reduce")
 
 
 @pytest.mark.parametrize("backend", ["auto", "sym_mxu"])
@@ -1703,9 +1721,9 @@ def test_routed_kdk_is_one_b15_launch(cuda, backend, integrator):
     cfg = SimConfig(n=n, dt=1e-3, steps=steps, softening=1e-2,
                     backend=backend, integrator=integrator, use_masses=True)
     for run, state in ((simulate, ss[0]), (simulate_ensemble, st)):
-        before, streamed = rs.LAUNCHES, _streamed_launches()
+        before, streamed = _count("launch.B15"), _streamed_launches()
         out = run(cfg, state)
-        assert rs.LAUNCHES == before + 1, run.__name__
+        assert _count("launch.B15") == before + 1, run.__name__
         assert _streamed_launches() == streamed, run.__name__
         ref = run(cfg.replace(resident=False), state)
         assert torch.equal(out.pos, ref.pos), run.__name__
@@ -1726,9 +1744,9 @@ def test_resident_sweep_is_one_launch(cuda):
     cfg = SimConfig(n=n, dt=2e-3, steps=200, softening=1e-3,
                     integrator="leapfrog", use_masses=True,
                     backend="sym_mxu", resident=True)
-    before, streamed = rs.LAUNCHES, _streamed_launches()
+    before, streamed = _count("launch.B15"), _streamed_launches()
     out = simulate_ensemble(cfg, st)
-    assert rs.LAUNCHES == before + 1
+    assert _count("launch.B15") == before + 1
     assert _streamed_launches() == streamed
     ref = simulate_ensemble(cfg.replace(resident=False), st)
     assert torch.equal(out.pos, ref.pos) and torch.equal(out.vel, ref.vel)
@@ -1815,12 +1833,12 @@ def test_b16_vs_bf16_plain(cuda, tile, mode, blocks, mask, split_w):
                       torch.rand(r, device=cuda) + 0.5 if masses else None,
                       r, c) for s, r in enumerate(real)]
     p, v = (torch.cat([x[k] for x in packs]) for k in (0, 1))
-    counters = ("BAND_LAUNCHES", "BAND_CROSS_LAUNCHES",
-                "BAND_ENSEMBLE_LAUNCHES", "BAND_REDUCE_LAUNCHES")
-    before = [getattr(sm, k) for k in counters]
+    counters = ("launch.B16.tri", "launch.B16.cross", "launch.B16.ensemble",
+                "launch.band_reduce")
+    before = [_count(k) for k in counters]
     args = (mode, p, v, c, tile, split_w, mask, n_sys)
     got = _band_sums(*args)
-    launched = [getattr(sm, k) - b for k, b in zip(counters, before)]
+    launched = [_count(k) - b for k, b in zip(counters, before)]
     kind = ("tri", "cross", "ensemble").index(mode)
     assert launched[kind] == 1 and sum(launched[:3]) == 1
     assert launched[3] == int(mode != "tri" or blocks > 1)
@@ -1859,11 +1877,11 @@ def test_simulate_band_goes_through_b16(cuda):
     cfg = SimConfig(n=n, steps=3, backend="sym_mxu", traversal="band",
                     softening=1e-2, integrator="leapfrog", sym_chunk=1024,
                     resident=False)
-    before = (sm.BAND_LAUNCHES, sm.BAND_CROSS_LAUNCHES, sp.LAUNCHES)
+    before = _counts("launch.B16.tri", "launch.B16.cross", "launch.K2")
     out = simulate(cfg, state)
     torch.cuda.synchronize()
-    launched = (sm.BAND_LAUNCHES - before[0],
-                sm.BAND_CROSS_LAUNCHES - before[1], sp.LAUNCHES - before[2])
+    launched = _launched(before, "launch.B16.tri", "launch.B16.cross",
+                         "launch.K2")
     # 4 force passes of 4 tri and 6 cross calls, one launch each; no K2.
     assert launched == (16, 24, 0)
     ref = simulate(cfg.replace(traversal="slots"), state)
@@ -2005,9 +2023,9 @@ def test_ensemble_vjp_uneven_width_bitwise_vs_standalone(cuda, mxu, tile):
     _, st = _ensemble(n, b, True, cuda, seed=77)
     g = torch.sin(5.0 * st.pos)
     ens, one, counter = _ens_vjp(mxu)
-    before = getattr(*counter)
+    before = _count(counter)
     got = ens(st.pos, g, st.mass, tile=tile, mass_grad=True)
-    assert getattr(*counter) == before + 1
+    assert _count(counter) == before + 1
     for i in range(b):
         ref = one(st.pos[i], g[i].contiguous(), st.mass[i], tile=tile,
                   mass_grad=True)

@@ -204,12 +204,18 @@ def test_profile_trace_writes_a_chrome_trace_with_the_span(tmp_path):
     step_fn = make_force_fn(SimConfig(n=64, backend="torch"))
     pos = _cpu_state(64).pos
     with tracing.profile_trace(str(tmp_path / "trace"), device="cpu") as p:
-        with tracing.annotate("force_span", device="cpu"):
+        with tracing.annotate("force_span"):
             out = step_fn(pos, pos)
     assert out.shape == (64, 3)
     events = json.loads((tmp_path / "trace" / tracing.TRACE_FILE)
                         .read_text())["traceEvents"]
     assert "force_span" in {e.get("name") for e in events}
+    # the program's own span of the force pass, inside the caller's
+    spans = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation"}
+    outer, inner = spans["force_span"], spans["nbody.force"]
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
     assert any(a.key == "force_span" for a in p.key_averages())
 
 
