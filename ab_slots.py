@@ -57,9 +57,10 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   the identity order (turns: the plan's, identity, identity, the plan's);
   and digests of B9a and B9b (16 x 4096 plummer systems with masses);
 - rollout: one warm 10-step "sqrt" rollout gradient at N = 262,144 (config
-  3's physics: leapfrog, dt 1e-3) on ``auto`` (K3 + B10, loss on the final
-  positions) and on ``sym_mxu`` (K2 + B14, loss on the final velocities),
-  after a warm-up run;
+  3's physics: leapfrog, dt 1e-3) on ``auto`` (K3 and the tree's fp32
+  backward, B11 on the card's route, loss on the final positions) and on
+  ``sym_mxu`` (K2 and its bf16 backward, B13, loss on the final
+  velocities), after a warm-up run;
 - pvjp: the pair-once VJPs B11 and B13 on plummer bodies of N = 65,536
   with masses and a normal cotangent: one launch over the first piece of
   the tri slot list (PIECE_SLOTS slots, no slot_reduce) at tiles 64 and
@@ -67,10 +68,11 @@ prints one JSON line. Its sections (``--only`` runs some of them):
   ``vjp_pos_sym`` / ``vjp_pos_sym_mxu`` calls at both tiles, 'fast' and
   'masked'; and the 16 x 65,536 ensemble backwards B9c and B9d
   (``vjp_pos_sym_ensemble`` / ``vjp_pos_sym_mxu_ensemble``) at both tiles;
-- bwdmax: whole VJP calls with masses at N = 65,536, 131,072 and 262,144
-  (plummer, 'fast'): B11 (``vjp_pos_sym``, chunked at 131,072) against B10
+- bwdmax: whole VJP calls at N = 65,536 to 1,048,576 (plummer, with
+  masses and with unit masses, 'fast' and 'auto', which is what autodiff
+  passes): B11 (``vjp_pos_sym``, chunked at 131,072) against B10
   (``vjp_pos_direct``, block 512) and B13 (``vjp_pos_sym_mxu``) against
-  B14 (``vjp_rect_mxu``), the routing ``autodiff._SYM_BWD_MAX`` sets;
+  B14 (``vjp_rect_mxu``), the measurement behind autodiff's card route;
 - direct: K1 through ``body_force_direct`` over one N = 2^20 pass at
   block (tile_i) 512, with unit masses and with masses; K5 at config 2
   (``simulate`` of N = 65,536 uniform bodies, 10 fused Euler steps, block
@@ -145,7 +147,7 @@ B12_RAGGED = (3001, 9001)
 ENS_REDUCE = (16, 4096)
 #: pvjp: N of the launches and calls, the ensemble (B, N); bwdmax: the Ns.
 N_PVJP, ENS_PVJP = 65536, (16, 65536)
-BWDMAX_NS = (65536, 131072, 262144)
+BWDMAX_NS = (65536, 131072, 262144, 524288, 1048576)
 #: direct and pe: K1's block at 2^20, config 2 (N, fused Euler steps), the
 #: digests' N (a ragged edge at every block), blocks and softenings (K1 and
 #: K5: the cube, normal and rsqrtf forms; K4: normal and rsqrtf), K4's
@@ -759,8 +761,8 @@ def worker(tree, only, sass_dir=None):
         rec[f"rollout_grad_digest_{backend}"] = digest(grad())
         rec[f"rollout_grad_loss_on_{backend}"] = on
 
-    # B11 and B13 (pvjp) and the routing of _SYM_BWD_MAX (bwdmax) on
-    # plummer bodies with masses and a normal cotangent.
+    # B11 and B13 (pvjp) and the card's routing (bwdmax) on plummer bodies
+    # and a normal cotangent.
     def plummer_case(n, seed):
         st = init.plummer(n, generator=torch.Generator(
             device=dev).manual_seed(seed), device=dev)
@@ -835,19 +837,22 @@ def worker(tree, only, sass_dir=None):
                     "digest": digest(fn(*args))}
     for n in BWDMAX_NS if "bwdmax" in only else ():
         sv, gv = plummer_case(n, SEED + 8)
-        for name, fn, args in (
-                ("B11", vk.vjp_pos_sym, (sv.pos, gv, sv.mass, SOFT_CONFIG3,
-                                         None, CHUNK, False, "fast")),
-                ("B10", vk.vjp_pos_direct, (sv.pos, gv, sv.mass,
-                                            SOFT_CONFIG3, 512, "fast")),
-                ("B13", vm.vjp_pos_sym_mxu, (sv.pos, gv, sv.mass,
-                                             SOFT_CONFIG3, None, CHUNK,
-                                             False, "fast")),
-                ("B14", vm.vjp_rect_mxu, (sv.pos, gv, sv.pos, gv, sv.mass,
-                                          sv.mass, SOFT_CONFIG3,
-                                          vm.RECT_TILE, "fast"))):
-            rec.setdefault("bwdmax_ms", {}).setdefault(name, {})[n] = \
-                time_fn(fn, *args, reps=3) * 1e3
+        for masses, m in (("masses", sv.mass), ("unit", None)):
+            for mode in ("fast", "auto"):
+                for name, fn, args in (
+                        ("B11", vk.vjp_pos_sym, (sv.pos, gv, m, SOFT_CONFIG3,
+                                                 None, CHUNK, False, mode)),
+                        ("B10", vk.vjp_pos_direct, (sv.pos, gv, m,
+                                                    SOFT_CONFIG3, 512, mode)),
+                        ("B13", vm.vjp_pos_sym_mxu, (sv.pos, gv, m,
+                                                     SOFT_CONFIG3, None,
+                                                     CHUNK, False, mode)),
+                        ("B14", vm.vjp_rect_mxu, (sv.pos, gv, sv.pos, gv, m,
+                                                  m, SOFT_CONFIG3,
+                                                  vm.RECT_TILE, mode))):
+                    rec.setdefault("bwdmax_ms", {}).setdefault(
+                        f"{name} {masses} {mode}", {})[n] = \
+                        time_fn(fn, *args, reps=3) * 1e3
 
     # K1 and K5 (direct), K4 (pe): each tree through its public wrappers,
     # so the parent's kernels run as they did; in a tree with the row

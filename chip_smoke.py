@@ -17,13 +17,16 @@ each with every launch count set to 0 just before it and read just after:
   the unfused ``direct`` run;
 - ``grad_config3``: the differentiable path at config 3's N = 262,144: the
   gradient of a 10-step "sqrt"-checkpointed leapfrog rollout on ``auto``
-  (forward K3, backward B10), then 5 Adam iterations of
-  examples/optimize_impact.py's probe loss;
+  (forward K3, backward B11: the card's route keeps the pair-once
+  backwards at every N), one B11 and one B10 call against the plain VJP,
+  then 5 Adam iterations of examples/optimize_impact.py's probe loss;
 - ``grad_sym``: the same rollout gradient at N = 65,536 (backward B11)
   against the rollout on the kernels' plain versions, and B11's mass
   cotangent;
-- ``grad_sym_mxu``: the rollout on ``sym_mxu`` at N = 65,536 (backward B13)
-  and N = 262,144 (B14) against the fp32 gradients;
+- ``grad_sym_mxu``: the rollout on ``sym_mxu`` at N = 65,536 and N =
+  262,144 (backward B13) against the fp32 gradients, B13's raw sums at
+  262,144 (last self chunk, chunk pair (0, last)) and one B14 launch there
+  against their bf16-mode plain versions;
 - ``mxu_main_path``: ``simulate``, one Euler step at N = 1,048,576 on ``mxu``
   with pair_dtype "bfloat16" (B6), forces checked against the float64
   oracle;
@@ -41,7 +44,7 @@ each with every launch count set to 0 just before it and read just after:
   'masked' at N = 65,536 on the slots and on the band, B10's and B14's
   'fast' bitwise their 'masked' at 262,144; a 10-step rollout gradient
   with remat "sqrt" bitwise the one with "none", on ``auto`` and
-  ``sym_mxu``, at N = 65,536 and at 262,144 (backward B10 and B14);
+  ``sym_mxu``, at N = 65,536 and at 262,144 (backward B11 and B13);
 - ``ensemble_sweep``: examples/parameter_sweep.py at its defaults, B = 32
   plummer spheres of N = 1024 with velocity scales 0.2 .. 1.6, 200 leapfrog
   steps of ``simulate_ensemble`` on ``sym_mxu`` (B9a): per-system energy
@@ -93,7 +96,7 @@ each with every launch count set to 0 just before it and read just after:
   and collective counts and the ms per step beside the single card's;
   config 3 (plummer, N = 262,144) through one differentiable step under
   ``grid`` (backward B12, one launch per piece of its slots) and ``ring``
-  on ``sym_mxu`` (backward B14) against the single-card gradient (B10); the
+  on ``sym_mxu`` (backward B14) against the single-card gradient (B11); the
   parameter
   sweep with a mesh, bitwise the unsharded ensemble.
 
@@ -250,8 +253,9 @@ K5_RTOL, K5_ATOL = 1e-4, 1e-5
 PLAIN_MAX_S = 60.0
 
 #: The differentiable path: a GRAD_STEPS-step "sqrt" rollout gradient at
-#: config 3's N (backward B10 beyond autodiff._SYM_BWD_MAX) and at
-#: N_GRAD_SYM, the backward size of benchmarks/RESULTS.md (B11, B13); then
+#: config 3's N and at N_GRAD_SYM, the backward size of
+#: benchmarks/RESULTS.md (B11, B13 at both: the card's route keeps the
+#: pair-once backwards at every N); then
 #: ADAM_ITERS Adam iterations of examples/optimize_impact.py's probe loss
 #: over ADAM_STEPS steps of its dt.
 GRAD_STEPS, N_GRAD_SYM = 10, 65536
@@ -600,8 +604,9 @@ BODIES = {
     "B16": ("band_mxu_info",
             (sm.DEFAULT_TILE, 0, int(fast_rsqrt_cube(SOFTENING))),
             "band_mxu_kernelILi128ELb0ELb1E"),
-    # The VJPs as the gradients at config 3's N run them, with masses: B14
-    # at the rectangular tile, B10 at SimConfig.tile_i, B12 at its tile.
+    # The ordered VJPs with masses as autodiff called them beyond
+    # _SYM_BWD_MAX, B14 at the rectangular tile, B10 at SimConfig.tile_i;
+    # B12 at its tile.
     "B14": ("vjp_rect_mxu_info", (vm.RECT_TILE, 1),
             "vjp_rect_mxu_kernelILi128ELi4E"),
     "B10": ("vjp_ordered_info", (SimConfig(n=N_CONFIG3).tile_i, 1),
@@ -1541,10 +1546,13 @@ def adam_phase(state):
 
 def grad_config3_phase(rng):
     """The differentiable path at config 3's N = 262,144 on 'auto': a
-    GRAD_STEPS-step "sqrt" rollout gradient, forward K3 and backward B10
-    (N > autodiff._SYM_BWD_MAX), exact launch counts; one B10 call held
-    against its plain version and timed; then the Adam run. Returns the
-    state, the gradient and B10's record."""
+    GRAD_STEPS-step "sqrt" rollout gradient, forward K3 and backward B11
+    (the card's route at every N, beyond JAX's autodiff._SYM_BWD_MAX),
+    exact launch counts; one B11 call as the route makes it (two chunks,
+    tri and cross launches) and one B10 call, B10 kept on the card though
+    autodiff no longer routes a CUDA tensor to it, each held against the
+    same plain VJP, B10 timed; then the Adam run. Returns the state, the
+    gradient and B10's record."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     state = init.plummer(N_CONFIG3, generator=gen, device=DEV)
     cfg = grad_cfg(N_CONFIG3)
@@ -1554,28 +1562,36 @@ def grad_config3_phase(rng):
                                sqrt_passes(GRAD_STEPS))
     runs = {}
     for on in ("pos", "vel"):
+        b11_tri, b11_cross = pass_launches(N_CONFIG3, vk.DEFAULT_TILE,
+                                           GRAD_VJPS[on])
         runs[on] = counted_grad(cfg, carry0, on, "grad_config3",
                                 sym_tri=tri, sym_cross=cross,
-                                vjp_ordered=GRAD_VJPS[on])
+                                vjp_sym_tri=b11_tri, vjp_sym_cross=b11_cross)
     seconds, loss, _, launches = runs["pos"]
-    # One B10 call as the path makes it ('auto' on duplicate-free bodies
-    # is 'fast' after the scan: tiles off the diagonal drop the mask).
+    # One B10 call as autodiff made it beyond _SYM_BWD_MAX ('auto' on
+    # duplicate-free bodies is 'fast' after the scan: tiles off the
+    # diagonal drop the mask).
     g = normal(rng, N_CONFIG3)
     args = (state.pos, g, state.mass, cfg.softening, cfg.tile_i, "fast")
+    reset_counts()
     got = vk.vjp_pos_direct(*args)
+    b10_launches = read_counts()["vjp_ordered"]
     plain_s, want = host_time(vk.vjp_ordered_plain, state.pos, g, state.pos,
                               g, state.mass, state.mass, cfg.softening)
     err = close_grad(got, want, K1_RTOL, K1_ATOL, f"B10 at N={N_CONFIG3}")
+    b11_err = close_grad(vk.vjp_pos_sym(state.pos, g, state.mass,
+                                        cfg.softening),
+                         want, K1_RTOL, K1_ATOL, f"B11 at N={N_CONFIG3}")
     b10_s = time_fn(vk.vjp_pos_direct, *args, reps=3)
     adam = adam_phase(state)
     line("grad_config3", n=N_CONFIG3, steps=GRAD_STEPS, remat="sqrt",
          loss_pos=loss, first_seconds=first_s, seconds=seconds,
          launches=launches, seconds_vel=runs["vel"][0],
          launches_vel=runs["vel"][3], b10_vs_plain_max_abs_err=err,
-         adam=adam)
+         b11_vs_plain_max_abs_err=b11_err, adam=adam)
     n = float(N_CONFIG3)
     record = entry("vjp_kernel ordered (B10)", "vjp_kernel.cu",
-                   "vjp_kernel.py:106", launches["vjp_ordered"], err,
+                   "vjp_kernel.py:106", b10_launches, err,
                    b10_s * 1e3, plain_s * 1e3,
                    bound(n * (n - 1) * OPS_B10, n * 40.0), n=N_CONFIG3,
                    block=cfg.tile_i, body=body_info("B10"))
@@ -1652,23 +1668,26 @@ def grad_sym_phase(rng):
 
 def grad_sym_mxu_phase(rng, sym, config3):
     """The rollout gradient (loss on the final velocities) on sym_mxu at
-    N_GRAD_SYM (backward B13) and at config 3's N (B14, beyond
-    autodiff._SYM_BWD_MAX), each against the fp32 gradient of the same
-    state at the bf16-class bound; then one B13 call and one B14 launch
-    held per column against their bf16-mode plain sums and timed."""
+    N_GRAD_SYM and at config 3's N (backward B13 at both, the card's route
+    at every N, beyond JAX's autodiff._SYM_BWD_MAX), each against the fp32
+    gradient of the same state at the bf16-class bound; then one B13 call
+    at N_GRAD_SYM, B13's raw sums at config 3's N as the route makes them
+    (masked: the last self chunk and the chunk pair (0, last)), and one B14
+    launch at config 3's N, B14 kept on the card though autodiff no longer
+    routes a CUDA tensor to it, held per column against their bf16-mode
+    plain sums; the single launches timed."""
     out, records = {}, []
-    for (state, fp32), bwd in ((sym, "vjp_mxu_tri"),
-                               (config3, "vjp_rect_mxu")):
+    for (state, fp32), kernel in ((sym, "B13"), (config3, "B14")):
         n = state.n
         cfg = grad_cfg(n, backend="sym_mxu")
         carry0 = init_carry(cfg, state)
         tri, cross = pass_launches(n, sm.DEFAULT_TILE,
                                    sqrt_passes(GRAD_STEPS))
-        per = (pass_launches(n, vm.DEFAULT_TILE)[0]
-               if bwd == "vjp_mxu_tri" else 1)
+        b13_tri, b13_cross = pass_launches(n, vm.DEFAULT_TILE,
+                                           GRAD_VJPS["vel"])
         seconds, loss, grad, launches = counted_grad(
             cfg, carry0, "vel", f"grad_sym_mxu n={n}", slot_tri=tri,
-            slot_cross=cross, **{bwd: per * GRAD_VJPS["vel"]})
+            slot_cross=cross, vjp_mxu_tri=b13_tri, vjp_mxu_cross=b13_cross)
         close_grad(grad, fp32, SYM_RTOL, SYM_ATOL,
                    f"grad_sym_mxu n={n} vs fp32")
         out[n] = {"seconds": seconds, "loss_vel": loss, "launches": launches,
@@ -1676,7 +1695,8 @@ def grad_sym_mxu_phase(rng, sym, config3):
                   "vs_fp32_max_err_of_scale": scale_err(grad, fp32),
                   "vs_fp32": rel_err_stats(grad, fp32)}
         g = normal(rng, n)
-        if bwd == "vjp_mxu_tri":  # B13: the one tri call of the path
+        if kernel == "B13":  # the one tri call of the path
+            per = pass_launches(n, vm.DEFAULT_TILE)[0]
             (tile, c, _, _), (p, gp, q) = vm.sums_inputs(
                 state.pos, g, state.mass, chunk=CHUNK)
             slots = sp.slot_table(c // tile, True, False, DEV)
@@ -1693,19 +1713,25 @@ def grad_sym_mxu_phase(rng, sym, config3):
                 red, per, plain_s * 1e3,
                 bound(pairs * OPS_B13_FP32, n * 40.0, pairs * OPS_B13_MMA),
                 n=n, tile=tile, body=body_info("B13")))
-        else:  # B14 called square, as autodiff calls it
+        else:  # B13 as the route runs it; B14 called square
+            b13_err = b13_sums_check(state.pos, g, state.mass, False,
+                                     cfg.softening, True, CHUNK,
+                                     f"at N={n}")
+            out[n]["b13_raw_sums_max_abs_err"] = b13_err
             args = (state.pos, g, state.pos, g, state.mass, state.mass,
                     cfg.softening)
             ms = time_fn(vm.vjp_rect_mxu_rows, *args, vm.RECT_TILE, "fast",
                          reps=3) * 1e3
+            reset_counts()
             got = vm.vjp_rect_mxu_rows(*args, vm.RECT_TILE, "fast")
+            b14_launches = read_counts()["vjp_rect_mxu"]
             plain_s, want = host_time(vm.vjp_rect_mxu_plain, *args,
                                       torch.bfloat16)
             err = close_cols(got, want, K2_ATOL, f"B14 at N={n}")
             pairs = float(n) * (n - 1)
             records.append(entry(
                 "vjp_mxu rectangular (B14)", "vjp_mxu.cu", "vjp_mxu.py:179",
-                launches["vjp_rect_mxu"], err, ms, plain_s * 1e3,
+                b14_launches, err, ms, plain_s * 1e3,
                 bound(pairs * OPS_B14_FP32, n * 40.0, pairs * OPS_B14_MMA),
                 n=n, tile=vm.RECT_TILE, body=body_info("B14")))
         out[n]["kernel_ms"], out[n]["raw_sums_max_abs_err"] = ms, err
@@ -2009,19 +2035,19 @@ def _outputs(x):
 def determinism_phase(rng):
     """C2: K2, K3, B11, B13, B16, B10 and B14 each run twice at
     N_DETERMINISM (two chunks, so tri and cross launches; B10 and B14 one
-    square launch each, as autodiff makes them beyond _SYM_BWD_MAX, B10 at
-    grad_config3's block, SimConfig.tile_i) and must
+    square launch each, as autodiff made them beyond _SYM_BWD_MAX, B10 at
+    SimConfig.tile_i) and must
     agree bit for bit; sym_mxu's 'auto' and 'fast' must be bitwise 'masked'
     at N_GRAD_SYM on the slots and on the band, and B10's and B14's 'fast'
     bitwise their 'masked' at N_DETERMINISM on the same duplicate-free
     bodies; and a GRAD_STEPS rollout gradient with remat "sqrt" bitwise the
     one with "none", on 'auto' (K3, B11) and 'sym_mxu' (K2, B13) at
-    N_GRAD_SYM, and at config 3's N (B10 and B14)."""
+    N_GRAD_SYM, and at config 3's N (B11 and B13 there too)."""
     n = N_DETERMINISM
     pos = to_dev(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
     m = to_dev(rng.uniform(0.5, 2.0, n).astype(np.float32))
     g = normal(rng, n)
-    block = SimConfig(n=N_CONFIG3).tile_i  # B10's on grad_config3
+    block = SimConfig(n=N_CONFIG3).tile_i  # B10's as autodiff calls it
     runs = {
         "K2": lambda: sm.body_force_sym_mxu(pos, m, chunk=CHUNK,
                                             coincident="fast"),
@@ -3093,7 +3119,7 @@ def sharded_phase():
 
 def sharded_grads(meshes, out):
     """Config 3's one-step gradients under grid (B12) and ring on sym_mxu
-    (B14), against the single card's B10 gradient; returns (their records,
+    (B14), against the single card's B11 gradient; returns (their records,
     the B12 launches of the grid run)."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
     s3 = init.plummer(N_CONFIG3, generator=gen, device=DEV)
@@ -3105,9 +3131,11 @@ def sharded_grads(meshes, out):
                            tsim.make_step_fn(cfg, differentiable=True), s3,
                            acc)
     tri, cross = pass_launches(N_CONFIG3, sf.DEFAULT_TILE)
+    b11_tri, b11_cross = pass_launches(N_CONFIG3, vk.DEFAULT_TILE)
     expect_counts(read_counts(), "single-card gradient", sym_tri=tri,
-                  sym_cross=cross, vjp_ordered=1)
-    recs = {"single_card_b10_s": secs}
+                  sym_cross=cross, vjp_sym_tri=b11_tri,
+                  vjp_sym_cross=b11_cross)
+    recs = {"single_card_b11_s": secs}
     m_tri, m_cross = pass_launches(N_CONFIG3, sm.DEFAULT_TILE)
     for comm, backend, shape, tol, kern, calls in (
             ("grid", "direct", (1, 1), (K1_RTOL, K1_ATOL),

@@ -78,7 +78,8 @@
 // csrc/slot_reduce.cu adds each block's partials in slot order, so every
 // output bit is the same on every run. The TPU's single-launch bound (the
 // (3|4, N) VMEM reaction buffer, _SYM_BWD_MAX = 131072) does not apply:
-// the wrapper keeps K3's chunk loop.
+// the wrapper keeps K3's chunk loop, and autodiff routes a CUDA tensor's
+// square VJP here (and to B13) at every N.
 //
 // B9c: blockIdx.y is the system of an ensemble launch, which replaces
 // vjp_kernel.py:483 `_vjp_sym_ensemble_impl` (`pallas_call` :527, B11's

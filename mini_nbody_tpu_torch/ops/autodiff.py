@@ -13,24 +13,30 @@ the default softening), so w and u are zeroed where the pre-softening
 |d|^2 == 0; the self pair's true contribution is zero.
 
 ``make_body_force_diff`` wraps a non-differentiable square force in a
-``torch.autograd.Function`` whose backward is a kernel, routed as JAX's
-``_bwd`` (``autodiff.py:153-222``), by precision class and by
-``_SYM_BWD_MAX``:
+``torch.autograd.Function`` whose backward is a kernel, routed by
+precision class; a CPU tensor also routes by ``_SYM_BWD_MAX``, as JAX's
+``_bwd`` (``autodiff.py:153-222``) does:
 
-  backward | N <= _SYM_BWD_MAX             | N > _SYM_BWD_MAX
-  "fp32"   | vjp_pos_sym (B11)             | vjp_pos_direct (B10)
-  "bf16"   | vjp_pos_sym_mxu (B13)         | vjp_rect_mxu square (B14)
+  backward | N <= _SYM_BWD_MAX, or any N | N > _SYM_BWD_MAX on a CPU
+           | on a CUDA tensor            | tensor
+  "fp32"   | vjp_pos_sym (B11)           | vjp_pos_direct (B10)
+  "bf16"   | vjp_pos_sym_mxu (B13)       | vjp_rect_mxu square (B14)
   "torch"  | _vjp_pos (chunked PyTorch, JAX's backward="jnp"), any N
 
-(JAX's "pallas" and "mxu" backwards are "fp32" and "bf16" here.) The bound
-is the TPU's VMEM limit for its pair-once backwards; the port keeps it so
-that the routing, and so the arithmetic, match JAX's; whether the card
-needs it is not measured (ROADMAP C). One exception: mass_grad beyond the
-bound, which JAX sends to the chunked jnp VJP because its ordered kernels
-have no mass output. On a CUDA tensor the port sends it to B11, which runs
-on K3's chunked slot geometry and has no single-launch bound, so no plain
-version runs on the card's path; a CPU tensor takes ``_vjp_pos`` as JAX
-does. Without mass_grad the mass cotangent is zeros, as in JAX.
+(JAX's "pallas" and "mxu" backwards are "fp32" and "bf16" here.)
+``_SYM_BWD_MAX`` is the TPU's VMEM limit for its pair-once backwards; a
+CPU tensor keeps it, so that the routing, and so the arithmetic, match
+JAX's. The card's pair-once backwards run on K3's chunked slot geometry
+and have no single-launch bound, and on an H100 they beat the ordered
+ones at every N measured, 65,536 to 1,048,576, with masses and unit
+masses (B13 against B14, B11 against B10: ``ab_slots.py --only
+bwdmax``), so a CUDA tensor takes B11 or B13 at every N (ROADMAP C),
+with the mass cotangent when mass_grad asks for it, and B13's 'auto'
+never scans for duplicates. mass_grad beyond the bound on a CPU tensor,
+which JAX sends to the chunked jnp VJP because its ordered kernels have
+no mass output, takes ``_vjp_pos`` as JAX does. Without mass_grad the
+mass cotangent is zeros, as in JAX. B10 and B14 stay reachable through
+their wrappers.
 
 ``make_differentiable_ensemble_force`` (``autodiff.py:267-336``) is the
 same for B independent systems: the forward is the ensemble force (B9a on
@@ -47,7 +53,8 @@ from mini_nbody_tpu_torch import _build
 from mini_nbody_tpu_torch.utils.tracing import annotate, count
 
 #: Bound of the pair-once backward kernels in JAX (the (ko, N) VMEM
-#: reaction buffer); beyond it the ordered backwards take over.
+#: reaction buffer); beyond it the ordered backwards take over. The route
+#: of a CPU tensor only (module docstring).
 _SYM_BWD_MAX = 131072
 
 BACKWARDS = ("torch", "fp32", "bf16")
@@ -95,17 +102,19 @@ def _vjp_pos(pos, g, mass, softening, row_chunk: int | None = None,
 
 def _route(pos, g, mass, softening, backward, unit_mass, block, mass_grad,
            sym_bwd_tile, coincident):
-    """(pos_bar, mass_bar or None) for cotangent g: the JAX routing, with
-    mass_grad beyond the bound on the card sent to B11 (module
-    docstring). The kernel routed to is counted as route.vjp.<kernel>
-    (B10, B11, B13, B14, or torch for the plain PyTorch VJP)."""
+    """(pos_bar, mass_bar or None) for cotangent g: the JAX routing on a
+    CPU tensor; on a CUDA tensor the pair-once backward of the class at
+    every N (module docstring). The kernel routed to is counted as
+    route.vjp.<kernel> (B10, B11, B13, B14, or torch for the plain
+    PyTorch VJP)."""
     from mini_nbody_tpu_torch.ops import vjp_kernel, vjp_mxu
 
     n = pos.shape[0]
     m = None if unit_mass else mass
     sym_kw = dict(softening=softening, tile=sym_bwd_tile,
                   mass_grad=mass_grad, coincident=coincident)
-    if backward != "torch" and n <= _SYM_BWD_MAX:
+    if backward != "torch" and (n <= _SYM_BWD_MAX
+                                or _build.on_card(pos.device)):
         bf16 = backward == "bf16"
         count("route.vjp.B13" if bf16 else "route.vjp.B11")
         sym = vjp_mxu.vjp_pos_sym_mxu if bf16 else vjp_kernel.vjp_pos_sym
@@ -120,9 +129,6 @@ def _route(pos, g, mass, softening, backward, unit_mass, block, mass_grad,
             out = vjp_kernel.vjp_pos_direct(pos, g, m, softening=softening,
                                             block=block,
                                             coincident=coincident)
-    elif backward != "torch" and _build.on_card(pos.device):
-        count("route.vjp.B11")
-        out = vjp_kernel.vjp_pos_sym(pos, g, m, **sym_kw)
     else:
         count("route.vjp.torch")
         # Unit masses as the forward took them (JAX's jnp backward uses the

@@ -94,8 +94,8 @@ SYM_COUNTERS = {"tri": "launch.B11.tri", "cross": "launch.B11.cross",
 
 #: The coincident gates: below this many bodies 'auto' is 'masked', without
 #: the duplicate scan. chip_smoke.py's coincident_gate phase (4096 ..
-#: 262,144, an H100): the scan pays for B10, which autodiff runs beyond
-#: 131,072, from 131,072 on (COINCIDENT_AUTO_MIN_N); for B11 at no measured
+#: 262,144, an H100): the scan pays for B10 from 131,072 on
+#: (COINCIDENT_AUTO_MIN_N); for B11 at no measured
 #: N, its maskless kernel being no faster, so B11's 'auto' is 'masked' at
 #: every N (SYM_COINCIDENT_AUTO_MIN_N infinite).
 COINCIDENT_AUTO_MIN_N = 131072

@@ -100,8 +100,8 @@ COUNTERS = {"tri": "launch.B13.tri", "cross": "launch.B13.cross",
 
 #: The coincident gates: below this many bodies 'auto' is 'masked', without
 #: the duplicate scan. chip_smoke.py's coincident_gate phase (4096 ..
-#: 262,144, an H100): the scan pays for B14, which autodiff runs beyond
-#: 131,072, from 131,072 on (COINCIDENT_AUTO_MIN_N); for B13 at no measured
+#: 262,144, an H100): the scan pays for B14 from 131,072 on
+#: (COINCIDENT_AUTO_MIN_N); for B13 at no measured
 #: N, its maskless kernel being no faster, so B13's 'auto' is 'masked' at
 #: every N (SYM_COINCIDENT_AUTO_MIN_N infinite).
 COINCIDENT_AUTO_MIN_N = 131072
@@ -484,7 +484,7 @@ def vjp_rect_mxu(pos_k, g_k, pos_j, g_j, mass_k=None, mass_j=None,
     self-force VJP through the bf16-class backward: receivers (pos_k, g_k)
     over sources (pos_j, g_j), pos_k a subset of pos_j's system. Masses
     both or neither. coincident applies to SQUARE calls only (pos_j is
-    pos_k, the autodiff branch beyond _SYM_BWD_MAX): 'auto' and 'fast' let
+    pos_k, the autodiff branch beyond its bound): 'auto' and 'fast' let
     tiles whose k and j ranges do not intersect drop the mask;
     rectangular calls always mask."""
     if (mass_k is None) != (mass_j is None):

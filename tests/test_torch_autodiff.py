@@ -4,7 +4,8 @@ make_differentiable_force over every ported backend against JAX's on the
 same numpy inputs (Pallas forwards and backwards in interpret mode, the
 port's on the kernels' plain versions), the mass cotangent, the routing by
 precision class and across _SYM_BWD_MAX (monkeypatched down on both sides,
-as tests/test_vjp_mxu.py:133 does), a finite-difference check and
+as tests/test_vjp_mxu.py:133 does), the pair-once route of a CUDA tensor
+at every N (the device test patched), a finite-difference check and
 torch.autograd.gradcheck in float64, and the default softening against a
 float64 reference with the self pair excluded.
 
@@ -181,7 +182,7 @@ def test_routing_across_the_bound_matches_jax(monkeypatch, backend, n,
 
 
 def test_mass_grad_beyond_the_bound_takes_b11_on_the_card(monkeypatch):
-    # The one routing change against JAX: on a CUDA tensor, mass_grad beyond
+    # A routing change against JAX: on a CUDA tensor, mass_grad beyond
     # _SYM_BWD_MAX goes to B11 (chunked, no single-launch bound) instead of
     # the chunked plain VJP, so no plain version runs on the card's path.
     from mini_nbody_tpu_torch import _build
@@ -202,6 +203,51 @@ def test_mass_grad_beyond_the_bound_takes_b11_on_the_card(monkeypatch):
     out = ta._route(p, tg, m, 1e-2, "fp32", False, 256, True, None, "auto")
     assert len(calls) == 1 and calls[0]["mass_grad"] is True
     assert out[0] is want[0] and out[1] is want[1]
+
+
+@pytest.mark.parametrize("card,backward,mass_grad,route,kernel", [
+    (True, "bf16", False, "vjp_pos_sym_mxu", "B13"),
+    (True, "fp32", False, "vjp_pos_sym", "B11"),
+    (True, "bf16", True, "vjp_pos_sym_mxu", "B13"),
+    (True, "fp32", True, "vjp_pos_sym", "B11"),
+    (False, "bf16", False, "vjp_rect_mxu", "B14"),
+    (False, "fp32", False, "vjp_pos_direct", "B10"),
+    (False, "bf16", True, "_vjp_pos", "torch"),
+    (False, "fp32", True, "_vjp_pos", "torch"),
+])
+def test_the_card_takes_the_pair_once_vjp_at_every_n(
+        monkeypatch, card, backward, mass_grad, route, kernel):
+    # Beyond _SYM_BWD_MAX, as set, a CUDA tensor (the device test patched)
+    # keeps the pair-once backward of its class, B13 or B11, with the mass
+    # cotangent when asked; a CPU tensor takes JAX's route, the ordered B14
+    # or B10, or the plain VJP for mass_grad. route.vjp.* names the kernel.
+    from mini_nbody_tpu_torch import _build
+    from mini_nbody_tpu_torch.utils import tracing
+
+    n = ta._SYM_BWD_MAX + 1
+    p, tg = torch.zeros((n, 3)), torch.ones((n, 3))
+    m = torch.ones(n)
+    out, mass_out = torch.zeros_like(p), torch.zeros_like(m)
+    calls = []
+
+    def stub(name):
+        def kernel_call(*args, **kw):
+            calls.append((name, kw.get("mass_grad", kw.get("with_mass_grad",
+                                                           False))))
+            return (out, mass_out) if mass_grad else out
+        return kernel_call
+
+    monkeypatch.setattr(_build, "on_card", lambda device: card)
+    for mod, name in ((vk, "vjp_pos_sym"), (vk, "vjp_pos_direct"),
+                      (vm, "vjp_pos_sym_mxu"), (vm, "vjp_rect_mxu"),
+                      (ta, "_vjp_pos")):
+        monkeypatch.setattr(mod, name, stub(name))
+    before = tracing.counters()
+    got = ta._route(p, tg, m, 1e-2, backward, False, 256, mass_grad, None,
+                    "auto")
+    assert calls == [(route, mass_grad)]
+    assert got[0] is out and got[1] is (mass_out if mass_grad else None)
+    assert dict(tracing.counters() - before) == {f"route.vjp.{kernel}": 1}
 
 
 def test_finite_difference():

@@ -69,7 +69,10 @@ The pair-once slot kernels K2, K3, B11 and B13 sum in a fixed order: two
 runs are bitwise equal, 'auto' and 'fast' are bitwise 'masked', a
 checkpointed rollout gradient is bitwise the unchecked one, and every system
 of an ensemble (B9a on K2, B9b on K3) is bitwise its standalone call. B14
-against its bf16-mode plain version with 131,072 sources per row.
+against its bf16-mode plain version with 131,072 sources per row. The
+card's VJP route: B13 at config 3's N through make_differentiable_force,
+within the bf16 class of B14, twice bitwise, with no duplicate scan; the
+pair-once VJPs on both sides of JAX's _SYM_BWD_MAX, lowered.
 
 The ordered VJPs' register designs: B14 at tiles 64 and 128 and B10 at
 blocks 32 to 1024, ragged, twice bitwise and 'fast' bitwise 'masked' on
@@ -788,8 +791,9 @@ def test_kernels_refuse_inputs_that_require_grad(cuda):
 @pytest.mark.parametrize("backend", ["sym", "sym_mxu", "direct"])
 @pytest.mark.parametrize("n", [3000, 5000])
 def test_grad_goes_through_the_vjp_kernels(cuda, monkeypatch, backend, n):
-    # _SYM_BWD_MAX lowered to 4096: n = 3000 takes the pair-once backward
-    # (B11, B13), n = 5000 the ordered ones (B10, B14).
+    # JAX's _SYM_BWD_MAX lowered to 4096: on the card n = 3000 and n = 5000
+    # alike take the pair-once backward of the class (B11, B13), never the
+    # ordered ones (B10, B14), which their own tests hold.
     from mini_nbody_tpu_torch.ops import autodiff
 
     monkeypatch.setattr(autodiff, "_SYM_BWD_MAX", 4096)
@@ -804,13 +808,37 @@ def test_grad_goes_through_the_vjp_kernels(cuda, monkeypatch, backend, n):
         _counts("launch.B10", "launch.B11", "launch.B13", "launch.B14"),
         counts)]
     bf16 = backend == "sym_mxu"
-    small = n <= 4096
-    want = [int(not bf16 and not small), int(not bf16 and small),
-            int(bf16 and small), int(bf16 and not small)]
-    assert launched == want
+    assert launched == [0, int(not bf16), int(bf16), 0]
     g = 2.0 * force(pos, m).detach()
     ref = vk.vjp_ordered_plain(pos, g, pos, g, m, m, 1e-2)
     _close(p.grad, ref, *((2e-2, 5e-3) if bf16 else (1e-3, 1e-4)))
+
+
+def test_b13_takes_config3s_n_on_the_card(cuda):
+    # Beyond JAX's _SYM_BWD_MAX the card keeps the pair-once B13: at config
+    # 3's N with Plummer masses, make_differentiable_force's gradient is B13's, within
+    # the bf16 class of B14 called square as the ordered route called it,
+    # bitwise on a second run, and no duplicate scan runs.
+    n = 262144
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    s = init.plummer(n, generator=gen, device=cuda)
+    g = torch.randn((n, 3), generator=gen, device=cuda)
+    force = make_differentiable_force(SimConfig(
+        n=n, backend="sym_mxu", softening=1e-2, use_masses=True))
+
+    def grad():
+        p = s.pos.clone().requires_grad_(True)
+        force(p, s.mass).backward(g)
+        return p.grad
+
+    names = ("route.vjp.B13", "route.vjp.B14", "launch.B14",
+             "coincident.scan")
+    before = _counts(*names)
+    first = grad()
+    assert _launched(before, *names) == (1, 0, 0, 0)
+    assert torch.equal(first, grad())
+    want = vm.vjp_rect_mxu(s.pos, g, s.pos, g, s.mass, s.mass, 1e-2)
+    _close(first, want, 2e-2, 5e-3)
 
 
 def test_rollout_sqrt_matches_none_on_the_card(cuda):
@@ -1094,9 +1122,9 @@ def test_mxu_simulate_and_grad_go_through_b6(cuda, monkeypatch, pair_dtype):
     assert _count("launch.B6") == before + 4  # the initial pass + one per step
     ref = simulate(cfg.replace(backend="torch"), state)
     _close(out.pos, ref.pos, 1e-3, 1e-4)
-    # The backward by class: bf16 -> B13 (<= _SYM_BWD_MAX) or B14 beyond
-    # it, fp32 -> B11 or B10.
-    for bound, small in ((4096, True), (2048, False)):
+    # The backward by class, bf16 -> B13 and fp32 -> B11, on either side
+    # of JAX's _SYM_BWD_MAX (lowered here).
+    for bound in (4096, 2048):
         monkeypatch.setattr(autodiff, "_SYM_BWD_MAX", bound)
         names = ("launch.B10", "launch.B11", "launch.B13", "launch.B14",
                  "launch.B6")
@@ -1106,9 +1134,7 @@ def test_mxu_simulate_and_grad_go_through_b6(cuda, monkeypatch, pair_dtype):
         (force(p, state.mass) ** 2).sum().backward()
         launched = list(_launched(counts, *names))
         bf16 = pair_dtype == "bfloat16"
-        assert launched == [int(not bf16 and not small),
-                            int(not bf16 and small), int(bf16 and small),
-                            int(bf16 and not small), 1]
+        assert launched == [0, int(not bf16), int(bf16), 0, 1]
         g = 2.0 * force(state.pos, state.mass).detach()
         want = vk.vjp_ordered_plain(state.pos, g, state.pos, g, state.mass,
                                     state.mass, 1e-2)
