@@ -28,6 +28,16 @@ def test_bf16_pass_at_262144_is_bound_by_the_sfu():
     assert work.PEAKS["rsqrt"] == 16 * 132 * 1.98e9
 
 
+def test_bf16_pass_without_masses_at_2_20_is_bound_by_the_sfu():
+    # the headline's class: 5.5e11 pairs at 4.18e12 rsqrt/s
+    w = work.force_pass(1 << 20, "bf16", masses=False)
+    assert w.bound_by() == "rsqrt"
+    assert w.bound_s() == pytest.approx(0.1315, abs=0.5e-3)
+    assert w.fp32 == 12 * work.pairs(1 << 20)
+    assert w.tensor == 32 * work.pairs(1 << 20)
+    assert w.bytes == (1 << 20) * 6 * work.F32
+
+
 def test_bf16_vjp_at_262144():
     w = work.force_vjp(262144, "bf16", masses=True)
     assert w.bound_by() == "fp32"
@@ -47,6 +57,7 @@ def test_masses_add_two_operations_in_the_fp32_class_only():
     ("mininbody-fp32", "mininbody-fp32.sweep4k"),
     ("plummer3-bf16", "plummer3-bf16.n262k-leapfrog"),
     ("plummer3-bf16", "plummer3-bf16.grad262k"),
+    ("mininbody-bf16", "mininbody-bf16.n1m-euler"),
 ])
 def test_the_count_is_the_same_whatever_route_runs_it(config, cell):
     cfg, wl = load("configs", config), load("workloads", cell)
@@ -80,6 +91,14 @@ def test_cells_count_the_passes_and_vjps_their_problem_needs():
     assert (p4["passes"], p4["vjps"]) == (640, 0)
     # 64 systems x 10 Euler passes of 4096 bodies: ~1.92 ms at the bound
     assert p4["step"].bound_s() == pytest.approx(1.92e-3, abs=0.01e-3)
+
+
+def test_the_bf16_headline_counts_one_pass_without_masses():
+    p5 = work.problem(load("configs", "mininbody-bf16"),
+                      load("workloads", "mininbody-bf16.n1m-euler"))
+    assert (p5["passes"], p5["vjps"]) == (1, 0)
+    assert p5["interactions"] == float(1 << 40)
+    assert p5["step"] == work.force_pass(1 << 20, "bf16", masses=False)
 
 
 def test_work_adds_and_scales():

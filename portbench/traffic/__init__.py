@@ -29,7 +29,9 @@ def sim_config(config: dict, n: int, steps: int, control: bool):
 
 def reference_control(config: dict):
     """The reference's pair settings when the control is the reference at
-    the precision below the configuration's, else None."""
+    the precision below the configuration's, else None: pair weights
+    rounded to ``mantissa_bits``, pair matrices in ``pair_dtype`` (float32
+    unless the control names another), the state in float32."""
     ctl = config["control"]
     if ctl["kind"] != "reference":
         return None
@@ -37,4 +39,5 @@ def reference_control(config: dict):
 
     from portbench.reference.integrate import Pairs
 
-    return Pairs(torch.float32, ctl["mantissa_bits"])
+    return Pairs(getattr(torch, ctl.get("pair_dtype", "float32")),
+                 ctl["mantissa_bits"])
