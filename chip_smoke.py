@@ -450,14 +450,14 @@ BAND_KERNELS = ("band_tri", "band_cross", "band_ensemble")
 def reset_counts():
     global _COUNTS_AT_RESET
     _COUNTS_AT_RESET = tracing.counters()
-    for k in _comm.CALLS:
-        _comm.CALLS[k] = 0
 
 
 def expect_calls(path, **want):
     """Fail unless the sharded path made exactly ``want`` collective calls
-    since reset_counts; returns them."""
-    got = dict(_comm.CALLS)
+    since reset_counts (the registry's ``comm.*``); returns them."""
+    now = tracing.counters()
+    got = {k: now[f"comm.{k}"] - _COUNTS_AT_RESET[f"comm.{k}"]
+           for k in _comm.COLLECTIVES}
     full = dict(dict.fromkeys(got, 0), **want)
     if got != full:
         fail(f"{path}: collectives {got}, expected {full}")
@@ -3169,7 +3169,7 @@ def sharded_checkpoint(mesh, state):
     shard_state gives back bitwise, the whole state bitwise without a mesh,
     and no collective but the barriers (no all-gather)."""
     local = psh.shard_state(state, mesh, pad_far=True)
-    before = dict(_comm.CALLS)
+    before = tracing.counters()
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         ckpt.save_sharded(f"{d}/ck", mesh, local, step=7,
@@ -3177,8 +3177,10 @@ def sharded_checkpoint(mesh, state):
         save_s = time.perf_counter() - t0
         back, step, _ = ckpt.load_sharded(f"{d}/ck", mesh, pad_far=True)
         whole, _, cfg_d = ckpt.load_sharded(f"{d}/ck", device=DEV)
-    if _comm.CALLS != before:
-        fail(f"sharded checkpoint: collectives {_comm.CALLS} != {before}")
+    made = {k: v for k, v in (tracing.counters() - before).items()
+            if k.startswith("comm.")}
+    if made:
+        fail(f"sharded checkpoint: collectives {made}")
     for got, want, what in ((back, local, "the block"),
                             (whole, state, "the whole state")):
         if not all(torch.equal(getattr(got, f), getattr(want, f))

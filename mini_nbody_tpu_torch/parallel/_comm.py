@@ -9,8 +9,13 @@ along dim 0 in group rank order, and make no host copy. A group of one rank
 still goes through the collective: the process group, not a shortcut,
 answers for it.
 
-``CALLS`` counts each collective per call (a ppermute of several tensors is
-one call), so a run can show which exchange it made.
+Each collective (an all-gather, a reduce-scatter, each ppermute's start and
+its wait) is one ``nbody.comm`` span while a profiler records. Under NCCL
+the span holds the host's enqueue, not the exchange on the card, which
+runs on NCCL's own stream. Each call counts into ``utils/tracing``'s
+registry: ``comm.all_gather``, ``comm.reduce_scatter``, ``comm.ppermute``
+(a ppermute of several tensors is one call), and ``comm.bytes``, the bytes
+this rank receives from the other ranks.
 """
 
 from __future__ import annotations
@@ -18,7 +23,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-CALLS = {"all_gather": 0, "reduce_scatter": 0, "ppermute": 0}
+from mini_nbody_tpu_torch.utils.tracing import annotate, count
+
+SPAN = "nbody.comm"
+#: The collectives, each counted as ``comm.<name>``.
+COLLECTIVES = ("all_gather", "reduce_scatter", "ppermute")
 
 
 def _check(x, device):
@@ -35,8 +44,10 @@ def all_gather(x, group, device):
     size = dist.get_world_size(group)
     out = torch.empty((size * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
-    CALLS["all_gather"] += 1
+    with annotate(SPAN):
+        dist.all_gather_into_tensor(out, x, group=group)
+    count("comm.all_gather")
+    count("comm.bytes", (size - 1) * x.nbytes)
     return out
 
 
@@ -49,8 +60,10 @@ def reduce_scatter(x, group, device):
         raise ValueError(f"{x.shape[0]} rows do not split over {size} ranks")
     out = torch.empty((x.shape[0] // size, *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
-    CALLS["reduce_scatter"] += 1
+    with annotate(SPAN):
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    count("comm.reduce_scatter")
+    count("comm.bytes", (size - 1) * out.nbytes)
     return out
 
 
@@ -73,10 +86,14 @@ def ppermute_start(tensors, shift, group, device):
         ops.append(dist.P2POp(dist.isend, x, dst, group, tag))
         ops.append(dist.P2POp(dist.irecv, buf, src, group, tag))
         bufs.append(buf)
-    CALLS["ppermute"] += 1
-    return bufs, dist.batch_isend_irecv(ops)
+    with annotate(SPAN):
+        handles = dist.batch_isend_irecv(ops)
+    count("comm.ppermute")
+    count("comm.bytes", sum(b.nbytes for b in bufs))
+    return bufs, handles
 
 
 def ppermute_wait(handles):
-    for h in handles:
-        h.wait()
+    with annotate(SPAN):
+        for h in handles:
+            h.wait()

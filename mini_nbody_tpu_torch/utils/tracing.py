@@ -12,7 +12,9 @@ Counterpart of ``mini_nbody_tpu/utils/tracing.py:27-74``:
   the same clock; otherwise it costs one check of the profiler's state.
 * ``count`` / ``counters``: the program's one counter registry (kernel
   launches ``launch.<kernel>[.<mode>]``, route decisions ``route.*``,
-  duplicate scans ``coincident.scan``), read as a snapshot.
+  duplicate scans ``coincident.scan``, the sharded path's collectives
+  ``comm.*`` and the bytes they receive ``comm.bytes``), read as a
+  snapshot.
 * ``StepMetrics``: per-interval throughput rows for a long run, JAX's
   fields and rows.
 

@@ -37,9 +37,9 @@ def run(world: int, rank: int, rdv: str, root: str) -> None:
     import torch.distributed as dist
 
     from mini_nbody_tpu_torch import SimConfig, make_mesh
-    from mini_nbody_tpu_torch.parallel import _comm
     from mini_nbody_tpu_torch.parallel.sharded import shard_state
     from mini_nbody_tpu_torch.utils import checkpoint as ckpt
+    from mini_nbody_tpu_torch.utils import tracing
 
     def same(a, b):
         return all(torch.equal(getattr(a, f), getattr(b, f))
@@ -50,11 +50,13 @@ def run(world: int, rank: int, rdv: str, root: str) -> None:
     try:
         mesh = make_mesh(world)
         local = shard_state(ck_state(), mesh, pad_far=True)
-        before = dict(_comm.CALLS)
+        before = tracing.counters()
         path = ckpt.save_sharded(Path(root) / f"ck_w{world}", mesh, local,
                                  step=5 + world, cfg=SimConfig(n=N))
-        if _comm.CALLS != before:
-            raise SystemExit(f"save_sharded made collectives: {_comm.CALLS}")
+        made = {k: v for k, v in (tracing.counters() - before).items()
+                if k.startswith("comm.")}
+        if made:
+            raise SystemExit(f"save_sharded made collectives: {made}")
         for src in (path, Path(root) / "ck_w1"):
             back, _, _ = ckpt.load_sharded(src, mesh, pad_far=True)
             if not same(back, local):

@@ -6,7 +6,10 @@ tests/test_torch_sharded.py. Imports torch, numpy and the port only.
 joins a WORLD-rank gloo group through ``file://RENDEZVOUS_FILE``, runs every
 scenario of SCENARIOS[WORLD] and writes each rank's results to
 OUT_DIR/rank{RANK}.npz: every rank gets the whole result, so the test holds
-rank 0's against JAX and every other rank's against rank 0's.
+rank 0's against JAX and every other rank's against rank 0's. At world size
+4 the ranks then run the "mesh" mode: MESH's runs of BASELINE config 4's
+exchange, with the collectives they counted and the ``nbody.comm`` spans
+they opened, which the test holds to a float64 reference of its own.
 """
 
 from __future__ import annotations
@@ -99,6 +102,73 @@ SCENARIOS = {
 }
 
 
+#: The "mesh" mode (world size 4): config 4's deployment on the CPU, the
+#: bodies sharded over 4 ranks with one position all-gather a step (comm
+#: 'all_gather' on 'auto', the ordered direct kernel under sharding),
+#: mini-nbody's physics (randomizeBodies, unit masses, softening 1e-9, dt
+#: 0.01, Euler). N = 509 pads to 512 with FAR bodies.
+MESH = {"n512": 512, "n509": 509}
+MESH_WORLD, MESH_STEPS = 4, 3
+#: The registry's counters a mesh run reports, each ``comm.<name>``.
+MESH_COUNTERS = ("all_gather", "reduce_scatter", "ppermute", "bytes")
+
+
+def mesh_inputs(n: int):
+    """randomizeBodies: positions and velocities uniform in [-1, 1], unit
+    masses, float32."""
+    rng = np.random.default_rng(n)
+    pos = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    vel = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    return pos, vel, np.ones(n, np.float32)
+
+
+def mesh_config(n: int) -> dict:
+    return dict(n=n, dt=0.01, steps=MESH_STEPS, backend="auto",
+                softening=1e-9, integrator="euler", use_masses=False,
+                comm="all_gather", mesh_shape=(MESH_WORLD,))
+
+
+def run_mesh(mesh) -> dict:
+    """Each MESH run three times: once for its state and the collectives it
+    counted, once under a CPU profiler for its ``nbody.comm`` spans and the
+    collectives beside them, and once with no profiler recording, in which
+    no span may enter ``record_function``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mini_nbody_tpu_torch import BodyState, SimConfig, simulate_sharded
+    from mini_nbody_tpu_torch.utils import tracing
+
+    def moved(before):
+        now = tracing.counters() - before
+        return np.array([now[f"comm.{k}"] for k in MESH_COUNTERS])
+
+    out = {}
+    for name, n in MESH.items():
+        cfg = SimConfig(**mesh_config(n))
+        state = BodyState.from_numpy(*mesh_inputs(n), device="cpu")
+        before = tracing.counters()
+        got = simulate_sharded(cfg, mesh, state)
+        out[f"mesh.{name}.counts"] = moved(before)
+        out[f"mesh.{name}.pos"], out[f"mesh.{name}.vel"] = got.pos, got.vel
+        before = tracing.counters()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            simulate_sharded(cfg, mesh, state)
+        out[f"mesh.{name}.profiled_counts"] = moved(before)
+        out[f"mesh.{name}.profiled_spans"] = np.array(
+            sum(e.name == "nbody.comm" for e in prof.events()))
+        entered = []
+        real = tracing.record_function
+        tracing.record_function = lambda span: entered.append(span) or real(
+            span)
+        try:
+            simulate_sharded(cfg, mesh, state)
+        finally:
+            tracing.record_function = real
+        out[f"mesh.{name}.unprofiled_spans"] = np.array(len(entered))
+    return {k: torch.as_tensor(v) for k, v in out.items()}
+
+
 def inputs(sc: dict, seed: int = 0):
     """pos, vel (n, 3) or (b, n, 3) and masses (n,) or (b, n), float32;
     unit masses when sc["masses"] is False."""
@@ -168,6 +238,8 @@ def run(world: int, rank: int, rdv: str, out_dir: str) -> None:
             grad = torch.empty((mesh.size * p0.shape[0], 3))
             dist.all_gather_into_tensor(grad, p0.grad)
             results[f"{name}.grad"] = grad[:sc["n"]]
+    if world == MESH_WORLD:
+        results.update(run_mesh(make_mesh((MESH_WORLD,))))
     dist.destroy_process_group()
     np.savez(Path(out_dir) / f"rank{rank}.npz",
              **{k: v.detach().numpy() for k, v in results.items()})

@@ -301,13 +301,13 @@ def one_rank(tmp_path):
 
 
 def test_devices_runs_the_sharded_path(one_rank, capsys):
-    from mini_nbody_tpu_torch.parallel import _comm
+    from mini_nbody_tpu_torch.utils import tracing
 
-    before = _comm.CALLS["all_gather"]
+    before = tracing.counters()["comm.all_gather"]
     sharded = _last(_run(capsys, ["run", "--n", "96", "--steps", "2",
                                   "--devices", "1", "--comm",
                                   "all_gather"]))
-    assert _comm.CALLS["all_gather"] > before
+    assert tracing.counters()["comm.all_gather"] > before
     single = _last(_run(capsys, ["run", "--n", "96", "--steps", "2",
                                  "--backend", "direct"]))
     assert sharded["momentum"] == single["momentum"]

@@ -17,6 +17,12 @@ Tolerances are JAX's own (tests/test_parallel.py), on each array's scale:
 - gradients: rtol 1e-4, atol 1e-5 in the fp32 class, rtol 1e-3, atol 1e-4
   in the bf16 class (test_differentiable_sharded_*).
 
+At world size 4 the same ranks run BASELINE config 4's exchange (the
+worker's "mesh" mode: all_gather on 'auto', Euler, unit masses, N = 512
+and 509), held to a float64 Euler written here in plain torch, with the
+registry's comm.* counters a step and one nbody.comm span a collective
+while a profiler records, none otherwise.
+
 One rank (in process, gloo on a file in tmp_path): every comm is bitwise
 the single-process run on the kernel its shard runs, with the collectives
 counted; and the mesh, multihost and ensemble argument checks."""
@@ -50,7 +56,8 @@ from mini_nbody_tpu_torch.parallel.mesh import BODY_AXIS, COL_AXIS
 from mini_nbody_tpu_torch.parallel.sharded import (init_sharded_carry,
                                                    make_sharded_step_fn,
                                                    shard_state)
-from mini_nbody_tpu_torch.utils.config import JAX_BACKENDS
+from mini_nbody_tpu_torch.utils import tracing
+from mini_nbody_tpu_torch.utils.config import JAX_BACKENDS, round_up
 
 TESTS = Path(__file__).resolve().parent
 sys.path.insert(0, str(TESTS))
@@ -196,6 +203,67 @@ def test_every_rank_gets_the_whole_result(spawns, world):
                                           err_msg=f"rank {r} {k}")
 
 
+# ------------------------------------------- config 4's exchange, 4 ranks
+
+
+def _euler_float64(pos, vel, softening, dt, steps):
+    """mini-nbody's Euler steps in float64: a_i = sum_j (x_j - x_i)
+    (|x_j - x_i|^2 + softening)^(-3/2), unit masses, the self pair adding
+    zero; v += dt a, then x += dt v."""
+    x = torch.from_numpy(pos).double()
+    v = torch.from_numpy(vel).double()
+    for _ in range(steps):
+        d = x[None, :, :] - x[:, None, :]
+        r2 = (d * d).sum(-1) + softening
+        v = v + dt * (d * r2.pow(-1.5)[..., None]).sum(1)
+        x = x + dt * v
+    return x.numpy(), v.numpy()
+
+
+@pytest.mark.parametrize("name", list(W.MESH))
+def test_mesh_all_gather_matches_float64(spawns, name):
+    n = W.MESH[name]
+    cfg = W.mesh_config(n)
+    want = _euler_float64(*W.mesh_inputs(n)[:2], cfg["softening"],
+                          cfg["dt"], W.MESH_STEPS)
+    got = spawns.results(W.MESH_WORLD)[0]
+    for field, ref in zip(("pos", "vel"), want):
+        out = got[f"mesh.{name}.{field}"]
+        assert out.shape == (n, 3)
+        # fp32 pair sums over N sources, 3 steps: the trajectory tolerance
+        np.testing.assert_allclose(out, ref, rtol=TRAJ[0],
+                                   atol=TRAJ[1] * np.abs(ref).max(),
+                                   err_msg=f"{name}.{field}")
+
+
+@pytest.mark.parametrize("name", list(W.MESH))
+def test_mesh_counts_one_position_gather_a_step(spawns, name):
+    # a step gathers the positions (unit masses stay home); the run gathers
+    # its state (pos, vel, mass: 7 floats a body) once; a rank receives the
+    # other 3 ranks' blocks of N padded to the mesh
+    local = round_up(W.MESH[name], W.MESH_WORLD) // W.MESH_WORLD
+    others = W.MESH_WORLD - 1
+    want = {"all_gather": W.MESH_STEPS + 1, "reduce_scatter": 0,
+            "ppermute": 0,
+            "bytes": others * 4 * local * (3 * W.MESH_STEPS + 7)}
+    for rank in spawns.results(W.MESH_WORLD):
+        got = rank[f"mesh.{name}.counts"]
+        assert dict(zip(W.MESH_COUNTERS, got.tolist())) == want
+
+
+@pytest.mark.parametrize("name", list(W.MESH))
+def test_mesh_one_comm_span_a_collective_only_under_a_profiler(spawns,
+                                                              name):
+    for rank in spawns.results(W.MESH_WORLD):
+        counts = dict(zip(W.MESH_COUNTERS,
+                          rank[f"mesh.{name}.profiled_counts"].tolist()))
+        assert counts["all_gather"] == W.MESH_STEPS + 1
+        assert int(rank[f"mesh.{name}.profiled_spans"]) == (
+            counts["all_gather"] + counts["reduce_scatter"]
+            + 2 * counts["ppermute"])
+        assert int(rank[f"mesh.{name}.unprofiled_spans"]) == 0
+
+
 # ---------------------------------------------------------------- one rank
 
 
@@ -242,9 +310,9 @@ def test_one_rank_is_bitwise_the_single_process_run(one_rank, comm, backend,
                     integrator="leapfrog", use_masses=masses,
                     backend=backend, comm=comm, mesh_shape=shape)
     mesh = make_mesh(shape)
-    for k in _comm.CALLS:
-        _comm.CALLS[k] = 0
+    before = tracing.counters()
     out = simulate_sharded(cfg, mesh, state)
+    moved = tracing.counters() - before
     ref = simulate(cfg.replace(mesh_shape=None, comm="all_gather", **single),
                    state)
     assert torch.equal(out.pos, ref.pos) and torch.equal(out.vel, ref.vel)
@@ -254,7 +322,10 @@ def test_one_rank_is_bitwise_the_single_process_run(one_rank, comm, backend,
     if not masses:
         want = {k: v - 4 * (k == "all_gather") for k, v in want.items()}
     want["all_gather"] = want.get("all_gather", 0) + 1
-    assert _comm.CALLS == dict(dict.fromkeys(_comm.CALLS, 0), **want)
+    got = {k: moved[f"comm.{k}"] for k in _comm.COLLECTIVES}
+    assert got == dict(dict.fromkeys(_comm.COLLECTIVES, 0), **want)
+    # one rank receives nothing from another
+    assert moved["comm.bytes"] == 0
 
 
 @pytest.mark.parametrize("comm", ["ring", "ring_sym"])
